@@ -1,0 +1,466 @@
+"""Memory-controller base scheduling workflow + filtering predicates.
+
+The counterpart of ``repro.core.controller``: one common command-selection
+pipeline that every controller specializes by injecting filtering
+predicates (boolean masks over the request queue), run twice per cycle
+(column pass, then row pass) for dual-C/A standards.  Every tensor has a
+leading channel axis; the reference's per-channel ``vmap`` is that axis.
+
+Ported: the FR-FCFS / FCFS schedulers, the refresh engine, the
+refresh-urgency and ACT-2 predicates, ``controller_step`` and
+``channel_horizon``.  The BlockHammer and PRAC predicates and
+user-supplied ``extra_predicates`` are not ported yet: a
+:class:`ControllerConfig` that asks for them raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import device as D
+from repro_torch.core import spec as S
+from repro_torch.core.compile import CompiledSpec
+
+I32 = torch.int32
+I32_MAX = 2**31 - 1
+
+# --------------------------------------------------------------------------
+# Request schedulers: masked-priority selection over the request queue
+# --------------------------------------------------------------------------
+#
+# A scheduler is ``(mask, row_hit, arrive) -> (slot, ok)`` over ``(C, Q)``
+# tensors, picking at most one slot per channel among those ``mask``
+# allows.  Ties go to the lowest slot index, as with jnp.argmin (torch's
+# argmin/argmax return the first extremal index on CPU and CUDA).
+
+
+def _oldest(mask, arrive):
+    key = arrive.masked_fill(~mask, I32_MAX)
+    return key.argmin(1), mask.any(1)
+
+
+def frfcfs(mask, row_hit, arrive):
+    """First-Ready FCFS: ready row hits first, then oldest ready."""
+    hit_mask = mask & row_hit
+    use_hits = hit_mask.any(1, keepdim=True)
+    return _oldest(torch.where(use_hits, hit_mask, mask), arrive)
+
+
+def fcfs(mask, row_hit, arrive):
+    return _oldest(mask, arrive)
+
+
+SCHEDULERS = {"FRFCFS": frfcfs, "FCFS": fcfs}
+
+# --------------------------------------------------------------------------
+# Queue / controller state
+# --------------------------------------------------------------------------
+
+
+class Queue(NamedTuple):
+    valid: torch.Tensor      # (C, Q) bool
+    is_write: torch.Tensor   # (C, Q) bool
+    is_probe: torch.Tensor   # (C, Q) bool
+    sub: torch.Tensor        # (C, Q, L-1) per-level indices below channel
+    row: torch.Tensor        # (C, Q) int32
+    col: torch.Tensor        # (C, Q) int32
+    arrive: torch.Tensor     # (C, Q) int32
+
+
+def empty_queue(cspec: CompiledSpec, depth: int, channels: int,
+                device) -> Queue:
+    nsub = len(cspec.levels) - 1
+    z = lambda *sh: torch.zeros((channels,) + sh, dtype=I32, device=device)
+    f = lambda: torch.zeros((channels, depth), dtype=torch.bool,
+                            device=device)
+    return Queue(valid=f(), is_write=f(), is_probe=f(),
+                 sub=z(depth, nsub), row=z(depth), col=z(depth),
+                 arrive=z(depth))
+
+
+def queue_insert(q: Queue, is_write, is_probe, sub, row, col, arrive, want):
+    """Insert one request into the first free slot of each channel whose
+    ``want[c]`` is set (``want (C,)``; the request fields are shared
+    0-d values, ``sub (L-1,)``).  Returns ``(q', ok (C,))``.
+
+    The first free slot is the free slot whose running free count is 1
+    (the reference's ``argmax`` over the free mask)."""
+    free = ~q.valid
+    first = free & (free.cumsum(1) == 1)             # (C, Q) one-hot or 0
+    ok = want & free.any(1)
+    hit = first & ok[:, None]
+
+    def put(a, v):
+        return a.masked_fill(hit, v)
+    return Queue(valid=q.valid | hit,
+                 is_write=put(q.is_write, is_write),
+                 is_probe=put(q.is_probe, is_probe),
+                 sub=torch.where(hit[:, :, None], sub, q.sub),
+                 row=put(q.row, row), col=put(q.col, col),
+                 arrive=put(q.arrive, arrive)), ok
+
+
+class CtrlState(NamedTuple):
+    dev: D.DeviceState
+    queue: Queue
+    hit_streak: torch.Tensor   # (C, n_banks) consecutive row-hit services
+    bh_sketch: torch.Tensor    # (C, 2, SKETCH) BlockHammer sketch (unused)
+    prac_count: torch.Tensor   # (C, n_banks) ACT counter since recovery
+
+
+SKETCH = 1024
+
+
+def init_ctrl_state(cspec: CompiledSpec, depth: int, channels: int,
+                    device) -> CtrlState:
+    z = lambda *sh: torch.zeros((channels,) + sh, dtype=I32, device=device)
+    return CtrlState(dev=D.init_state(cspec, channels, device),
+                     queue=empty_queue(cspec, depth, channels, device),
+                     hit_streak=z(cspec.n_banks), bh_sketch=z(2, SKETCH),
+                     prac_count=z(cspec.n_banks))
+
+
+class PredCtx(NamedTuple):
+    """Everything a filtering predicate may look at."""
+    dp: D.DynParams
+    cs: CtrlState
+    clk: int
+    cand_cmd: torch.Tensor     # (C, Q) candidate command per slot
+    cand_row: torch.Tensor     # (C, Q)
+    open_hit: torch.Tensor     # (C, Q) request's row is open
+    bank: torch.Tensor         # (C, Q) flat bank ids
+    ru: torch.Tensor           # (C, Q) refresh-unit ids
+    ref_urgent: torch.Tensor   # (C, n_refresh_units) refresh must go first
+
+
+# --------------------------------------------------------------------------
+# Built-in filtering predicates
+# --------------------------------------------------------------------------
+
+
+def pred_refresh_urgency(cspec, ctx):
+    """Block requests to a refresh unit whose refresh is overdue-urgent."""
+    return ~D.take(ctx.ref_urgent, ctx.ru)
+
+
+def pred_act2_exclusive(cspec, ctx):
+    """LPDDR5/6: when a pending ACT-2 approaches its tAAD deadline, only
+    ACT-2 candidates may issue (nothing may interrupt it)."""
+    if not cspec.split_activation:
+        return torch.ones_like(ctx.cand_cmd, dtype=torch.bool)
+    pending = D.take(ctx.cs.dev.row_state, ctx.bank) == D.ROW_ACTIVATING
+    deadline = D.take(ctx.cs.dev.act1_clk, ctx.bank) + ctx.dp.nAAD
+    urgent = pending & (ctx.clk + 2 >= deadline)       # slack of one slot
+    is_act2 = ctx.cand_cmd == cspec.id_ACT2
+    # any urgent ACT-2 in the channel: only those; else no restriction
+    return (is_act2 & urgent) | ~urgent.any(1, keepdim=True)
+
+
+def pred_act2_follows_act1(cspec, ctx):
+    """LPDDR5/6: only a request whose bank is Activating may issue ACT-2."""
+    if not cspec.split_activation:
+        return torch.ones_like(ctx.cand_cmd, dtype=torch.bool)
+    is_act2 = ctx.cand_cmd == cspec.id_ACT2
+    activating = D.take(ctx.cs.dev.row_state, ctx.bank) == D.ROW_ACTIVATING
+    return ~is_act2 | activating
+
+
+# --------------------------------------------------------------------------
+# Controller configuration
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ControllerConfig:
+    scheduler: str = "FRFCFS"
+    queue_depth: int = 32
+    refresh_enabled: bool = True
+    # urgency margin: refresh becomes *blocking* this many cycles past due
+    refresh_urgent_margin: int = 4
+    # stagger the initial refresh phase across channels (multi-channel)
+    refresh_stagger: bool = True
+    blockhammer_threshold: int = 0     # not ported: must stay 0
+    prac_threshold: int = 0            # not ported: must stay 0
+    extra_predicates: tuple = ()       # not ported: must stay empty
+
+    def __post_init__(self):
+        for name in ("blockhammer_threshold", "prac_threshold",
+                     "extra_predicates"):
+            if getattr(self, name):
+                raise NotImplementedError(
+                    f"ControllerConfig({name}=...) is not ported to "
+                    "repro_torch yet — see ROADMAP.md queue 1")
+        if self.scheduler not in SCHEDULERS:
+            raise ValueError(f"unknown scheduler {self.scheduler!r}; "
+                             f"known: {sorted(SCHEDULERS)}")
+
+    def predicates(self) -> tuple:
+        return (pred_refresh_urgency, pred_act2_follows_act1,
+                pred_act2_exclusive)
+
+
+class StepEvents(NamedTuple):
+    """What happened this cycle in each channel (-1 == nothing).
+
+    Per bus slot ``[col, row]`` (``(C, 2)``): ``cmd``, ``bank`` (refresh
+    commands carry their unit's representative bank), ``row``, ``arrive``
+    (-1 for refresh commands) and ``hit_ready``; then ``(C,)`` outcomes.
+    """
+    cmd: torch.Tensor           # (C, 2) issued command per bus slot
+    bank: torch.Tensor          # (C, 2)
+    row: torch.Tensor           # (C, 2)
+    arrive: torch.Tensor        # (C, 2) arrival clk of the served request
+    hit_ready: torch.Tensor     # (C, 2) bool — a maskable row-hit existed
+    served_read: torch.Tensor       # (C,) bool — a read's final RD issued
+    served_write: torch.Tensor      # (C,) bool
+    served_probe: torch.Tensor      # (C,) bool — the read served a probe
+    probe_latency: torch.Tensor     # (C,) i32 completion - arrival
+    probe_completion: torch.Tensor  # (C,) i32 absolute completion clock
+    deferred: torch.Tensor          # (C,) i32 candidates masked by predicates
+
+
+# --------------------------------------------------------------------------
+# The base scheduling workflow
+# --------------------------------------------------------------------------
+
+
+def _candidates(cspec, dp, cs, clk, bank):
+    q = cs.queue
+    cand_cmd, cand_row, open_hit = D.prereq(cspec, dp, cs.dev, q.is_write,
+                                            q.sub, q.row, clk)
+    # dense (C, n_cmds, n_banks) earliest table + one (C, Q) lookup
+    table = D.earliest_ready_table(cspec, dp, cs.dev)
+    timing_ready = clk >= D.table_at(table, cand_cmd, bank)
+    return cand_cmd, cand_row, open_hit, timing_ready, table
+
+
+def _refresh_plan(cspec, dp, cs, clk, cfg: ControllerConfig):
+    """Per-refresh-unit refresh state ``(C, U)``: due / urgent /
+    candidate command."""
+    dev = cs.dev
+    since = clk - dev.last_ref
+    due = since >= dp.nREFI
+    urgent = (since >= dp.nREFI + cfg.refresh_urgent_margin) & due
+    if not cfg.refresh_enabled:
+        due = torch.zeros_like(due)
+        urgent = torch.zeros_like(urgent)
+    C, U = dev.last_ref.shape
+    any_open = (dev.row_state.reshape(C, U, -1) != D.ROW_CLOSED).any(2)
+    ref_cmd = torch.full_like(dev.last_ref, cspec.id_REFab).masked_fill(
+        any_open, cspec.id_PREab)
+    return due, urgent, ref_cmd
+
+
+def _ru_addr(cspec, dp, ru):
+    """Address-vector stand-in ``(C, L-1)`` for refresh-unit commands."""
+    return ru[:, None] * dp.tables.sub_e0
+
+
+def _try_issue_refresh(cspec, dp, cs, clk, due, urgent, ref_cmd, cmd_ok,
+                       table):
+    """Plan the refresh-engine command of the most-overdue due unit.
+
+    Refresh is *opportunistic* until urgent: a merely-due refresh yields
+    to pending requests targeting the same unit; an urgent one preempts.
+    Returns ``(cs', do, cmd, sub, ref_bank)`` with the PRAC counters of a
+    refreshed unit reset.  The device issue itself is left to the
+    caller: ``_select_and_issue`` issues at most one command per pass
+    (its queue pick is gated off when refresh fires), so it folds this
+    command into its single ``D.issue`` call.
+    """
+    tab = dp.tables
+    score = (clk - cs.dev.last_ref).masked_fill(~due, -1)
+    ru_l = score.argmax(1, keepdim=True)             # first on ties
+    ru = ru_l[:, 0].to(I32)
+    cmd = ref_cmd.gather(1, ru_l)[:, 0]
+    banks_per_ru = cspec.n_banks // cspec.n_refresh_units
+    ref_bank = ru * banks_per_ru
+    ready = clk >= D.table_at(table, cmd[:, None], ref_bank[:, None])[:, 0]
+    q = cs.queue
+    pending_here = (q.valid & (q.sub[:, :, 0] == ru[:, None])).any(1)
+    may_go = urgent.gather(1, ru_l)[:, 0] | ~pending_here
+    do = due.any(1) & ready & may_go
+    if cmd_ok is not None:
+        do = do & D.lut(cmd_ok, cmd)
+    # PRAC: recovery resets the unit's activation counters
+    is_ref = do & (cmd == cspec.id_REFab)
+    prac = cs.prac_count.masked_fill(
+        is_ref[:, None] & (tab.bank_ru == ru[:, None]), 0)
+    return (cs._replace(prac_count=prac), do, cmd, _ru_addr(cspec, dp, ru),
+            ref_bank)
+
+
+def _select_and_issue(cspec, dp, cs, clk, cfg, preds, cmd_ok, sched_fn):
+    """One pass of the base pipeline restricted to commands with
+    ``cmd_ok[cmd]`` (``None``: every command; dual C/A runs this twice).
+    Returns ``(cs', events dict)``."""
+    tab = dp.tables
+    q = cs.queue
+    bank = D.flat_bank(cspec, tab, q.sub)
+    cand_cmd, cand_row, open_hit, timing_ready, table = _candidates(
+        cspec, dp, cs, clk, bank)
+    ru = q.sub[:, :, 0]
+
+    due, urgent, ref_cmd = _refresh_plan(cspec, dp, cs, clk, cfg)
+    ctx = PredCtx(dp=dp, cs=cs, clk=clk, cand_cmd=cand_cmd,
+                  cand_row=cand_row, open_hit=open_hit, bank=bank, ru=ru,
+                  ref_urgent=urgent)
+
+    mask = q.valid & timing_ready
+    if cmd_ok is not None:
+        mask = mask & D.lut(cmd_ok, cand_cmd)
+    pre_pred = mask
+    for p in preds:
+        mask = mask & p(cspec, ctx)
+    deferred = (pre_pred & ~mask).sum(1, dtype=I32)
+
+    # refresh engine first (its commands obey the same kind restriction)
+    cs, ref_issued, ref_cmd_done, ref_sub, ref_bank = _try_issue_refresh(
+        cspec, dp, cs, clk, due, urgent, ref_cmd, cmd_ok, table)
+
+    hit_ready = (mask & open_hit).any(1) & ~ref_issued
+    slot, ok = sched_fn(mask & ~ref_issued[:, None], open_hit, q.arrive)
+    do = ok & ~ref_issued
+    sl = slot[:, None]
+
+    def at_slot(a):
+        return a.gather(1, sl)[:, 0]
+
+    cmd = at_slot(cand_cmd)
+    rowv = at_slot(cand_row)
+    b = at_slot(bank)
+    arrive = at_slot(q.arrive)
+    sub = q.sub.gather(1, sl[:, :, None].expand(-1, 1, q.sub.shape[2]))[:, 0]
+    # at most one of the refresh command and the queue pick fires
+    dev = D.issue(cspec, dp, cs.dev,
+                  torch.where(ref_issued, ref_cmd_done, cmd),
+                  torch.where(ref_issued[:, None], ref_sub, sub),
+                  rowv.masked_fill(ref_issued, 0), clk, do | ref_issued)
+
+    fx = D.lut(tab.cmd_fx, cmd)
+    fin_rd = do & ((fx & S.FX_FINAL_RD) != 0)
+    fin_wr = do & ((fx & S.FX_FINAL_WR) != 0)
+    served = fin_rd | fin_wr
+    valid = q.valid.scatter(1, sl, at_slot(q.valid)[:, None]
+                            & ~served[:, None])
+
+    # row-hit streak bookkeeping (FRFCFS-Cap support)
+    b_hit = tab.bank_ids == b[:, None]
+    streak = torch.where(served[:, None] & b_hit, cs.hit_streak + 1,
+                         cs.hit_streak)
+    opener = cspec.id_ACT1 if cspec.split_activation else cspec.id_ACT
+    streak = streak.masked_fill((do & (cmd == opener))[:, None] & b_hit, 0)
+
+    probe = fin_rd & at_slot(q.is_probe)
+    completion = clk + dp.read_latency
+    ev = dict(
+        cmd=torch.where(do, cmd, ref_cmd_done.masked_fill(~ref_issued, -1)),
+        bank=torch.where(do, b, ref_bank.masked_fill(~ref_issued, -1)),
+        row=rowv.masked_fill(~do, -1),
+        arrive=arrive.masked_fill(~do, -1),
+        hit_ready=hit_ready,
+        served_read=fin_rd, served_write=fin_wr, served_probe=probe,
+        probe_latency=(completion - arrive).masked_fill(~probe, 0),
+        probe_completion=probe.to(I32) * completion,
+        deferred=deferred,
+    )
+    cs = cs._replace(dev=dev, queue=q._replace(valid=valid),
+                     hit_streak=streak)
+    return cs, ev
+
+
+# --------------------------------------------------------------------------
+# Event horizon (the engine's fast-forward path)
+# --------------------------------------------------------------------------
+
+#: see ``repro_torch.core.frontend.HORIZON_MAX`` — shared sentinel value
+HORIZON_MAX = 1 << 30
+
+
+def channel_horizon(cspec: CompiledSpec, dp: D.DynParams,
+                    cfg: ControllerConfig, cs: CtrlState, clk):
+    """Earliest cycle ``>= clk`` at which each channel could issue any
+    command — queue candidate or refresh engine — on the current state,
+    ``(C,)``.  Conservative by construction (predicate, bus-kind and
+    scheduler masks are ignored: they only shrink the issue set), exactly
+    as ``repro.core.controller.channel_horizon``:
+
+    * queue: per valid slot, the earliest-ready table at the slot's
+      prerequisite command;
+    * refresh: per unit, ``max(due clock, earliest-ready of its
+      PREab/REFab candidate)``;
+    * clock expiry (``data_clock_sync``): the first ``clock_until`` still
+      in the future.
+    """
+    tab = dp.tables
+    q = cs.queue
+    bank = D.flat_bank(cspec, tab, q.sub)
+    cand_cmd, _, _ = D.prereq(cspec, dp, cs.dev, q.is_write, q.sub, q.row,
+                              clk)
+    table = D.earliest_ready_table(cspec, dp, cs.dev)
+    h = D.table_at(table, cand_cmd, bank).masked_fill(
+        ~q.valid, HORIZON_MAX).amin(1)
+    if cfg.refresh_enabled:
+        dev = cs.dev
+        C, U = dev.last_ref.shape
+        due_t = dev.last_ref + dp.nREFI
+        any_open = (dev.row_state.reshape(C, U, -1) != D.ROW_CLOSED).any(2)
+        ref_cmd = torch.full_like(due_t, cspec.id_REFab).masked_fill(
+            any_open, cspec.id_PREab)
+        rep = tab.ru_ids * (cspec.n_banks // cspec.n_refresh_units)
+        ready = D.table_at(table, ref_cmd, rep.expand_as(ref_cmd))
+        h = torch.minimum(h, torch.maximum(due_t, ready).amin(1))
+    if cspec.data_clock_sync:
+        cu = cs.dev.clock_until
+        h = torch.minimum(h, cu.masked_fill(cu <= clk, HORIZON_MAX).amin(1))
+    return h.clamp(min=clk)
+
+
+def _pack_events(ev_col: dict, ev_row: dict | None = None) -> StepEvents:
+    """Pack one or two selection-pass event dicts into ``StepEvents``:
+    per-bus-slot fields stack ``[col-bus, row-bus]`` (the row slot is idle
+    for single-bus standards); per-cycle outcomes OR/sum across passes."""
+    if ev_row is None:
+        idle = lambda k, v: torch.full_like(ev_col[k], v)
+        slot = {k: torch.stack([ev_col[k], idle(k, -1)], 1)
+                for k in ("cmd", "bank", "row", "arrive")}
+        slot["hit_ready"] = torch.stack(
+            [ev_col["hit_ready"], torch.zeros_like(ev_col["hit_ready"])], 1)
+        return StepEvents(**slot, **{k: ev_col[k] for k in (
+            "served_read", "served_write", "served_probe", "probe_latency",
+            "probe_completion", "deferred")})
+    slot = {k: torch.stack([ev_col[k], ev_row[k]], 1)
+            for k in ("cmd", "bank", "row", "arrive", "hit_ready")}
+    return StepEvents(
+        **slot,
+        served_read=ev_col["served_read"] | ev_row["served_read"],
+        served_write=ev_col["served_write"] | ev_row["served_write"],
+        served_probe=ev_col["served_probe"] | ev_row["served_probe"],
+        probe_latency=ev_col["probe_latency"] + ev_row["probe_latency"],
+        probe_completion=(ev_col["probe_completion"]
+                          + ev_row["probe_completion"]),
+        deferred=ev_col["deferred"] + ev_row["deferred"],
+    )
+
+
+def controller_step(cspec: CompiledSpec, dp: D.DynParams,
+                    cfg: ControllerConfig, cs: CtrlState, clk) -> tuple:
+    """One controller cycle of every channel.  Dual-C/A standards run the
+    selection pipeline twice — a column pass and a row pass; others run
+    it once."""
+    preds = cfg.predicates()
+    if not cspec.split_activation:      # both ACT-2 predicates are all-true
+        preds = (pred_refresh_urgency,)
+    sched_fn = SCHEDULERS[cfg.scheduler]
+    if cspec.dual_command_bus:
+        tab = dp.tables
+        cs, ev_col = _select_and_issue(cspec, dp, cs, clk, cfg, preds,
+                                       tab.col_cmds, sched_fn)
+        cs, ev_row = _select_and_issue(cspec, dp, cs, clk, cfg, preds,
+                                       tab.row_cmds, sched_fn)
+        return cs, _pack_events(ev_col, ev_row)
+    cs, ev = _select_and_issue(cspec, dp, cs, clk, cfg, preds, None,
+                               sched_fn)
+    return cs, _pack_events(ev)

@@ -1,0 +1,369 @@
+"""Traffic-generator frontend for one spec: streaming + serialized probes.
+
+The counterpart of ``repro.core.frontend`` (single-spec paths only):
+
+  1. *streaming* requests at a configurable inter-arrival interval with a
+     configurable read ratio, addressed by a ``sequential`` linear counter
+     decoded through the mapper layout or by ``random`` draws;
+  2. *serialized random-access probes*: a probe is only issued after the
+     previous probe's data returned.
+
+The frontend state is a :class:`FrontState` of 0-d tensors on the run's
+device.  The reference's uint32 LCG is carried in int64, masked to 32
+bits after every step (PyTorch has no uint32 add on the CPU).  A cycle's
+draws are unconditional and fixed in number (:func:`rng_draws_per_cycle`),
+so they are computed together as affine images of the cycle's starting
+state — the same values as drawing them one after another with
+:func:`_lcg`.
+
+Trace replay (``pattern="trace"``) and the heterogeneous-system frontend
+are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import controller as C
+from repro_torch.core.addrmap import make_layout
+from repro_torch.core.compile import CompiledSpec
+
+I32 = torch.int32
+MASK32 = 0xFFFFFFFF
+LCG_A, LCG_C = 1664525, 1013904223
+
+
+class FrontParams(NamedTuple):
+    """Load knobs of one run (fixed-point by 256), as Python ints."""
+    interval_fp: int            # inter-arrival interval in cycles * 256
+    read_ratio_fp: int          # P(read) * 256
+    probe_gap: int              # idle cycles between probes
+
+
+class FrontState(NamedTuple):
+    accum_fp: torch.Tensor        # int32 arrival accumulator (x256)
+    rng: torch.Tensor             # int64 holding the uint32 LCG state
+    seq: torch.Tensor             # int32 linear request counter
+    probe_busy: torch.Tensor      # bool — a probe is in flight
+    probe_next: torch.Tensor      # int32 earliest clock for the next probe
+    sent: torch.Tensor            # int32 streaming requests injected
+    dropped_backpressure: torch.Tensor
+    served: torch.Tensor          # int32 non-probe requests served
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontendConfig:
+    interval: float = 4.0        # cycles between streaming arrivals
+    read_ratio: float = 1.0
+    probe_gap: int = 16
+    probes: bool = True
+    stream: bool = True
+    #: streaming address pattern: ``sequential`` (linear counter decoded
+    #: through ``mapper``) or ``random``; ``trace`` is not ported yet
+    pattern: str = "sequential"
+    #: address-mapper order (see ``repro_torch.core.addrmap.MAPPERS``)
+    mapper: str = "RoCoBaRaCh"
+    max_backlog_fp: int = 256 * 64   # accumulator cap: ≤64 queued arrivals
+
+    def __post_init__(self):
+        if self.pattern == "trace":
+            raise NotImplementedError(
+                'FrontendConfig(pattern="trace"): trace replay is not '
+                "ported to repro_torch yet — see ROADMAP.md queue 1 item 10")
+        if self.pattern not in ("sequential", "random"):
+            raise ValueError(f"unknown pattern {self.pattern!r}")
+
+    def params(self) -> FrontParams:
+        return FrontParams(
+            interval_fp=max(int(self.interval * 256), 1),
+            read_ratio_fp=int(self.read_ratio * 256),
+            probe_gap=int(self.probe_gap))
+
+
+class FrontDraft(NamedTuple):
+    """One cycle's frontend-insert outcome, before the accept flags fold
+    back into :class:`FrontState`."""
+    rng: torch.Tensor     # LCG state after this cycle's draws
+    accum: torch.Tensor   # accumulator after refill/clamp
+    want: torch.Tensor    # bool — a stream insert was attempted
+    okp: torch.Tensor     # int32 — accepted probes (0/1)
+    ok: torch.Tensor      # int32 — accepted stream requests (0/1)
+
+
+class FrontTables(NamedTuple):
+    """Per-run device constants of the frontend: the mapper layout's
+    radices, the affine coefficients of the cycle's LCG draws, and the
+    permutation from layout order to ``(channel, sub-levels..., row,
+    col)``."""
+    layout: list                  # [(field, count)] LSB-first
+    counts: torch.Tensor          # (n,) int64 field radices
+    strides: torch.Tensor         # (n,) int64 mixed-radix place values
+    perm: torch.Tensor            # (n,) int64 layout -> packed field order
+    draw_a_lo: torch.Tensor       # (K,) int64 low 16 bits of lcg^k's a
+    draw_a_hi: torch.Tensor       # (K,) int64 high 16 bits
+    draw_c: torch.Tensor          # (K,) int64 lcg^k's c
+    chan_ids: torch.Tensor        # (channels,) int32
+
+
+def front_tables(cspec: CompiledSpec, cfg: FrontendConfig, channels: int,
+                 device) -> FrontTables:
+    layout = make_layout(cspec, cfg.mapper)
+    names = [n for n, _ in layout]
+    counts = np.asarray([c for _, c in layout], np.int64)
+    strides = np.concatenate([[1], np.cumprod(counts)[:-1]])
+    order = ["channel"] + list(cspec.levels[1:]) + ["row", "col"]
+    perm = np.asarray([names.index(n) for n in order], np.int64)
+    k = rng_draws_per_cycle(cfg, layout)
+    a = np.asarray([lcg_affine(i)[0] for i in range(1, k + 1)], np.int64)
+    c = np.asarray([lcg_affine(i)[1] for i in range(1, k + 1)], np.int64)
+    i64 = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=device)
+    return FrontTables(
+        layout=layout, counts=i64(counts), strides=i64(strides),
+        perm=i64(perm), draw_a_lo=i64(a & 0xFFFF), draw_a_hi=i64(a >> 16),
+        draw_c=i64(c),
+        chan_ids=torch.arange(channels, dtype=I32, device=device))
+
+
+def init_front(seed: int = 0x1234, device="cpu") -> FrontState:
+    z = lambda: torch.zeros((), dtype=I32, device=device)
+    return FrontState(accum_fp=z(),
+                      rng=torch.full((), (seed | 1) & MASK32,
+                                     dtype=torch.int64, device=device),
+                      seq=z(), probe_busy=torch.zeros((), dtype=torch.bool,
+                                                      device=device),
+                      probe_next=z(), sent=z(), dropped_backpressure=z(),
+                      served=z())
+
+
+# --------------------------------------------------------------------------
+# Address generation
+# --------------------------------------------------------------------------
+
+
+def _lcg(rng):
+    """One LCG step on an int64 tensor holding a uint32 (the product stays
+    below 2**53, so it cannot overflow)."""
+    return (rng * LCG_A + LCG_C) & MASK32
+
+
+def _mul32(a_lo, a_hi, x):
+    """``(a * x) mod 2**32`` for ``a = a_hi * 2**16 + a_lo`` and ``x <
+    2**32``, with every intermediate below 2**49."""
+    return (a_lo * x + (((a_hi * x) & 0xFFFF) << 16)) & MASK32
+
+
+def _draws(ft: FrontTables, rng):
+    """The cycle's K LCG draws ``lcg^1(rng) .. lcg^K(rng)``, ``(K,)``."""
+    return (_mul32(ft.draw_a_lo, ft.draw_a_hi, rng) + ft.draw_c) & MASK32
+
+
+def _pack_fields(ft: FrontTables, values):
+    """Layout-ordered field values -> (chan, sub (L-1,), row, col)."""
+    v = values.to(I32).index_select(0, ft.perm)
+    return v[0], v[1:-2], v[-2], v[-1]
+
+
+def _seq_addr(cspec: CompiledSpec, ft: FrontTables, seq):
+    """Decode the linear request counter through the mapper layout (the
+    mixed-radix decode of ``addrmap.decode_fields`` in one step)."""
+    return _pack_fields(ft, (seq.to(torch.int64) // ft.strides) % ft.counts)
+
+
+def _rand_addr(cspec: CompiledSpec, ft: FrontTables, draws):
+    """One random value per layout field (channel included) from
+    ``len(layout)`` consecutive draws."""
+    return _pack_fields(ft, (draws >> 8) % ft.counts)
+
+
+# --------------------------------------------------------------------------
+# Per-channel routing
+# --------------------------------------------------------------------------
+
+
+def route_insert(queues: C.Queue, ft: FrontTables, chan, is_write, is_probe,
+                 sub, row, col, arrive, want):
+    """Insert one request into its target channel's queue (``queues``
+    leaves carry the leading channel axis).  Returns ``(queues', ok)``,
+    ``ok`` False when the target channel's queue was full."""
+    queues, oks = C.queue_insert(queues, is_write, is_probe, sub, row, col,
+                                 arrive, want & (chan == ft.chan_ids))
+    return queues, oks.any()
+
+
+def frontend_insert(cspec: CompiledSpec, cfg: FrontendConfig,
+                    fp: FrontParams, fs: FrontState, queues: C.Queue, clk,
+                    ft: FrontTables):
+    """Decode + insert up to one probe and one streaming request into
+    ``queues`` this cycle, without touching ``fs`` — the accept flags come
+    back in a :class:`FrontDraft` for :func:`frontend_commit`.  Probes
+    insert first so a saturated stream cannot starve them."""
+    n = len(ft.layout)
+    draws = _draws(ft, fs.rng) if ft.draw_c.numel() else None
+    used = 0
+    zero = torch.zeros_like(fs.seq)
+    okp = ok = zero
+    want = zero.bool()
+    accum = fs.accum_fp
+
+    if cfg.probes:
+        want_p = ~fs.probe_busy & (fs.probe_next <= clk)
+        chan, sub, row, col = _rand_addr(cspec, ft, draws[:n])
+        used = n
+        queues, okp_b = route_insert(queues, ft, chan, False, True, sub, row,
+                                     col, clk, want_p)
+        okp = okp_b.to(I32)
+
+    if cfg.stream:
+        accum = (accum + 256).clamp(max=cfg.max_backlog_fp)
+        want = accum >= fp.interval_fp
+        if cfg.pattern == "sequential":
+            chan, sub, row, col = _seq_addr(cspec, ft, fs.seq)
+        else:
+            chan, sub, row, col = _rand_addr(cspec, ft, draws[used:used + n])
+        is_write = ((draws[-1] >> 9) % 256) >= fp.read_ratio_fp
+        queues, ok_b = route_insert(queues, ft, chan, is_write, False, sub,
+                                    row, col, clk, want)
+        ok = ok_b.to(I32)
+
+    rng = draws[-1] if draws is not None else fs.rng
+    return queues, FrontDraft(rng=rng, accum=accum, want=want, okp=okp,
+                              ok=ok)
+
+
+def frontend_commit(cfg: FrontendConfig, fp: FrontParams, fs: FrontState,
+                    draft: FrontDraft, okp_total, ok_total) -> FrontState:
+    """Fold the accept counts into :class:`FrontState`."""
+    probe_busy = fs.probe_busy
+    if cfg.probes:
+        probe_busy = probe_busy | (okp_total > 0)
+    accum = draft.accum
+    seq, sent = fs.seq, fs.sent
+    dropped = fs.dropped_backpressure
+    if cfg.stream:
+        okb = ok_total > 0
+        oki = okb.to(I32)
+        accum = accum - oki * fp.interval_fp
+        seq = seq + oki
+        sent = sent + oki
+        dropped = dropped + (draft.want & ~okb).to(I32)
+    return FrontState(accum_fp=accum, rng=draft.rng, seq=seq,
+                      probe_busy=probe_busy, probe_next=fs.probe_next,
+                      sent=sent, dropped_backpressure=dropped,
+                      served=fs.served)
+
+
+def frontend_step(cspec: CompiledSpec, cfg: FrontendConfig, fp: FrontParams,
+                  fs: FrontState, queues: C.Queue, clk, ft: FrontTables):
+    """Composition of :func:`frontend_insert` + :func:`frontend_commit`."""
+    queues, draft = frontend_insert(cspec, cfg, fp, fs, queues, clk, ft)
+    return queues, frontend_commit(cfg, fp, fs, draft, draft.okp, draft.ok)
+
+
+# --------------------------------------------------------------------------
+# Event-horizon helpers (the engine's fast-forward path)
+# --------------------------------------------------------------------------
+
+#: Horizon sentinel — far beyond any reachable cycle count.
+HORIZON_MAX = 1 << 30
+
+
+def rng_draws_per_cycle(cfg: FrontendConfig, layout) -> int:
+    """Static number of LCG draws :func:`frontend_insert` performs per
+    cycle (``layout`` is the single spec's mapper layout)."""
+    n_fields = len(layout)
+    draws = 0
+    if cfg.probes:
+        draws += n_fields
+    if cfg.stream:
+        draws += {"sequential": 1, "random": n_fields + 1}[cfg.pattern]
+    return draws
+
+
+def lcg_affine(k: int) -> tuple:
+    """Host-side ``(a, c)`` of :func:`_lcg` composed ``k`` times
+    (mod 2**32)."""
+    a, c = 1, 0
+    for _ in range(k):
+        a, c = (LCG_A * a) % (1 << 32), (LCG_A * c + LCG_C) % (1 << 32)
+    return a, c
+
+
+def lcg_jump(rng, d: int, a_cycle: int, c_cycle: int):
+    """Advance ``rng`` by ``d >= 0`` cycles of the per-cycle affine map
+    ``x -> a_cycle*x + c_cycle``.  The engine's host loop knows ``d`` as
+    a Python int, so the binary exponentiation over its bits runs in
+    exact Python integers; the device applies one affine map with
+    :func:`_mul32`."""
+    d = int(d)
+    if d < 0:
+        raise ValueError(f"lcg_jump needs d >= 0, got {d}")
+    ra, rc = 1, 0
+    pa, pc = a_cycle % (1 << 32), c_cycle % (1 << 32)
+    while d:
+        if d & 1:
+            ra, rc = (pa * ra) % (1 << 32), (pa * rc + pc) % (1 << 32)
+        pa, pc = (pa * pa) % (1 << 32), (pa * pc + pc) % (1 << 32)
+        d >>= 1
+    return (_mul32(ra & 0xFFFF, ra >> 16, rng) + rc) & MASK32
+
+
+def idle_advance(cfg: FrontendConfig, fs: FrontState, d: int, a_cycle: int,
+                 c_cycle: int, k_draws: int) -> FrontState:
+    """Apply ``d`` idle cycles' worth of frontend state change in one
+    step: the clamped accumulator refill and the rng's ``k_draws`` draws
+    per cycle are the only frontend state that moves on an idle cycle."""
+    if cfg.stream:
+        fs = fs._replace(accum_fp=(fs.accum_fp + 256 * d).clamp(
+            max=cfg.max_backlog_fp))
+    if k_draws:
+        fs = fs._replace(rng=lcg_jump(fs.rng, d, a_cycle, c_cycle))
+    return fs
+
+
+def arrival_horizon(cfg: FrontendConfig, fp: FrontParams, fs: FrontState,
+                    cur):
+    """Earliest cycle ``>= cur`` at which the frontend could next attempt
+    an insert, assuming no intervening completions (conservative, as in
+    the reference):
+
+    * probe: attempts at ``max(probe_next, cur)`` once not busy;
+    * stream: ``want`` first fires at the ``j``-th cycle from ``cur`` with
+      ``min(accum + 256*(j+1), cap) >= interval`` — never, if the cap
+      can't reach the interval."""
+    h = torch.full_like(fs.seq, HORIZON_MAX)
+    if cfg.probes:
+        h = fs.probe_next.clamp(min=cur).masked_fill(fs.probe_busy,
+                                                     HORIZON_MAX)
+    if cfg.stream and fp.interval_fp <= cfg.max_backlog_fp:
+        need = fp.interval_fp - fs.accum_fp
+        j = ((need + 255) // 256 - 1).clamp(min=0)
+        h = torch.minimum(h, cur + j)
+    return h
+
+
+def absorb_locals(events: C.StepEvents) -> torch.Tensor:
+    """Reduce the completion events over the channels to the ``(3,)``
+    int32 vector ``[probes_done, requests_served, probe_completion]``
+    (at most one probe is in flight, so the completion sum is its max)."""
+    probe = events.served_probe
+    return torch.stack([
+        probe.sum(dtype=I32),
+        (events.served_read & ~probe).sum(dtype=I32)
+        + events.served_write.sum(dtype=I32),
+        events.probe_completion.sum(dtype=I32)])
+
+
+def frontend_finish(fs: FrontState, fp: FrontParams, done_total,
+                    served_total, completion_total) -> FrontState:
+    """Fold the absorb vector into :class:`FrontState`: closes the probe
+    loop and advances the served-request counter."""
+    done = done_total > 0
+    return fs._replace(
+        probe_busy=fs.probe_busy & ~done,
+        probe_next=torch.where(done, completion_total + fp.probe_gap,
+                               fs.probe_next),
+        served=fs.served + served_total)
+

@@ -1,0 +1,5 @@
+"""Command-trace capture for the port's runs (single channel)."""
+from repro_torch.trace.capture import (FIELDS, CommandTrace, capture,
+                                       trace_sha256)
+
+__all__ = ["FIELDS", "CommandTrace", "capture", "trace_sha256"]

@@ -1,0 +1,129 @@
+"""Shared helpers of the ``test_torch_*`` parity tests: the same inputs,
+made from numpy seeds, go through the JAX reference (``repro``) and the
+PyTorch port (``repro_torch``), and the results are compared exactly —
+both are integer state machines, so the tolerance is 0 throughout."""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = json.load(open(os.path.join(HERE, "trace", "golden_hashes.json")))
+MAIN_FIXTURE = os.path.join(HERE, "torch_main_path_stats.json")
+
+#: the three standards the device/controller/engine parity tests cover:
+#: plain, split activation + data-clock sync, dual command bus
+TRIO = [("DDR4", "DDR4_8Gb_x8", "DDR4_2400R"),
+        ("LPDDR5", "LPDDR5_8Gb_x16", "LPDDR5_6400"),
+        ("HBM3", "HBM3_16Gb", "HBM3_5200")]
+
+
+def default_systems() -> dict:
+    from repro.dse.spec import DEFAULT_SYSTEMS
+    return dict(DEFAULT_SYSTEMS)
+
+
+def jax_history_state(std, org, tim, seed=3, steps=50, clk0=0):
+    """Replay a random legal command history through the reference's
+    scalar ``DeviceUnderTest`` oracle, then apply it with the reference's
+    ``device.issue``.  Returns ``(jax cspec, jax dp, jax DeviceState,
+    history, numpy rng)``."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core import DeviceUnderTest
+    from repro.core import device as D
+    rng = np.random.default_rng(seed)
+    dut = DeviceUnderTest(std, org, tim)
+    cspec = dut.cspec
+    clk = clk0
+    for _ in range(steps):
+        sub = {lv: int(rng.integers(int(cspec.level_counts[i + 1])))
+               for i, lv in enumerate(cspec.levels[1:])}
+        addr = dict(sub, row=int(rng.integers(32)), col=0)
+        cmd = dut.probe("RD" if rng.random() < 0.7 else "WR", addr,
+                        clk).preq
+        if dut.probe(cmd, addr, clk).timing_OK:
+            if cmd == "ACT2":
+                addr = dict(addr, row=int(dut.act1_row[dut._bank(addr)]))
+            dut.issue(cmd, addr, clk=clk)
+        clk += int(rng.integers(1, 6))
+    dp = D.dyn_params(cspec)
+    issue = jax.jit(lambda s, c, sub, row, clk: D.issue(
+        cspec, dp, s, c, sub, row, clk, jnp.asarray(True)))
+    state = D.init_state(cspec)
+    for c, cmd, addr in dut.history:
+        sub = jnp.asarray([addr[lv] for lv in cspec.levels[1:]], jnp.int32)
+        state = issue(state, jnp.int32(cspec.cmd_id(cmd)), sub,
+                      jnp.int32(addr["row"]), jnp.int32(c))
+    return cspec, dp, state, dut.history, rng
+
+
+def tree_np(x):
+    import jax
+    return jax.tree.map(np.asarray, x)
+
+
+def assert_tree_equal(jax_nt, torch_nt, what=""):
+    """Field-by-field exact equality of a reference NamedTuple (one
+    channel, numpy leaves) and the port's (leading channel axis of 1)."""
+    from repro_torch.convert import to_numpy
+    port = to_numpy(torch_nt)
+    for name in jax_nt._fields:
+        a, b = getattr(jax_nt, name), getattr(port, name)
+        if hasattr(a, "_fields"):
+            assert_tree_equal(a, getattr(torch_nt, name), f"{what}.{name}")
+            continue
+        a = np.asarray(a)
+        b = np.asarray(b)
+        if b.ndim == a.ndim + 1:
+            assert b.shape[0] == 1, (what, name, b.shape)
+            b = b[0]
+        assert a.shape == b.shape, (what, name, a.shape, b.shape)
+        np.testing.assert_array_equal(a.astype(np.int64), b.astype(np.int64),
+                                      err_msg=f"{what}.{name}")
+
+
+def trace_sha256(tr) -> str:
+    """The golden-hash digest (as ``tests/trace/test_golden_equality``)."""
+    from repro.trace.capture import FIELDS
+    h = hashlib.sha256()
+    for f in FIELDS:
+        h.update(np.ascontiguousarray(getattr(tr, f), np.int32).tobytes())
+    return h.hexdigest()
+
+
+def port_golden(std, fast_forward=True):
+    """Run the port on the CPU at the golden configuration; returns
+    ``(stats, CommandTrace)``."""
+    from repro_torch.core import ControllerConfig, Simulator
+    from repro_torch.trace import capture
+    org, tim = default_systems()[std]
+    sim = Simulator(std, org, tim, device="cpu", fast_forward=fast_forward,
+                    controller=ControllerConfig(scheduler="FRFCFS"))
+    stats, dense = sim.run(3000, interval=2.0, read_ratio=0.7, trace=True)
+    return stats, capture(sim.cspec, dense)
+
+
+def check_golden(std, fast_forward=True):
+    """The port's command stream hashes to the reference's golden value
+    (checked with both packages' digest functions)."""
+    from repro_torch.trace import trace_sha256 as port_sha
+    stats, tr = port_golden(std, fast_forward)
+    want = GOLDEN[std]
+    assert len(tr) == want["n"], (std, len(tr))
+    assert trace_sha256(tr) == want["sha256"], std
+    assert port_sha(tr) == want["sha256"], std
+    return stats
+
+
+def jax_stats_dict(std, n_cycles=3000, interval=2.0, read_ratio=0.7,
+                   fast_forward=True):
+    from repro.core import ControllerConfig, Simulator
+    org, tim = default_systems()[std]
+    sim = Simulator(std, org, tim, fast_forward=fast_forward,
+                    controller=ControllerConfig(scheduler="FRFCFS"))
+    return sim.run(n_cycles, interval=interval,
+                   read_ratio=read_ratio).to_dict()

@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""Profile the PyTorch port's cycle loop on one device.
+
+    PYTHONPATH=src python tools/profile_torch_step.py [--device cuda]
+        [--standard DDR5] [--cycles 3000] [--interval 2.0] [--read-ratio 0.8]
+
+Prints, for one ``Simulator.run`` of the port (after a short warm-up
+run): wall seconds, executed steps, milliseconds per step, host syncs and
+readiness-kernel launches; then a ``torch.profiler`` table of a short
+window (300 cycles) with the device time by kernel, and a JSON summary as
+the last line: ``ms_per_step``, ``device_ms_per_step`` (summed kernel and
+copy time per step), ``device_launches_per_step``, ``device_busy_share``
+(device time per step over the unprofiled wall time per step: the
+profiler slows the host, not the device; these three are ``null`` when
+the profiler reports no device work) and ``ops_per_step`` (top-level
+operator calls per step).  On a CUDA device it synchronizes before
+reading every clock.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+from repro_torch.core.standards import DEFAULT_SYSTEMS  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--standard", default="DDR5",
+                    choices=sorted(DEFAULT_SYSTEMS))
+    ap.add_argument("--cycles", type=int, default=3000)
+    ap.add_argument("--interval", type=float, default=2.0)
+    ap.add_argument("--read-ratio", type=float, default=0.8)
+    args = ap.parse_args()
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import Simulator
+    from repro_torch.kernels import readiness as R
+
+    cuda = torch.device(args.device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    org, tim = DEFAULT_SYSTEMS[args.standard]
+    sim = Simulator(args.standard, org, tim, device=args.device)
+    kw = dict(interval=args.interval, read_ratio=args.read_ratio)
+    sim.run(200, **kw)
+    sync()
+    sim.host_syncs, R.launch_count = 0, 0
+    t0 = time.perf_counter()
+    stats = sim.run(args.cycles, **kw)
+    sync()
+    wall = time.perf_counter() - t0
+    steps = stats.scan_steps
+    print(f"{args.standard} {args.cycles} cycles on {args.device}: wall "
+          f"{wall:.3f} s, executed steps {steps}, "
+          f"{wall / steps * 1e3:.3f} ms/step, host syncs {sim.host_syncs}, "
+          f"readiness launches {R.launch_count}")
+
+    window = 300
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        st = sim.run(window, **kw)
+        sync()
+    ka = prof.key_averages()
+    # top-level operator calls only (nested aten calls are not dispatches
+    # of their own); device rows are the kernels and copies themselves
+    n_ops = sum(e.count for e in prof.events()
+                if e.key.startswith("aten::") and e.cpu_parent is None)
+    dev = [e for e in ka if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in dev) / 1e3 / st.scan_steps
+    sort = "self_cuda_time_total" if cuda else "self_cpu_time_total"
+    print(ka.table(sort_by=sort, row_limit=15))
+    print(json.dumps({
+        "standard": args.standard, "device": args.device,
+        "device_name": torch.cuda.get_device_name(0) if cuda else "cpu",
+        "cycles": args.cycles, "steps": steps, "wall_s": wall,
+        "ms_per_step": wall / steps * 1e3,
+        "device_ms_per_step": dev_ms if dev else None,
+        "device_launches_per_step": (sum(e.count for e in dev)
+                                     / st.scan_steps if dev else None),
+        "device_busy_share": (dev_ms / (wall / steps * 1e3)
+                              if dev else None),
+        "ops_per_step": n_ops / st.scan_steps}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
