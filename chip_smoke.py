@@ -8,19 +8,37 @@ Phases, each fatal on any mismatch or exception:
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of the main path with ``nvcc`` into
    ``build/kernels/`` (all sources compiled in parallel);
-3. hold each kernel against its plain PyTorch version on the card, bit for
-   bit, on random device histories of every default system (timestamps
-   below and above 2**24), and time kernel and plain version with CUDA
-   events at the main path's shapes;
-4. reproduce the 11 single-spec golden command-stream hashes of
+3. hold the readiness kernel against its plain version on the card, bit
+   for bit, on random device histories of every default system
+   (timestamps below and above 2**24), and time kernel and plain version
+   with CUDA events at the main path's shapes;
+4. hold the flash-attention kernel against its plain version, fp32 at
+   2e-5 and bf16 at 2e-2 (the reference's tolerances), causal and full,
+   D 16/32/64/128, T 100 and 300, GQA rep 1 and 4, in both layouts, and
+   at the serving path's prefill shape (B 4, T 1000, Hq 32, Hkv 8, D 64,
+   bf16); time kernel, plain version and ``scaled_dot_product_attention``
+   (the library call, never on the path) there;
+5. reproduce the 11 single-spec golden command-stream hashes of
    ``tests/trace/golden_hashes.json`` on ``cuda`` (3000 cycles, interval
    2.0, read ratio 0.7, FR-FCFS, fast-forward on), each run launching the
    readiness kernel; the runs share the card from worker processes, one
    per spare CPU core, since each is bound by its host loop;
-5. run the README's session — DDR5_16Gb_x8 / DDR5_4800B, 20,000 cycles,
+6. run the README's session — DDR5_16Gb_x8 / DDR5_4800B, 20,000 cycles,
    interval 2.0, read ratio 0.8 — with every launch count set to 0 just
    before and read just after, and require its ``Stats`` to equal the
-   reference fixture ``tests/torch_main_path_stats.json`` exactly.
+   reference fixture ``tests/torch_main_path_stats.json`` exactly;
+7. serve the reduced GQA Llama of ``tests/torch_serve_fixture.npz`` (the
+   JAX package's parameters, prompts, tokens and logits) on ``cuda``:
+   prefill and teacher-forced decode logits within atol 0.2 / rtol 0.05,
+   greedy tokens equal (a token may differ only at a near tie: a top-two
+   margin within twice that position's logit difference);
+8. serve ``llama3.2-1b`` at full width (1,235,814,400 seed-made bf16
+   parameters): 4 requests of 1000 prompt tokens, 32 new tokens each,
+   with every launch count set to 0 just before and read just after (16
+   flash launches: one per layer); then the same prefill with the
+   kernel's plain version in its place, logits within 2e-2, and greedy
+   tokens, teacher-forced with the kernel run's, equal wherever the
+   top-two margin exceeds 2e-2.
 
 The line before the last is a JSON object with one entry per kernel (its
 times, bound and launches); the last line is
@@ -29,6 +47,7 @@ the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -44,6 +63,18 @@ MAIN = dict(standard="DDR5", org="DDR5_16Gb_x8", timing="DDR5_4800B",
 #: (integer add/compare/max issue on the same CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
+#: H100 SXM data sheet: dense bf16 tensor-core rate
+BF16_TENSOR_OPS_PER_S = 989e12
+
+#: the full-width serving session (phase 8)
+LM = dict(arch="llama3.2-1b", params=1_235_814_400, batch=4,
+          prompt_len=1000, max_new=32, seed=0)
+#: flash kernel vs plain version: the reference's tolerances
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: the port vs the JAX package's logits: its decode-parity tolerance
+FIXTURE_TOL = dict(atol=0.2, rtol=0.05)
+#: kernel vs plain version through the whole bf16 model
+LM_TOL = dict(atol=2e-2, rtol=2e-2)
 
 
 def fail(msg: str):
@@ -257,6 +288,280 @@ def main_path_phase(device):
     return launches
 
 
+def flash_phase(device):
+    """Flash kernel vs plain version on every listed case, and timings at
+    the serving path's prefill shape."""
+    import itertools
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=device).manual_seed(7)
+    worst = {}
+    max_err = 0.0
+    for dt, causal, D, T, rep in itertools.product(
+            ("float32", "bfloat16"), (True, False), (16, 32, 64, 128),
+            (100, 300), (1, 4)):
+        dtype = getattr(torch, dt)
+        B, Hkv = 2, 2
+        q, k, v = ((torch.randn(B, h, T, D, generator=gen, device=device)
+                    * 0.3).to(dtype) for h in (Hkv * rep, Hkv, Hkv))
+        t = lambda x: x.transpose(1, 2).contiguous()
+        got = FA.gqa_flash_attention(q, k, v, causal=causal)
+        got2 = FA.flash_attention_bthd(t(q), t(k), t(v), causal=causal)
+        want = FA.attention_plain(q, k, v, causal=causal, sm_scale=D ** -0.5)
+        torch.cuda.synchronize()
+        err = max((got.float() - want.float()).abs().max().item(),
+                  (got2.transpose(1, 2).float() - want.float()).abs()
+                  .max().item())
+        if not (got.shape == want.shape and err <= FLASH_TOL[dt]):
+            fail(f"flash kernel != plain version ({dt}, causal={causal}, "
+                 f"D={D}, T={T}, rep={rep}): max |diff| {err}")
+        worst[(dt, D)] = max(worst.get((dt, D), 0.0), err)
+        max_err = max(max_err, err)
+    # per dtype and D: times at (B 2, Hq 8, Hkv 2, T 300), causal; the
+    # bound counts 2 B Hq T^2 D operations at the type's peak rate (fp32
+    # on CUDA cores, bf16 on tensor cores) and q, k, v, o bytes once
+    print("flash kernel vs plain version: max |diff| over causal/full, "
+          "T 100/300, rep 1/4, both layouts; per launch at (B 2, Hq 8, "
+          "Hkv 2, T 300) causal, CUDA events back to back:")
+    print(f"  {'dtype':<9} {'D':>3} {'max|diff|':>10} {'tolerance':>9} "
+          f"{'kernel_us':>10} {'plain_us':>9} {'bound_us':>9}")
+    for (dt, D), e in sorted(worst.items()):
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(2, h, 300, D, generator=gen, device=device)
+                   .to(dtype) for h in (8, 2, 2))
+        kern_us = cuda_ms(lambda: FA.gqa_flash_attention(q, k, v), 50) * 1e3
+        plain_us = cuda_ms(lambda: FA.attention_plain(
+            q, k, v, causal=True, sm_scale=D ** -0.5), 20) * 1e3
+        rate = BF16_TENSOR_OPS_PER_S if dt == "bfloat16" else \
+            CUDA_CORE_OPS_PER_S
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        bound_us = max(2 * 2 * 8 * 300 * 300 * D / rate,
+                       nbytes / HBM_BYTES_PER_S) * 1e6
+        print(f"  {dt:<9} {D:>3} {e:>10.3e} {FLASH_TOL[dt]:>9g} "
+              f"{kern_us:>10.2f} {plain_us:>9.2f} {bound_us:>9.3f}")
+
+    # the serving path's prefill shape, in the model's (B, T, H, D) layout
+    B, T, Hq, Hkv, D = 4, 1000, 32, 8, 64
+    q, k, v = (torch.randn(B, T, h, D, generator=gen, device=device)
+               .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    t = lambda x: x.transpose(1, 2)
+    kern = lambda: FA.flash_attention_bthd(q, k, v, causal=True)
+    plain = lambda: FA.attention_plain(t(q), t(k), t(v), causal=True,
+                                       sm_scale=D ** -0.5)
+    err = (kern().float() - t(plain()).float()).abs().max().item()
+    if err > FLASH_TOL["bfloat16"]:
+        fail(f"flash kernel != plain version at {(B, T, Hq, Hkv, D)}: "
+             f"max |diff| {err}")
+    max_err = max(max_err, err)
+    qh, kh, vh = (t(x).contiguous() for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                  enable_gqa=True)
+    sdpa_err = (t(kern()).float() - sdpa().float()).abs().max().item()
+    kern_ms = cuda_ms(kern, 50)
+    dev_us = device_us(kern, "flash_fwd_kernel", reps=20)
+    plain_ms = cuda_ms(plain, 10)
+    sdpa_ms = cuda_ms(sdpa, 50)
+    flops = 2 * B * Hq * T * T * D
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    ops_ms = flops / BF16_TENSOR_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"flash kernel at (B, T, Hq, Hkv, D) = {(B, T, Hq, Hkv, D)} bf16 "
+          f"causal: max |diff| vs plain {err:.3e}, vs SDPA {sdpa_err:.3e}; "
+          f"kernel {kern_ms:.4f} ms back to back (CUDA events), device "
+          f"{'not measured' if dev_us is None else f'{dev_us / 1e3:.4f} ms'}"
+          f" (torch.profiler); plain {plain_ms:.4f} ms; "
+          f"scaled_dot_product_attention {sdpa_ms:.4f} ms; bound "
+          f"{max(ops_ms, bytes_ms):.4f} ms ({flops / 1e9:.2f} GFLOP at 989 "
+          f"TFLOP/s: {ops_ms:.4f} ms; {nbytes / 1e6:.1f} MB at 3.35 TB/s: "
+          f"{bytes_ms:.4f} ms)")
+    return dict(max_err=max_err, ms=kern_ms, device_us=dev_us,
+                plain_ms=plain_ms, library_ms=sdpa_ms,
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Inside: the model's prefill attention runs the kernel's plain
+    version (for phase 8's comparison only)."""
+    from repro_torch.kernels import flash_attention as FA
+    kernel = FA.flash_attention_bthd
+
+    def plain(q, k, v, *, causal=True, sm_scale=None):
+        t = lambda x: x.transpose(1, 2)
+        return t(FA.attention_plain(t(q), t(k), t(v), causal=causal,
+                                    sm_scale=sm_scale))
+
+    FA.flash_attention_bthd = plain
+    try:
+        yield
+    finally:
+        FA.flash_attention_bthd = kernel
+
+
+def teacher_forced(cfg, params, prompts, seq, device):
+    """Prefill logits and the decode logits of feeding ``seq[:, i]`` at
+    position T + i, each ``(B, V)`` fp32."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serve.step import make_prefill_step
+    B, T = prompts.shape
+    n = seq.shape[1]
+    pos = torch.arange(T, dtype=torch.int32, device=device)[None].repeat(B, 1)
+    lg, cache = make_prefill_step(cfg, T + n)(
+        params, M.Batch(tokens=prompts, positions=pos))
+    out = [lg[:, -1]]
+    for i in range(n):
+        lg, cache = M.decode_step(cfg, params, cache, M.Batch(
+            tokens=seq[:, i:i + 1],
+            positions=torch.full((B, 1), T + i, dtype=torch.int32,
+                                 device=device),
+            cache_index=T + i, cache_len=T + i + 1))
+        out.append(lg[:, -1])
+    return out
+
+
+def margins(logits):
+    top2 = logits.float().topk(2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def fixture_phase(device):
+    """The reduced GQA Llama against the JAX package's fixture."""
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import ModelConfig
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.serve.step import serve_batch
+    z = np.load(ROOT / "tests" / "torch_serve_fixture.npz")
+    fields = json.loads(str(z["config"]))
+    fields["block_pattern"] = tuple(fields["block_pattern"])
+    cfg = ModelConfig(**fields)
+    params = convert.lm_params(convert.nest(
+        {k[len("param."):]: z[k] for k in z.files if k.startswith("param.")}),
+        cfg, device)
+    prompts = torch.as_tensor(z["prompts"], device=device)
+    n = z["tokens"].shape[1]
+    before = FA.launch_count
+    toks, first = serve_batch(cfg, params, prompts, n, device=device)
+    if FA.launch_count - before != cfg.n_layers:
+        fail("fixture run: flash kernel launched "
+             f"{FA.launch_count - before} times, want {cfg.n_layers}")
+    want_seq = np.concatenate([z["first"][:, None], z["tokens"]], 1)
+    got = teacher_forced(cfg, params, prompts,
+                         torch.as_tensor(want_seq[:, :n], device=device),
+                         device)
+    got = torch.stack(got, 1).cpu().numpy()                 # (B, n+1, V)
+    want = np.concatenate([z["prefill_logits"][:, None], z["decode_logits"]],
+                          1)
+    diff = float(np.abs(got - want).max())
+    if not np.allclose(got, want, **FIXTURE_TOL):
+        fail(f"fixture logits differ from the JAX package's beyond "
+             f"{FIXTURE_TOL}: max |diff| {diff}")
+    # free-running greedy tokens: while a request's tokens agree, its inputs
+    # are the teacher-forced ones, so a token may differ only where the JAX
+    # top-two margin is within twice that position's max |diff|; after such
+    # a near-tie flip the request's later tokens are not compared
+    got_seq = np.concatenate([first.cpu().numpy()[:, None],
+                              toks.cpu().numpy()], 1)
+    tie = margins(torch.as_tensor(want)).numpy() \
+        <= 2 * np.abs(got - want).max(-1)
+    compared = flips = 0
+    for b in range(got_seq.shape[0]):
+        for i in range(got_seq.shape[1]):
+            compared += 1
+            if got_seq[b, i] == want_seq[b, i]:
+                continue
+            if not tie[b, i]:
+                fail(f"fixture greedy token differs at request {b}, "
+                     f"position {i}: {got_seq[b, i]} != {want_seq[b, i]}")
+            flips += 1
+            break
+    equal = bool((got_seq == want_seq).all())
+    print(f"fixture (reduced GQA {cfg.name}, {cfg.n_heads} q heads / {cfg.n_kv_heads} kv heads, head_dim {cfg.head_dim}) on "
+          f"{device}: prefill + teacher-forced decode logits within "
+          f"{FIXTURE_TOL} of the JAX package's (max |diff| {diff:.3e}); "
+          f"greedy tokens: {compared} of {got_seq.size} compared, "
+          f"{flips} near-tie flips; whole sequences equal: {equal}")
+
+
+def lm_phase(device):
+    """Phase 8: the full-width llama3.2-1b serving session."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import readiness as R
+    from repro_torch.models import init_params
+    from repro_torch.serve.step import serve_batch
+    cfg = get_arch(LM["arch"])
+    t0 = time.perf_counter()
+    params = init_params(cfg, LM["seed"], device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    if n_params != LM["params"] or cfg.param_count() != LM["params"]:
+        fail(f"{cfg.name}: {n_params} parameters, want {LM['params']}")
+    rng = np.random.default_rng(LM["seed"])
+    B, T, N = LM["batch"], LM["prompt_len"], LM["max_new"]
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (B, T)),
+                              dtype=torch.int32, device=device)
+    serve_batch(cfg, params, prompts[:, :64], 2, device=device)   # warm-up
+
+    torch.cuda.reset_peak_memory_stats(device)
+    timings: dict = {}
+    FA.launch_count = 0
+    R.launch_count = 0
+    toks, first = serve_batch(cfg, params, prompts, N, device=device,
+                              timings=timings)
+    launches = FA.launch_count
+    if launches != cfg.n_layers:
+        fail(f"serving session launched the flash kernel {launches} times, "
+             f"want {cfg.n_layers} (one per layer)")
+    peak = torch.cuda.max_memory_allocated(device)
+    seq = torch.cat([first[:, None], toks], 1)
+    if seq.shape != (B, N + 1) or int(seq.min()) < 0 \
+            or int(seq.max()) >= cfg.vocab:
+        fail(f"serving session tokens out of range: {tuple(seq.shape)}")
+
+    kern = teacher_forced(cfg, params, prompts, seq[:, :N], device)
+    if not all(bool(torch.isfinite(x).all()) for x in kern):
+        fail("serving session: non-finite logits")
+    with plain_attention():
+        plain = teacher_forced(cfg, params, prompts, seq[:, :N], device)
+    if FA.launch_count != 2 * cfg.n_layers:
+        fail("the plain-version prefill launched the kernel")
+    pre_diff = (kern[0] - plain[0]).abs().max().item()
+    if not torch.allclose(kern[0], plain[0], **LM_TOL):
+        fail(f"full-width prefill logits, kernel vs plain version: max "
+             f"|diff| {pre_diff} beyond {LM_TOL}")
+    pl = torch.stack(plain, 1)                              # (B, N+1, V)
+    checked = margins(pl) > LM_TOL["atol"]
+    same = pl.argmax(-1) == seq
+    if not bool(same[checked].all()):
+        fail("full-width greedy tokens differ between kernel and plain "
+             "version where the top-two margin exceeds "
+             f"{LM_TOL['atol']}")
+    dec_diff = max((a - b).abs().max().item() for a, b in zip(kern, plain))
+    pre, dec = timings["prefill_s"], timings["decode_s"]
+    print(f"serving session {cfg.name} on {device}: {n_params:,} bf16 "
+          f"parameters (init {init_s:.2f} s), {B} requests x {T} prompt "
+          f"tokens, {N} new tokens each; prefill {pre * 1e3:.2f} ms "
+          f"({B * T / pre:.0f} prompt tokens/s); decode {dec * 1e3:.2f} ms = "
+          f"{dec * 1e3 / N:.3f} ms per step ({B * N / dec:.1f} tokens/s); "
+          f"end to end {B * N / (pre + dec):.1f} new tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB; flash launches {launches} "
+          f"(readiness {R.launch_count})")
+    print(f"  kernel vs plain version through the model: prefill logits max "
+          f"|diff| {pre_diff:.3e}, teacher-forced decode logits max |diff| "
+          f"{dec_diff:.3e}; greedy tokens equal at {int(checked.sum())} of "
+          f"{checked.numel()} positions with a top-two margin above "
+          f"{LM_TOL['atol']} ({int(same.sum())} equal in all)")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -271,20 +576,25 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.serve.step import exact_matmuls
+    exact_matmuls()        # fp32 products in full fp32, bf16 reduce in fp32
     device = torch.device("cuda")
     t_start = time.perf_counter()
     print(card_line())
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    logs = build.build("readiness")
+    logs = build.build("readiness", "flash_attention")
     print(f"built kernels in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         print(f"nvcc {name}:\n{log.strip()}")
 
     max_err, krows = kernel_phase(device)
+    flash = flash_phase(device)
     golden_phase("cuda")
     launches = main_path_phase(device)
+    fixture_phase(device)
+    flash_launches = lm_phase(device)
 
     r = krows[MAIN["standard"]]
     bound_by = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
@@ -295,7 +605,14 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_err,
         "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
         "bound_ms": max(r["bytes_ms"], r["ops_ms"]), "bound_by": bound_by,
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:73",
+        "launches": flash_launches, "max_abs_err": flash["max_err"],
+        "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"]}]}))
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s",
           file=sys.stderr)
     print(json.dumps({"ok": True, "device": {

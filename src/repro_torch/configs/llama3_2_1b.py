@@ -1,0 +1,10 @@
+"""llama3.2-1b [dense] — small llama3 [hf:meta-llama/Llama-3.2-1B;
+unverified].  16L d_model=2048 32H (GQA kv=8) d_ff=8192 vocab=128256."""
+from repro_torch.configs.base import ModelConfig, register_arch
+
+LLAMA32_1B = register_arch(ModelConfig(
+    name="llama3.2-1b", family="dense",
+    n_layers=16, d_model=2048, n_heads=32, n_kv_heads=8, d_ff=8192,
+    vocab=128_256, head_dim=64, rope="rope", rope_theta=500_000.0,
+    tie_embeddings=True,
+))

@@ -1,12 +1,15 @@
-"""Carry simulator state between the reference package and the port.
+"""Carry simulator state and LM parameters between the reference package
+and the port.
 
 The reference's state pytrees, brought to the host as numpy arrays (for
 example ``jax.tree.map(np.asarray, state)._asdict()``), become the port's
 tensors on a given device; :func:`to_numpy` and :func:`stats_to_numpy`
 are the way back.  A reference state of one channel (no channel axis)
 gains the port's leading channel axis of size 1; one that already has the
-axis keeps it.  This module reads plain dicts and arrays only: it imports
-nothing of the reference package.
+axis keeps it.  :func:`lm_params` turns the reference's LM parameter
+tree into the port's per-layer :class:`ParamTree`, :func:`lm_params_to_numpy`
+is the way back.  This module reads plain dicts and arrays only: it
+imports nothing of the reference package (nor ``ml_dtypes``).
 """
 from __future__ import annotations
 
@@ -110,3 +113,113 @@ def stats_to_numpy(stats: Stats) -> Stats:
     out = to_numpy(stats)
     return out._replace(per_channel=ChannelStats(*out.per_channel),
                         per_group=tuple(out.per_group))
+
+
+# ---------------------------------------------------------------------------
+# LM parameters
+# ---------------------------------------------------------------------------
+
+def bf16_tensor(a, device) -> torch.Tensor:
+    """A bf16 array of the reference as a bf16 tensor: ``a`` is the
+    reference's array brought to numpy (an ``ml_dtypes`` bfloat16 dtype,
+    read here as its bits) or its ``uint16`` bits."""
+    arr = np.asarray(a)
+    if arr.dtype.name != "bfloat16" and arr.dtype != np.uint16:
+        raise TypeError(f"bf16 parameter given as {arr.dtype} (takes "
+                        "bfloat16 or its uint16 bits)")
+    bits = np.ascontiguousarray(arr).view(np.int16).copy()
+    return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+
+
+def bf16_bits(t: torch.Tensor) -> np.ndarray:
+    """A bf16 tensor's values as ``uint16`` bits."""
+    return t.detach().cpu().contiguous().view(torch.int16).numpy().view(
+        np.uint16)
+
+
+def nest(flat: dict, sep: str = ".") -> dict:
+    """``{"groups.b0.wq": a}`` -> ``{"groups": {"b0": {"wq": a}}}``."""
+    out: dict = {}
+    for path, val in flat.items():
+        node = out
+        *head, last = path.split(sep)
+        for p in head:
+            node = node.setdefault(p, {})
+        node[last] = val
+    return out
+
+
+def _layer_trees(tree: dict, cfg):
+    """``(layer index, block tree, index into the stacked axis or None)``
+    of the reference's ``groups.b{j}`` (stacked, layer ``g * P + j``) and
+    ``rem.r{j}`` (layer ``G * P + j``)."""
+    P, G = len(cfg.block_pattern), cfg.n_groups()
+    for j in range(P):
+        for g in range(G):
+            yield g * P + j, tree["groups"][f"b{j}"], g
+    for j in range(cfg.n_remainder()):
+        yield G * P + j, tree["rem"][f"r{j}"], None
+
+
+def lm_params(tree: dict, cfg, device):
+    """The reference's LM parameter tree (numpy leaves, nested dicts as
+    ``repro.models.init_params`` returns them) as the port's per-layer
+    :class:`~repro_torch.models.layers.ParamTree` on ``device``: the
+    stacked ``groups.b{j}`` leaves are unstacked along their leading
+    (layer) axis."""
+    from repro_torch.models.model import param_defs
+    from repro_torch.models.layers import ParamTree
+    params = ParamTree(param_defs(cfg), device)
+    n_set = 0
+
+    def put(dst, src: dict, index):
+        nonlocal n_set
+        for name, val in src.items():
+            if isinstance(val, dict):
+                put(dst[name], val, index)
+                continue
+            t = bf16_tensor(val, device)
+            if index is not None:
+                t = t[index]
+            if tuple(t.shape) != tuple(dst[name].shape):
+                raise ValueError(f"{name}: shape {tuple(t.shape)}, the port "
+                                 f"wants {tuple(dst[name].shape)}")
+            with torch.no_grad():
+                dst[name].copy_(t)
+            n_set += 1
+
+    put(params, {k: v for k, v in tree.items()
+                 if k not in ("groups", "rem")}, None)
+    for i, block, index in _layer_trees(tree, cfg):
+        put(params["layers"][i], block, index)
+    n_want = sum(1 for _ in params.parameters())
+    if n_set != n_want:
+        raise ValueError(f"set {n_set} of the port's {n_want} parameters")
+    return params
+
+
+def lm_params_to_numpy(params, cfg) -> dict:
+    """The port's parameters as the reference's nested tree (layers
+    stacked into ``groups.b{j}`` / ``rem.r{j}``), leaves as ``uint16``
+    bf16 bits."""
+    def tree_of(m) -> dict:
+        out = {k: bf16_bits(v) for k, v in m._parameters.items()}
+        out.update({k: tree_of(c) for k, c in m._modules.items()
+                    if k != "layers"})
+        return out
+
+    out = tree_of(params)
+    P, G = len(cfg.block_pattern), cfg.n_groups()
+    layers = [tree_of(m) for m in params["layers"]]
+
+    def stack(trees):
+        return {k: stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
+                else np.stack([t[k] for t in trees]) for k in trees[0]}
+
+    if G:
+        out["groups"] = {f"b{j}": stack([layers[g * P + j] for g in range(G)])
+                         for j in range(P)}
+    if cfg.n_remainder():
+        out["rem"] = {f"r{j}": layers[G * P + j]
+                      for j in range(cfg.n_remainder())}
+    return out

@@ -1,5 +1,5 @@
 """PyTorch port on the card: the CUDA readiness kernel and the engine on
-``cuda``.  Every test here needs an NVIDIA GPU and ``nvcc`` and skips
+``cuda``, the flash-attention kernel and the LM serving path.  Every test here needs an NVIDIA GPU and ``nvcc`` and skips
 without them; on the card run
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -8,7 +8,11 @@ This file imports neither ``jax`` nor ``repro``, so it runs on a machine
 with PyTorch alone.  The kernel is held bit for bit against its plain
 PyTorch version on device states after random command histories, at
 timestamps below and above 2**24; the engine on ``cuda`` reproduces a
-golden command stream and launches the kernel."""
+golden command stream and launches the kernel.  The flash-attention
+kernel is held against its plain version at the reference's tolerances
+(fp32 2e-5, bf16 2e-2), and the reduced GQA Llama of
+``tests/torch_serve_fixture.npz`` served on ``cuda`` gives the JAX
+package's logits (atol 0.2, rtol 0.05) and greedy tokens."""
 import json
 import os
 
@@ -17,10 +21,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import convert                             # noqa: E402
+from repro_torch.configs import ModelConfig                 # noqa: E402
 from repro_torch.core import ControllerConfig, Simulator, compile_spec  # noqa: E402,E501
 from repro_torch.core import device as D                    # noqa: E402
 from repro_torch.core.standards import DEFAULT_SYSTEMS      # noqa: E402
+from repro_torch.kernels import flash_attention as FA       # noqa: E402
 from repro_torch.kernels import readiness as R              # noqa: E402
+from repro_torch.models import model as M                   # noqa: E402
+from repro_torch.serve.step import make_prefill_step, serve_batch  # noqa: E402,E501
 from repro_torch.trace import capture, trace_sha256         # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -93,3 +102,82 @@ def test_golden_stream_on_cuda(cuda):
     assert len(tr) == golden["LPDDR5"]["n"]
     assert trace_sha256(tr) == golden["LPDDR5"]["sha256"]
     assert sim.host_syncs == stats.scan_steps
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_equals_plain_version(cuda, dtype, tol, D, causal):
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    for T, rep in ((100, 1), (300, 4), (64, 2)):
+        q, k, v = ((torch.randn(2, h, T, D, generator=gen, device=cuda)
+                    * 0.3).to(dtype) for h in (2 * rep, 2, 2))
+        t = lambda x: x.transpose(1, 2).contiguous()
+        before = FA.launch_count
+        got = FA.gqa_flash_attention(q, k, v, causal=causal)
+        got2 = FA.flash_attention_bthd(t(q), t(k), t(v), causal=causal)
+        assert FA.launch_count == before + 2
+        want = FA.attention_plain(q, k, v, causal=causal, sm_scale=D ** -0.5)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == want.shape
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+        torch.testing.assert_close(got2.transpose(1, 2), want, atol=tol,
+                                   rtol=tol)
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    z = lambda *s, dt=torch.bfloat16: torch.zeros(*s, dtype=dt, device=cuda)
+    with pytest.raises(ValueError):
+        FA.gqa_flash_attention(z(1, 2, 8, 48), z(1, 2, 8, 48),
+                               z(1, 2, 8, 48))             # head_dim 48
+    with pytest.raises(ValueError):
+        FA.gqa_flash_attention(*(z(1, 2, 8, 64, dt=torch.float16),) * 3)
+    with pytest.raises(ValueError):
+        FA.gqa_flash_attention(z(1, 2, 8, 64), z(1, 2, 8, 64).float(),
+                               z(1, 2, 8, 64))
+
+
+def test_serve_fixture_on_cuda(cuda):
+    z = np.load(os.path.join(HERE, "torch_serve_fixture.npz"))
+    fields = json.loads(str(z["config"]))
+    fields["block_pattern"] = tuple(fields["block_pattern"])
+    cfg = ModelConfig(**fields)
+    params = convert.lm_params(convert.nest(
+        {k[len("param."):]: z[k] for k in z.files if k.startswith("param.")}),
+        cfg, cuda)
+    pr = torch.as_tensor(z["prompts"], device=cuda)
+    B, T = pr.shape
+    n = z["tokens"].shape[1]
+    before = FA.launch_count
+    toks, first = serve_batch(cfg, params, pr, n)
+    assert FA.launch_count == before + cfg.n_layers
+    want_seq = np.concatenate([z["first"][:, None], z["tokens"]], 1)
+    seq = torch.as_tensor(want_seq, device=cuda)
+    pos = torch.arange(T, dtype=torch.int32, device=cuda)[None].repeat(B, 1)
+    lg, cache = make_prefill_step(cfg, T + n)(
+        params, M.Batch(tokens=pr, positions=pos))
+    got = [lg[:, -1]]
+    for i in range(n):
+        lg, cache = M.decode_step(cfg, params, cache, M.Batch(
+            tokens=seq[:, i:i + 1],
+            positions=torch.full((B, 1), T + i, dtype=torch.int32,
+                                 device=cuda),
+            cache_index=T + i, cache_len=T + i + 1))
+        got.append(lg[:, -1])
+    got = torch.stack(got, 1).cpu().numpy()
+    want = np.concatenate([z["prefill_logits"][:, None], z["decode_logits"]],
+                          1)
+    np.testing.assert_allclose(got, want, atol=0.2, rtol=0.05)
+    # greedy tokens: a request's token may differ from the JAX package's
+    # only at a near tie (top-two margin within twice that position's
+    # logit difference); its later tokens are then not compared
+    top2 = np.sort(want, -1)[..., -2:]
+    tie = top2[..., 1] - top2[..., 0] <= 2 * np.abs(got - want).max(-1)
+    got_seq = np.concatenate([first.cpu().numpy()[:, None],
+                              toks.cpu().numpy()], 1)
+    for b in range(B):
+        for i in range(n + 1):
+            if got_seq[b, i] != want_seq[b, i]:
+                assert tie[b, i], (b, i)
+                break

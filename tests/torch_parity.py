@@ -1,7 +1,13 @@
 """Shared helpers of the ``test_torch_*`` parity tests: the same inputs,
 made from numpy seeds, go through the JAX reference (``repro``) and the
-PyTorch port (``repro_torch``), and the results are compared exactly —
-both are integer state machines, so the tolerance is 0 throughout."""
+PyTorch port (``repro_torch``).  The simulator's results are compared
+exactly — both are integer state machines, so the tolerance is 0.  The
+LM serving path's are compared at the reference's own tolerances
+(``LOGITS_TOL`` for logits); its helpers are at the end of this file.
+
+    PYTHONPATH=src python tests/torch_parity.py --write-serve-fixture
+
+rewrites ``tests/torch_serve_fixture.npz`` from the JAX package."""
 from __future__ import annotations
 
 import hashlib
@@ -127,3 +133,116 @@ def jax_stats_dict(std, n_cycles=3000, interval=2.0, read_ratio=0.7,
                     controller=ControllerConfig(scheduler="FRFCFS"))
     return sim.run(n_cycles, interval=interval,
                    read_ratio=read_ratio).to_dict()
+
+
+# ---------------------------------------------------------------------------
+# LM serving path: numpy-made inputs and the JAX -> port parameter hand-over
+# ---------------------------------------------------------------------------
+
+SERVE_FIXTURE = os.path.join(HERE, "torch_serve_fixture.npz")
+#: the fixture's run: GQA-reduced llama3.2-1b, params from PRNGKey(SEED),
+#: prompts (B, T) from numpy's default_rng(SEED), N decoded tokens
+SERVE_RUN = dict(variant="gqa", seed=0, batch=2, prompt_len=24, max_new=8)
+#: the JAX package's decode-parity tolerance (tests/models/
+#: test_decode_parity.py), used for every logits comparison of the port
+#: against it: bf16 activations round at other places in the two packages
+LOGITS_TOL = dict(atol=0.2, rtol=0.05)
+
+
+def rand(shape, seed, scale=0.3):
+    """Standard normal fp32 times ``scale``, from numpy's generator."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def lm_configs(variant="reduced"):
+    """``(jax cfg, port cfg)`` of llama3.2-1b: ``"full"``, ``"reduced"``
+    (``cfg.reduced()``), or ``"gqa"`` (reduced with 8 q heads, 2 kv heads
+    and head_dim 64)."""
+    import dataclasses
+    from repro.configs import get_arch as jax_arch
+    from repro_torch.configs import get_arch
+    out = []
+    for cfg in (jax_arch("llama3.2-1b"), get_arch("llama3.2-1b")):
+        if variant != "full":
+            cfg = cfg.reduced()
+        if variant == "gqa":
+            cfg = dataclasses.replace(cfg, n_heads=8, n_kv_heads=2,
+                                      head_dim=64)
+        out.append(cfg)
+    return tuple(out)
+
+
+def lm_pair(variant="reduced", seed=0):
+    """``(jax cfg, jax params, port cfg, port params on the CPU)``: the
+    JAX package's random parameters, handed to the port through
+    ``repro_torch.convert.lm_params``."""
+    import jax
+    from repro.models import init_params
+    from repro_torch import convert
+    jc, pc = lm_configs(variant)
+    jp = init_params(jc, jax.random.PRNGKey(seed))
+    return jc, jp, pc, convert.lm_params(tree_np(jp), pc, "cpu")
+
+
+def prompts(cfg, batch, length, seed):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab, (batch, length)).astype(np.int32)
+
+
+def flatten(tree, prefix=""):
+    """Nested dict -> ``{"a.b.c": leaf}``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def serve_fixture_arrays() -> dict:
+    """The fixture's content, computed with the JAX package: the config
+    (JSON), parameters (uint16 bf16 bits under ``param.<path>``), the
+    prompts, ``serve_batch``'s ``tokens`` and ``first``, the prefill's
+    last-position ``prefill_logits`` and the teacher-forced
+    ``decode_logits`` of each decoded position."""
+    import dataclasses
+    import jax.numpy as jnp
+    from repro.models import Batch, decode_step
+    from repro.serve.step import make_prefill_step, serve_batch
+    run = SERVE_RUN
+    jc, jp, _, _ = lm_pair(run["variant"], run["seed"])
+    B, T, N = run["batch"], run["prompt_len"], run["max_new"]
+    pr = prompts(jc, B, T, run["seed"])
+    toks, first = serve_batch(jc, jp, jnp.asarray(pr), N)
+    pos = jnp.arange(T, dtype=jnp.int32)[None].repeat(B, 0)
+    logits, cache = make_prefill_step(jc, T + N)(
+        jp, Batch(tokens=jnp.asarray(pr), positions=pos))
+    seq = np.concatenate([np.asarray(first)[:, None], np.asarray(toks)], 1)
+    dec = []
+    for i in range(N):
+        lg, cache = decode_step(jc, jp, cache, Batch(
+            tokens=jnp.asarray(seq[:, i:i + 1]),
+            positions=jnp.full((B, 1), T + i, jnp.int32),
+            cache_index=jnp.int32(T + i), cache_len=jnp.int32(T + i + 1)))
+        dec.append(np.asarray(lg[:, -1]))
+    out = {"param." + k: np.asarray(v).view(np.uint16)
+           for k, v in flatten(tree_np(jp)).items()}
+    out.update(config=np.asarray(json.dumps(dataclasses.asdict(jc))),
+               run=np.asarray(json.dumps(run)), prompts=pr,
+               tokens=np.asarray(toks), first=np.asarray(first),
+               prefill_logits=np.asarray(logits[:, -1], np.float32),
+               decode_logits=np.stack(dec, 1).astype(np.float32))
+    return out
+
+
+def write_serve_fixture():
+    np.savez_compressed(SERVE_FIXTURE, **serve_fixture_arrays())
+
+
+if __name__ == "__main__":
+    import sys
+    if sys.argv[1:] == ["--write-serve-fixture"]:
+        write_serve_fixture()
+        print("wrote", SERVE_FIXTURE)
