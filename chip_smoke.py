@@ -6,18 +6,24 @@
 Phases, each fatal on any mismatch or exception:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build every CUDA kernel of the main path with ``nvcc`` into
-   ``build/kernels/`` (all sources compiled in parallel);
+2. build every CUDA kernel of the main paths with ``nvcc`` into
+   ``build/kernels/`` (all sources compiled in parallel) and count the
+   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in the
+   tensor-core flash kernel's SASS (``cuobjdump``);
 3. hold the readiness kernel against its plain version on the card, bit
    for bit, on random device histories of every default system
    (timestamps below and above 2**24), and time kernel and plain version
    with CUDA events at the main path's shapes;
-4. hold the flash-attention kernel against its plain version, fp32 at
-   2e-5 and bf16 at 2e-2 (the reference's tolerances), causal and full,
-   D 16/32/64/128, T 100 and 300, GQA rep 1 and 4, in both layouts, and
+4. hold both flash-attention kernels against their plain version, fp32
+   at 2e-5 and bf16 at 2e-2 (the reference's tolerances), every call
+   counted on the route ``flash_attention.route`` picks: causal and full,
+   D 16/32/64/128, T 100 and 300, GQA rep 1 and 4, both layouts; for the
+   tensor-core (sm90) kernel also T 1000 (ragged) and 4096 (the k/v ring
+   wraps), rep 8, Tq != Tk (40, 100) and head slices of a fused qkv
+   tensor; then time kernel, plain version and
+   ``scaled_dot_product_attention`` (the library call, never on a path)
    at the serving path's prefill shape (B 4, T 1000, Hq 32, Hkv 8, D 64,
-   bf16); time kernel, plain version and ``scaled_dot_product_attention``
-   (the library call, never on the path) there;
+   bf16, causal), at D 128, and the CUDA-core kernel at phase 8's shape;
 5. reproduce the 11 single-spec golden command-stream hashes of
    ``tests/trace/golden_hashes.json`` on ``cuda`` (3000 cycles, interval
    2.0, read ratio 0.7, FR-FCFS, fast-forward on), each run launching the
@@ -32,13 +38,17 @@ Phases, each fatal on any mismatch or exception:
    prefill and teacher-forced decode logits within atol 0.2 / rtol 0.05,
    greedy tokens equal (a token may differ only at a near tie: a top-two
    margin within twice that position's logit difference);
-8. serve ``llama3.2-1b`` at full width (1,235,814,400 seed-made bf16
+8. serve the reduced ``llama3.2-1b`` (head dim 32: the CUDA-core flash
+   kernel's path, whose kernel phase 4 also times at this session's
+   attention shape) with every launch count set to 0 just before and read
+   just after, prefill logits kernel vs plain version within 2e-2;
+9. serve ``llama3.2-1b`` at full width (1,235,814,400 seed-made bf16
    parameters): 4 requests of 1000 prompt tokens, 32 new tokens each,
    with every launch count set to 0 just before and read just after (16
-   flash launches: one per layer); then the same prefill with the
-   kernel's plain version in its place, logits within 2e-2, and greedy
-   tokens, teacher-forced with the kernel run's, equal wherever the
-   top-two margin exceeds 2e-2.
+   sm90 flash launches, one per layer, and no CUDA-core one); then the
+   same prefill with the kernel's plain version in its place, logits
+   within 2e-2, and greedy tokens, teacher-forced with the kernel run's,
+   equal wherever the top-two margin exceeds 2e-2.
 
 The line before the last is a JSON object with one entry per kernel (its
 times, bound and launches); the last line is
@@ -66,9 +76,13 @@ CUDA_CORE_OPS_PER_S = 67e12
 #: H100 SXM data sheet: dense bf16 tensor-core rate
 BF16_TENSOR_OPS_PER_S = 989e12
 
-#: the full-width serving session (phase 8)
+#: the full-width serving session (phase 9) and its prefill attention
+#: shape (B, T, Hq, Hkv, D)
 LM = dict(arch="llama3.2-1b", params=1_235_814_400, batch=4,
           prompt_len=1000, max_new=32, seed=0)
+SERVE_SHAPE = (4, 1000, 32, 8, 64)
+#: the reduced serving session (the CUDA-core flash kernel's path)
+REDUCED = dict(batch=4, prompt_len=256, max_new=8)
 #: flash kernel vs plain version: the reference's tolerances
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: the port vs the JAX package's logits: its decode-parity tolerance
@@ -288,48 +302,99 @@ def main_path_phase(device):
     return launches
 
 
+def flash_call(FA, q, k, v, causal: bool, head_axis: int, want):
+    """One call of a flash entry point on the card: the route's counter
+    goes up by one and the other's not at all; returns ``(route, max
+    |diff|)`` against ``want`` (the plain version in ``q``'s layout)."""
+    import torch
+    kind = FA.route(q.dtype, q.shape[-1])
+    before = (FA.launch_count, FA.sm90_launch_count)
+    if head_axis == 1:
+        got = FA.gqa_flash_attention(q, k, v, causal=causal)
+    else:
+        got = FA.flash_attention_bthd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    step = (0, 1) if kind == "sm90" else (1, 0)
+    after = (FA.launch_count, FA.sm90_launch_count)
+    if tuple(x - y for x, y in zip(after, before)) != step:
+        fail(f"flash {kind} call counted launches {before} -> {after}")
+    if got.shape != want.shape or got.dtype != q.dtype:
+        fail(f"flash {kind} output {tuple(got.shape)} {got.dtype}")
+    return kind, (got.float() - want.float()).abs().max().item()
+
+
 def flash_phase(device):
-    """Flash kernel vs plain version on every listed case, and timings at
-    the serving path's prefill shape."""
+    """Both flash kernels vs the plain version on every listed case, and
+    timings per dtype and head dim."""
     import itertools
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=device).manual_seed(7)
-    worst = {}
-    max_err = 0.0
+    t = lambda x: x.transpose(1, 2)
+    worst = {}                   # (route, dtype, D) -> max |diff|
+    cases = 0
+
+    def check(q, k, v, causal, head_axis, label):
+        nonlocal cases
+        qp, kp, vp = (q, k, v) if head_axis == 1 else (t(q), t(k), t(v))
+        want = FA.attention_plain(qp, kp, vp, causal=causal,
+                                  sm_scale=q.shape[-1] ** -0.5)
+        if head_axis == 2:
+            want = t(want)
+        kind, err = flash_call(FA, q, k, v, causal, head_axis, want)
+        dt = str(q.dtype).split(".")[-1]
+        if err > FLASH_TOL[dt]:
+            fail(f"flash {kind} kernel != plain version ({label}, {dt}, "
+                 f"causal={causal}, D={q.shape[-1]}): max |diff| {err}")
+        key = (kind, dt, q.shape[-1])
+        worst[key] = max(worst.get(key, 0.0), err)
+        cases += 1
+
+    def rand(*shape, dtype=torch.bfloat16, scale=0.3):
+        return (torch.randn(*shape, generator=gen, device=device)
+                * scale).to(dtype)
+
+    # both routes: fp32 and bf16, D 16-128, T 100/300, rep 1/4, layouts
     for dt, causal, D, T, rep in itertools.product(
             ("float32", "bfloat16"), (True, False), (16, 32, 64, 128),
             (100, 300), (1, 4)):
-        dtype = getattr(torch, dt)
-        B, Hkv = 2, 2
-        q, k, v = ((torch.randn(B, h, T, D, generator=gen, device=device)
-                    * 0.3).to(dtype) for h in (Hkv * rep, Hkv, Hkv))
-        t = lambda x: x.transpose(1, 2).contiguous()
-        got = FA.gqa_flash_attention(q, k, v, causal=causal)
-        got2 = FA.flash_attention_bthd(t(q), t(k), t(v), causal=causal)
-        want = FA.attention_plain(q, k, v, causal=causal, sm_scale=D ** -0.5)
-        torch.cuda.synchronize()
-        err = max((got.float() - want.float()).abs().max().item(),
-                  (got2.transpose(1, 2).float() - want.float()).abs()
-                  .max().item())
-        if not (got.shape == want.shape and err <= FLASH_TOL[dt]):
-            fail(f"flash kernel != plain version ({dt}, causal={causal}, "
-                 f"D={D}, T={T}, rep={rep}): max |diff| {err}")
-        worst[(dt, D)] = max(worst.get((dt, D), 0.0), err)
-        max_err = max(max_err, err)
+        q, k, v = (rand(2, h, T, D, dtype=getattr(torch, dt))
+                   for h in (2 * rep, 2, 2))
+        check(q, k, v, causal, 1, f"T={T}, rep={rep}, (B, H, T, D)")
+        check(t(q).contiguous(), t(k).contiguous(), t(v).contiguous(),
+              causal, 2, f"T={T}, rep={rep}, (B, T, H, D)")
+    # the tensor-core kernel: ragged T 1000, T 4096 (the k/v ring wraps
+    # 16 times), GQA rep 8, Tq != Tk, unscaled inputs, and head slices of
+    # a fused (B, T, Hq + 2 Hkv, D) qkv tensor
+    for causal, D in itertools.product((True, False), (64, 128)):
+        for T, rep in itertools.product((1000, 4096), (1, 4, 8)):
+            q, k, v = (rand(2, T, h, D, scale=1.0) for h in (2 * rep, 2, 2))
+            check(q, k, v, causal, 2, f"T={T}, rep={rep}")
+        q, k, v = rand(2, 40, 8, D), rand(2, 100, 2, D), rand(2, 100, 2, D)
+        check(q, k, v, causal, 2, "Tq=40, Tk=100")
+        check(t(q).contiguous(), t(k).contiguous(), t(v).contiguous(),
+              causal, 1, "Tq=40, Tk=100, (B, H, T, D)")
+        qkv = rand(2, 300, 8 + 2 * 2, D)
+        check(*qkv.split([8, 2, 2], dim=2), causal, 2, "fused qkv view")
+    print(f"flash kernels vs plain version, {cases} calls, each counted "
+          "on its route; max |diff| by route, dtype and head dim:")
+    for (kind, dt, D), e in sorted(worst.items()):
+        print(f"  {kind:<9} {dt:<9} D {D:>3}: {e:.3e} (tolerance "
+              f"{FLASH_TOL[dt]:g})")
+    max_err = {kind: max(e for (r, _, _), e in worst.items() if r == kind)
+               for kind in ("cuda_core", "sm90")}
+
     # per dtype and D: times at (B 2, Hq 8, Hkv 2, T 300), causal; the
     # bound counts 2 B Hq T^2 D operations at the type's peak rate (fp32
     # on CUDA cores, bf16 on tensor cores) and q, k, v, o bytes once
-    print("flash kernel vs plain version: max |diff| over causal/full, "
-          "T 100/300, rep 1/4, both layouts; per launch at (B 2, Hq 8, "
-          "Hkv 2, T 300) causal, CUDA events back to back:")
-    print(f"  {'dtype':<9} {'D':>3} {'max|diff|':>10} {'tolerance':>9} "
-          f"{'kernel_us':>10} {'plain_us':>9} {'bound_us':>9}")
-    for (dt, D), e in sorted(worst.items()):
+    print("per launch at (B 2, Hq 8, Hkv 2, T 300) causal, CUDA events "
+          "back to back:")
+    print(f"  {'dtype':<9} {'D':>3} {'route':<9} {'kernel_us':>10} "
+          f"{'plain_us':>9} {'bound_us':>9}")
+    for dt, D in itertools.product(("bfloat16", "float32"), (16, 32, 64,
+                                                             128)):
         dtype = getattr(torch, dt)
-        q, k, v = (torch.randn(2, h, 300, D, generator=gen, device=device)
-                   .to(dtype) for h in (8, 2, 2))
+        q, k, v = (rand(2, h, 300, D, dtype=dtype) for h in (8, 2, 2))
         kern_us = cuda_ms(lambda: FA.gqa_flash_attention(q, k, v), 50) * 1e3
         plain_us = cuda_ms(lambda: FA.attention_plain(
             q, k, v, causal=True, sm_scale=D ** -0.5), 20) * 1e3
@@ -338,11 +403,21 @@ def flash_phase(device):
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
         bound_us = max(2 * 2 * 8 * 300 * 300 * D / rate,
                        nbytes / HBM_BYTES_PER_S) * 1e6
-        print(f"  {dt:<9} {D:>3} {e:>10.3e} {FLASH_TOL[dt]:>9g} "
-              f"{kern_us:>10.2f} {plain_us:>9.2f} {bound_us:>9.3f}")
+        print(f"  {dt:<9} {D:>3} {FA.route(dtype, D):<9} {kern_us:>10.2f} "
+              f"{plain_us:>9.2f} {bound_us:>9.3f}")
+    return max_err
 
-    # the serving path's prefill shape, in the model's (B, T, H, D) layout
-    B, T, Hq, Hkv, D = 4, 1000, 32, 8, 64
+
+def flash_timing(device, B, T, Hq, Hkv, D, kernel: str):
+    """One flash kernel at a path's shape, bf16 causal in the model's
+    layout: back-to-back and device-only times, the plain version's and
+    ``scaled_dot_product_attention``'s (the library call, never on the
+    path), and the bound: ``2 B Hq T^2 D`` operations at 989 TFLOP/s
+    against q, k, v and o bytes once at 3.35 TB/s."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=device).manual_seed(11)
     q, k, v = (torch.randn(B, T, h, D, generator=gen, device=device)
                .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
     t = lambda x: x.transpose(1, 2)
@@ -351,40 +426,64 @@ def flash_phase(device):
                                        sm_scale=D ** -0.5)
     err = (kern().float() - t(plain()).float()).abs().max().item()
     if err > FLASH_TOL["bfloat16"]:
-        fail(f"flash kernel != plain version at {(B, T, Hq, Hkv, D)}: "
-             f"max |diff| {err}")
-    max_err = max(max_err, err)
+        fail(f"flash {kernel} != plain version at "
+             f"{(B, T, Hq, Hkv, D)}: max |diff| {err}")
     qh, kh, vh = (t(x).contiguous() for x in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
                                                   enable_gqa=True)
     sdpa_err = (t(kern()).float() - sdpa().float()).abs().max().item()
     kern_ms = cuda_ms(kern, 50)
-    dev_us = device_us(kern, "flash_fwd_kernel", reps=20)
+    dev_us = device_us(kern, kernel, reps=20)
     plain_ms = cuda_ms(plain, 10)
     sdpa_ms = cuda_ms(sdpa, 50)
+    kern_ms2 = cuda_ms(kern, 50)
     flops = 2 * B * Hq * T * T * D
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     ops_ms = flops / BF16_TENSOR_OPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"flash kernel at (B, T, Hq, Hkv, D) = {(B, T, Hq, Hkv, D)} bf16 "
+    print(f"{kernel} at (B, T, Hq, Hkv, D) = {(B, T, Hq, Hkv, D)} bf16 "
           f"causal: max |diff| vs plain {err:.3e}, vs SDPA {sdpa_err:.3e}; "
-          f"kernel {kern_ms:.4f} ms back to back (CUDA events), device "
+          f"kernel {kern_ms:.4f} / {kern_ms2:.4f} ms back to back (CUDA "
+          f"events, before / after SDPA), device "
           f"{'not measured' if dev_us is None else f'{dev_us / 1e3:.4f} ms'}"
           f" (torch.profiler); plain {plain_ms:.4f} ms; "
           f"scaled_dot_product_attention {sdpa_ms:.4f} ms; bound "
           f"{max(ops_ms, bytes_ms):.4f} ms ({flops / 1e9:.2f} GFLOP at 989 "
           f"TFLOP/s: {ops_ms:.4f} ms; {nbytes / 1e6:.1f} MB at 3.35 TB/s: "
           f"{bytes_ms:.4f} ms)")
-    return dict(max_err=max_err, ms=kern_ms, device_us=dev_us,
+    return dict(max_err=err, ms=kern_ms, device_us=dev_us,
                 plain_ms=plain_ms, library_ms=sdpa_ms,
                 bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
+def sass_counts(lib_path) -> str:
+    """``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in a
+    built library's SASS, from the toolkit's ``cuobjdump``; fails if
+    either is missing, "not available" without ``cuobjdump``."""
+    import shutil
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if not tool:
+        return "not available (no cuobjdump)"
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=120)
+    if out.returncode:
+        return f"not available (cuobjdump exited {out.returncode})"
+    lines = [ln.split() for ln in out.stdout.splitlines()
+             if ln.strip().startswith("/*")]
+    n = {op: sum(any(tok.startswith(op) for tok in ln) for ln in lines)
+         for op in ("HGMMA", "UTMALDG")}
+    if not all(n.values()):
+        fail(f"sm90 flash kernel SASS lacks wgmma or TMA: {n}")
+    return f"HGMMA {n['HGMMA']}, UTMALDG {n['UTMALDG']}"
+
+
 @contextlib.contextmanager
 def plain_attention():
     """Inside: the model's prefill attention runs the kernel's plain
-    version (for phase 8's comparison only)."""
+    version (for the comparisons of phases 8 and 9 only)."""
     from repro_torch.kernels import flash_attention as FA
     kernel = FA.flash_attention_bthd
 
@@ -444,11 +543,11 @@ def fixture_phase(device):
         cfg, device)
     prompts = torch.as_tensor(z["prompts"], device=device)
     n = z["tokens"].shape[1]
-    before = FA.launch_count
+    before = FA.sm90_launch_count
     toks, first = serve_batch(cfg, params, prompts, n, device=device)
-    if FA.launch_count - before != cfg.n_layers:
-        fail("fixture run: flash kernel launched "
-             f"{FA.launch_count - before} times, want {cfg.n_layers}")
+    if FA.sm90_launch_count - before != cfg.n_layers:
+        fail("fixture run: sm90 flash kernel launched "
+             f"{FA.sm90_launch_count - before} times, want {cfg.n_layers}")
     want_seq = np.concatenate([z["first"][:, None], z["tokens"]], 1)
     got = teacher_forced(cfg, params, prompts,
                          torch.as_tensor(want_seq[:, :n], device=device),
@@ -488,7 +587,7 @@ def fixture_phase(device):
 
 
 def lm_phase(device):
-    """Phase 8: the full-width llama3.2-1b serving session."""
+    """Phase 9: the full-width llama3.2-1b serving session."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -512,14 +611,15 @@ def lm_phase(device):
 
     torch.cuda.reset_peak_memory_stats(device)
     timings: dict = {}
-    FA.launch_count = 0
+    FA.launch_count = FA.sm90_launch_count = 0
     R.launch_count = 0
     toks, first = serve_batch(cfg, params, prompts, N, device=device,
                               timings=timings)
-    launches = FA.launch_count
-    if launches != cfg.n_layers:
-        fail(f"serving session launched the flash kernel {launches} times, "
-             f"want {cfg.n_layers} (one per layer)")
+    launches = FA.sm90_launch_count
+    if launches != cfg.n_layers or FA.launch_count:
+        fail(f"serving session launched the sm90 flash kernel {launches} "
+             f"times and the CUDA-core one {FA.launch_count} times, want "
+             f"{cfg.n_layers} (one per layer) and 0")
     peak = torch.cuda.max_memory_allocated(device)
     seq = torch.cat([first[:, None], toks], 1)
     if seq.shape != (B, N + 1) or int(seq.min()) < 0 \
@@ -531,8 +631,8 @@ def lm_phase(device):
         fail("serving session: non-finite logits")
     with plain_attention():
         plain = teacher_forced(cfg, params, prompts, seq[:, :N], device)
-    if FA.launch_count != 2 * cfg.n_layers:
-        fail("the plain-version prefill launched the kernel")
+    if FA.sm90_launch_count != 2 * cfg.n_layers or FA.launch_count:
+        fail("the plain-version prefill launched a kernel")
     pre_diff = (kern[0] - plain[0]).abs().max().item()
     if not torch.allclose(kern[0], plain[0], **LM_TOL):
         fail(f"full-width prefill logits, kernel vs plain version: max "
@@ -552,13 +652,62 @@ def lm_phase(device):
           f"({B * T / pre:.0f} prompt tokens/s); decode {dec * 1e3:.2f} ms = "
           f"{dec * 1e3 / N:.3f} ms per step ({B * N / dec:.1f} tokens/s); "
           f"end to end {B * N / (pre + dec):.1f} new tokens/s; peak memory "
-          f"{peak / 2**30:.2f} GiB; flash launches {launches} "
-          f"(readiness {R.launch_count})")
+          f"{peak / 2**30:.2f} GiB; flash launches: sm90 {launches}, "
+          f"CUDA-core {FA.launch_count} (readiness {R.launch_count})")
     print(f"  kernel vs plain version through the model: prefill logits max "
           f"|diff| {pre_diff:.3e}, teacher-forced decode logits max |diff| "
           f"{dec_diff:.3e}; greedy tokens equal at {int(checked.sum())} of "
           f"{checked.numel()} positions with a top-two margin above "
           f"{LM_TOL['atol']} ({int(same.sum())} equal in all)")
+    return launches
+
+
+def reduced_shape():
+    """The prefill attention shape (B, T, Hq, Hkv, D) of phase 8."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(LM["arch"]).reduced()
+    return (REDUCED["batch"], REDUCED["prompt_len"], cfg.n_heads,
+            cfg.n_kv_heads, cfg.head_dim)
+
+
+def reduced_phase(device):
+    """The reduced llama3.2-1b (``launch/serve.py --reduced``: 2 heads of
+    head dim 32, bf16), the path of the CUDA-core flash kernel: 4 requests
+    of 256 prompt tokens, 8 new tokens each, with every launch count set to
+    0 just before and read just after; then its prefill logits, kernel vs
+    plain version, within 2e-2."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import init_params
+    from repro_torch.serve.step import serve_batch
+    cfg = get_arch(LM["arch"]).reduced()
+    params = init_params(cfg, LM["seed"], device)
+    rng = np.random.default_rng(LM["seed"])
+    B, T, N = REDUCED["batch"], REDUCED["prompt_len"], REDUCED["max_new"]
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (B, T)),
+                              dtype=torch.int32, device=device)
+    FA.launch_count = FA.sm90_launch_count = 0
+    toks, first = serve_batch(cfg, params, prompts, N, device=device)
+    launches = FA.launch_count
+    if launches != cfg.n_layers or FA.sm90_launch_count:
+        fail(f"reduced session launched the CUDA-core flash kernel "
+             f"{launches} times and the sm90 one {FA.sm90_launch_count} "
+             f"times, want {cfg.n_layers} and 0")
+    seq = torch.cat([first[:, None], toks], 1)
+    kern = teacher_forced(cfg, params, prompts, seq[:, :1], device)
+    with plain_attention():
+        plain = teacher_forced(cfg, params, prompts, seq[:, :1], device)
+    diff = (kern[0] - plain[0]).abs().max().item()
+    if not (torch.isfinite(kern[0]).all()
+            and torch.allclose(kern[0], plain[0], **LM_TOL)):
+        fail(f"reduced prefill logits, kernel vs plain version: max |diff| "
+             f"{diff} beyond {LM_TOL}")
+    print(f"reduced session {cfg.name} (heads {cfg.n_heads}, head_dim "
+          f"{cfg.head_dim}) on {device}: {B} x {T} prompt tokens, {N} new "
+          f"each; flash launches: CUDA-core {launches}, sm90 0; prefill "
+          f"logits kernel vs plain max |diff| {diff:.3e}")
     return launches
 
 
@@ -584,20 +733,38 @@ def main() -> int:
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    logs = build.build("readiness", "flash_attention")
+    logs = build.build("readiness", "flash_attention", "flash_attention_sm90")
     print(f"built kernels in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         print(f"nvcc {name}:\n{log.strip()}")
+    print("sm90 flash kernel SASS: " + sass_counts(
+        build.library_path("flash_attention_sm90")))
 
     max_err, krows = kernel_phase(device)
-    flash = flash_phase(device)
+    flash_err = flash_phase(device)
+    # each flash kernel at its path's shape (timed before the golden phase's
+    # worker processes: after them the profiler may report no device time)
+    sm90 = flash_timing(device, *SERVE_SHAPE, kernel="flash_fwd_sm90_kernel")
+    flash_timing(device, *SERVE_SHAPE[:4], 128, kernel="flash_fwd_sm90_kernel")
+    core = flash_timing(device, *reduced_shape(), kernel="flash_fwd_kernel")
     golden_phase("cuda")
     launches = main_path_phase(device)
     fixture_phase(device)
-    flash_launches = lm_phase(device)
+    core_launches = reduced_phase(device)
+    sm90_launches = lm_phase(device)
 
     r = krows[MAIN["standard"]]
     bound_by = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
+
+    def flash_row(name, source, launches, t, err):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{source}",
+                "replaces": "src/repro/kernels/flash_attention.py:73",
+                "launches": launches, "max_abs_err": max(err, t["max_err"]),
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"]}
+
     print(json.dumps({"kernels": [{
         "name": "readiness_table", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/readiness.cu",
@@ -605,14 +772,11 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_err,
         "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
         "bound_ms": max(r["bytes_ms"], r["ops_ms"]), "bound_by": bound_by,
-        "library_ms": None}, {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:73",
-        "launches": flash_launches, "max_abs_err": flash["max_err"],
-        "ms": flash["ms"], "plain_ms": flash["plain_ms"],
-        "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
-        "library_ms": flash["library_ms"]}]}))
+        "library_ms": None},
+        flash_row("flash_attention", "flash_attention.cu", core_launches,
+                  core, flash_err["cuda_core"]),
+        flash_row("flash_attention_sm90", "flash_attention_sm90.cu",
+                  sm90_launches, sm90, flash_err["sm90"])]}))
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s",
           file=sys.stderr)
     print(json.dumps({"ok": True, "device": {

@@ -38,8 +38,10 @@
 // q row, each holding 16 interleaved dims of q and acc in registers
 // (conflict-free shared reads), the row's dot product finished with warp
 // shuffles; the tile's scores in registers; kv tiles wholly above the
-// diagonal skipped; q tiles scheduled latest (heaviest) first.  wgmma and
-// TMA come in a later PR (ROADMAP.md queue 2).
+// diagonal skipped; q tiles scheduled latest (heaviest) first.  bf16 at
+// D 64 and 128 (the serving path) goes to the tensor-core kernel,
+// csrc/flash_attention_sm90.cu; this one keeps fp32 (TF32 tensor cores
+// would miss fp32's 2e-5) and bf16 at D 16 and 32.
 //
 // C interface, bound with ctypes from repro_torch/kernels/flash_attention.py.
 

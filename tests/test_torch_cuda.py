@@ -9,10 +9,13 @@ with PyTorch alone.  The kernel is held bit for bit against its plain
 PyTorch version on device states after random command histories, at
 timestamps below and above 2**24; the engine on ``cuda`` reproduces a
 golden command stream and launches the kernel.  The flash-attention
-kernel is held against its plain version at the reference's tolerances
-(fp32 2e-5, bf16 2e-2), and the reduced GQA Llama of
-``tests/torch_serve_fixture.npz`` served on ``cuda`` gives the JAX
-package's logits (atol 0.2, rtol 0.05) and greedy tokens."""
+kernels are held against their plain version at the reference's
+tolerances (fp32 2e-5, bf16 2e-2), each call counted on the route
+``flash_attention.route`` picks (the tensor-core kernel also on ragged
+and ring-wrapping lengths, Tq != Tk, GQA rep 8 and fused qkv views),
+and the reduced GQA Llama of ``tests/torch_serve_fixture.npz`` served on
+``cuda`` gives the JAX package's logits (atol 0.2, rtol 0.05) and greedy
+tokens."""
 import json
 import os
 
@@ -114,16 +117,84 @@ def test_flash_kernel_equals_plain_version(cuda, dtype, tol, D, causal):
         q, k, v = ((torch.randn(2, h, T, D, generator=gen, device=cuda)
                     * 0.3).to(dtype) for h in (2 * rep, 2, 2))
         t = lambda x: x.transpose(1, 2).contiguous()
-        before = FA.launch_count
+        before = _counts()
         got = FA.gqa_flash_attention(q, k, v, causal=causal)
         got2 = FA.flash_attention_bthd(t(q), t(k), t(v), causal=causal)
-        assert FA.launch_count == before + 2
+        assert _counts() == _stepped(before, FA.route(dtype, D), 2)
         want = FA.attention_plain(q, k, v, causal=causal, sm_scale=D ** -0.5)
         torch.cuda.synchronize()
         assert got.dtype == dtype and got.shape == want.shape
         torch.testing.assert_close(got, want, atol=tol, rtol=tol)
         torch.testing.assert_close(got2.transpose(1, 2), want, atol=tol,
                                    rtol=tol)
+
+
+def _counts():
+    return {"cuda_core": FA.launch_count, "sm90": FA.sm90_launch_count}
+
+
+def _stepped(before, route, n):
+    return {k: c + (n if k == route else 0) for k, c in before.items()}
+
+
+def _sm90_check(q, k, v, causal, head_axis=2):
+    """One sm90 launch (counted on its route alone) within the bf16
+    tolerance of the plain version."""
+    t = (lambda x: x) if head_axis == 1 else (lambda x: x.transpose(1, 2))
+    before = _counts()
+    if head_axis == 1:
+        got = FA.gqa_flash_attention(q, k, v, causal=causal)
+    else:
+        got = FA.flash_attention_bthd(q, k, v, causal=causal)
+    assert _counts() == _stepped(before, "sm90", 1)
+    want = t(FA.attention_plain(t(q), t(k), t(v), causal=causal,
+                                sm_scale=q.shape[-1] ** -0.5))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("Tq,Tk", [(100, 100), (300, 300), (1000, 1000),
+                                   (4096, 4096), (40, 100)])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sm90_kernel_equals_plain_version(cuda, causal, D, Tq, Tk, rep):
+    """The tensor-core kernel: T 1000 is ragged (7 x 128 + 104), at T 4096
+    the 2-stage k/v ring wraps 16 times, Tq != Tk keeps the top-left
+    mask."""
+    gen = torch.Generator(device=cuda).manual_seed(D + Tq + rep)
+    q, k, v = (torch.randn(1 if Tq == 4096 else 2, T, h, D, generator=gen,
+                           device=cuda).to(torch.bfloat16)
+               for T, h in ((Tq, 2 * rep), (Tk, 2), (Tk, 2)))
+    _sm90_check(q, k, v, causal)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sm90_layouts_and_fused_qkv_view(cuda, causal, D):
+    gen = torch.Generator(device=cuda).manual_seed(3 * D)
+    q, k, v = (torch.randn(2, h, 300, D, generator=gen, device=cuda)
+               .to(torch.bfloat16) for h in (8, 2, 2))
+    _sm90_check(q, k, v, causal, head_axis=1)
+    qkv = torch.randn(2, 300, 12, D, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    _sm90_check(*qkv.split([8, 2, 2], dim=2), causal)
+
+
+def test_sm90_rejects_misaligned_tensors(cuda):
+    """TMA needs a 16-byte aligned base and 16-byte multiples for its
+    strides: the wrapper raises, and neither kernel is launched."""
+    flat = torch.zeros(1 + 2 * 64 * 4 * 64, dtype=torch.bfloat16,
+                       device=cuda)
+    shifted = flat[1:].view(2, 64, 4, 64)
+    padded = torch.zeros(2, 64, 4, 68, dtype=torch.bfloat16,
+                         device=cuda)[..., :64]
+    before = _counts()
+    for bad in (shifted, padded):
+        with pytest.raises(ValueError):
+            FA.flash_attention_bthd(bad, bad, bad, causal=True)
+    assert _counts() == before
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
@@ -149,9 +220,10 @@ def test_serve_fixture_on_cuda(cuda):
     pr = torch.as_tensor(z["prompts"], device=cuda)
     B, T = pr.shape
     n = z["tokens"].shape[1]
-    before = FA.launch_count
+    before = _counts()
     toks, first = serve_batch(cfg, params, pr, n)
-    assert FA.launch_count == before + cfg.n_layers
+    route = FA.route(torch.bfloat16, cfg.head_dim)
+    assert _counts() == _stepped(before, route, cfg.n_layers)
     want_seq = np.concatenate([z["first"][:, None], z["tokens"]], 1)
     seq = torch.as_tensor(want_seq, device=cuda)
     pos = torch.arange(T, dtype=torch.int32, device=cuda)[None].repeat(B, 1)

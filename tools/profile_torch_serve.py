@@ -14,9 +14,10 @@ kernel for each, and a JSON summary as the last line with
 ``decode_device_ms_per_step``, ``decode_launches_per_step``,
 ``decode_ops_per_step`` (top-level operator calls),
 ``decode_busy_share`` (device time per step over the unprofiled wall
-time per step), ``flash_device_ms`` (the flash kernel's device time per
-launch in the prefill) and ``flash_share_of_prefill``.  Device numbers
-are ``null`` when the profiler reports no device work.
+time per step), ``flash_device_ms`` (the flash kernels' device time
+per launch in the prefill: ``flash_fwd_sm90_kernel`` at head dim 64/128
+in bf16, ``flash_fwd_kernel`` otherwise) and ``flash_share_of_prefill``.
+Device numbers are ``null`` when the profiler reports no device work.
 """
 from __future__ import annotations
 
@@ -66,7 +67,7 @@ def main() -> int:
                               dtype=torch.int32, device=dev)
     serve_batch(cfg, params, prompts, 2, device=dev)          # warm-up
     timings: dict = {}
-    FA.launch_count = 0
+    FA.launch_count = FA.sm90_launch_count = 0
     toks, first = serve_batch(cfg, params, prompts, N, device=dev,
                               timings=timings)
     pre_ms = timings["prefill_s"] * 1e3
@@ -74,8 +75,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(dev) if cuda else "cpu"
     print(f"{cfg.name} on {name}: {B} x {T} prompt tokens, {N} new: "
           f"prefill {pre_ms:.3f} ms, decode {dec_ms:.3f} ms/step "
-          f"({B / dec_ms * 1e3:.1f} tokens/s), flash launches "
-          f"{FA.launch_count}")
+          f"({B / dec_ms * 1e3:.1f} tokens/s), flash launches: sm90 "
+          f"{FA.sm90_launch_count}, CUDA-core {FA.launch_count}")
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     sort = "self_cuda_time_total" if cuda else "self_cpu_time_total"
@@ -91,7 +92,8 @@ def main() -> int:
         sync()
     pre_rows = device_rows(prof)
     pre_dev = sum(e.self_device_time_total for e in pre_rows) / 1e3
-    flash = [e for e in pre_rows if "flash_fwd_kernel" in e.key]
+    flash = [e for e in pre_rows if "flash_fwd_kernel" in e.key
+             or "flash_fwd_sm90_kernel" in e.key]
     flash_ms = (sum(e.self_device_time_total for e in flash) / 1e3
                 / max(1, sum(e.count for e in flash))) if flash else None
     print("prefill:")
