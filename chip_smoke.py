@@ -13,7 +13,17 @@ Phases, each fatal on any mismatch or exception:
 3. hold the readiness kernel against its plain version on the card, bit
    for bit, on random device histories of every default system
    (timestamps below and above 2**24), and time kernel and plain version
-   with CUDA events at the main path's shapes;
+   with CUDA events at the main path's shapes; then hold the fused
+   controller-step kernel against ``step_and_horizon_plain`` on the same
+   CUDA tensors, bit for bit in next state, every event field and the
+   horizon, on random controller states of every default system (clocks
+   from 0 and from 2**24 + 12345; full, half and empty queues with
+   arrival ties; refresh units before, at and past the urgent margin;
+   LPDDR5/6 banks activating near their ACT-2 deadline; both schedulers,
+   refresh on and off, queue depths 8, 32 and 64; 3 channels in one
+   launch; 4 cycles in a row, the last without the horizon), and time it
+   at the DDR5 main path's shapes: back to back (CUDA events), device
+   only (``torch.profiler``) and the plain version per call;
 4. hold both flash-attention kernels against their plain version, fp32
    at 2e-5 and bf16 at 2e-2 (the reference's tolerances), every call
    counted on the route ``flash_attention.route`` picks: causal and full,
@@ -27,12 +37,15 @@ Phases, each fatal on any mismatch or exception:
 5. reproduce the 11 single-spec golden command-stream hashes of
    ``tests/trace/golden_hashes.json`` on ``cuda`` (3000 cycles, interval
    2.0, read ratio 0.7, FR-FCFS, fast-forward on), each run launching the
-   readiness kernel; the runs share the card from worker processes, one
-   per spare CPU core, since each is bound by its host loop;
+   fused controller-step kernel once per executed step and the plain
+   step never; the runs share the card from worker processes, one per
+   spare CPU core, since each is bound by its host loop;
 6. run the README's session — DDR5_16Gb_x8 / DDR5_4800B, 20,000 cycles,
    interval 2.0, read ratio 0.8 — with every launch count set to 0 just
    before and read just after, and require its ``Stats`` to equal the
-   reference fixture ``tests/torch_main_path_stats.json`` exactly;
+   reference fixture ``tests/torch_main_path_stats.json`` exactly, one
+   fused launch per executed step and no call of the plain step; print
+   steps/s, cycles/s, ms per step and launches;
 7. serve the reduced GQA Llama of ``tests/torch_serve_fixture.npz`` (the
    JAX package's parameters, prompts, tokens and logits) on ``cuda``:
    prefill and teacher-forced decode logits within atol 0.2 / rtol 0.05,
@@ -136,29 +149,6 @@ def device_us(fn, kernel: str, reps: int = 200):
     return total / count if total and count else None
 
 
-def random_state(cspec, dp, device, seed: int, clk0: int, steps: int = 80):
-    """A device state after ``steps`` random commands at random
-    addresses and increasing clocks, applied with the port's ``issue``."""
-    import numpy as np
-    import torch
-    from repro_torch.core import device as D
-    rng = np.random.default_rng(seed)
-    state = D.init_state(cspec, 1, device)
-    clk = clk0
-    counts = [int(c) for c in cspec.level_counts[1:]]
-    for _ in range(steps):
-        cmd = torch.tensor([int(rng.integers(cspec.n_cmds))],
-                           dtype=torch.int32, device=device)
-        sub = torch.tensor([[int(rng.integers(c)) for c in counts]],
-                           dtype=torch.int32, device=device)
-        row = torch.tensor([int(rng.integers(64))], dtype=torch.int32,
-                           device=device)
-        on = torch.ones(1, dtype=torch.bool, device=device)
-        state = D.issue(cspec, dp, state, cmd, sub, row, clk, on)
-        clk += int(rng.integers(1, 8))
-    return state
-
-
 def kernel_phase(device):
     """Kernel vs plain version on every default system; timings at the
     main path's (DDR5, one channel) shapes."""
@@ -167,13 +157,15 @@ def kernel_phase(device):
     from repro_torch.core import device as D
     from repro_torch.core.standards import DEFAULT_SYSTEMS
     from repro_torch.kernels import readiness as R
+    from repro_torch.testing import random_device_state
     max_err, rows = 0, []
     for i, (std, (org, tim)) in enumerate(sorted(DEFAULT_SYSTEMS.items())):
         cspec = compile_spec(std, org, tim)
         dp = D.dyn_params(cspec, device)
         tab = dp.tables.ready
         for j, clk0 in enumerate((0, (1 << 24) + 12345)):
-            st = random_state(cspec, dp, device, seed=100 * i + j, clk0=clk0)
+            st, _ = random_device_state(cspec, dp, device, seed=100 * i + j,
+                                        clk0=clk0)
             got = R.readiness_table_cuda(tab, st.last_issue, st.win_ring)
             want = R.readiness_table_plain(tab, st.last_issue, st.win_ring)
             torch.cuda.synchronize()
@@ -215,18 +207,117 @@ def kernel_phase(device):
     return max_err, {r["std"]: r for r in rows}
 
 
+def fused_phase(device):
+    """The fused controller-step kernel vs ``step_and_horizon_plain`` on
+    every default system and case; timings at the DDR5 main path's shapes
+    (one channel, queue depth 32, FR-FCFS, refresh on)."""
+    import itertools
+    import torch
+    from repro_torch import testing as T
+    from repro_torch.core import ControllerConfig, compile_spec
+    from repro_torch.core import controller as C
+    from repro_torch.core import device as D
+    from repro_torch.core.standards import DEFAULT_SYSTEMS
+    from repro_torch.kernels import controller_step as KS
+    steps = max_err = 0
+    for i, (std, (org, tim)) in enumerate(sorted(DEFAULT_SYSTEMS.items())):
+        cspec = compile_spec(std, org, tim)
+        dp = D.dyn_params(cspec, device, channels=3)
+        cases = itertools.product(("FRFCFS", "FCFS"), (True, False),
+                                  (8, 32, 64), (0, (1 << 24) + 12345))
+        for j, (sched, refresh, depth, clk0) in enumerate(cases):
+            cfg = ControllerConfig(scheduler=sched, refresh_enabled=refresh)
+            cs, clk = T.random_ctrl_state(cspec, dp, device, seed=100 * i + j,
+                                          clk0=clk0, depth=depth)
+            kcs = T.clone_ctrl(cs)
+            for step in range(4):
+                before = KS.launch_count
+                kh = ph = None
+                if step == 3:
+                    kcs, kev = C.controller_step(cspec, dp, cfg, kcs, clk)
+                    cs, pev = C.controller_step_plain(cspec, dp, cfg, cs, clk)
+                else:
+                    kcs, kev, kh = C.step_and_horizon(cspec, dp, cfg, kcs,
+                                                      clk)
+                    cs, pev, ph = C.step_and_horizon_plain(cspec, dp, cfg,
+                                                           cs, clk)
+                torch.cuda.synchronize()
+                diff = {**T.ctrl_diff(kcs, cs), **T.events_diff(kev, pev)}
+                if kh is not None:
+                    h = int((kh.long() - ph.long()).abs().max())
+                    diff.update({"horizon": h} if h else {})
+                max_err = max([max_err, *(v for v in diff.values()
+                                          if isinstance(v, int))])
+                if diff or KS.launch_count != before + 1:
+                    fail(f"fused controller step != plain version on {std} "
+                         f"({sched}, refresh {refresh}, depth {depth}, clock "
+                         f"{clk}, step {step}): {diff}")
+                steps += 1
+                clk += 1
+
+    # timings at the DDR5 main path's shapes, on a state of its own (the
+    # kernel updates its input in place)
+    std = MAIN["standard"]
+    cspec = compile_spec(std, MAIN["org"], MAIN["timing"])
+    dp = D.dyn_params(cspec, device)
+    cfg = ControllerConfig()
+    cs, clk = T.random_ctrl_state(cspec, dp, device, seed=5, clk0=1000,
+                                  depth=cfg.queue_depth, channels=1)
+    plan = C.step_plan(cspec, dp, cfg, cs)
+    kern = lambda: C.step_and_horizon(cspec, dp, cfg, cs, clk)
+    ms = cuda_ms(kern, 2000)
+    dev_us = device_us(kern, "controller_step_kernel")
+    pcs = T.clone_ctrl(cs)
+    plain_ms = cuda_ms(lambda: C.step_and_horizon_plain(cspec, dp, cfg, pcs,
+                                                        clk), 200)
+    ms2 = cuda_ms(kern, 2000)
+    # bytes: the plan's constants, the state in and out (valid in and out,
+    # the rest of the queue in), the events row out
+    inout = (*cs.dev, cs.hit_streak, cs.prac_count, cs.queue.valid)
+    nbytes = (plan.consts.numel() * 4
+              + 2 * sum(t.numel() * t.element_size() for t in inout)
+              + sum(t.numel() * t.element_size() for t in (
+                  cs.queue.is_write, cs.queue.is_probe, cs.queue.sub,
+                  cs.queue.row, cs.queue.arrive))
+              + plan.out.numel() * 4)
+    # operations: the table's compare, add and max per present (key, cmd)
+    # and bank, and per queue slot its prerequisite, mask and key (about
+    # 40 integer operations), for one pass; the horizon's key loop per
+    # valid slot and refresh unit
+    present = int(dp.tables.ready.present.sum())
+    keys = dp.tables.ready.A.shape[0]
+    ops = (3 * present * cspec.n_banks + 40 * cfg.queue_depth
+           + 3 * keys * (int(cs.queue.valid.sum()) + cspec.n_refresh_units))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / CUDA_CORE_OPS_PER_S * 1e3
+    print(f"fused controller step vs plain version: {steps} steps on all "
+          f"default systems (state, events, horizon: max |diff| {max_err})")
+    print(f"  at {std} (1 channel, queue depth {cfg.queue_depth}): kernel "
+          f"{ms * 1e3:.2f} / {ms2 * 1e3:.2f} us back to back (CUDA events, "
+          f"before / after the plain version), device "
+          f"{'not measured' if dev_us is None else f'{dev_us:.3f} us'} "
+          f"(torch.profiler); plain version {plain_ms * 1e3:.2f} us per "
+          f"call; bound {max(bytes_ms, ops_ms) * 1e6:.3f} ns ({nbytes} B at "
+          f"3.35 TB/s: {bytes_ms * 1e6:.3f} ns; {ops} integer operations at "
+          f"67 TOP/s: {ops_ms * 1e6:.3f} ns)")
+    return dict(steps=steps, max_err=max_err, ms=ms, ms2=ms2, device_us=dev_us,
+                plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
 def golden_run(std: str, org: str, tim: str, device: str) -> dict:
     """One run of the port at the golden configuration (run in a worker
-    process): its command count and digest, executed steps, wall seconds
-    and readiness-kernel launches."""
+    process): its command count and digest, executed steps, wall seconds,
+    fused-kernel launches and plain-step calls."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     from repro_torch.core import ControllerConfig, Simulator
-    from repro_torch.kernels import readiness as R
+    from repro_torch.core import controller as C
+    from repro_torch.kernels import controller_step as KS
     from repro_torch.trace import capture, trace_sha256
     sim = Simulator(std, org, tim, device=device,
                     controller=ControllerConfig(scheduler="FRFCFS"))
-    R.launch_count = 0
+    KS.launch_count = C.plain_calls = 0
     t0 = time.perf_counter()
     stats, dense = sim.run(3000, interval=2.0, read_ratio=0.7, trace=True)
     if sim.device.type == "cuda":
@@ -234,7 +325,7 @@ def golden_run(std: str, org: str, tim: str, device: str) -> dict:
     wall = time.perf_counter() - t0
     tr = capture(sim.cspec, dense)
     return dict(n=len(tr), sha256=trace_sha256(tr), steps=stats.scan_steps,
-                wall=wall, launches=R.launch_count)
+                wall=wall, launches=KS.launch_count, plain=C.plain_calls)
 
 
 def golden_phase(device: str):
@@ -259,47 +350,54 @@ def golden_phase(device: str):
     for std, r in results:
         ok = r["n"] == golden[std]["n"] and r["sha256"] == golden[std]["sha256"]
         print(f"  {std:<9} commands {r['n']:>5}  steps {r['steps']:>5}  "
-              f"readiness launches {r['launches']:>5}  {r['wall']:7.2f} s  "
+              f"fused launches {r['launches']:>5}  plain steps "
+              f"{r['plain']}  {r['wall']:7.2f} s  "
               f"{'match' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"{std} command stream differs from its golden hash")
-        if r["launches"] <= 0:
-            fail(f"{std} run did not launch the readiness kernel")
+        if r["launches"] != r["steps"] or r["plain"]:
+            fail(f"{std} run launched the fused kernel {r['launches']} times "
+                 f"in {r['steps']} steps and called the plain step "
+                 f"{r['plain']} times")
 
 
 def main_path_phase(device):
     import torch
     from repro_torch.core import (Simulator, avg_probe_latency_ns,
                                   throughput_gbps)
+    from repro_torch.core import controller as C
+    from repro_torch.kernels import controller_step as KS
     from repro_torch.kernels import readiness as R
     want = json.loads((ROOT / "tests" /
                        "torch_main_path_stats.json").read_text())
     sim = Simulator(MAIN["standard"], MAIN["org"], MAIN["timing"],
                     device=device)
-    R.launch_count = 0
+    KS.launch_count = R.launch_count = C.plain_calls = 0
     sim.host_syncs = 0
     t0 = time.perf_counter()
     stats = sim.run(MAIN["n_cycles"], interval=MAIN["interval"],
                     read_ratio=MAIN["read_ratio"], seed=MAIN["seed"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = R.launch_count
+    launches, plain, dense = KS.launch_count, C.plain_calls, R.launch_count
     got = stats.to_dict()
     if got != want["stats"]:
         diff = {k: (got[k], want["stats"].get(k)) for k in got
                 if got[k] != want["stats"].get(k)}
         fail(f"main-path Stats differ from the reference fixture: {diff}")
-    if launches <= 0:
-        fail("main path did not launch the readiness kernel")
     steps = stats.scan_steps
+    if launches != steps or plain:
+        fail(f"main path launched the fused kernel {launches} times in "
+             f"{steps} steps and called the plain step {plain} times")
     print(f"main path {MAIN['standard']} {MAIN['n_cycles']} cycles: Stats "
           f"== reference fixture; wall {wall:.2f} s, executed steps {steps},"
           f" {steps / wall:.1f} steps/s, {MAIN['n_cycles'] / wall:.1f} "
-          f"cycles/s, host syncs {sim.host_syncs}, readiness launches "
-          f"{launches}, throughput {throughput_gbps(sim.cspec, stats):.3f} "
-          f"GB/s, probe latency "
-          f"{avg_probe_latency_ns(sim.cspec, stats):.2f} ns")
-    return launches
+          f"cycles/s, {wall / steps * 1e3:.3f} ms per step, host syncs "
+          f"{sim.host_syncs}, fused controller-step launches {launches}, "
+          f"plain steps {plain}, readiness-table launches {dense}, "
+          f"throughput {throughput_gbps(sim.cspec, stats):.3f} GB/s, probe "
+          f"latency {avg_probe_latency_ns(sim.cspec, stats):.2f} ns")
+    return launches, dense
 
 
 def flash_call(FA, q, k, v, causal: bool, head_axis: int, want):
@@ -733,7 +831,8 @@ def main() -> int:
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    logs = build.build("readiness", "flash_attention", "flash_attention_sm90")
+    logs = build.build("readiness", "controller_step", "flash_attention",
+                       "flash_attention_sm90")
     print(f"built kernels in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         print(f"nvcc {name}:\n{log.strip()}")
@@ -741,6 +840,7 @@ def main() -> int:
         build.library_path("flash_attention_sm90")))
 
     max_err, krows = kernel_phase(device)
+    fused = fused_phase(device)
     flash_err = flash_phase(device)
     # each flash kernel at its path's shape (timed before the golden phase's
     # worker processes: after them the profiler may report no device time)
@@ -748,7 +848,7 @@ def main() -> int:
     flash_timing(device, *SERVE_SHAPE[:4], 128, kernel="flash_fwd_sm90_kernel")
     core = flash_timing(device, *reduced_shape(), kernel="flash_fwd_kernel")
     golden_phase("cuda")
-    launches = main_path_phase(device)
+    fused_launches, launches = main_path_phase(device)
     fixture_phase(device)
     core_launches = reduced_phase(device)
     sm90_launches = lm_phase(device)
@@ -772,6 +872,13 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_err,
         "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
         "bound_ms": max(r["bytes_ms"], r["ops_ms"]), "bound_by": bound_by,
+        "library_ms": None}, {
+        "name": "controller_step", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/controller_step.cu",
+        "replaces": "src/repro/kernels/timing_check.py:51",
+        "launches": fused_launches, "max_abs_err": fused["max_err"],
+        "ms": fused["ms"], "plain_ms": fused["plain_ms"],
+        "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"],
         "library_ms": None},
         flash_row("flash_attention", "flash_attention.cu", core_launches,
                   core, flash_err["cuda_core"]),

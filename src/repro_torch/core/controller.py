@@ -7,10 +7,19 @@ predicates (boolean masks over the request queue), run twice per cycle
 leading channel axis; the reference's per-channel ``vmap`` is that axis.
 
 Ported: the FR-FCFS / FCFS schedulers, the refresh engine, the
-refresh-urgency and ACT-2 predicates, ``controller_step`` and
-``channel_horizon``.  The BlockHammer and PRAC predicates and
-user-supplied ``extra_predicates`` are not ported yet: a
-:class:`ControllerConfig` that asks for them raises.
+refresh-urgency and ACT-2 predicates, the controller step and the channel
+horizon.  The BlockHammer and PRAC predicates and user-supplied
+``extra_predicates`` are not ported yet: a :class:`ControllerConfig` that
+asks for them raises.
+
+The step has two versions that compute the same function bit for bit:
+the fused CUDA kernel of ``repro_torch.kernels.controller_step`` (one
+launch per cycle: readiness, selection, refresh, issue, events and the
+next horizon) and its plain PyTorch version here
+(:func:`controller_step_plain`, :func:`channel_horizon_plain`,
+:func:`step_and_horizon_plain`).  :func:`controller_step` and
+:func:`step_and_horizon` dispatch: the kernel on CUDA tensors, the plain
+version on CPU tensors, an error otherwise.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ import torch
 from repro_torch.core import device as D
 from repro_torch.core import spec as S
 from repro_torch.core.compile import CompiledSpec
+from repro_torch.kernels import controller_step as KS
 
 I32 = torch.int32
 I32_MAX = 2**31 - 1
@@ -93,6 +103,10 @@ def queue_insert(q: Queue, is_write, is_probe, sub, row, col, arrive, want):
     hit = first & ok[:, None]
 
     def put(a, v):
+        # a 0-d tensor value goes through where: masked_fill would read it
+        # back to the host (a device sync per field on CUDA)
+        if isinstance(v, torch.Tensor):
+            return torch.where(hit, v, a)
         return a.masked_fill(hit, v)
     return Queue(valid=q.valid | hit,
                  is_write=put(q.is_write, is_write),
@@ -231,7 +245,7 @@ def _candidates(cspec, dp, cs, clk, bank):
     cand_cmd, cand_row, open_hit = D.prereq(cspec, dp, cs.dev, q.is_write,
                                             q.sub, q.row, clk)
     # dense (C, n_cmds, n_banks) earliest table + one (C, Q) lookup
-    table = D.earliest_ready_table(cspec, dp, cs.dev)
+    table = D.earliest_ready_table_plain(cspec, dp, cs.dev)
     timing_ready = clk >= D.table_at(table, cand_cmd, bank)
     return cand_cmd, cand_row, open_hit, timing_ready, table
 
@@ -379,8 +393,8 @@ def _select_and_issue(cspec, dp, cs, clk, cfg, preds, cmd_ok, sched_fn):
 HORIZON_MAX = 1 << 30
 
 
-def channel_horizon(cspec: CompiledSpec, dp: D.DynParams,
-                    cfg: ControllerConfig, cs: CtrlState, clk):
+def channel_horizon_plain(cspec: CompiledSpec, dp: D.DynParams,
+                          cfg: ControllerConfig, cs: CtrlState, clk):
     """Earliest cycle ``>= clk`` at which each channel could issue any
     command — queue candidate or refresh engine — on the current state,
     ``(C,)``.  Conservative by construction (predicate, bus-kind and
@@ -399,7 +413,7 @@ def channel_horizon(cspec: CompiledSpec, dp: D.DynParams,
     bank = D.flat_bank(cspec, tab, q.sub)
     cand_cmd, _, _ = D.prereq(cspec, dp, cs.dev, q.is_write, q.sub, q.row,
                               clk)
-    table = D.earliest_ready_table(cspec, dp, cs.dev)
+    table = D.earliest_ready_table_plain(cspec, dp, cs.dev)
     h = D.table_at(table, cand_cmd, bank).masked_fill(
         ~q.valid, HORIZON_MAX).amin(1)
     if cfg.refresh_enabled:
@@ -445,11 +459,19 @@ def _pack_events(ev_col: dict, ev_row: dict | None = None) -> StepEvents:
     )
 
 
-def controller_step(cspec: CompiledSpec, dp: D.DynParams,
-                    cfg: ControllerConfig, cs: CtrlState, clk) -> tuple:
-    """One controller cycle of every channel.  Dual-C/A standards run the
-    selection pipeline twice — a column pass and a row pass; others run
-    it once."""
+#: calls of :func:`controller_step_plain` (on any device): a run on the
+#: card shows with it that its main path never fell back to the plain step
+plain_calls = 0
+
+
+def controller_step_plain(cspec: CompiledSpec, dp: D.DynParams,
+                          cfg: ControllerConfig, cs: CtrlState,
+                          clk) -> tuple:
+    """One controller cycle of every channel in plain PyTorch.  Dual-C/A
+    standards run the selection pipeline twice — a column pass and a row
+    pass; others run it once."""
+    global plain_calls
+    plain_calls += 1
     preds = cfg.predicates()
     if not cspec.split_activation:      # both ACT-2 predicates are all-true
         preds = (pred_refresh_urgency,)
@@ -464,3 +486,93 @@ def controller_step(cspec: CompiledSpec, dp: D.DynParams,
     cs, ev = _select_and_issue(cspec, dp, cs, clk, cfg, preds, None,
                                sched_fn)
     return cs, _pack_events(ev)
+
+
+def step_and_horizon_plain(cspec: CompiledSpec, dp: D.DynParams,
+                           cfg: ControllerConfig, cs: CtrlState,
+                           clk) -> tuple:
+    """The fused kernel's plain version: :func:`controller_step_plain` at
+    ``clk``, then :func:`channel_horizon_plain` at ``clk + 1`` on the new
+    state.  Returns ``(cs', events, horizon (C,))``."""
+    cs, ev = controller_step_plain(cspec, dp, cfg, cs, clk)
+    return cs, ev, channel_horizon_plain(cspec, dp, cfg, cs, clk + 1)
+
+
+# --------------------------------------------------------------------------
+# Dispatch: the fused kernel on CUDA tensors, the plain version on the CPU
+# --------------------------------------------------------------------------
+
+_PLANS: dict = {}
+
+
+def _events_view(out: torch.Tensor) -> tuple:
+    """``StepEvents`` and the horizon as views of the kernel's packed
+    ``(C, 16)`` int32 events buffer (bool fields are bytes of it)."""
+    e = KS.EVENT
+    by = out.view(torch.uint8)
+    pair = lambda k: out[:, e[k]:e[k] + 2]
+    flag = lambda k, n=1: (by[:, e[k]:e[k] + n] if n > 1
+                           else by[:, e[k]]).view(torch.bool)
+    ev = StepEvents(
+        cmd=pair("EvCmd"), bank=pair("EvBank"), row=pair("EvRow"),
+        arrive=pair("EvArrive"), hit_ready=flag("EvHitReadyByte", 2),
+        served_read=flag("EvServedReadByte"),
+        served_write=flag("EvServedWriteByte"),
+        served_probe=flag("EvServedProbeByte"),
+        probe_latency=out[:, e["EvProbeLatency"]],
+        probe_completion=out[:, e["EvProbeCompletion"]],
+        deferred=out[:, e["EvDeferred"]])
+    return ev, out[:, e["EvHorizon"]]
+
+
+def step_plan(cspec: CompiledSpec, dp: D.DynParams, cfg: ControllerConfig,
+              cs: CtrlState) -> KS.StepPlan:
+    """The kernel's plan for this (spec, latencies, config, queue depth,
+    channels, device), built at first use and kept (a few per process)."""
+    C, Q = cs.queue.valid.shape
+    dev = cs.queue.valid.device
+    key = (id(dp), cfg, Q, C, dev)
+    hit = _PLANS.get(key)
+    if hit is not None and hit[0] is dp:
+        return hit[1]
+    plan = KS.build_plan(cspec, dp, cfg, Q, C, dev)
+    plan.events, plan.horizon = _events_view(plan.out)
+    if len(_PLANS) >= 8:
+        _PLANS.pop(next(iter(_PLANS)))
+    _PLANS[key] = (dp, plan)
+    return plan
+
+
+def _device_kind(cs: CtrlState) -> str:
+    kind = cs.queue.valid.device.type
+    if kind not in ("cuda", "cpu"):
+        raise NotImplementedError(f"controller step on {kind!r} tensors")
+    return kind
+
+
+def controller_step(cspec: CompiledSpec, dp: D.DynParams,
+                    cfg: ControllerConfig, cs: CtrlState, clk) -> tuple:
+    """One controller cycle of every channel: ``(cs', StepEvents)``.
+
+    On CUDA tensors it launches the fused kernel, which updates ``cs``'s
+    tensors in place and returns views of a buffer the next launch
+    overwrites (see ``repro_torch.kernels.controller_step``); on CPU
+    tensors it runs :func:`controller_step_plain`."""
+    if _device_kind(cs) == "cpu":
+        return controller_step_plain(cspec, dp, cfg, cs, clk)
+    plan = step_plan(cspec, dp, cfg, cs)
+    KS.controller_step_cuda(plan, cs, clk, horizon=False)
+    return cs, plan.events
+
+
+def step_and_horizon(cspec: CompiledSpec, dp: D.DynParams,
+                     cfg: ControllerConfig, cs: CtrlState, clk) -> tuple:
+    """:func:`controller_step` at ``clk`` and the channel horizon at
+    ``clk + 1`` on the new state, ``(cs', StepEvents, horizon (C,))``: one
+    kernel launch on CUDA tensors, :func:`step_and_horizon_plain` on CPU
+    tensors."""
+    if _device_kind(cs) == "cpu":
+        return step_and_horizon_plain(cspec, dp, cfg, cs, clk)
+    plan = step_plan(cspec, dp, cfg, cs)
+    KS.controller_step_cuda(plan, cs, clk, horizon=True)
+    return cs, plan.events, plan.horizon

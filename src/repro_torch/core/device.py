@@ -16,7 +16,9 @@ clock_until[ru]  : WCK/RCK data clock active until this cycle (exclusive)
 last_ref[ru]     : last REFab issue clock per refresh unit
 
 The dense readiness table (:func:`earliest_ready_table`) is computed by
-the CUDA kernel of ``repro_torch.kernels.readiness`` on CUDA tensors.
+the CUDA kernel of ``repro_torch.kernels.readiness`` on CUDA tensors (off
+the main path: the engine's step computes it inside the fused controller
+step kernel, and the plain step with :func:`earliest_ready_table_plain`).
 Static spec tables live on the run's device in :class:`SpecTables`, which
 :class:`DynParams` carries, so the cycle loop never copies a constant
 from the host.
@@ -238,6 +240,14 @@ def earliest_ready_table(cspec: CompiledSpec, dp: DynParams,
     ``table[c, cmd, bank]`` lookup."""
     return R.readiness_table(dp.tables.ready, state.last_issue,
                              state.win_ring)
+
+
+def earliest_ready_table_plain(cspec: CompiledSpec, dp: DynParams,
+                               state: DeviceState) -> torch.Tensor:
+    """:func:`earliest_ready_table` in plain PyTorch on any device (the
+    plain controller step's table)."""
+    return R.readiness_table_plain(dp.tables.ready, state.last_issue,
+                                   state.win_ring)
 
 
 # --------------------------------------------------------------------------

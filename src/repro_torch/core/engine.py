@@ -151,8 +151,8 @@ def make_run(cspec: CompiledSpec, ccfg: C.ControllerConfig,
     ``fast_forward`` (default on) executes one cycle per loop iteration,
     then jumps to ``min(max(horizon, clk + 1), n_cycles)``, where the
     horizon is the earliest cycle at which the frontend or the channel
-    could act (``F.arrival_horizon``, ``C.channel_horizon``) — or the next
-    cycle when this one accepted or issued anything.  With ``trace`` the
+    could act (``F.arrival_horizon``, the step's channel horizon) — or the
+    next cycle when this one accepted or issued anything.  With ``trace`` the
     dense per-cycle buffers are idle-initialized and every executed cycle
     is written at its true index, so the trace is bit-identical to the
     per-cycle loop's."""
@@ -164,21 +164,28 @@ def make_run(cspec: CompiledSpec, ccfg: C.ControllerConfig,
         a_cyc, c_cyc = F.lcg_affine(k_draws)
 
         def cycle(cs, ch, fs, clk):
+            """One executed cycle; with fast-forward the controller step
+            also returns the channels' horizon at ``clk + 1`` on its new
+            state (the frontend's commit and finish leave ``cs`` as it is),
+            one kernel launch on CUDA."""
             queue, draft = F.frontend_insert(cspec, fcfg, fp, fs, cs.queue,
                                              clk, ft)
-            cs, ev = C.controller_step(cspec, dp, ccfg,
-                                       cs._replace(queue=queue), clk)
+            cs = cs._replace(queue=queue)
+            hc = None
+            if fast_forward:
+                cs, ev, hc = C.step_and_horizon(cspec, dp, ccfg, cs, clk)
+            else:
+                cs, ev = C.controller_step(cspec, dp, ccfg, cs, clk)
             ch = _accum_channel_stats(cspec, dp, ch, ev)
             absorb = F.absorb_locals(ev)
             fs = F.frontend_commit(fcfg, fp, fs, draft, draft.okp, draft.ok)
             fs = F.frontend_finish(fs, fp, absorb[0], absorb[1], absorb[2])
             busy = (draft.okp + draft.ok + (ev.cmd >= 0).sum(dtype=I32)) > 0
-            return cs, ch, fs, ev, busy
+            return cs, ch, fs, ev, busy, hc
 
-        def horizon(cs, fs, clk):
+        def horizon(fs, hc, clk):
             """min over the frontend's and the channels' next events."""
             h = F.arrival_horizon(fcfg, fp, fs, clk)
-            hc = C.channel_horizon(cspec, dp, ccfg, cs, clk)
             return torch.minimum(h, hc.amin())
 
         def idle_jump(fs, d):
@@ -191,7 +198,7 @@ def make_run(cspec: CompiledSpec, ccfg: C.ControllerConfig,
         syncs = 0
         clk = steps = 0
         while clk < n_cycles:
-            cs, ch, fs, ev, busy = cycle(cs, ch, fs, clk)
+            cs, ch, fs, ev, busy, hc = cycle(cs, ch, fs, clk)
             if trace:
                 clks.append(clk)
                 ys.append(torch.stack([ev.cmd, ev.bank, ev.row, ev.arrive,
@@ -200,7 +207,7 @@ def make_run(cspec: CompiledSpec, ccfg: C.ControllerConfig,
             clk += 1
             if not fast_forward:
                 continue
-            h = horizon(cs, fs, clk)
+            h = horizon(fs, hc, clk)
             # the step's one host sync: busy verdict + horizon together
             is_busy, h = torch.stack([busy.to(I32), h]).tolist()
             syncs += 1

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/kernels/`` at the repository root and loaded with ``ctypes``.  The
-library's file name carries a digest of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded.  Nothing is built
+library's file name carries a digest of its source, the ``csrc/`` headers
+it includes and the flags, so an edited source or header is rebuilt and a
+stale library is never loaded.  Nothing is built
 when a module is imported: the CPU tests import every module and never
 reach this code.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -34,10 +36,32 @@ def nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every header under ``csrc/`` it includes
+    with ``#include "..."``, directly or through another header."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / inc.decode()).resolve()
+            if dep.is_relative_to(CSRC) and dep.exists():
+                todo.append(dep)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + repr(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a digest of its source, the headers it
+    includes and the flags: an edited header rebuilds it too."""
+    h = hashlib.sha256(repr(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(*names: str) -> dict:

@@ -29,18 +29,18 @@
 // thousand integer operations.  So the design is the simplest right one:
 // one block per channel, one thread per (cmd, bank) cell (block-stride
 // loop if a spec ever has more cells than a block has threads), the key
-// loop in registers, no shared memory.  Making the whole cycle one kernel
-// is what would move the end-to-end time; see ROADMAP.md.
+// loop in registers, no shared memory.  The key loop itself lives in
+// readiness_keys.cuh, which the fused controller step (controller_step.cu)
+// runs on shared memory; the simulator's main path launches that kernel,
+// and this one serves repro_torch.core.device.earliest_ready_table.
 //
 // C interface, bound with ctypes from repro_torch/kernels/readiness.py.
 
 #include <cuda_runtime.h>
-#include <climits>
+
+#include "readiness_keys.cuh"
 
 namespace {
-
-constexpr int kNeg = -(1 << 28);      // "never issued"
-constexpr int kAbsent = INT_MIN;      // no constraint of key k targets cmd f
 
 __global__ void readiness_table_kernel(const int* __restrict__ last_issue,
                                        const int* __restrict__ win_ring,
@@ -54,25 +54,11 @@ __global__ void readiness_table_kernel(const int* __restrict__ last_issue,
   const int* li = last_issue + (long long)ch * num_nodes * n_cmds;
   const int* wr = win_ring + (long long)ch * n_ring_rows * ring_depth;
   int* o = out + (long long)ch * n_cmds * n_banks;
-  const int* key_ring = keys;
-  const int* key_base = keys + n_keys;
-  const int* key_col = keys + 2 * n_keys;
-  const int* key_div = keys + 3 * n_keys;
   const int cells = n_cmds * n_banks;
   for (int idx = threadIdx.x; idx < cells; idx += blockDim.x) {
     const int f = idx / n_banks;
-    const int b = idx - f * n_banks;
-    int acc = kNeg;
-    for (int k = 0; k < n_keys; ++k) {
-      const int lat = A[k * n_cmds + f];
-      if (lat == kAbsent) continue;
-      const int node = key_base[k] + b / key_div[k];
-      const int t = key_ring[k] ? wr[node * ring_depth + key_col[k]]
-                                : li[node * n_cmds + key_col[k]];
-      const int allowed = t > kNeg ? t + lat : kNeg;
-      acc = max(acc, allowed);
-    }
-    o[idx] = acc;
+    o[idx] = readiness::cell(li, wr, keys, A, n_keys, n_cmds, ring_depth, f,
+                             idx - f * n_banks);
   }
 }
 

@@ -4,7 +4,7 @@ The same random controller state (a legal device history from the
 reference's oracle, a random queue with arrival ties, refresh units near
 and past due) goes through both packages: ``prereq``, ``issue``,
 ``controller_step`` (events and next state, several cycles in a row) and
-``channel_horizon`` must agree exactly.  DDR4 (one bus), LPDDR5 (split
+``channel_horizon_plain`` must agree exactly.  DDR4 (one bus), LPDDR5 (split
 activation, data-clock sync) and HBM3 (dual command bus) are covered."""
 import numpy as np
 import pytest
@@ -23,37 +23,7 @@ from repro_torch.core import controller as TC              # noqa: E402
 from repro_torch.core import device as TD                  # noqa: E402
 
 from torch_parity import (TRIO, assert_tree_equal,         # noqa: E402
-                          jax_history_state, tree_np)
-
-
-def random_ctrl(std, org, tim, seed, depth=32):
-    """A reference CtrlState with a legal device history, a random queue
-    (with forced arrival ties) and refresh units around their due time,
-    plus the clock to step from."""
-    jc, jdp, jstate, history, rng = jax_history_state(std, org, tim,
-                                                      seed=seed)
-    clk = int(history[-1][0]) + 3 if history else 10
-    nrefi = int(jc.timings["nREFI"])
-    last_ref = clk - nrefi + rng.integers(-6, 3, jc.n_refresh_units)
-    jstate = jstate._replace(last_ref=jnp.asarray(last_ref, jnp.int32))
-    counts = [int(c) for c in jc.level_counts[1:]]
-    sub = np.stack([rng.integers(0, c, depth) for c in counts], 1)
-    arrive = clk - rng.integers(1, 5, depth)          # many equal arrivals
-    valid = rng.random(depth) < 0.75
-    valid[:2] = True
-    arrive[1] = arrive[0]
-    q = JC.Queue(valid=jnp.asarray(valid),
-                 is_write=jnp.asarray(rng.random(depth) < 0.3),
-                 is_probe=jnp.asarray(rng.random(depth) < 0.15),
-                 sub=jnp.asarray(sub, jnp.int32),
-                 row=jnp.asarray(rng.integers(0, 32, depth), jnp.int32),
-                 col=jnp.asarray(rng.integers(0, 8, depth), jnp.int32),
-                 arrive=jnp.asarray(arrive, jnp.int32))
-    cs = JC.init_ctrl_state(jc, depth)._replace(
-        dev=jstate, queue=q,
-        hit_streak=jnp.asarray(rng.integers(0, 4, jc.n_banks), jnp.int32),
-        prac_count=jnp.asarray(rng.integers(0, 3, jc.n_banks), jnp.int32))
-    return jc, jdp, cs, clk
+                          random_ctrl, tree_np)
 
 
 def _port_of(std, org, tim, jdp, cs):
@@ -104,7 +74,7 @@ def test_controller_step_and_horizon_match_reference(std, org, tim,
     issued = 0
     for t in range(clk, clk + 40):
         h_want = int(hor(cs, jnp.int32(t)))
-        h_got = TC.channel_horizon(cspec, dp, tcfg, tcs, t)
+        h_got = TC.channel_horizon_plain(cspec, dp, tcfg, tcs, t)
         assert int(h_got[0]) == h_want, (std, t)
         cs, ev = step(cs, jnp.int32(t))
         tcs, tev = TC.controller_step(cspec, dp, tcfg, tcs, t)

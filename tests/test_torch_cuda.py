@@ -1,14 +1,20 @@
-"""PyTorch port on the card: the CUDA readiness kernel and the engine on
-``cuda``, the flash-attention kernel and the LM serving path.  Every test here needs an NVIDIA GPU and ``nvcc`` and skips
-without them; on the card run
+"""PyTorch port on the card: the CUDA readiness kernel, the fused
+controller-step kernel and the engine on ``cuda``, the flash-attention
+kernel and the LM serving path.  Every test here needs an NVIDIA GPU and
+``nvcc`` and skips without them; on the card run
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 This file imports neither ``jax`` nor ``repro``, so it runs on a machine
 with PyTorch alone.  The kernel is held bit for bit against its plain
 PyTorch version on device states after random command histories, at
-timestamps below and above 2**24; the engine on ``cuda`` reproduces a
-golden command stream and launches the kernel.  The flash-attention
+timestamps below and above 2**24.  The fused controller step is held bit
+for bit against ``step_and_horizon_plain`` (next state, every event field
+and the horizon) on random controller states of all 11 default systems,
+both schedulers, refresh on and off, queue depths 8, 32 and 64, three
+channels in one launch, several cycles in a row; the engine on ``cuda``
+reproduces a golden command stream with one fused launch per executed
+step and no call of the plain step.  The flash-attention
 kernels are held against their plain version at the reference's
 tolerances (fp32 2e-5, bf16 2e-2), each call counted on the route
 ``flash_attention.route`` picks (the tensor-core kernel also on ragged
@@ -16,6 +22,7 @@ and ring-wrapping lengths, Tq != Tk, GQA rep 8 and fused qkv views),
 and the reduced GQA Llama of ``tests/torch_serve_fixture.npz`` served on
 ``cuda`` gives the JAX package's logits (atol 0.2, rtol 0.05) and greedy
 tokens."""
+import itertools
 import json
 import os
 
@@ -26,9 +33,12 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import convert                             # noqa: E402
 from repro_torch.configs import ModelConfig                 # noqa: E402
+from repro_torch import testing as T                        # noqa: E402
 from repro_torch.core import ControllerConfig, Simulator, compile_spec  # noqa: E402,E501
+from repro_torch.core import controller as C                # noqa: E402
 from repro_torch.core import device as D                    # noqa: E402
 from repro_torch.core.standards import DEFAULT_SYSTEMS      # noqa: E402
+from repro_torch.kernels import controller_step as KS      # noqa: E402
 from repro_torch.kernels import flash_attention as FA       # noqa: E402
 from repro_torch.kernels import readiness as R              # noqa: E402
 from repro_torch.models import model as M                   # noqa: E402
@@ -49,31 +59,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _random_state(cspec, dp, device, seed, clk0, channels=1, steps=80):
-    rng = np.random.default_rng(seed)
-    st = D.init_state(cspec, channels, device)
-    counts = [int(c) for c in cspec.level_counts[1:]]
-    clk = clk0
-    for _ in range(steps):
-        t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
-        st = D.issue(cspec, dp, st,
-                     t(rng.integers(0, cspec.n_cmds, channels)),
-                     t(np.stack([rng.integers(0, c, channels)
-                                 for c in counts], 1)),
-                     t(rng.integers(0, 64, channels)), clk,
-                     torch.as_tensor(rng.random(channels) < 0.9,
-                                     device=device))
-        clk += int(rng.integers(1, 8))
-    return st
-
-
 @pytest.mark.parametrize("std,org,tim", SYSTEMS)
 def test_kernel_equals_plain_version(cuda, std, org, tim):
     cspec = compile_spec(std, org, tim)
     dp = D.dyn_params(cspec, cuda, channels=3)
     tab = dp.tables.ready
     for seed, clk0 in ((1, 0), (2, (1 << 24) + 777)):
-        st = _random_state(cspec, dp, cuda, seed, clk0, channels=3)
+        st, _ = T.random_device_state(cspec, dp, cuda, seed, clk0, channels=3)
         before = R.launch_count
         got = R.readiness_table(tab, st.last_issue, st.win_ring)
         assert R.launch_count == before + 1
@@ -92,15 +84,63 @@ def test_kernel_rejects_wrong_dtype(cuda):
                           st.win_ring)
 
 
+@pytest.mark.parametrize("std,org,tim", SYSTEMS)
+def test_fused_step_equals_plain_version(cuda, std, org, tim):
+    cspec = compile_spec(std, org, tim)
+    dp = D.dyn_params(cspec, cuda, channels=3)
+    cases = itertools.product(("FRFCFS", "FCFS"), (True, False), (8, 32, 64),
+                              (0, (1 << 24) + 12345))
+    for i, (sched, refresh, depth, clk0) in enumerate(cases):
+        cfg = ControllerConfig(scheduler=sched, refresh_enabled=refresh)
+        cs, clk = T.random_ctrl_state(cspec, dp, cuda, seed=i, clk0=clk0,
+                                      depth=depth)
+        kcs = T.clone_ctrl(cs)
+        for step in range(4):
+            before = KS.launch_count
+            if step == 3:           # the engine's step without fast-forward
+                kcs, kev = C.controller_step(cspec, dp, cfg, kcs, clk)
+                cs, pev = C.controller_step_plain(cspec, dp, cfg, cs, clk)
+            else:
+                kcs, kev, kh = C.step_and_horizon(cspec, dp, cfg, kcs, clk)
+                cs, pev, ph = C.step_and_horizon_plain(cspec, dp, cfg, cs,
+                                                       clk)
+                assert torch.equal(kh, ph), (std, sched, refresh, depth, clk)
+            assert KS.launch_count == before + 1
+            torch.cuda.synchronize()
+            where = (std, sched, refresh, depth, clk0, step)
+            assert T.ctrl_diff(kcs, cs) == {}, where
+            assert T.events_diff(kev, pev) == {}, where
+            clk += 1
+
+
+def test_fused_step_rejects_what_it_does_not_take(cuda):
+    cspec = compile_spec("DDR4", "DDR4_8Gb_x8", "DDR4_2400R")
+    dp = D.dyn_params(cspec, cuda)
+    cs = C.init_ctrl_state(cspec, 32, 1, cuda)
+    cfg = ControllerConfig()
+    before = KS.launch_count
+    bad = cs._replace(queue=cs.queue._replace(row=cs.queue.row.long()))
+    with pytest.raises(ValueError):
+        C.step_and_horizon(cspec, dp, cfg, bad, 0)
+    bad = cs._replace(dev=cs.dev._replace(last_ref=cs.dev.last_ref.cpu()))
+    with pytest.raises(ValueError):
+        C.step_and_horizon(cspec, dp, cfg, bad, 0)
+    with pytest.raises(ValueError):
+        C.step_and_horizon(cspec, dp, cfg,
+                           C.init_ctrl_state(cspec, 300, 1, cuda), 0)
+    assert KS.launch_count == before
+
+
 def test_golden_stream_on_cuda(cuda):
     golden = json.load(open(os.path.join(HERE, "trace",
                                          "golden_hashes.json")))
     sim = Simulator("LPDDR5", "LPDDR5_8Gb_x16", "LPDDR5_6400",
                     controller=ControllerConfig(scheduler="FRFCFS"))
     assert sim.device.type == "cuda"
-    before = R.launch_count
+    before, plain = KS.launch_count, C.plain_calls
     stats, dense = sim.run(3000, interval=2.0, read_ratio=0.7, trace=True)
-    assert R.launch_count > before
+    assert KS.launch_count - before == stats.scan_steps
+    assert C.plain_calls == plain
     tr = capture(sim.cspec, dense)
     assert len(tr) == golden["LPDDR5"]["n"]
     assert trace_sha256(tr) == golden["LPDDR5"]["sha256"]

@@ -67,6 +67,38 @@ def jax_history_state(std, org, tim, seed=3, steps=50, clk0=0):
     return cspec, dp, state, dut.history, rng
 
 
+def random_ctrl(std, org, tim, seed, depth=32):
+    """A reference CtrlState with a legal device history, a random queue
+    (with forced arrival ties) and refresh units around their due time,
+    plus the clock to step from."""
+    import jax.numpy as jnp
+    from repro.core import controller as JC
+    jc, jdp, jstate, history, rng = jax_history_state(std, org, tim,
+                                                      seed=seed)
+    clk = int(history[-1][0]) + 3 if history else 10
+    nrefi = int(jc.timings["nREFI"])
+    last_ref = clk - nrefi + rng.integers(-6, 3, jc.n_refresh_units)
+    jstate = jstate._replace(last_ref=jnp.asarray(last_ref, jnp.int32))
+    counts = [int(c) for c in jc.level_counts[1:]]
+    sub = np.stack([rng.integers(0, c, depth) for c in counts], 1)
+    arrive = clk - rng.integers(1, 5, depth)          # many equal arrivals
+    valid = rng.random(depth) < 0.75
+    valid[:2] = True
+    arrive[1] = arrive[0]
+    q = JC.Queue(valid=jnp.asarray(valid),
+                 is_write=jnp.asarray(rng.random(depth) < 0.3),
+                 is_probe=jnp.asarray(rng.random(depth) < 0.15),
+                 sub=jnp.asarray(sub, jnp.int32),
+                 row=jnp.asarray(rng.integers(0, 32, depth), jnp.int32),
+                 col=jnp.asarray(rng.integers(0, 8, depth), jnp.int32),
+                 arrive=jnp.asarray(arrive, jnp.int32))
+    cs = JC.init_ctrl_state(jc, depth)._replace(
+        dev=jstate, queue=q,
+        hit_streak=jnp.asarray(rng.integers(0, 4, jc.n_banks), jnp.int32),
+        prac_count=jnp.asarray(rng.integers(0, 3, jc.n_banks), jnp.int32))
+    return jc, jdp, cs, clk
+
+
 def tree_np(x):
     import jax
     return jax.tree.map(np.asarray, x)

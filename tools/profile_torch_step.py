@@ -5,16 +5,19 @@
         [--standard DDR5] [--cycles 3000] [--interval 2.0] [--read-ratio 0.8]
 
 Prints, for one ``Simulator.run`` of the port (after a short warm-up
-run): wall seconds, executed steps, milliseconds per step, host syncs and
-readiness-kernel launches; then a ``torch.profiler`` table of a short
-window (300 cycles) with the device time by kernel, and a JSON summary as
-the last line: ``ms_per_step``, ``device_ms_per_step`` (summed kernel and
-copy time per step), ``device_launches_per_step``, ``device_busy_share``
-(device time per step over the unprofiled wall time per step: the
-profiler slows the host, not the device; these three are ``null`` when
-the profiler reports no device work) and ``ops_per_step`` (top-level
-operator calls per step).  On a CUDA device it synchronizes before
-reading every clock.
+run): wall seconds, executed steps, milliseconds per step, host syncs,
+fused controller-step launches and plain-step calls; then a
+``torch.profiler`` table of a short window (300 cycles) with the device
+time by kernel, and a JSON summary as the last line: ``ms_per_step``,
+``fused_launches_per_step`` (the fused kernel's launches over executed
+steps), ``device_ms_per_step`` (summed kernel and copy time per step),
+``fused_device_us`` (the fused kernel's device time per launch),
+``dtoh_copies_per_step`` (device-to-host copies: each is a host wait),
+``device_launches_per_step``, ``device_busy_share`` (device time per step
+over the unprofiled wall time per step: the profiler slows the host, not
+the device; these five are ``null`` when the profiler reports no device
+work) and ``ops_per_step`` (top-level operator calls per step).  On a
+CUDA device it synchronizes before reading every clock.
 """
 from __future__ import annotations
 
@@ -43,7 +46,8 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import Simulator
-    from repro_torch.kernels import readiness as R
+    from repro_torch.core import controller as C
+    from repro_torch.kernels import controller_step as KS
 
     cuda = torch.device(args.device).type == "cuda"
 
@@ -56,7 +60,7 @@ def main() -> int:
     kw = dict(interval=args.interval, read_ratio=args.read_ratio)
     sim.run(200, **kw)
     sync()
-    sim.host_syncs, R.launch_count = 0, 0
+    sim.host_syncs = KS.launch_count = C.plain_calls = 0
     t0 = time.perf_counter()
     stats = sim.run(args.cycles, **kw)
     sync()
@@ -65,7 +69,9 @@ def main() -> int:
     print(f"{args.standard} {args.cycles} cycles on {args.device}: wall "
           f"{wall:.3f} s, executed steps {steps}, "
           f"{wall / steps * 1e3:.3f} ms/step, host syncs {sim.host_syncs}, "
-          f"readiness launches {R.launch_count}")
+          f"fused controller-step launches {KS.launch_count}, plain steps "
+          f"{C.plain_calls}")
+    fused_per_step = KS.launch_count / steps
 
     window = 300
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
@@ -79,6 +85,10 @@ def main() -> int:
                 if e.key.startswith("aten::") and e.cpu_parent is None)
     dev = [e for e in ka if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in dev) / 1e3 / st.scan_steps
+    dtoh = sum(e.count for e in dev if e.key.startswith("Memcpy DtoH"))
+    fused = [e for e in dev if "controller_step_kernel" in e.key]
+    fused_us = (sum(e.self_device_time_total for e in fused)
+                / sum(e.count for e in fused)) if fused else None
     sort = "self_cuda_time_total" if cuda else "self_cpu_time_total"
     print(ka.table(sort_by=sort, row_limit=15))
     print(json.dumps({
@@ -86,6 +96,9 @@ def main() -> int:
         "device_name": torch.cuda.get_device_name(0) if cuda else "cpu",
         "cycles": args.cycles, "steps": steps, "wall_s": wall,
         "ms_per_step": wall / steps * 1e3,
+        "fused_launches_per_step": fused_per_step,
+        "fused_device_us": fused_us,
+        "dtoh_copies_per_step": dtoh / st.scan_steps if dev else None,
         "device_ms_per_step": dev_ms if dev else None,
         "device_launches_per_step": (sum(e.count for e in dev)
                                      / st.scan_steps if dev else None),
