@@ -5,6 +5,9 @@ pipeline that every controller specializes by injecting filtering
 predicates (boolean masks over the request queue), run twice per cycle
 (column pass, then row pass) for dual-C/A standards.  Every tensor has a
 leading channel axis; the reference's per-channel ``vmap`` is that axis.
+A batch of design points adds a point axis before it (``(P, C, ...)``:
+``P * C`` lanes, each point at its own clock), the reference's outer
+``vmap`` over load points.
 
 Ported: the FR-FCFS / FCFS schedulers, the refresh engine, the
 refresh-urgency and ACT-2 predicates, the controller step and the channel
@@ -14,10 +17,11 @@ asks for them raises.
 
 The step has two versions that compute the same function bit for bit:
 the fused CUDA kernel of ``repro_torch.kernels.controller_step`` (one
-launch per cycle: readiness, selection, refresh, issue, events and the
-next horizon) and its plain PyTorch version here
+launch per cycle for every lane: readiness, selection, refresh, issue,
+events and the next horizon) and its plain PyTorch version here
 (:func:`controller_step_plain`, :func:`channel_horizon_plain`,
-:func:`step_and_horizon_plain`).  :func:`controller_step` and
+:func:`step_and_horizon_plain`, and :func:`step_lanes_plain` over points
+at their own clocks).  :func:`controller_step` and
 :func:`step_and_horizon` dispatch: the kernel on CUDA tensors, the plain
 version on CPU tensors, an error otherwise.
 """
@@ -92,26 +96,29 @@ def empty_queue(cspec: CompiledSpec, depth: int, channels: int,
 
 def queue_insert(q: Queue, is_write, is_probe, sub, row, col, arrive, want):
     """Insert one request into the first free slot of each channel whose
-    ``want[c]`` is set (``want (C,)``; the request fields are shared
-    0-d values, ``sub (L-1,)``).  Returns ``(q', ok (C,))``.
+    ``want[..., c]`` is set.  The queue's leaves are ``S + (C, Q[, L-1])``
+    and ``want`` is ``S + (C,)``, where ``S`` is ``()`` for one point or
+    ``(P,)`` for a batch of points; each request field is a Python scalar
+    or a tensor that broadcasts against its queue leaf (``S + (1, 1)``, or
+    0-d for one point).  Returns ``(q', ok S + (C,))``.
 
     The first free slot is the free slot whose running free count is 1
     (the reference's ``argmax`` over the free mask)."""
     free = ~q.valid
-    first = free & (free.cumsum(1) == 1)             # (C, Q) one-hot or 0
-    ok = want & free.any(1)
-    hit = first & ok[:, None]
+    first = free & (free.cumsum(-1) == 1)            # one-hot or 0 per channel
+    ok = want & free.any(-1)
+    hit = first & ok[..., None]
 
     def put(a, v):
-        # a 0-d tensor value goes through where: masked_fill would read it
-        # back to the host (a device sync per field on CUDA)
+        # a tensor value goes through where: masked_fill would read a 0-d
+        # tensor back to the host (a device sync per field on CUDA)
         if isinstance(v, torch.Tensor):
             return torch.where(hit, v, a)
         return a.masked_fill(hit, v)
     return Queue(valid=q.valid | hit,
                  is_write=put(q.is_write, is_write),
                  is_probe=put(q.is_probe, is_probe),
-                 sub=torch.where(hit[:, :, None], sub, q.sub),
+                 sub=torch.where(hit[..., None], sub, q.sub),
                  row=put(q.row, row), col=put(q.col, col),
                  arrive=put(q.arrive, arrive)), ok
 
@@ -128,12 +135,39 @@ SKETCH = 1024
 
 
 def init_ctrl_state(cspec: CompiledSpec, depth: int, channels: int,
-                    device) -> CtrlState:
-    z = lambda *sh: torch.zeros((channels,) + sh, dtype=I32, device=device)
-    return CtrlState(dev=D.init_state(cspec, channels, device),
-                     queue=empty_queue(cspec, depth, channels, device),
-                     hit_streak=z(cspec.n_banks), bh_sketch=z(2, SKETCH),
-                     prac_count=z(cspec.n_banks))
+                    device, refresh_stagger: bool = False,
+                    points: int | None = None) -> CtrlState:
+    """The reset state of ``channels`` channels (leaves ``(C, ...)``), or
+    of ``points`` runs of them (leaves ``(P, C, ...)``: ``P * C`` lanes).
+    With ``refresh_stagger`` channel ``c`` of a multi-channel system
+    starts its refresh epoch ``c * nREFI // channels`` cycles early
+    (``last_ref`` negative), so the channels' refresh windows never align;
+    channel 0 keeps its phase (the reference's
+    ``engine.make_run._init_state``)."""
+    lanes = channels * (points or 1)
+    z = lambda *sh: torch.zeros((lanes,) + sh, dtype=I32, device=device)
+    cs = CtrlState(dev=D.init_state(cspec, lanes, device),
+                   queue=empty_queue(cspec, depth, lanes, device),
+                   hit_streak=z(cspec.n_banks), bh_sketch=z(2, SKETCH),
+                   prac_count=z(cspec.n_banks))
+    if points is not None:
+        cs = _tree(lambda a: a.view((points, channels) + a.shape[1:]), cs)
+    if refresh_stagger and channels > 1:
+        nrefi = int(cspec.timings["nREFI"])
+        offs = torch.tensor([-(c * nrefi // channels)
+                             for c in range(channels)], dtype=I32,
+                            device=device)
+        cs = cs._replace(dev=cs.dev._replace(
+            last_ref=cs.dev.last_ref + offs[:, None]))
+    return cs
+
+
+def _tree(fn, *trees):
+    """``fn`` over the tensors of NamedTuples of the same structure."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return fn(*trees)
+    return type(first)(*(_tree(fn, *leaves) for leaves in zip(*trees)))
 
 
 class PredCtx(NamedTuple):
@@ -498,6 +532,51 @@ def step_and_horizon_plain(cspec: CompiledSpec, dp: D.DynParams,
     return cs, ev, channel_horizon_plain(cspec, dp, cfg, cs, clk + 1)
 
 
+def idle_events(lanes: int, device) -> StepEvents:
+    """The events of lanes that execute no cycle: nothing issued, served
+    or deferred."""
+    neg = torch.full((lanes, 2), -1, dtype=I32, device=device)
+    no = torch.zeros(lanes, dtype=torch.bool, device=device)
+    zero = torch.zeros(lanes, dtype=I32, device=device)
+    return StepEvents(cmd=neg, bank=neg, row=neg, arrive=neg,
+                      hit_ready=torch.zeros((lanes, 2), dtype=torch.bool,
+                                            device=device),
+                      served_read=no, served_write=no, served_probe=no,
+                      probe_latency=zero, probe_completion=zero,
+                      deferred=zero)
+
+
+def step_lanes_plain(cspec: CompiledSpec, dp: D.DynParams,
+                     cfg: ControllerConfig, cs: CtrlState, clk, active,
+                     horizon: bool = True) -> tuple:
+    """The fused kernel's plain version over ``P x C`` lanes (``cs``
+    leaves ``(P, C, ...)``; ``clk`` and ``active`` ``(P,)`` tensors): each
+    active point's channels take one step at the point's clock
+    (:func:`step_and_horizon_plain`, or :func:`controller_step_plain`
+    without ``horizon``); an inactive point's lanes keep their state and
+    give idle events and the horizon ``HORIZON_MAX``.  Returns ``(cs',
+    StepEvents, horizon (P, C))``.  It loops over the points in Python: it
+    is the kernel's yardstick and the engine's step on the CPU."""
+    clks, acts = clk.tolist(), active.tolist()
+    nch = cs.queue.valid.shape[1]
+    device = cs.queue.valid.device
+    parts = []
+    for p, (t, on) in enumerate(zip(clks, acts)):
+        cs_p = _tree(lambda a: a[p], cs)
+        h = torch.full((nch,), HORIZON_MAX, dtype=I32, device=device)
+        if not on:
+            ev = idle_events(nch, device)
+        elif horizon:
+            cs_p, ev, h = step_and_horizon_plain(cspec, dp, cfg, cs_p, t)
+        else:
+            cs_p, ev = controller_step_plain(cspec, dp, cfg, cs_p, t)
+        parts.append((cs_p, ev, h))
+    stack = lambda *xs: torch.stack(xs)
+    return (_tree(stack, *(c for c, _, _ in parts)),
+            _tree(stack, *(e for _, e, _ in parts)),
+            torch.stack([h for _, _, h in parts]))
+
+
 # --------------------------------------------------------------------------
 # Dispatch: the fused kernel on CUDA tensors, the plain version on the CPU
 # --------------------------------------------------------------------------
@@ -507,36 +586,43 @@ _PLANS: dict = {}
 
 def _events_view(out: torch.Tensor) -> tuple:
     """``StepEvents`` and the horizon as views of the kernel's packed
-    ``(C, 16)`` int32 events buffer (bool fields are bytes of it)."""
+    ``(..., 16)`` int32 events buffer, one row per lane (bool fields are
+    bytes of it)."""
     e = KS.EVENT
     by = out.view(torch.uint8)
-    pair = lambda k: out[:, e[k]:e[k] + 2]
-    flag = lambda k, n=1: (by[:, e[k]:e[k] + n] if n > 1
-                           else by[:, e[k]]).view(torch.bool)
+    pair = lambda k: out[..., e[k]:e[k] + 2]
+    flag = lambda k, n=1: (by[..., e[k]:e[k] + n] if n > 1
+                           else by[..., e[k]]).view(torch.bool)
     ev = StepEvents(
         cmd=pair("EvCmd"), bank=pair("EvBank"), row=pair("EvRow"),
         arrive=pair("EvArrive"), hit_ready=flag("EvHitReadyByte", 2),
         served_read=flag("EvServedReadByte"),
         served_write=flag("EvServedWriteByte"),
         served_probe=flag("EvServedProbeByte"),
-        probe_latency=out[:, e["EvProbeLatency"]],
-        probe_completion=out[:, e["EvProbeCompletion"]],
-        deferred=out[:, e["EvDeferred"]])
-    return ev, out[:, e["EvHorizon"]]
+        probe_latency=out[..., e["EvProbeLatency"]],
+        probe_completion=out[..., e["EvProbeCompletion"]],
+        deferred=out[..., e["EvDeferred"]])
+    return ev, out[..., e["EvHorizon"]]
 
 
 def step_plan(cspec: CompiledSpec, dp: D.DynParams, cfg: ControllerConfig,
               cs: CtrlState) -> KS.StepPlan:
     """The kernel's plan for this (spec, latencies, config, queue depth,
-    channels, device), built at first use and kept (a few per process)."""
-    C, Q = cs.queue.valid.shape
+    lanes, device), built at first use and kept (a few per process), for
+    ``cs`` leaves ``(P, C, ...)``; the events and the horizon are views of
+    the plan's buffer in the lanes' shape."""
+    *shape, Q = cs.queue.valid.shape
     dev = cs.queue.valid.device
-    key = (id(dp), cfg, Q, C, dev)
+    key = (id(dp), cfg, Q, tuple(shape), dev)
     hit = _PLANS.get(key)
     if hit is not None and hit[0] is dp:
         return hit[1]
-    plan = KS.build_plan(cspec, dp, cfg, Q, C, dev)
-    plan.events, plan.horizon = _events_view(plan.out)
+    if len(shape) != 2:
+        raise ValueError("controller step: the state's leaves must be "
+                         f"(points, channels, ...), got {tuple(shape)}")
+    plan = KS.build_plan(cspec, dp, cfg, Q, shape[1], dev, shape[0])
+    plan.events, plan.horizon = _events_view(
+        plan.out.view(plan.lane_shape + (KS.EVENT["EvWords"],)))
     if len(_PLANS) >= 8:
         _PLANS.pop(next(iter(_PLANS)))
     _PLANS[key] = (dp, plan)
@@ -550,29 +636,34 @@ def _device_kind(cs: CtrlState) -> str:
     return kind
 
 
-def controller_step(cspec: CompiledSpec, dp: D.DynParams,
-                    cfg: ControllerConfig, cs: CtrlState, clk) -> tuple:
-    """One controller cycle of every channel: ``(cs', StepEvents)``.
+def _dispatch(cspec, dp, cfg, cs, clk, active, horizon: bool) -> tuple:
+    if _device_kind(cs) == "cpu":
+        return step_lanes_plain(cspec, dp, cfg, cs, clk, active, horizon)
+    plan = step_plan(cspec, dp, cfg, cs)
+    KS.controller_step_cuda(plan, cs, clk, active, horizon)
+    return cs, plan.events, plan.horizon
 
+
+def controller_step(cspec: CompiledSpec, dp: D.DynParams,
+                    cfg: ControllerConfig, cs: CtrlState,
+                    clk: torch.Tensor, active: torch.Tensor) -> tuple:
+    """One controller cycle of every lane: ``(cs', StepEvents)``.
+
+    ``clk`` is a ``(P,)`` int32 tensor of per-point clocks with ``active``
+    ``(P,)`` bool (``cs`` leaves ``(P, C, ...)``; inactive points are left
+    as they are); a single run is one point.
     On CUDA tensors it launches the fused kernel, which updates ``cs``'s
     tensors in place and returns views of a buffer the next launch
     overwrites (see ``repro_torch.kernels.controller_step``); on CPU
-    tensors it runs :func:`controller_step_plain`."""
-    if _device_kind(cs) == "cpu":
-        return controller_step_plain(cspec, dp, cfg, cs, clk)
-    plan = step_plan(cspec, dp, cfg, cs)
-    KS.controller_step_cuda(plan, cs, clk, horizon=False)
-    return cs, plan.events
+    tensors it runs the plain version."""
+    return _dispatch(cspec, dp, cfg, cs, clk, active, False)[:2]
 
 
 def step_and_horizon(cspec: CompiledSpec, dp: D.DynParams,
-                     cfg: ControllerConfig, cs: CtrlState, clk) -> tuple:
+                     cfg: ControllerConfig, cs: CtrlState,
+                     clk: torch.Tensor, active: torch.Tensor) -> tuple:
     """:func:`controller_step` at ``clk`` and the channel horizon at
-    ``clk + 1`` on the new state, ``(cs', StepEvents, horizon (C,))``: one
-    kernel launch on CUDA tensors, :func:`step_and_horizon_plain` on CPU
+    ``clk + 1`` on the new state, ``(cs', StepEvents, horizon (P, C))``:
+    one kernel launch on CUDA tensors, :func:`step_lanes_plain` on CPU
     tensors."""
-    if _device_kind(cs) == "cpu":
-        return step_and_horizon_plain(cspec, dp, cfg, cs, clk)
-    plan = step_plan(cspec, dp, cfg, cs)
-    KS.controller_step_cuda(plan, cs, clk, horizon=True)
-    return cs, plan.events, plan.horizon
+    return _dispatch(cspec, dp, cfg, cs, clk, active, True)

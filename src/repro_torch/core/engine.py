@@ -2,22 +2,31 @@
 
 The counterpart of ``repro.core.engine``: it composes (frontend ->
 address mapper -> controller -> device) into one cycle function and runs
-it for ``n_cycles``.  All simulation state lives on the run's device with
-a leading channel axis; the cycle loop itself runs on the host, one Python
-iteration per executed cycle.
+it for ``n_cycles``.  All simulation state lives on the run's device.  A
+run steps a batch of ``P`` design points (load points; ``P = 1`` for
+``Simulator.run``) of ``C`` channels each: the controller state holds
+``P * C`` lanes, point-major, and the frontend state one entry per point.
+The cycle loop itself runs on the host, one Python iteration per executed
+cycle, and every iteration makes one launch of the fused controller step
+over all lanes on CUDA.
 
 Two loops, bit-exact twins as in the reference:
 
-* the per-cycle loop executes every cycle and never waits on the device;
-* the fast-forward loop (the default) executes one cycle, then reads the
-  cycle's busy verdict and the event horizon back in ONE host sync (one
-  packed two-element tensor) and jumps the clock over the provably idle
-  cycles in closed form (frontend accumulator refill + LCG jump).
+* the per-cycle loop executes every cycle of every point, all at one
+  clock, and never waits on the device;
+* the fast-forward loop (the default) runs the points in lockstep, each
+  at its own clock — what the reference's ``vmap`` of its
+  ``lax.while_loop`` computes: every iteration executes one cycle of each
+  point whose clock is below ``n_cycles`` (a finished point is frozen),
+  then reads every point's busy verdict and event horizon back in ONE
+  host sync (one packed ``(2, P)`` tensor) and jumps each point's clock
+  over its provably idle cycles in closed form (frontend accumulator
+  refill + LCG jump).  The host uploads the next iteration's clocks,
+  active flags and jumps in one non-blocking copy.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-entry: multi-channel systems, heterogeneous ``system=`` compositions,
-trace replay, windowed telemetry, batched ``run_batch`` and channel
-sharding.
+entry: heterogeneous ``system=`` compositions, trace replay, windowed
+telemetry and channel sharding.
 """
 from __future__ import annotations
 
@@ -37,7 +46,8 @@ I32 = torch.int32
 
 
 class ChannelStats(NamedTuple):
-    """Per-channel counters; every leaf has a leading ``(C,)`` axis."""
+    """Per-channel counters; every leaf has a leading ``(C,)`` axis
+    (``(P, C)`` for a batch of points)."""
     reads_done: torch.Tensor
     writes_done: torch.Tensor
     probe_lat_sum: torch.Tensor
@@ -52,7 +62,10 @@ class Stats(NamedTuple):
     reference's fields; ``per_group`` is the 1-tuple of the one spec
     group).  Counters are tensors on the run's device (or numpy arrays
     after ``convert.stats_to_numpy``); ``cycles``, ``scan_steps`` and
-    ``skipped_cycles`` are host ints."""
+    ``skipped_cycles`` are host ints.  A batch of ``P`` points
+    (``Simulator.run_batch``) has a leading ``(P,)`` axis on every leaf,
+    the three host counts as ``(P,)`` numpy arrays; :meth:`point` picks one
+    point out as a scalar ``Stats``."""
     cycles: int
     reads_done: torch.Tensor
     writes_done: torch.Tensor
@@ -69,9 +82,24 @@ class Stats(NamedTuple):
     #: cycles the fast-forward horizon skipped (``cycles - scan_steps``)
     skipped_cycles: int = 0
 
+    def point(self, i: int) -> "Stats":
+        """Point ``i`` of batched stats, as the scalar ``Stats`` of one run
+        (``to_dict`` and the derived metrics apply to it)."""
+        ch = ChannelStats(*(a[i] for a in self.per_channel))
+        host = lambda v: int(np.asarray(v)[i])
+        return Stats(
+            cycles=host(self.cycles),
+            **{k: getattr(self, k)[i] for k in (
+                "reads_done", "writes_done", "probe_lat_sum", "probe_cnt",
+                "data_bus_busy", "cmd_counts", "deferred")},
+            per_channel=ch, per_group=(ch,),
+            scan_steps=host(self.scan_steps),
+            skipped_cycles=host(self.skipped_cycles))
+
     def to_dict(self) -> dict:
-        """Plain-Python counter dict (ints throughout; per-channel
-        counters as lists) — the reference's ``Stats.to_dict``."""
+        """Plain-Python counter dict of one scalar run (ints throughout;
+        per-channel counters as lists) — the reference's
+        ``Stats.to_dict``; index a batch with :meth:`point` first."""
         d = {k: int(getattr(self, k))
              for k in ("cycles", "reads_done", "writes_done",
                        "probe_lat_sum", "probe_cnt", "data_bus_busy",
@@ -92,7 +120,8 @@ def _np(x) -> np.ndarray:
 class TraceArrays(NamedTuple):
     """Dense per-cycle trace of ``run(..., trace=True)``: ``[T, 2]``
     fields for a single channel ([cycles, bus slots]; slot 0 is the
-    column C/A bus, slot 1 the row bus).  ``cmd`` is -1 on idle slots."""
+    column C/A bus, slot 1 the row bus), ``[T, C, 2]`` for ``C``
+    channels.  ``cmd`` is -1 on idle slots."""
     cmd: torch.Tensor
     bank: torch.Tensor
     row: torch.Tensor
@@ -100,19 +129,20 @@ class TraceArrays(NamedTuple):
     hit_ready: torch.Tensor  # bool
 
 
-def _zero_channel_stats(cspec: CompiledSpec, channels: int,
+def _zero_channel_stats(cspec: CompiledSpec, lanes: tuple,
                         device) -> ChannelStats:
-    z = lambda *sh: torch.zeros((channels,) + sh, dtype=I32, device=device)
+    z = lambda *sh: torch.zeros(lanes + sh, dtype=I32, device=device)
     return ChannelStats(z(), z(), z(), z(), z(), z(cspec.n_cmds), z())
 
 
 def _accum_channel_stats(cspec: CompiledSpec, dp: D.DynParams,
                          ch: ChannelStats, ev: C.StepEvents) -> ChannelStats:
-    """Fold one cycle's channel-stacked events into the running stats."""
+    """Fold one cycle's lane-stacked events into the running stats (an
+    idle lane's events add nothing)."""
     rd = ev.served_read.to(I32)
     wr = ev.served_write.to(I32)
     # one-hot count of both bus slots (idle slots are -1: no match)
-    issued = (dp.tables.cmd_ids == ev.cmd[:, :, None]).sum(1, dtype=I32)
+    issued = (dp.tables.cmd_ids == ev.cmd[..., None]).sum(-2, dtype=I32)
     return ChannelStats(
         reads_done=ch.reads_done + rd,
         writes_done=ch.writes_done + wr,
@@ -124,99 +154,187 @@ def _accum_channel_stats(cspec: CompiledSpec, dp: D.DynParams,
     )
 
 
-def _aggregate_stats(ch: ChannelStats, clk: int,
-                     scan_steps: int | None = None) -> Stats:
-    """Fold the per-channel running stats into :class:`Stats`."""
-    s = lambda a: a.sum(0, dtype=I32)
-    steps = clk if scan_steps is None else scan_steps
+def _aggregate_stats(ch: ChannelStats, cycles: list, steps: list) -> Stats:
+    """Fold the ``(P, C, ...)`` running stats into batched :class:`Stats`:
+    per point, the sums over its channels."""
+    s = lambda a: a.sum(1, dtype=I32)
+    cycles, steps = np.asarray(cycles), np.asarray(steps)
     return Stats(
-        cycles=clk, reads_done=s(ch.reads_done),
+        cycles=cycles, reads_done=s(ch.reads_done),
         writes_done=s(ch.writes_done), probe_lat_sum=s(ch.probe_lat_sum),
         probe_cnt=s(ch.probe_cnt), data_bus_busy=s(ch.data_bus_busy),
         cmd_counts=s(ch.cmd_counts), deferred=s(ch.deferred),
         per_channel=ch, per_group=(ch,), scan_steps=steps,
-        skipped_cycles=clk - steps)
+        skipped_cycles=cycles - steps)
 
 
 class RunResult(NamedTuple):
-    out: object             # Stats, or (Stats, TraceArrays)
+    out: object             # batched Stats, or (Stats, TraceArrays)
     host_syncs: int         # device->host reads inside the cycle loop
+
+
+class _Upload:
+    """The host's per-iteration inputs of the fast-forward loop, packed in
+    one byte buffer so that one non-blocking copy (from pinned memory on
+    CUDA) sends them all: the rng maps ``ra``, ``rc`` (int64) of the idle
+    jumps decided at the last sync, then each point's clock, the clock
+    after it and the accumulator refill (int32), then the active flags.
+    The device-side views are made once.  The host writes the buffer only
+    after the last iteration's sync, so the previous copy has finished."""
+
+    def __init__(self, points: int, device):
+        P = points
+        nbytes = 16 * P + 12 * P + P
+        cuda = torch.device(device).type == "cuda"
+        self.host = torch.zeros(nbytes, dtype=torch.uint8, pin_memory=cuda)
+        self.dev = torch.zeros(nbytes, dtype=torch.uint8, device=device)
+        self.host_views = self._views(self.host)
+        self.ra, self.rc, self.clk, self.nxt, self.refill, self.active = \
+            self._views(self.dev)
+        self.np = [v.numpy() for v in self.host_views]
+
+    @staticmethod
+    def _views(buf):
+        n = buf.shape[0] // 29
+        i64 = buf[:16 * n].view(torch.int64)
+        i32 = buf[16 * n:28 * n].view(torch.int32)
+        return (i64[:n], i64[n:], i32[:n], i32[n:2 * n], i32[2 * n:],
+                buf[28 * n:].view(torch.bool))
+
+    def send(self, clks, jumps, active):
+        """Write the clocks and the jumps ``(refill, ra, rc)`` per point,
+        then copy them to the device."""
+        ra, rc, clk, nxt, refill, act = self.np
+        clk[:] = clks
+        nxt[:] = [c + 1 for c in clks]
+        act[:] = active
+        refill[:], ra[:], rc[:] = zip(*jumps)
+        self.dev.copy_(self.host, non_blocking=True)
 
 
 def make_run(cspec: CompiledSpec, ccfg: C.ControllerConfig,
              fcfg: F.FrontendConfig, n_cycles: int, trace: bool,
-             fast_forward: bool = True):
-    """Build the run function ``(dp, fp, seed, device) -> RunResult``.
+             fast_forward: bool = True, points: int = 1):
+    """Build the run function ``(dp, fp, seed, device) -> RunResult`` of
+    ``points`` design points (``fp``'s ``(P,)`` load knobs; batched
+    :class:`Stats`).
 
-    ``fast_forward`` (default on) executes one cycle per loop iteration,
-    then jumps to ``min(max(horizon, clk + 1), n_cycles)``, where the
-    horizon is the earliest cycle at which the frontend or the channel
-    could act (``F.arrival_horizon``, the step's channel horizon) — or the
-    next cycle when this one accepted or issued anything.  With ``trace`` the
-    dense per-cycle buffers are idle-initialized and every executed cycle
-    is written at its true index, so the trace is bit-identical to the
-    per-cycle loop's."""
+    ``fast_forward`` (default on) executes one cycle per point and loop
+    iteration, then jumps each point to ``min(max(horizon, clk + 1),
+    n_cycles)``, where the horizon is the earliest cycle at which the
+    point's frontend or channels could act (``F.arrival_horizon``, the
+    step's channel horizon) — or the next cycle when this one accepted or
+    issued anything.  With ``trace`` (one point only) the dense per-cycle
+    buffers are idle-initialized and every executed cycle is written at
+    its true index, so the trace is bit-identical to the per-cycle loop's.
+    """
     channels = cspec.n_channels
+    if trace and points != 1:
+        raise ValueError("trace=True records one point's run")
+    if not 0 <= n_cycles <= 2**30:
+        raise ValueError(f"n_cycles {n_cycles} outside [0, 2**30]: the "
+                         "controller step takes clocks below 2**30")
+    P = points
 
     def run(dp: D.DynParams, fp: F.FrontParams, seed: int, device):
         ft = F.front_tables(cspec, fcfg, channels, device)
         k_draws = int(ft.draw_c.numel())
         a_cyc, c_cyc = F.lcg_affine(k_draws)
+        cap = fcfg.max_backlog_fp
 
-        def cycle(cs, ch, fs, clk):
-            """One executed cycle; with fast-forward the controller step
-            also returns the channels' horizon at ``clk + 1`` on its new
-            state (the frontend's commit and finish leave ``cs`` as it is),
-            one kernel launch on CUDA."""
+        def cycle(cs, ch, fs, clk, active, front_clk, front_active):
+            """One executed cycle of every active point at its clock; with
+            fast-forward the controller step also returns the lanes'
+            horizon at ``clk + 1`` on its new state (the frontend's commit
+            and finish leave ``cs`` as it is), one kernel launch on CUDA.
+            The step takes the device clocks ``clk`` and flags ``active``;
+            the frontend the same as ``front_clk`` and ``front_active``, a
+            host int and None where every point runs at one clock (it then
+            fills requests with ``masked_fill`` and skips the masks)."""
             queue, draft = F.frontend_insert(cspec, fcfg, fp, fs, cs.queue,
-                                             clk, ft)
+                                             front_clk, ft, front_active)
             cs = cs._replace(queue=queue)
             hc = None
             if fast_forward:
-                cs, ev, hc = C.step_and_horizon(cspec, dp, ccfg, cs, clk)
+                cs, ev, hc = C.step_and_horizon(cspec, dp, ccfg, cs, clk,
+                                                active)
             else:
-                cs, ev = C.controller_step(cspec, dp, ccfg, cs, clk)
+                cs, ev = C.controller_step(cspec, dp, ccfg, cs, clk, active)
             ch = _accum_channel_stats(cspec, dp, ch, ev)
             absorb = F.absorb_locals(ev)
             fs = F.frontend_commit(fcfg, fp, fs, draft, draft.okp, draft.ok)
             fs = F.frontend_finish(fs, fp, absorb[0], absorb[1], absorb[2])
-            busy = (draft.okp + draft.ok + (ev.cmd >= 0).sum(dtype=I32)) > 0
+            busy = (draft.okp + draft.ok
+                    + (ev.cmd >= 0).sum((-2, -1), dtype=I32)) > 0
             return cs, ch, fs, ev, busy, hc
 
-        def horizon(fs, hc, clk):
-            """min over the frontend's and the channels' next events."""
-            h = F.arrival_horizon(fcfg, fp, fs, clk)
-            return torch.minimum(h, hc.amin())
-
-        def idle_jump(fs, d):
-            return F.idle_advance(fcfg, fs, d, a_cyc, c_cyc, k_draws)
-
-        cs = C.init_ctrl_state(cspec, ccfg.queue_depth, channels, device)
-        ch = _zero_channel_stats(cspec, channels, device)
-        fs = F.init_front(seed, device)
+        cs = C.init_ctrl_state(cspec, ccfg.queue_depth, channels, device,
+                               ccfg.refresh_stagger, P)
+        ch = _zero_channel_stats(cspec, (P, channels), device)
+        fs = F.init_front(seed, device, P)
         clks, ys = [], []
         syncs = 0
-        clk = steps = 0
-        while clk < n_cycles:
-            cs, ch, fs, ev, busy, hc = cycle(cs, ch, fs, clk)
+
+        def record(ev, clk):
             if trace:
                 clks.append(clk)
-                ys.append(torch.stack([ev.cmd, ev.bank, ev.row, ev.arrive,
-                                       ev.hit_ready.to(I32)]))
-            steps += 1
-            clk += 1
-            if not fast_forward:
-                continue
-            h = horizon(fs, hc, clk)
-            # the step's one host sync: busy verdict + horizon together
-            is_busy, h = torch.stack([busy.to(I32), h]).tolist()
-            syncs += 1
-            target = min(clk if is_busy else max(h, clk), n_cycles)
-            if target > clk:
-                fs = idle_jump(fs, target - clk)
-                clk = target
+                ys.append(torch.stack([ev.cmd[0], ev.bank[0], ev.row[0],
+                                       ev.arrive[0],
+                                       ev.hit_ready[0].to(I32)]))
 
-        stats = _aggregate_stats(ch, n_cycles, steps)
+        up = _Upload(P, device)
+        if not fast_forward:
+            # every point at one clock, counted on the device
+            up.send([0] * P, [(0, 1, 0)] * P, [True] * P)
+            for clk in range(n_cycles):
+                cs, ch, fs, ev, _, _ = cycle(cs, ch, fs, up.clk, up.active,
+                                             clk, None)
+                record(ev, clk)
+                up.clk.add_(1)
+            stats = _aggregate_stats(ch, [n_cycles] * P, [n_cycles] * P)
+        else:
+            jump_of = {0: (0, 1, 0)}     # d -> (refill, ra, rc), memoized
+
+            def jump(d):
+                hit = jump_of.get(d)
+                if hit is None:
+                    hit = jump_of[d] = (min(256 * d, cap) if fcfg.stream
+                                        else 0,
+                                        *F.lcg_power(d, a_cyc, c_cyc))
+                return hit
+
+            at = [0] * P                 # each point's clock
+            steps = [0] * P
+            dists = [0] * P              # the idle jump decided last sync
+            while True:
+                active = [t < n_cycles for t in at]
+                if not any(active):
+                    break
+                up.send(at, [jump(d) for d in dists], active)
+                if any(dists):
+                    fs = F.idle_jump(fcfg, fs, up.refill, up.ra, up.rc,
+                                     k_draws)
+                # one point: the host's int clock serves the frontend
+                one = P == 1
+                cs, ch, fs, ev, busy, hc = cycle(
+                    cs, ch, fs, up.clk, up.active, at[0] if one else up.clk,
+                    None if one else up.active)
+                record(ev, at[0])
+                h = torch.minimum(F.arrival_horizon(
+                    fcfg, fp, fs, at[0] + 1 if one else up.nxt), hc.amin(-1))
+                # the iteration's one host sync: busy verdicts + horizons
+                is_busy, h = torch.stack([busy.to(I32), h]).tolist()
+                syncs += 1
+                for p in range(P):
+                    dists[p] = 0
+                    if not active[p]:
+                        continue
+                    steps[p] += 1
+                    t = at[p] + 1
+                    target = min(t if is_busy[p] else max(h[p], t), n_cycles)
+                    dists[p] = target - t
+                    at[p] = target
+            stats = _aggregate_stats(ch, [n_cycles] * P, steps)
         if not trace:
             return RunResult(stats, syncs)
         return RunResult((stats, _dense_trace(clks, ys, n_cycles, channels,
@@ -250,8 +368,11 @@ class Simulator:
     >>> sim = Simulator("DDR4", "DDR4_8Gb_x8", "DDR4_2400R", device="cpu")
     >>> stats = sim.run(10_000, interval=4.0, read_ratio=1.0)
 
+    >>> pts, stats = sim.run_batch(10_000, [8, 2], [1.0, 0.5])
+    >>> stats.point(0).to_dict()
+
     ``host_syncs`` counts the device->host reads of every run's cycle
-    loop (one per executed step with fast-forward, none without).
+    loop (one per loop iteration with fast-forward, none without).
     """
     standard: str | None = None
     org_preset: str | None = None
@@ -283,11 +404,6 @@ class Simulator:
             raise NotImplementedError(
                 "Simulator(channel_shard=...): multi-GPU channel sharding "
                 "is not ported yet — see ROADMAP.md queue 1 item 12")
-        if self.channels != 1:
-            raise NotImplementedError(
-                f"Simulator(channels={self.channels}): multi-channel "
-                "systems are not ported to repro_torch yet — see "
-                "ROADMAP.md queue 1 item 6")
         if self.standard is None:
             raise ValueError("Simulator needs a (standard, org_preset, "
                              "timing_preset) triple")
@@ -312,23 +428,30 @@ class Simulator:
                 "run(telemetry=W): windowed telemetry is not ported to "
                 "repro_torch yet — see ROADMAP.md queue 1 item 8")
         fcfg = self.frontend
-        if interval is not None or read_ratio is not None:
-            fcfg = dataclasses.replace(
-                fcfg,
-                interval=interval if interval is not None else fcfg.interval,
-                read_ratio=(read_ratio if read_ratio is not None
-                            else fcfg.read_ratio))
-        ff = self.fast_forward if fast_forward is None else fast_forward
-        res = make_run(self.cspec, self.controller, fcfg, n_cycles, trace,
-                       ff)(self.dp, fcfg.params(), seed, self.device)
-        self.host_syncs += res.host_syncs
-        return res.out
+        point = (fcfg.interval if interval is None else interval,
+                 fcfg.read_ratio if read_ratio is None else read_ratio)
+        out = self._run([point], n_cycles, trace, seed, fast_forward)
+        if trace:
+            return out[0].point(0), out[1]
+        return out.point(0)
 
     def run_batch(self, n_cycles: int, intervals, read_ratios,
                   seed: int = 0x1234):
-        raise NotImplementedError(
-            "run_batch: batched design points are not ported to "
-            "repro_torch yet — see ROADMAP.md queue 1 item 7")
+        """Simulate the outer product of load points in one batched run:
+        ``(pts, stats)``, ``pts`` the ``(interval, read_ratio)`` pairs in
+        the reference's order and ``stats`` batched :class:`Stats` (use
+        ``stats.point(i)`` for one point).  The points run in lockstep, one
+        fused launch per loop iteration for all of them on CUDA."""
+        pts = [(i, r) for i in intervals for r in read_ratios]
+        return pts, self._run(pts, n_cycles, False, seed, self.fast_forward)
+
+    def _run(self, pts, n_cycles, trace, seed, fast_forward):
+        ff = self.fast_forward if fast_forward is None else fast_forward
+        fp = F.stack_params(pts, self.frontend.probe_gap, self.device)
+        res = make_run(self.cspec, self.controller, self.frontend, n_cycles,
+                       trace, ff, len(pts))(self.dp, fp, seed, self.device)
+        self.host_syncs += res.host_syncs
+        return res.out
 
 
 # --------------------------------------------------------------------------

@@ -8,13 +8,15 @@ The counterpart of ``repro.core.frontend`` (single-spec paths only):
   2. *serialized random-access probes*: a probe is only issued after the
      previous probe's data returned.
 
-The frontend state is a :class:`FrontState` of 0-d tensors on the run's
-device.  The reference's uint32 LCG is carried in int64, masked to 32
-bits after every step (PyTorch has no uint32 add on the CPU).  A cycle's
-draws are unconditional and fixed in number (:func:`rng_draws_per_cycle`),
-so they are computed together as affine images of the cycle's starting
-state — the same values as drawing them one after another with
-:func:`_lcg`.
+The frontend state is a :class:`FrontState` of tensors on the run's
+device: 0-d for one run, ``(P,)`` for a batch of ``P`` design points
+(load points), each point with its own clock, parameters and rng; every
+function here works on either shape.  The reference's uint32 LCG is
+carried in int64, masked to 32 bits after every step (PyTorch has no
+uint32 add on the CPU).  A cycle's draws are unconditional and fixed in
+number (:func:`rng_draws_per_cycle`), so they are computed together as
+affine images of the cycle's starting state — the same values as drawing
+them one after another with :func:`_lcg`.
 
 Trace replay (``pattern="trace"``) and the heterogeneous-system frontend
 are not ported yet and raise.
@@ -37,7 +39,9 @@ LCG_A, LCG_C = 1664525, 1013904223
 
 
 class FrontParams(NamedTuple):
-    """Load knobs of one run (fixed-point by 256), as Python ints."""
+    """Load knobs (fixed-point by 256): Python ints for one run
+    (:meth:`FrontendConfig.params`), ``(P,)`` int32 tensors for a batch of
+    load points (:func:`stack_params`)."""
     interval_fp: int            # inter-arrival interval in cycles * 256
     read_ratio_fp: int          # P(read) * 256
     probe_gap: int              # idle cycles between probes
@@ -81,6 +85,18 @@ class FrontendConfig:
             interval_fp=max(int(self.interval * 256), 1),
             read_ratio_fp=int(self.read_ratio * 256),
             probe_gap=int(self.probe_gap))
+
+
+def stack_params(load_points, probe_gap: int, device) -> FrontParams:
+    """Stack ``(interval, read_ratio)`` pairs into batched ``FrontParams``
+    of ``(P,)`` int32 tensors on ``device``, with the x256 fixed-point
+    encoding of :meth:`FrontendConfig.params` (the reference's
+    ``stack_params``)."""
+    i32 = lambda v: torch.tensor(v, dtype=I32, device=device)
+    return FrontParams(
+        interval_fp=i32([max(int(i * 256), 1) for i, _ in load_points]),
+        read_ratio_fp=i32([int(r * 256) for _, r in load_points]),
+        probe_gap=i32([int(probe_gap)] * len(load_points)))
 
 
 class FrontDraft(NamedTuple):
@@ -127,12 +143,16 @@ def front_tables(cspec: CompiledSpec, cfg: FrontendConfig, channels: int,
         chan_ids=torch.arange(channels, dtype=I32, device=device))
 
 
-def init_front(seed: int = 0x1234, device="cpu") -> FrontState:
-    z = lambda: torch.zeros((), dtype=I32, device=device)
+def init_front(seed: int = 0x1234, device="cpu",
+               points: int | None = None) -> FrontState:
+    """The reset frontend state: 0-d leaves, or ``(points,)`` leaves of
+    ``points`` runs that share the seed."""
+    shape = () if points is None else (points,)
+    z = lambda: torch.zeros(shape, dtype=I32, device=device)
     return FrontState(accum_fp=z(),
-                      rng=torch.full((), (seed | 1) & MASK32,
+                      rng=torch.full(shape, (seed | 1) & MASK32,
                                      dtype=torch.int64, device=device),
-                      seq=z(), probe_busy=torch.zeros((), dtype=torch.bool,
+                      seq=z(), probe_busy=torch.zeros(shape, dtype=torch.bool,
                                                       device=device),
                       probe_next=z(), sent=z(), dropped_backpressure=z(),
                       served=z())
@@ -156,25 +176,31 @@ def _mul32(a_lo, a_hi, x):
 
 
 def _draws(ft: FrontTables, rng):
-    """The cycle's K LCG draws ``lcg^1(rng) .. lcg^K(rng)``, ``(K,)``."""
-    return (_mul32(ft.draw_a_lo, ft.draw_a_hi, rng) + ft.draw_c) & MASK32
+    """The cycle's K LCG draws ``lcg^1(rng) .. lcg^K(rng)``, ``rng.shape
+    + (K,)``."""
+    return (_mul32(ft.draw_a_lo, ft.draw_a_hi, rng[..., None])
+            + ft.draw_c) & MASK32
 
 
 def _pack_fields(ft: FrontTables, values):
-    """Layout-ordered field values -> (chan, sub (L-1,), row, col)."""
-    v = values.to(I32).index_select(0, ft.perm)
-    return v[0], v[1:-2], v[-2], v[-1]
+    """Layout-ordered field values ``S + (n,)`` -> (chan ``S``, sub, row,
+    col), the last three shaped to broadcast against the queue's ``S +
+    (C, Q)``: ``S + (1, 1, L-1)`` and ``S + (1, 1)``."""
+    v = values.to(I32).index_select(-1, ft.perm)
+    q = v.view(v.shape[:-1] + (1, 1, v.shape[-1]))
+    return v[..., 0], q[..., 1:-2], q[..., -2], q[..., -1]
 
 
 def _seq_addr(cspec: CompiledSpec, ft: FrontTables, seq):
     """Decode the linear request counter through the mapper layout (the
     mixed-radix decode of ``addrmap.decode_fields`` in one step)."""
-    return _pack_fields(ft, (seq.to(torch.int64) // ft.strides) % ft.counts)
+    return _pack_fields(ft, (seq[..., None].to(torch.int64) // ft.strides)
+                        % ft.counts)
 
 
 def _rand_addr(cspec: CompiledSpec, ft: FrontTables, draws):
     """One random value per layout field (channel included) from
-    ``len(layout)`` consecutive draws."""
+    ``len(layout)`` consecutive draws (the last axis of ``draws``)."""
     return _pack_fields(ft, (draws >> 8) % ft.counts)
 
 
@@ -185,24 +211,34 @@ def _rand_addr(cspec: CompiledSpec, ft: FrontTables, draws):
 
 def route_insert(queues: C.Queue, ft: FrontTables, chan, is_write, is_probe,
                  sub, row, col, arrive, want):
-    """Insert one request into its target channel's queue (``queues``
-    leaves carry the leading channel axis).  Returns ``(queues', ok)``,
-    ``ok`` False when the target channel's queue was full."""
-    queues, oks = C.queue_insert(queues, is_write, is_probe, sub, row, col,
-                                 arrive, want & (chan == ft.chan_ids))
-    return queues, oks.any()
+    """Insert one request per point into its target channel's queue:
+    ``chan`` and ``want`` have the frontend state's shape ``S`` (``()`` or
+    ``(P,)``), ``queues`` leaves are ``S + (C, Q[, L-1])`` and the other
+    fields broadcast against them (see ``controller.queue_insert``).
+    Returns ``(queues', ok S)``, ``ok`` False where the target channel's
+    queue was full."""
+    queues, oks = C.queue_insert(
+        queues, is_write, is_probe, sub, row, col, arrive,
+        want[..., None] & (chan[..., None] == ft.chan_ids))
+    return queues, oks.any(-1)
 
 
 def frontend_insert(cspec: CompiledSpec, cfg: FrontendConfig,
                     fp: FrontParams, fs: FrontState, queues: C.Queue, clk,
-                    ft: FrontTables):
-    """Decode + insert up to one probe and one streaming request into
-    ``queues`` this cycle, without touching ``fs`` — the accept flags come
-    back in a :class:`FrontDraft` for :func:`frontend_commit`.  Probes
-    insert first so a saturated stream cannot starve them."""
+                    ft: FrontTables, active=None):
+    """Decode + insert up to one probe and one streaming request per point
+    into ``queues`` this cycle, without touching ``fs`` — the accept flags
+    come back in a :class:`FrontDraft` for :func:`frontend_commit`.  Probes
+    insert first so a saturated stream cannot starve them.  ``clk`` is a
+    host int or a tensor of ``fs``'s shape (each point's clock); ``queues``
+    leaves are ``S + (C, Q[, L-1])`` for ``fs``'s shape ``S``; a point
+    whose ``active`` flag is off inserts nothing and keeps its rng and
+    accumulator."""
     n = len(ft.layout)
     draws = _draws(ft, fs.rng) if ft.draw_c.numel() else None
     used = 0
+    lane = lambda x: x.view(x.shape + (1, 1))        # S -> S + (C, Q)
+    arrive = lane(clk) if isinstance(clk, torch.Tensor) else clk
     zero = torch.zeros_like(fs.seq)
     okp = ok = zero
     want = zero.bool()
@@ -210,25 +246,35 @@ def frontend_insert(cspec: CompiledSpec, cfg: FrontendConfig,
 
     if cfg.probes:
         want_p = ~fs.probe_busy & (fs.probe_next <= clk)
-        chan, sub, row, col = _rand_addr(cspec, ft, draws[:n])
+        if active is not None:
+            want_p = want_p & active
+        chan, sub, row, col = _rand_addr(cspec, ft, draws[..., :n])
         used = n
         queues, okp_b = route_insert(queues, ft, chan, False, True, sub, row,
-                                     col, clk, want_p)
+                                     col, arrive, want_p)
         okp = okp_b.to(I32)
 
     if cfg.stream:
         accum = (accum + 256).clamp(max=cfg.max_backlog_fp)
         want = accum >= fp.interval_fp
+        if active is not None:
+            want = want & active
+            accum = torch.where(active, accum, fs.accum_fp)
         if cfg.pattern == "sequential":
             chan, sub, row, col = _seq_addr(cspec, ft, fs.seq)
         else:
-            chan, sub, row, col = _rand_addr(cspec, ft, draws[used:used + n])
-        is_write = ((draws[-1] >> 9) % 256) >= fp.read_ratio_fp
-        queues, ok_b = route_insert(queues, ft, chan, is_write, False, sub,
-                                    row, col, clk, want)
+            chan, sub, row, col = _rand_addr(cspec, ft,
+                                             draws[..., used:used + n])
+        is_write = ((draws[..., -1] >> 9) % 256) >= fp.read_ratio_fp
+        queues, ok_b = route_insert(queues, ft, chan, lane(is_write), False,
+                                    sub, row, col, arrive, want)
         ok = ok_b.to(I32)
 
-    rng = draws[-1] if draws is not None else fs.rng
+    rng = fs.rng
+    if draws is not None:
+        rng = draws[..., -1]
+        if active is not None:
+            rng = torch.where(active, rng, fs.rng)
     return queues, FrontDraft(rng=rng, accum=accum, want=want, okp=okp,
                               ok=ok)
 
@@ -291,12 +337,10 @@ def lcg_affine(k: int) -> tuple:
     return a, c
 
 
-def lcg_jump(rng, d: int, a_cycle: int, c_cycle: int):
-    """Advance ``rng`` by ``d >= 0`` cycles of the per-cycle affine map
-    ``x -> a_cycle*x + c_cycle``.  The engine's host loop knows ``d`` as
-    a Python int, so the binary exponentiation over its bits runs in
-    exact Python integers; the device applies one affine map with
-    :func:`_mul32`."""
+def lcg_power(d: int, a_cycle: int, c_cycle: int) -> tuple:
+    """Host-side ``(a, c)`` of the per-cycle affine map ``x -> a_cycle*x +
+    c_cycle`` composed ``d >= 0`` times (mod 2**32): the binary
+    exponentiation over the bits of ``d`` in exact Python integers."""
     d = int(d)
     if d < 0:
         raise ValueError(f"lcg_jump needs d >= 0, got {d}")
@@ -307,19 +351,47 @@ def lcg_jump(rng, d: int, a_cycle: int, c_cycle: int):
             ra, rc = (pa * ra) % (1 << 32), (pa * rc + pc) % (1 << 32)
         pa, pc = (pa * pa) % (1 << 32), (pa * pc + pc) % (1 << 32)
         d >>= 1
+    return ra, rc
+
+
+def lcg_apply(rng, ra, rc):
+    """``(ra * rng + rc) mod 2**32`` on the device with :func:`_mul32`;
+    ``ra`` and ``rc`` are ints or int64 tensors of ``rng``'s shape."""
     return (_mul32(ra & 0xFFFF, ra >> 16, rng) + rc) & MASK32
+
+
+def lcg_jump(rng, d: int, a_cycle: int, c_cycle: int):
+    """Advance ``rng`` by ``d >= 0`` cycles of the per-cycle affine map
+    ``x -> a_cycle*x + c_cycle``.  The engine's host loop knows ``d`` as
+    a Python int, so :func:`lcg_power` folds its bits on the host and the
+    device applies one affine map (:func:`lcg_apply`)."""
+    return lcg_apply(rng, *lcg_power(d, a_cycle, c_cycle))
 
 
 def idle_advance(cfg: FrontendConfig, fs: FrontState, d: int, a_cycle: int,
                  c_cycle: int, k_draws: int) -> FrontState:
     """Apply ``d`` idle cycles' worth of frontend state change in one
     step: the clamped accumulator refill and the rng's ``k_draws`` draws
-    per cycle are the only frontend state that moves on an idle cycle."""
+    per cycle are the only frontend state that moves on an idle cycle
+    (:func:`idle_jump` with the host's refill and LCG map of ``d``)."""
+    return idle_jump(cfg, fs, min(256 * d, cfg.max_backlog_fp),
+                     *lcg_power(d, a_cycle, c_cycle), k_draws)
+
+
+def idle_jump(cfg: FrontendConfig, fs: FrontState, refill, ra, rc,
+              k_draws: int) -> FrontState:
+    """Advance each point by its own number of idle cycles ``d``, with what
+    the host computed from the ``d``: the accumulator refill ``min(256 *
+    d, max_backlog_fp)`` (the same clamp as refilling ``d`` times, since
+    the accumulator is never negative) and the rng's affine map ``(ra,
+    rc)`` (:func:`lcg_power`), ints or tensors of ``fs``'s shape (int32 and
+    int64).  A point with ``d = 0`` (refill 0, map ``(1, 0)``) is left as
+    it is."""
     if cfg.stream:
-        fs = fs._replace(accum_fp=(fs.accum_fp + 256 * d).clamp(
+        fs = fs._replace(accum_fp=(fs.accum_fp + refill).clamp(
             max=cfg.max_backlog_fp))
     if k_draws:
-        fs = fs._replace(rng=lcg_jump(fs.rng, d, a_cycle, c_cycle))
+        fs = fs._replace(rng=lcg_apply(fs.rng, ra, rc))
     return fs
 
 
@@ -327,33 +399,41 @@ def arrival_horizon(cfg: FrontendConfig, fp: FrontParams, fs: FrontState,
                     cur):
     """Earliest cycle ``>= cur`` at which the frontend could next attempt
     an insert, assuming no intervening completions (conservative, as in
-    the reference):
+    the reference), per point (``cur`` an int or a tensor of ``fs``'s
+    shape):
 
     * probe: attempts at ``max(probe_next, cur)`` once not busy;
     * stream: ``want`` first fires at the ``j``-th cycle from ``cur`` with
-      ``min(accum + 256*(j+1), cap) >= interval`` — never, if the cap
-      can't reach the interval."""
+      ``min(accum + 256*(j+1), cap) >= interval`` — never, where the cap
+      can't reach the interval (a per-point mask, as the reference's
+      ``jnp.where``)."""
     h = torch.full_like(fs.seq, HORIZON_MAX)
     if cfg.probes:
         h = fs.probe_next.clamp(min=cur).masked_fill(fs.probe_busy,
                                                      HORIZON_MAX)
-    if cfg.stream and fp.interval_fp <= cfg.max_backlog_fp:
+    if cfg.stream:
         need = fp.interval_fp - fs.accum_fp
         j = ((need + 255) // 256 - 1).clamp(min=0)
-        h = torch.minimum(h, cur + j)
+        never = fp.interval_fp > cfg.max_backlog_fp
+        hs = cur + j
+        if isinstance(never, torch.Tensor):
+            h = torch.minimum(h, hs.masked_fill(never, HORIZON_MAX))
+        elif not never:
+            h = torch.minimum(h, hs)
     return h
 
 
 def absorb_locals(events: C.StepEvents) -> torch.Tensor:
-    """Reduce the completion events over the channels to the ``(3,)``
-    int32 vector ``[probes_done, requests_served, probe_completion]``
-    (at most one probe is in flight, so the completion sum is its max)."""
+    """Reduce the completion events over each point's channels (the last
+    axis) to ``[probes_done, requests_served, probe_completion]`` int32,
+    ``(3,) + S`` (at most one probe is in flight per point, so the
+    completion sum is its max)."""
     probe = events.served_probe
     return torch.stack([
-        probe.sum(dtype=I32),
-        (events.served_read & ~probe).sum(dtype=I32)
-        + events.served_write.sum(dtype=I32),
-        events.probe_completion.sum(dtype=I32)])
+        probe.sum(-1, dtype=I32),
+        (events.served_read & ~probe).sum(-1, dtype=I32)
+        + events.served_write.sum(-1, dtype=I32),
+        events.probe_completion.sum(-1, dtype=I32)])
 
 
 def frontend_finish(fs: FrontState, fp: FrontParams, done_total,

@@ -1,21 +1,28 @@
 """The fused controller step: CUDA kernel wrapper and its per-run plan.
 
-``controller_step_cuda(plan, cs, clk, horizon)`` launches
+``controller_step_cuda(plan, cs, clk, active, horizon)`` launches
 ``csrc/controller_step.cu`` (built for ``sm_90a`` at first use, see
-``build.py``): one block per channel does what
+``build.py``): one block per lane does what
 ``repro_torch.core.controller.step_and_horizon_plain`` does (readiness
 table, candidates, predicates, refresh engine, scheduler, issue, events
-and, with ``horizon``, the event horizon at ``clk + 1``), bit for bit.  It
-replaces the TPU kernel ``repro/kernels/timing_check.py::maxplus_matmul``
-on the simulator's main path; the source note says what bounds it.
+and, with ``horizon``, the event horizon at ``clk + 1``), bit for bit.  A
+lane is one channel of one design point.  One launch steps ``P`` points
+of ``C`` channels, each at its point's clock (``clk`` a ``(P,)`` int32
+tensor on the card, with the ``(P,)`` bool ``active``; the state's leaves
+are ``(P, C, ...)``; an inactive point's lanes keep their state and write
+idle events); a single run is a batch of one point.  It replaces the TPU
+kernel
+``repro/kernels/timing_check.py::maxplus_matmul`` on the simulator's main
+path; the source note says what bounds it.
 
 Aliasing.  The kernel updates the controller state IN PLACE: every tensor
 of ``cs.dev``, ``cs.queue.valid``, ``cs.hit_streak`` and ``cs.prac_count``
-is overwritten with the next state, so the caller must not keep them as
-the old state (the engine drops the old state each cycle; a test clones
-its inputs first).  The events and the horizon are views of one int32
-buffer that the plan owns and the next launch overwrites; the engine reads
-them within the cycle, and its trace path copies them (``torch.stack``).
+is overwritten with the next state (an inactive lane's is left as it
+was), so the caller must not keep them as the old state (the engine drops
+the old state each cycle; a test clones its inputs first).  The events and
+the horizon are views of one int32 buffer that the plan owns and the next
+launch overwrites; the engine reads them within the cycle, and its trace
+path copies them (``torch.stack``).
 
 The plan (:func:`build_plan`) packs the spec's constant tables into one
 int32 tensor in the layout ``HEADER`` gives (mirrored from the ``Header``
@@ -65,6 +72,11 @@ EVENT = dict(EvCmd=0, EvBank=2, EvRow=4, EvArrive=6, EvProbeLatency=8,
 
 #: the tables after the header, in the order they are packed (each at the
 #: offset its ``Off<name>`` header word gives)
+#: device pointers the launch takes (the source's ``StepPtrs``): the plan,
+#: nine state arrays, six queue arrays, the events buffer, the clocks and
+#: the active flags
+NUM_PTRS = 19
+
 TABLES = ("Keys", "A", "Scope", "Fx", "Pass", "BankStride", "NodeMul",
           "NodeOff", "RingCmd", "RingLevel", "RingNode")
 
@@ -72,19 +84,24 @@ TABLES = ("Keys", "A", "Scope", "Fx", "Pass", "BankStride", "NodeMul",
 class StepPlan:
     """Everything one run's launches share: the packed constants on the
     device (``consts``) and on the host (``host``), the dimensions, the
-    events buffer ``out`` ``(channels, 16)`` int32, the ctypes pointer
-    array and the last state it was checked against.  ``events`` and
-    ``horizon`` are filled by the caller with views of ``out``."""
+    events buffer ``out`` ``(lanes, 16)`` int32, the ctypes pointer array
+    and the last state it was checked against.  ``events`` and ``horizon``
+    are filled by the caller with views of ``out``.  It takes states of
+    ``(P, C, ...)`` leaves."""
 
-    def __init__(self, host: np.ndarray, depth: int, channels: int, device):
+    def __init__(self, host: np.ndarray, depth: int, channels: int, device,
+                 points: int):
         self.host = host
         self.head = host.ctypes.data        # the header words, by value
-        self.depth, self.channels = depth, channels
+        self.depth, self.channels, self.points = depth, channels, points
+        #: the state's leading dims
+        self.lane_shape = (points, channels)
+        self.lanes = channels * points
         self.device = torch.device(device)
         self.consts = torch.as_tensor(host, device=self.device)
-        self.out = torch.zeros((channels, EVENT["EvWords"]), dtype=torch.int32,
-                               device=self.device)
-        self.ptrs = (ctypes.c_void_p * 17)()
+        self.out = torch.zeros((self.lanes, EVENT["EvWords"]),
+                               dtype=torch.int32, device=self.device)
+        self.ptrs = (ctypes.c_void_p * NUM_PTRS)()
         self.ptrs[0] = self.consts.data_ptr()
         self.ptrs[16] = self.out.data_ptr()
         self.checked = None          # data_ptrs of the last checked state
@@ -105,11 +122,12 @@ class StepPlan:
         return self.host[off:off + int(np.prod(shape))].reshape(shape)
 
 
-def build_plan(cspec, dp, cfg, depth: int, channels: int, device) -> StepPlan:
+def build_plan(cspec, dp, cfg, depth: int, channels: int, device,
+               points: int) -> StepPlan:
     """Pack the constant tables of ``cspec`` (latencies and scalar timings
     of ``dp``) and the options of ``cfg`` for a queue of ``depth`` slots in
-    each of ``channels`` channels; raises ``ValueError`` for what the
-    kernel does not take."""
+    each of ``channels`` channels of ``points`` design points; raises
+    ``ValueError`` for what the kernel does not take."""
     tab = dp.tables
     L1 = len(cspec.levels) - 1
     F, B, U = int(cspec.n_cmds), int(cspec.n_banks), int(cspec.n_refresh_units)
@@ -129,9 +147,10 @@ def build_plan(cspec, dp, cfg, depth: int, channels: int, device) -> StepPlan:
         if have > cap:
             raise ValueError(f"controller-step kernel: {what} {have} above "
                              f"its limit {cap} ({cspec.name})")
-    if depth < 1 or channels < 1:
-        raise ValueError("controller-step kernel: needs a queue and a "
-                         f"channel, got depth {depth}, channels {channels}")
+    if depth < 1 or channels < 1 or points < 1:
+        raise ValueError("controller-step kernel: needs a queue, a channel "
+                         f"and a point, got depth {depth}, channels "
+                         f"{channels}, points {points}")
     if B % U:
         raise ValueError(f"controller-step kernel: {B} banks do not split "
                          f"into {U} refresh units")
@@ -180,7 +199,7 @@ def build_plan(cspec, dp, cfg, depth: int, channels: int, device) -> StepPlan:
         host[H[name]] = int(value)
     if host.min() < -2**31 or host.max() >= 2**31:
         raise ValueError("controller-step kernel: a constant is out of int32")
-    return StepPlan(host.astype(np.int32), depth, channels, device)
+    return StepPlan(host.astype(np.int32), depth, channels, device, points)
 
 
 _LIB = None
@@ -197,7 +216,7 @@ def _lib():
         lib.controller_step_num_ptrs.restype = ci
         lib.controller_step_error_string.argtypes = [ci]
         lib.controller_step_error_string.restype = ctypes.c_char_p
-        if lib.controller_step_num_ptrs() != 17:
+        if lib.controller_step_num_ptrs() != NUM_PTRS:
             raise RuntimeError("controller-step kernel: pointer table "
                                "mismatch between the source and its wrapper")
         _LIB = lib
@@ -215,12 +234,16 @@ def _check(plan: StepPlan, named: list):
     contiguous tensor of that dtype and shape on the plan's device."""
     dev = plan.device
     for name, t, dtype, shape in named:
-        if t.device != dev or t.dtype != dtype or not t.is_contiguous() \
+        if not isinstance(t, torch.Tensor):
+            got = type(t).__name__
+        elif t.device != dev or t.dtype != dtype or not t.is_contiguous() \
                 or tuple(t.shape) != shape:
-            raise ValueError(
-                f"controller-step kernel: {name} must be a contiguous "
-                f"{dtype} tensor of shape {shape} on {dev}, got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}")
+            got = f"{t.dtype} {tuple(t.shape)} on {t.device}"
+        else:
+            continue
+        raise ValueError(
+            f"controller-step kernel: {name} must be a contiguous "
+            f"{dtype} tensor of shape {shape} on {dev}, got {got}")
 
 
 def _check_state(plan: StepPlan, cs):
@@ -228,7 +251,7 @@ def _check_state(plan: StepPlan, cs):
     when their storage differs from the last checked state (once per run
     in the engine, which keeps updating the same tensors), the queue on
     every call (the frontend makes it anew each cycle), then the device."""
-    C, Q = plan.channels, plan.depth
+    C, Q = plan.lane_shape, plan.depth
     d = plan.dim
     i32 = torch.int32
     st = _state_tensors(cs)
@@ -236,39 +259,43 @@ def _check_state(plan: StepPlan, cs):
     if ptrs != plan.checked:
         N, F, B, U = d("N"), d("F"), d("B"), d("U")
         _check(plan, [
-            ("last_issue", st[0], i32, (C, N, F)),
-            ("win_ring", st[1], i32, (C, d("R"), d("W"))),
-            ("row_state", st[2], i32, (C, B)),
-            ("act1_row", st[3], i32, (C, B)),
-            ("act1_clk", st[4], i32, (C, B)),
-            ("clock_until", st[5], i32, (C, U)),
-            ("last_ref", st[6], i32, (C, U)),
-            ("hit_streak", st[7], i32, (C, B)),
-            ("prac_count", st[8], i32, (C, B))])
+            ("last_issue", st[0], i32, C + (N, F)),
+            ("win_ring", st[1], i32, C + (d("R"), d("W"))),
+            ("row_state", st[2], i32, C + (B,)),
+            ("act1_row", st[3], i32, C + (B,)),
+            ("act1_clk", st[4], i32, C + (B,)),
+            ("clock_until", st[5], i32, C + (U,)),
+            ("last_ref", st[6], i32, C + (U,)),
+            ("hit_streak", st[7], i32, C + (B,)),
+            ("prac_count", st[8], i32, C + (B,))])
         for i, p in enumerate(ptrs):
             plan.ptrs[1 + i] = p
         plan.checked = ptrs
     q = cs.queue
     b = torch.bool
-    _check(plan, [("queue.valid", q.valid, b, (C, Q)),
-                  ("queue.is_write", q.is_write, b, (C, Q)),
-                  ("queue.is_probe", q.is_probe, b, (C, Q)),
-                  ("queue.sub", q.sub, i32, (C, Q, d("L1"))),
-                  ("queue.row", q.row, i32, (C, Q)),
-                  ("queue.arrive", q.arrive, i32, (C, Q))])
+    _check(plan, [("queue.valid", q.valid, b, C + (Q,)),
+                  ("queue.is_write", q.is_write, b, C + (Q,)),
+                  ("queue.is_probe", q.is_probe, b, C + (Q,)),
+                  ("queue.sub", q.sub, i32, C + (Q, d("L1"))),
+                  ("queue.row", q.row, i32, C + (Q,)),
+                  ("queue.arrive", q.arrive, i32, C + (Q,))])
     if plan.device.type != "cuda":
         raise ValueError("controller-step kernel: the plan lives on "
                          f"{plan.device}; the kernel runs on CUDA tensors")
 
 
-def controller_step_cuda(plan: StepPlan, cs, clk: int, horizon: bool):
+def controller_step_cuda(plan: StepPlan, cs, clk: torch.Tensor,
+                         active: torch.Tensor, horizon: bool):
     """Launch the fused step on the current stream (no synchronise): the
     state of ``cs`` is updated in place, the events (and, with
-    ``horizon``, the horizon at ``clk + 1``) land in ``plan.out``."""
+    ``horizon``, the horizon at ``clk + 1``) land in ``plan.out``.
+    ``clk`` and ``active`` are the ``(P,)`` int32 clocks and bool flags of
+    the plan's points on its device; the caller keeps the clocks in ``[0,
+    2**30)`` (the engine checks them on the host, where it sets them)."""
     global launch_count
-    if not 0 <= clk < 2**30:
-        raise ValueError(f"controller-step kernel: clock {clk} outside "
-                         "[0, 2**30)")
+    P = plan.points
+    _check(plan, [("clk", clk, torch.int32, (P,)),
+                  ("active", active, torch.bool, (P,))])
     _check_state(plan, cs)
     q = cs.queue
     p = plan.ptrs
@@ -278,9 +305,11 @@ def controller_step_cuda(plan: StepPlan, cs, clk: int, horizon: bool):
     p[13] = q.sub.data_ptr()
     p[14] = q.row.data_ptr()
     p[15] = q.arrive.data_ptr()
+    p[17] = clk.data_ptr()
+    p[18] = active.data_ptr()
     lib = _lib()
     rc = lib.controller_step_launch(
-        p, plan.head, plan.channels, clk, int(horizon),
+        p, plan.head, plan.lanes, plan.channels, int(horizon),
         torch.cuda.current_stream(plan.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("controller-step kernel launch failed: "

@@ -1,11 +1,19 @@
 // The fused controller step: one launch per executed cycle does, for every
-// channel, what repro_torch.core.controller.step_and_horizon_plain does:
+// lane, what repro_torch.core.controller.step_and_horizon_plain does:
 // the timing-readiness table, the request candidates and filtering
 // predicates, the refresh engine, the FR-FCFS / FCFS pick, the command
 // issue with all its state effects (twice, column pass then row pass, on
 // a dual command bus), the packed events, and the event horizon at
 // clk + 1 on the new state.  Bit for bit, in int32 arithmetic taken modulo
 // 2^32 where PyTorch's int32 tensors wrap.
+//
+// A lane is one channel of one design point.  The state arrays hold
+// P * C lanes, point-major, and the grid has one block per lane, so one
+// launch steps a whole batch of design points (the reference's vmap over
+// load points and channels).  Each block reads its point's clock from the
+// device array clk[P] and its flag from active[P]; an inactive point's
+// lanes write idle events and the horizon kHorizonMax and leave their
+// state alone.  A single run is a batch of one point.
 //
 // Replaces the TPU kernel src/repro/kernels/timing_check.py::maxplus_matmul
 // (_maxplus_kernel), the fp32 (max,+) product of gathered timestamps and the
@@ -14,12 +22,12 @@
 // and the stages after it consume the table in shared memory instead of
 // sending it back to the host's eager code.
 //
-// What bounds it on an H100: latency, not bytes or operations.  Per channel
+// What bounds it on an H100: latency, not bytes or operations.  Per lane
 // it moves a few KB (the controller state in and out, about 2.4 KB for
 // DDR5) and does a few thousand integer operations, so its bound is well
 // under a microsecond, while the dependent chain of stages below costs a
 // few microseconds of shared-memory round trips and barriers.  The design
-// therefore keeps everything in one block per channel and in shared memory,
+// therefore keeps everything in one block per lane and in shared memory,
 // with one barrier between stages and shared-memory atomics for the
 // reductions (deferred count, any-hit, the scheduler's argmin, the
 // horizon's min), so no stage waits on device memory after the stage-in.
@@ -30,7 +38,7 @@
 //
 // Stages (a __syncthreads() between each):
 //   0  stage in: the plan's header from the kernel's parameters, then its
-//      tables, the channel's DeviceState, queue, hit streaks and PRAC
+//      tables, the lane's DeviceState, queue, hit streaks and PRAC
 //      counters, all loads in flight together (one device-memory latency);
 //   per pass (one, or column then row on a dual command bus):
 //   A  the readiness table (one (cmd, bank) cell per thread); per queue
@@ -105,8 +113,8 @@ enum Header : int {
   kHeaderWords
 };
 
-// One channel's row of the int32 events buffer; the bool fields are bytes
-// of the same row.
+// One lane's row of the int32 events buffer; the bool fields are bytes of
+// the same row.
 enum Event : int {
   kEvCmd = 0, kEvBank = 2, kEvRow = 4, kEvArrive = 6, kEvProbeLatency = 8,
   kEvProbeCompletion = 9, kEvDeferred = 10, kEvHorizon = 11,
@@ -139,6 +147,8 @@ struct StepPtrs {
   const int* row;
   const int* arrive;
   int* out;
+  const int* clk;               // (P,) per-point clocks
+  const unsigned char* active;  // (P,) per-point flags
 };
 
 constexpr int kNumPtrs = sizeof(StepPtrs) / sizeof(void*);
@@ -466,6 +476,13 @@ __device__ void horizon(Smem& s, const int* c, int clk1) {
   __syncthreads();
 }
 
+// The events row of a lane that executes no cycle (a finished point):
+// nothing issued, served or deferred, and no horizon.
+__device__ void idle_events(int* o) {
+  for (int i = threadIdx.x; i < kEvWords; i += blockDim.x)
+    o[i] = i < kEvProbeLatency ? -1 : (i == kEvHorizon ? kHorizonMax : 0);
+}
+
 template <typename T>
 __device__ __forceinline__ void copy(T* dst, const T* src, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
@@ -475,7 +492,7 @@ __device__ __forceinline__ void copy(T* dst, const T* src, int n) {
 // state, the queue; int32 words, then the queue's bool bytes): its shared
 // destination and device source.  Returns false past the end.
 __device__ __forceinline__ bool locate(Smem& s, const StepPtrs& p,
-                                       const int* h, int ch, int i,
+                                       const int* h, int lane, int i,
                                        void*& dst, const void*& src,
                                        bool& byte) {
   const int Q = h[kQ], L1 = h[kL1], B = h[kB], U = h[kU];
@@ -490,30 +507,30 @@ __device__ __forceinline__ bool locate(Smem& s, const StepPtrs& p,
   byte = false;
   SEGMENT(s.consts + kHeaderWords, p.consts + kHeaderWords,
           h[kNConsts] - kHeaderWords)
-  SEGMENT(s.li, p.last_issue + ch * NF, NF)
-  SEGMENT(s.ring, p.win_ring + ch * RW, RW)
-  SEGMENT(s.rs, p.row_state + ch * B, B)
-  SEGMENT(s.a1r, p.act1_row + ch * B, B)
-  SEGMENT(s.a1c, p.act1_clk + ch * B, B)
-  SEGMENT(s.streak, p.hit_streak + ch * B, B)
-  SEGMENT(s.prac, p.prac_count + ch * B, B)
-  SEGMENT(s.cu, p.clock_until + ch * U, U)
-  SEGMENT(s.lr, p.last_ref + ch * U, U)
-  SEGMENT(s.sub, p.sub + ch * Q * L1, Q * L1)
-  SEGMENT(s.row, p.row + ch * Q, Q)
-  SEGMENT(s.arrive, p.arrive + ch * Q, Q)
+  SEGMENT(s.li, p.last_issue + lane * NF, NF)
+  SEGMENT(s.ring, p.win_ring + lane * RW, RW)
+  SEGMENT(s.rs, p.row_state + lane * B, B)
+  SEGMENT(s.a1r, p.act1_row + lane * B, B)
+  SEGMENT(s.a1c, p.act1_clk + lane * B, B)
+  SEGMENT(s.streak, p.hit_streak + lane * B, B)
+  SEGMENT(s.prac, p.prac_count + lane * B, B)
+  SEGMENT(s.cu, p.clock_until + lane * U, U)
+  SEGMENT(s.lr, p.last_ref + lane * U, U)
+  SEGMENT(s.sub, p.sub + lane * Q * L1, Q * L1)
+  SEGMENT(s.row, p.row + lane * Q, Q)
+  SEGMENT(s.arrive, p.arrive + lane * Q, Q)
   byte = true;
-  SEGMENT(s.valid, p.valid + ch * Q, Q)
-  SEGMENT(s.is_write, p.is_write + ch * Q, Q)
-  SEGMENT(s.is_probe, p.is_probe + ch * Q, Q)
+  SEGMENT(s.valid, p.valid + lane * Q, Q)
+  SEGMENT(s.is_write, p.is_write + lane * Q, Q)
+  SEGMENT(s.is_probe, p.is_probe + lane * Q, Q)
 #undef SEGMENT
   return false;
 }
 
 // Stage in: kLoadsPerThread loads per thread are issued into registers
-// before the first of them is stored, so the whole channel arrives in one
+// before the first of them is stored, so the whole lane arrives in one
 // device-memory latency instead of one per array.
-__device__ void stage_in(Smem& s, const StepPtrs& p, const int* h, int ch) {
+__device__ void stage_in(Smem& s, const StepPtrs& p, const int* h, int lane) {
   const int Q = h[kQ];
   const int total = h[kNConsts] - kHeaderWords + h[kN] * h[kF] +
                     h[kR] * h[kW] + 5 * h[kB] + 2 * h[kU] +
@@ -526,7 +543,8 @@ __device__ void stage_in(Smem& s, const StepPtrs& p, const int* h, int ch) {
 #pragma unroll
     for (int k = 0; k < kLoadsPerThread; ++k) {
       const void* src;
-      if (!locate(s, p, h, ch, base + k * blockDim.x, dst[k], src, byte[k])) {
+      if (!locate(s, p, h, lane, base + k * blockDim.x, dst[k], src,
+                  byte[k])) {
         dst[k] = nullptr;
         continue;
       }
@@ -545,14 +563,21 @@ __device__ void stage_in(Smem& s, const StepPtrs& p, const int* h, int ch) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-    controller_step_kernel(StepArgs a, int clk, int want_horizon) {
+    controller_step_kernel(StepArgs a, int channels, int want_horizon) {
   __shared__ Smem s;
   const StepPtrs& p = a.p;
-  const int ch = blockIdx.x, tid = threadIdx.x;
+  const int lane = blockIdx.x, tid = threadIdx.x;
+  // both loads in flight together: one device-memory latency
+  const int point = lane / channels;
+  const int clk = p.clk[point];
+  if (!p.active[point]) {
+    idle_events(p.out + lane * kEvWords);
+    return;
+  }
 
   // ---- 0: stage in
   for (int i = tid; i < kHeaderWords; i += blockDim.x) s.consts[i] = a.head[i];
-  stage_in(s, p, a.head, ch);
+  stage_in(s, p, a.head, lane);
   for (int i = tid; i < 2; i += blockDim.x) {
     s.best[i] = ~0ull;
     s.any_urgent2[i] = s.deferred[i] = s.hit_any[i] = 0;
@@ -569,18 +594,18 @@ __global__ void __launch_bounds__(kThreads)
   if (want_horizon) horizon(s, c, clk + 1);
 
   // ---- 9: stage out
-  copy(p.last_issue + ch * NF, s.li, NF);
-  copy(p.win_ring + ch * RW, s.ring, RW);
-  copy(p.row_state + ch * B, s.rs, B);
-  copy(p.act1_row + ch * B, s.a1r, B);
-  copy(p.act1_clk + ch * B, s.a1c, B);
-  copy(p.hit_streak + ch * B, s.streak, B);
-  copy(p.prac_count + ch * B, s.prac, B);
-  copy(p.clock_until + ch * U, s.cu, U);
-  copy(p.last_ref + ch * U, s.lr, U);
-  copy(p.valid + ch * Q, s.valid, Q);
+  copy(p.last_issue + lane * NF, s.li, NF);
+  copy(p.win_ring + lane * RW, s.ring, RW);
+  copy(p.row_state + lane * B, s.rs, B);
+  copy(p.act1_row + lane * B, s.a1r, B);
+  copy(p.act1_clk + lane * B, s.a1c, B);
+  copy(p.hit_streak + lane * B, s.streak, B);
+  copy(p.prac_count + lane * B, s.prac, B);
+  copy(p.clock_until + lane * U, s.cu, U);
+  copy(p.last_ref + lane * U, s.lr, U);
+  copy(p.valid + lane * Q, s.valid, Q);
   if (tid == 0) {
-    int* o = p.out + ch * kEvWords;
+    int* o = p.out + lane * kEvWords;
     unsigned char* ob = reinterpret_cast<unsigned char*>(o);
     const PassEvents& e = s.ev[0];
     const PassEvents& f = s.ev[1];
@@ -612,17 +637,18 @@ __global__ void __launch_bounds__(kThreads)
 
 // ptrs: kNumPtrs device pointers in the order of StepPtrs; head: the
 // plan's kHeaderWords header words, in host memory.  Launches one block per
-// channel on `stream`; returns the launch's cudaError_t.
+// lane (lanes = points * channels) on `stream`; returns the launch's
+// cudaError_t.
 extern "C" int controller_step_launch(void* const* ptrs, const int* head,
-                                      int channels, int clk, int want_horizon,
-                                      void* stream) {
+                                      int lanes, int channels,
+                                      int want_horizon, void* stream) {
   StepArgs a;
   void** dst = reinterpret_cast<void**>(&a.p);
   for (int i = 0; i < kNumPtrs; ++i) dst[i] = ptrs[i];
   for (int i = 0; i < kHeaderWords; ++i) a.head[i] = head[i];
-  controller_step_kernel<<<channels, kThreads, 0,
+  controller_step_kernel<<<lanes, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-      a, clk, want_horizon);
+      a, channels, want_horizon);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -101,6 +101,71 @@ def random_ctrl_state(cspec: CompiledSpec, dp: D.DynParams, device,
     return cs, clk
 
 
+def lane_case(cspec: CompiledSpec, dp: D.DynParams, device, seed: int,
+              points: int, channels: int, reset: bool,
+              stagger: bool = True, depth: int = 32) -> tuple:
+    """A batch of ``points`` design points of ``channels`` channels each
+    for the fused step at per-point clocks: ``(cs, clk (P,) int32, active
+    (P,) bool)``, the state's leaves ``(P, C, ...)``.
+
+    * ``reset``: the reset state (refresh ``stagger`` on or off) with a few
+      requests queued, every point at clock 0 (the staggered channels'
+      ``last_ref`` is negative there);
+    * otherwise :func:`random_ctrl_state` over all lanes, the points at
+      clocks ``clk + 0..3``.
+
+    Every third point (from the second) is inactive: a finished point
+    whose clock is already past the run's end."""
+    rng = np.random.default_rng(seed + 104729)
+    shape = (points, channels)
+    if reset:
+        cs = C.init_ctrl_state(cspec, depth, channels, device, stagger,
+                               points)
+        counts = [int(c) for c in cspec.level_counts[1:]]
+        sub = np.stack([rng.integers(0, c, shape + (depth,))
+                        for c in counts], -1)
+        cs = cs._replace(queue=cs.queue._replace(
+            valid=torch.as_tensor(rng.random(shape + (depth,)) < 0.3,
+                                  device=device),
+            is_write=torch.as_tensor(rng.random(shape + (depth,)) < 0.3,
+                                     device=device),
+            sub=_i32(sub, device),
+            row=_i32(rng.integers(0, 64, shape + (depth,)), device)))
+        clks = [0] * points
+    else:
+        cs, clk = random_ctrl_state(cspec, dp, device, seed, clk0=seed * 97,
+                                    depth=depth, channels=points * channels)
+        cs = C._tree(lambda a: a.view(shape + a.shape[1:]), cs)
+        clks = [clk + int(d) for d in rng.integers(0, 4, points)]
+    active = [p % 3 != 1 for p in range(points)]
+    return (cs, torch.tensor(clks, dtype=torch.int32, device=device),
+            torch.tensor(active, device=device))
+
+
+def one_point(cs: C.CtrlState, clk: int) -> tuple:
+    """A ``(C, ...)`` state at host clock ``clk`` as the dispatched step's
+    batch of one point: ``(cs (1, C, ...), clk (1,) int32, active (1,)
+    bool)``; the state's leaves are views, so the kernel's in-place update
+    shows in ``cs`` too."""
+    dev = cs.queue.valid.device
+    return (C._tree(lambda a: a[None], cs),
+            torch.tensor([clk], dtype=torch.int32, device=dev),
+            torch.ones(1, dtype=torch.bool, device=dev))
+
+
+def step_one_point(cspec: CompiledSpec, dp: D.DynParams, cfg, cs, clk: int,
+                   horizon: bool = True) -> tuple:
+    """The dispatched step (``C.step_and_horizon``, or
+    ``C.controller_step`` without ``horizon``) of a ``(C, ...)`` state at
+    host clock ``clk``, as a batch of one point: ``(cs', StepEvents,
+    horizon (C,) or None)`` in the channels' shape."""
+    fn = C.step_and_horizon if horizon else C.controller_step
+    out = fn(cspec, dp, cfg, *one_point(cs, clk))
+    first = lambda a: a[0]
+    return (C._tree(first, out[0]), C._tree(first, out[1]),
+            out[2][0] if horizon else None)
+
+
 def clone_ctrl(cs: C.CtrlState) -> C.CtrlState:
     """A deep copy of a controller state (the fused kernel updates its
     input in place)."""

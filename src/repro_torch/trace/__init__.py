@@ -1,4 +1,4 @@
-"""Command-trace capture for the port's runs (single channel)."""
+"""Command-trace capture for the port's runs (one or more channels)."""
 from repro_torch.trace.capture import (FIELDS, CommandTrace, capture,
                                        trace_sha256)
 

@@ -77,7 +77,7 @@ def test_controller_step_and_horizon_match_reference(std, org, tim,
         h_got = TC.channel_horizon_plain(cspec, dp, tcfg, tcs, t)
         assert int(h_got[0]) == h_want, (std, t)
         cs, ev = step(cs, jnp.int32(t))
-        tcs, tev = TC.controller_step(cspec, dp, tcfg, tcs, t)
+        tcs, tev = TC.controller_step_plain(cspec, dp, tcfg, tcs, t)
         assert_tree_equal(tree_np(ev), tev, f"{std} events @ {t}")
         assert_tree_equal(tree_np(cs), tcs, f"{std} state @ {t}")
         issued += int((np.asarray(ev.cmd) >= 0).sum())

@@ -10,6 +10,9 @@
   command-kind masks of each pass, FX bits, scopes, ring ownership, the
   readiness keys; and the plan's and events' layouts against the enums of
   ``csrc/controller_step.cu``.
+* The plain step over ``P x C`` lanes at per-point clocks with inactive
+  points (``step_lanes_plain``, the batched kernel's yardstick) against
+  per-point scalar ``step_and_horizon_plain``.
 * The wrapper raises for what the kernel does not take, before any build
   or launch; the library digest follows the headers a source includes.
 
@@ -29,6 +32,7 @@ import jax.numpy as jnp                                   # noqa: E402
 from repro.core import controller as JC                   # noqa: E402
 
 from repro_torch import convert                            # noqa: E402
+from repro_torch import testing as T                       # noqa: E402
 from repro_torch.core import compile_spec                  # noqa: E402
 from repro_torch.core import controller as TC              # noqa: E402
 from repro_torch.core import device as TD                  # noqa: E402
@@ -69,6 +73,45 @@ def test_step_and_horizon_plain_matches_reference(std, org, tim, scheduler):
     assert issued > 0
 
 
+LANE_SYSTEMS = [(s, *DEFAULT_SYSTEMS[s]) for s in ("DDR4", "LPDDR5", "HBM3")]
+
+
+@pytest.mark.parametrize("std,org,tim", LANE_SYSTEMS)
+@pytest.mark.parametrize("points,channels,reset", [
+    (1, 2, True), (3, 2, False), (4, 1, False), (2, 4, True)])
+def test_lane_step_equals_per_point_steps(std, org, tim, points, channels,
+                                          reset):
+    """Each active point's lanes take one scalar step at the point's own
+    clock; an inactive point's lanes keep their state, give idle events
+    and the horizon HORIZON_MAX."""
+    cspec = compile_spec(std, org, tim, channels=channels)
+    dp = TD.dyn_params(cspec, "cpu", channels)
+    cfg = TC.ControllerConfig()
+    cs, clk, active = T.lane_case(cspec, dp, "cpu", 5, points, channels,
+                                  reset)
+    for step in range(3):
+        plain = TC.plain_calls
+        got_cs, got_ev, got_h = TC.step_and_horizon(
+            cspec, dp, cfg, T.clone_ctrl(cs), clk, active)
+        assert TC.plain_calls == plain + int(active.sum())
+        lanes = lambda t, p: t[p]
+        for p in range(points):
+            part = TC._tree(lambda t: lanes(t, p), cs)
+            if bool(active[p]):
+                want_cs, want_ev, want_h = TC.step_and_horizon_plain(
+                    cspec, dp, cfg, part, int(clk[p]))
+            else:
+                want_cs, want_ev = part, TC.idle_events(channels, "cpu")
+                want_h = torch.full((channels,), TC.HORIZON_MAX,
+                                    dtype=torch.int32)
+            assert not T.ctrl_diff(TC._tree(lambda t: lanes(t, p), got_cs),
+                                   want_cs), (p, step)
+            assert not T.events_diff(TC._tree(lambda t: lanes(t, p), got_ev),
+                                     want_ev), (p, step)
+            assert torch.equal(lanes(got_h, p), want_h), (p, step)
+        cs, clk = got_cs, clk + 1
+
+
 def test_dispatch_runs_the_plain_step_on_the_cpu():
     std, org, tim = SYSTEMS[0]
     jc, jdp, cs, clk = random_ctrl(std, org, tim, seed=2)
@@ -78,7 +121,7 @@ def test_dispatch_runs_the_plain_step_on_the_cpu():
     a = convert.ctrl_state(tree_np(cs), "cpu")
     b = convert.ctrl_state(tree_np(cs), "cpu")
     launches, plain = KS.launch_count, TC.plain_calls
-    got = TC.step_and_horizon(cspec, dp, cfg, a, clk)
+    got = T.step_one_point(cspec, dp, cfg, a, clk)
     want = TC.step_and_horizon_plain(cspec, dp, cfg, b, clk)
     assert KS.launch_count == launches and TC.plain_calls == plain + 2
     for x, y in zip(got[:2], want[:2]):
@@ -88,8 +131,8 @@ def test_dispatch_runs_the_plain_step_on_the_cpu():
             else:
                 assert torch.equal(u, v)
     assert torch.equal(got[2], want[2])
-    cs1, ev1 = TC.controller_step(cspec, dp, cfg, b, clk + 1)
-    assert ev1.cmd.shape == (1, 2)
+    cs1, ev1, h1 = T.step_one_point(cspec, dp, cfg, b, clk + 1, False)
+    assert ev1.cmd.shape == (1, 2) and h1 is None
 
 
 def test_cycle_reads_back_only_its_one_sync():
@@ -111,7 +154,7 @@ def _plan(std, org, tim, depth=32, channels=1, **cfg):
     cspec = compile_spec(std, org, tim)
     dp = TD.dyn_params(cspec, "cpu", channels)
     plan = KS.build_plan(cspec, dp, TC.ControllerConfig(**cfg), depth,
-                         channels, "cpu")
+                         channels, "cpu", 1)
     return cspec, dp, plan
 
 
@@ -227,23 +270,33 @@ def test_wrapper_raises_for_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="needs a queue"):
         _plan(std, org, tim, depth=0)
     cspec, dp, plan = _plan(std, org, tim, depth=16, channels=2)
-    cs = TC.init_ctrl_state(cspec, 16, 2, "cpu")
+    cs = TC.init_ctrl_state(cspec, 16, 2, "cpu", points=1)
+    clk = torch.tensor([5], dtype=torch.int32)
+    on = torch.tensor([True])
     bad_dtype = cs._replace(dev=cs.dev._replace(
         last_issue=cs.dev.last_issue.long()))
     bad_shape = cs._replace(queue=cs.queue._replace(
-        row=torch.zeros((2, 8), dtype=torch.int32)))
+        row=torch.zeros((1, 2, 8), dtype=torch.int32)))
     strided = cs._replace(queue=cs.queue._replace(
-        arrive=torch.zeros((16, 2), dtype=torch.int32).t()))
+        arrive=torch.zeros((16, 2), dtype=torch.int32).t()[None]))
     for state, match in ((bad_dtype, "last_issue"), (bad_shape, "queue.row"),
                          (strided, "queue.arrive"), (cs, "CUDA tensors")):
         with pytest.raises(ValueError, match=match):
-            KS.controller_step_cuda(plan, state, 5, True)
-    with pytest.raises(ValueError, match="clock"):
-        KS.controller_step_cuda(plan, cs, -1, True)
+            KS.controller_step_cuda(plan, state, clk, on, True)
+    # the clocks are per-point int32 tensors, one per point of the plan
+    for bad_clk, bad_on, match in ((5, on, "clk"), (clk.long(), on, "clk"),
+                                   (torch.tensor([5, 6], dtype=torch.int32),
+                                    on, "clk"), (clk, True, "active")):
+        with pytest.raises(ValueError, match=match):
+            KS.controller_step_cuda(plan, cs, bad_clk, bad_on, True)
+    # the clocks stay in [0, 2**30): a run checks its length before a launch
+    from repro_torch.core import Simulator
+    with pytest.raises(ValueError, match="clocks below 2"):
+        Simulator(std, org, tim, device="cpu").run(2**30 + 1)
     assert KS._LIB is None              # nothing was built or launched
-    meta = TC.init_ctrl_state(cspec, 16, 2, "meta")
+    meta = TC.init_ctrl_state(cspec, 16, 2, "meta", points=1)
     with pytest.raises(NotImplementedError):
-        TC.controller_step(cspec, dp, TC.ControllerConfig(), meta, 0)
+        TC.controller_step(cspec, dp, TC.ControllerConfig(), meta, clk, on)
 
 
 def test_library_digest_follows_included_headers(tmp_path, monkeypatch):

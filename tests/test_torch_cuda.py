@@ -21,7 +21,10 @@ tolerances (fp32 2e-5, bf16 2e-2), each call counted on the route
 and ring-wrapping lengths, Tq != Tk, GQA rep 8 and fused qkv views),
 and the reduced GQA Llama of ``tests/torch_serve_fixture.npz`` served on
 ``cuda`` gives the JAX package's logits (atol 0.2, rtol 0.05) and greedy
-tokens."""
+tokens.  The fused step over (point x channel) lanes at per-point clocks
+is held against ``step_lanes_plain`` (1, 5 and 32 points of 1, 2 and 4
+channels, DDR4, LPDDR5, HBM3); ``run_batch`` on ``cuda`` equals the CPU
+run point by point, and the ``DDR4@2ch`` golden stream reproduces."""
 import itertools
 import json
 import os
@@ -98,10 +101,11 @@ def test_fused_step_equals_plain_version(cuda, std, org, tim):
         for step in range(4):
             before = KS.launch_count
             if step == 3:           # the engine's step without fast-forward
-                kcs, kev = C.controller_step(cspec, dp, cfg, kcs, clk)
+                kcs, kev, _ = T.step_one_point(cspec, dp, cfg, kcs, clk,
+                                               False)
                 cs, pev = C.controller_step_plain(cspec, dp, cfg, cs, clk)
             else:
-                kcs, kev, kh = C.step_and_horizon(cspec, dp, cfg, kcs, clk)
+                kcs, kev, kh = T.step_one_point(cspec, dp, cfg, kcs, clk)
                 cs, pev, ph = C.step_and_horizon_plain(cspec, dp, cfg, cs,
                                                        clk)
                 assert torch.equal(kh, ph), (std, sched, refresh, depth, clk)
@@ -121,14 +125,99 @@ def test_fused_step_rejects_what_it_does_not_take(cuda):
     before = KS.launch_count
     bad = cs._replace(queue=cs.queue._replace(row=cs.queue.row.long()))
     with pytest.raises(ValueError):
-        C.step_and_horizon(cspec, dp, cfg, bad, 0)
+        T.step_one_point(cspec, dp, cfg, bad, 0)
     bad = cs._replace(dev=cs.dev._replace(last_ref=cs.dev.last_ref.cpu()))
     with pytest.raises(ValueError):
-        C.step_and_horizon(cspec, dp, cfg, bad, 0)
+        T.step_one_point(cspec, dp, cfg, bad, 0)
     with pytest.raises(ValueError):
-        C.step_and_horizon(cspec, dp, cfg,
-                           C.init_ctrl_state(cspec, 300, 1, cuda), 0)
+        T.step_one_point(cspec, dp, cfg,
+                         C.init_ctrl_state(cspec, 300, 1, cuda), 0)
+    with pytest.raises(ValueError):     # leaves (C, ...): no point axis
+        C.step_and_horizon(cspec, dp, cfg, cs, *T.one_point(cs, 0)[1:])
     assert KS.launch_count == before
+
+
+LANE_SYSTEMS = [(s, *DEFAULT_SYSTEMS[s]) for s in ("DDR4", "LPDDR5", "HBM3")]
+
+
+@pytest.mark.parametrize("std,org,tim", LANE_SYSTEMS)
+@pytest.mark.parametrize("points", [1, 5, 32])
+@pytest.mark.parametrize("channels", [1, 2, 4])
+def test_fused_step_over_lanes_equals_plain_version(cuda, std, org, tim,
+                                                    points, channels):
+    """One launch over points x channels lanes at per-point clocks (every
+    third point inactive), from reset states at clock 0 with refresh
+    stagger on and off and from random states, 3 cycles in a row."""
+    cspec = compile_spec(std, org, tim, channels=channels)
+    dp = D.dyn_params(cspec, cuda, channels)
+    cfg = ControllerConfig()
+    for i, case in enumerate(("stagger", "in phase", "random")):
+        cs, clk, active = T.lane_case(cspec, dp, cuda, i, points, channels,
+                                      case != "random", case == "stagger")
+        for step in range(3):
+            kcs = T.clone_ctrl(cs)
+            before = KS.launch_count
+            kcs, kev, kh = C.step_and_horizon(cspec, dp, cfg, kcs, clk,
+                                              active)
+            cs, pev, ph = C.step_lanes_plain(cspec, dp, cfg, cs, clk, active)
+            assert KS.launch_count == before + 1
+            torch.cuda.synchronize()
+            where = (std, points, channels, case, step)
+            assert T.ctrl_diff(kcs, cs) == {}, where
+            assert T.events_diff(kev, pev) == {}, where
+            assert torch.equal(kh, ph), where
+            clk = clk + 1
+
+
+def test_fused_step_over_lanes_rejects_bad_clocks(cuda):
+    cspec = compile_spec("DDR4", "DDR4_8Gb_x8", "DDR4_2400R", channels=2)
+    dp = D.dyn_params(cspec, cuda, 2)
+    cfg = ControllerConfig()
+    cs = C.init_ctrl_state(cspec, 32, 2, cuda, True, 3)
+    clk = torch.zeros(3, dtype=torch.int32, device=cuda)
+    on = torch.ones(3, dtype=torch.bool, device=cuda)
+    before = KS.launch_count
+    for bad_clk, bad_on in ((clk.long(), on), (clk, on.int()),
+                            (clk[:2], on), (clk.cpu(), on)):
+        with pytest.raises(ValueError):
+            C.step_and_horizon(cspec, dp, cfg, cs, bad_clk, bad_on)
+    assert KS.launch_count == before
+
+
+def test_run_batch_on_cuda_equals_the_cpu(cuda):
+    """``run_batch`` on the card equals the port's CPU run point by point,
+    with one fused launch and one host sync per loop iteration."""
+    kw = dict(intervals=[16, 2], read_ratios=[1.0, 0.5])
+    sim = Simulator("DDR4", "DDR4_8Gb_x8", "DDR4_2400R", channels=2)
+    before, plain = KS.launch_count, C.plain_calls
+    pts, got = sim.run_batch(1500, **kw)
+    iters = sim.host_syncs
+    assert KS.launch_count - before == iters == max(got.scan_steps)
+    assert C.plain_calls == plain
+    ref = Simulator("DDR4", "DDR4_8Gb_x8", "DDR4_2400R", channels=2,
+                    device="cpu")
+    _, want = ref.run_batch(1500, **kw)
+    for i in range(len(pts)):
+        assert got.point(i).to_dict() == want.point(i).to_dict(), pts[i]
+    off_sims = [Simulator("DDR4", "DDR4_8Gb_x8", "DDR4_2400R", channels=2,
+                          fast_forward=False, device=d) for d in (cuda, "cpu")]
+    _, off = off_sims[0].run_batch(300, **kw)
+    _, off_cpu = off_sims[1].run_batch(300, **kw)
+    for i in range(len(pts)):
+        assert off.point(i).to_dict() == off_cpu.point(i).to_dict(), pts[i]
+
+
+def test_two_channel_golden_stream_on_cuda(cuda):
+    golden = json.load(open(os.path.join(HERE, "trace",
+                                         "golden_hashes.json")))["DDR4@2ch"]
+    sim = Simulator("DDR4", "DDR4_8Gb_x8", "DDR4_2400R", channels=2,
+                    mapper="RoBaRaCoCh",
+                    controller=ControllerConfig(refresh_stagger=False))
+    before = KS.launch_count
+    stats, dense = sim.run(3000, interval=2.0, read_ratio=0.7, trace=True)
+    assert KS.launch_count - before == stats.scan_steps
+    tr = capture(sim.cspec, dense)
+    assert len(tr) == golden["n"] and trace_sha256(tr) == golden["sha256"]
 
 
 def test_golden_stream_on_cuda(cuda):

@@ -151,13 +151,11 @@ def _sim(**kw):
 def _unported():
     from repro_torch.core import ControllerConfig, FrontendConfig
     return {
-        "channels": lambda: _sim(channels=2),
         "system": lambda: _sim(system=[("DDR4", "DDR4_8Gb_x8",
                                         "DDR4_2400R")]),
         "replay": lambda: _sim(replay=object()),
         "channel_shard": lambda: _sim(channel_shard=2),
         "telemetry": lambda: _sim().run(100, telemetry=50),
-        "run_batch": lambda: _sim().run_batch(100, [2.0], [1.0]),
         "trace_pattern": lambda: FrontendConfig(pattern="trace"),
         "blockhammer": lambda: ControllerConfig(blockhammer_threshold=8),
         "prac": lambda: ControllerConfig(prac_threshold=8),
@@ -176,9 +174,42 @@ def test_unported_option_raises(option):
         _unported()[option]()
 
 
-def test_channels_error_names_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        _sim(channels=4)
+def _ported():
+    """Options that raised until they were ported, each run at a tiny
+    size: ``channels=2`` builds a 2-channel run, ``run_batch`` returns
+    ``(pts, stats)`` with a leading point axis."""
+    def channels():
+        sim = _sim(channels=2)
+        stats = sim.run(40, interval=2.0)
+        assert sim.cspec.n_channels == 2
+        assert tuple(stats.per_channel.reads_done.shape) == (2,)
+        assert stats.cycles == 40
+
+    def run_batch():
+        pts, stats = _sim(channels=2).run_batch(40, [2.0, 8.0], [1.0, 0.5])
+        assert pts == [(2.0, 1.0), (2.0, 0.5), (8.0, 1.0), (8.0, 0.5)]
+        assert tuple(stats.reads_done.shape) == (4,)
+        assert tuple(stats.per_channel.cmd_counts.shape[:2]) == (4, 2)
+        assert list(stats.cycles) == [40] * 4
+        assert stats.point(3).to_dict()["cycles"] == 40
+    return {"channels": channels, "run_batch": run_batch}
+
+
+@pytest.mark.parametrize("option", sorted(_ported()))
+def test_ported_option_runs(option):
+    _ported()[option]()
+
+
+def test_channels_build_one_lane_per_channel():
+    """``channels=N`` builds N channels of controller state and staggers
+    their refresh epochs (ROADMAP queue 1 item 6)."""
+    from repro_torch.core import controller as TCtl
+    sim = _sim(channels=4)
+    assert sim.cspec.n_channels == 4
+    cs = TCtl.init_ctrl_state(sim.cspec, 8, 4, "cpu", True)
+    assert tuple(cs.dev.last_ref.shape) == (4, sim.cspec.n_refresh_units)
+    assert cs.dev.last_ref[0].eq(0).all()
+    assert (cs.dev.last_ref[1:] < 0).all()
 
 
 def test_lint_env_gate_raises_and_off_compiles(monkeypatch):

@@ -7,7 +7,12 @@ LM serving path's are compared at the reference's own tolerances
 
     PYTHONPATH=src python tests/torch_parity.py --write-serve-fixture
 
-rewrites ``tests/torch_serve_fixture.npz`` from the JAX package."""
+rewrites ``tests/torch_serve_fixture.npz`` from the JAX package, and
+
+    PYTHONPATH=src python tests/torch_parity.py --write-sim-fixtures
+
+rewrites ``tests/torch_batch_stats.json`` and
+``tests/torch_multichannel_stats.json``."""
 from __future__ import annotations
 
 import hashlib
@@ -19,6 +24,20 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = json.load(open(os.path.join(HERE, "trace", "golden_hashes.json")))
 MAIN_FIXTURE = os.path.join(HERE, "torch_main_path_stats.json")
+BATCH_FIXTURE = os.path.join(HERE, "torch_batch_stats.json")
+MULTI_FIXTURE = os.path.join(HERE, "torch_multichannel_stats.json")
+
+#: the batched latency-throughput session ``chip_smoke.py`` holds the port
+#: to: 8 intervals x 4 read ratios over a 4-channel DDR4 system (refresh
+#: stagger on, probes on), ``run_batch`` at the README session's length
+BATCH_RUN = dict(standard="DDR4", org_preset="DDR4_8Gb_x8",
+                 timing_preset="DDR4_2400R", channels=4, n_cycles=20_000,
+                 intervals=[1, 1.5, 2, 3, 4, 6, 8, 16],
+                 read_ratios=[1.0, 0.8, 0.6, 0.5], seed=0x1234)
+#: the 4-channel scalar session (``examples/multichannel.py``'s arguments)
+MULTI_RUN = dict(standard="HBM3", org_preset="HBM3_16Gb",
+                 timing_preset="HBM3_5200", channels=4, mapper="RoBaRaCoCh",
+                 n_cycles=10_000, interval=0.5, read_ratio=0.9, seed=0x1234)
 
 #: the three standards the device/controller/engine parity tests cover:
 #: plain, split activation + data-clock sync, dual command bus
@@ -167,6 +186,42 @@ def jax_stats_dict(std, n_cycles=3000, interval=2.0, read_ratio=0.7,
                    read_ratio=read_ratio).to_dict()
 
 
+def batch_fixture() -> dict:
+    """The reference's ``run_batch`` of :data:`BATCH_RUN`: the run, the
+    points in ``run_batch``'s order and each point's ``Stats.to_dict()``."""
+    import jax
+    from repro.core import Simulator
+    r = BATCH_RUN
+    sim = Simulator(r["standard"], r["org_preset"], r["timing_preset"],
+                    channels=r["channels"])
+    pts, stats = sim.run_batch(r["n_cycles"], r["intervals"],
+                               r["read_ratios"], seed=r["seed"])
+    return dict(run=r, points=[list(p) for p in pts],
+                stats=[jax.tree.map(lambda a, i=i: np.asarray(a)[i],
+                                    stats).to_dict()
+                       for i in range(len(pts))])
+
+
+def multichannel_fixture() -> dict:
+    """The reference's ``Stats.to_dict()`` of :data:`MULTI_RUN`."""
+    from repro.core import Simulator
+    r = MULTI_RUN
+    sim = Simulator(r["standard"], r["org_preset"], r["timing_preset"],
+                    channels=r["channels"], mapper=r["mapper"])
+    stats = sim.run(r["n_cycles"], interval=r["interval"],
+                    read_ratio=r["read_ratio"], seed=r["seed"])
+    return dict(run=r, stats=stats.to_dict())
+
+
+def write_sim_fixtures():
+    for path, doc in ((BATCH_FIXTURE, batch_fixture()),
+                      (MULTI_FIXTURE, multichannel_fixture())):
+        with open(path, "w") as f:
+            json.dump(doc, f, indent=1)
+            f.write("\n")
+        print("wrote", path)
+
+
 # ---------------------------------------------------------------------------
 # LM serving path: numpy-made inputs and the JAX -> port parameter hand-over
 # ---------------------------------------------------------------------------
@@ -278,3 +333,5 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--write-serve-fixture"]:
         write_serve_fixture()
         print("wrote", SERVE_FIXTURE)
+    elif sys.argv[1:] == ["--write-sim-fixtures"]:
+        write_sim_fixtures()

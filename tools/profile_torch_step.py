@@ -3,21 +3,31 @@
 
     PYTHONPATH=src python tools/profile_torch_step.py [--device cuda]
         [--standard DDR5] [--cycles 3000] [--interval 2.0] [--read-ratio 0.8]
+        [--channels 1] [--points 1]
 
-Prints, for one ``Simulator.run`` of the port (after a short warm-up
-run): wall seconds, executed steps, milliseconds per step, host syncs,
-fused controller-step launches and plain-step calls; then a
-``torch.profiler`` table of a short window (300 cycles) with the device
-time by kernel, and a JSON summary as the last line: ``ms_per_step``,
-``fused_launches_per_step`` (the fused kernel's launches over executed
-steps), ``device_ms_per_step`` (summed kernel and copy time per step),
-``fused_device_us`` (the fused kernel's device time per launch),
-``dtoh_copies_per_step`` (device-to-host copies: each is a host wait),
-``device_launches_per_step``, ``device_busy_share`` (device time per step
-over the unprofiled wall time per step: the profiler slows the host, not
-the device; these five are ``null`` when the profiler reports no device
-work) and ``ops_per_step`` (top-level operator calls per step).  On a
-CUDA device it synchronizes before reading every clock.
+With ``--points 1`` it profiles one ``Simulator.run`` at ``--interval``
+and ``--read-ratio``; with ``--points P > 1`` one ``Simulator.run_batch``
+of the first ``P`` load points of the batched session (intervals [1, 1.5,
+2, 3, 4, 6, 8, 16] x read ratios [1.0, 0.8, 0.6, 0.5], in that order: the
+first ``P / 4`` intervals with every ratio, or interval 1 with the first
+``P`` ratios for ``P <= 4``).  A
+"step" below is one loop iteration: one executed cycle of every point
+still running, one fused launch over all ``P * channels`` lanes.
+
+Prints (after a short warm-up run): wall seconds, loop iterations,
+milliseconds per iteration, host syncs, fused controller-step launches and
+plain-step calls; then a ``torch.profiler`` table of a short window (300
+cycles) with the device time by kernel, and a JSON summary as the last
+line: ``ms_per_step``, ``fused_launches_per_step`` (the fused kernel's
+launches per iteration), ``device_ms_per_step`` (summed kernel and copy
+time per iteration), ``fused_device_us`` (the fused kernel's device time
+per launch), ``dtoh_copies_per_step`` (device-to-host copies: each is a
+host wait), ``device_launches_per_step``, ``device_busy_share`` (device
+time per iteration over the unprofiled wall time per iteration: the
+profiler slows the host, not the device; these five are ``null`` when the
+profiler reports no device work), ``ops_per_step`` (top-level operator
+calls per iteration) and ``point_cycles_per_s``.  On a CUDA device it
+synchronizes before reading every clock.
 """
 from __future__ import annotations
 
@@ -31,6 +41,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch.core.standards import DEFAULT_SYSTEMS  # noqa: E402
 
+#: the batched session's load points (``tests/torch_batch_stats.json``)
+INTERVALS = [1, 1.5, 2, 3, 4, 6, 8, 16]
+READ_RATIOS = [1.0, 0.8, 0.6, 0.5]
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -40,6 +54,9 @@ def main() -> int:
     ap.add_argument("--cycles", type=int, default=3000)
     ap.add_argument("--interval", type=float, default=2.0)
     ap.add_argument("--read-ratio", type=float, default=0.8)
+    ap.add_argument("--channels", type=int, default=1)
+    ap.add_argument("--points", type=int, default=1,
+                    choices=[1, 2, 3, 4, 8, 12, 16, 20, 24, 28, 32])
     args = ap.parse_args()
 
     import torch
@@ -56,27 +73,42 @@ def main() -> int:
             torch.cuda.synchronize()
 
     org, tim = DEFAULT_SYSTEMS[args.standard]
-    sim = Simulator(args.standard, org, tim, device=args.device)
-    kw = dict(interval=args.interval, read_ratio=args.read_ratio)
-    sim.run(200, **kw)
+    sim = Simulator(args.standard, org, tim, channels=args.channels,
+                    device=args.device)
+    n_rr = min(args.points, len(READ_RATIOS))
+    intervals = INTERVALS[:args.points // n_rr]
+    read_ratios = READ_RATIOS[:n_rr]
+
+    def run(n):
+        """One run of ``n`` cycles; its loop iterations (host syncs) and
+        its executed point-cycles."""
+        before = sim.host_syncs
+        if args.points == 1:
+            st = sim.run(n, interval=args.interval,
+                         read_ratio=args.read_ratio)
+            return sim.host_syncs - before, st.scan_steps
+        _, st = sim.run_batch(n, intervals, read_ratios)
+        return sim.host_syncs - before, int(sum(st.scan_steps))
+
+    run(200)
     sync()
-    sim.host_syncs = KS.launch_count = C.plain_calls = 0
+    KS.launch_count = C.plain_calls = 0
     t0 = time.perf_counter()
-    stats = sim.run(args.cycles, **kw)
+    steps, executed = run(args.cycles)
     sync()
     wall = time.perf_counter() - t0
-    steps = stats.scan_steps
-    print(f"{args.standard} {args.cycles} cycles on {args.device}: wall "
-          f"{wall:.3f} s, executed steps {steps}, "
-          f"{wall / steps * 1e3:.3f} ms/step, host syncs {sim.host_syncs}, "
-          f"fused controller-step launches {KS.launch_count}, plain steps "
-          f"{C.plain_calls}")
+    print(f"{args.standard} x {args.channels} channels, {args.points} "
+          f"points, {args.cycles} cycles on {args.device}: wall "
+          f"{wall:.3f} s, loop iterations {steps}, executed point-cycles "
+          f"{executed}, {wall / steps * 1e3:.3f} ms/iteration, host syncs "
+          f"{steps}, fused controller-step launches {KS.launch_count}, "
+          f"plain steps {C.plain_calls}")
     fused_per_step = KS.launch_count / steps
 
     window = 300
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=acts) as prof:
-        st = sim.run(window, **kw)
+        win_steps, _ = run(window)
         sync()
     ka = prof.key_averages()
     # top-level operator calls only (nested aten calls are not dispatches
@@ -84,7 +116,7 @@ def main() -> int:
     n_ops = sum(e.count for e in prof.events()
                 if e.key.startswith("aten::") and e.cpu_parent is None)
     dev = [e for e in ka if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in dev) / 1e3 / st.scan_steps
+    dev_ms = sum(e.self_device_time_total for e in dev) / 1e3 / win_steps
     dtoh = sum(e.count for e in dev if e.key.startswith("Memcpy DtoH"))
     fused = [e for e in dev if "controller_step_kernel" in e.key]
     fused_us = (sum(e.self_device_time_total for e in fused)
@@ -92,19 +124,21 @@ def main() -> int:
     sort = "self_cuda_time_total" if cuda else "self_cpu_time_total"
     print(ka.table(sort_by=sort, row_limit=15))
     print(json.dumps({
-        "standard": args.standard, "device": args.device,
+        "standard": args.standard, "channels": args.channels,
+        "points": args.points, "device": args.device,
         "device_name": torch.cuda.get_device_name(0) if cuda else "cpu",
         "cycles": args.cycles, "steps": steps, "wall_s": wall,
         "ms_per_step": wall / steps * 1e3,
         "fused_launches_per_step": fused_per_step,
         "fused_device_us": fused_us,
-        "dtoh_copies_per_step": dtoh / st.scan_steps if dev else None,
+        "dtoh_copies_per_step": dtoh / win_steps if dev else None,
         "device_ms_per_step": dev_ms if dev else None,
         "device_launches_per_step": (sum(e.count for e in dev)
-                                     / st.scan_steps if dev else None),
+                                     / win_steps if dev else None),
         "device_busy_share": (dev_ms / (wall / steps * 1e3)
                               if dev else None),
-        "ops_per_step": n_ops / st.scan_steps}))
+        "ops_per_step": n_ops / win_steps,
+        "point_cycles_per_s": args.points * args.cycles / wall}))
     return 0
 
 
