@@ -78,17 +78,46 @@ Phases, each fatal on any mismatch or exception:
     ``Stats`` must equal ``tests/torch_batch_stats.json``, with one fused
     launch and one host sync per loop iteration and no plain step; print
     wall seconds, loop iterations, point-cycles/s, channel-cycles/s, ms
-    and launches per iteration; then 300 cycles of it under
+    and launches per iteration; then 100 cycles of it under
     ``torch.profiler`` (one device-to-host copy per iteration);
-12. (run before phase 5) multi-channel: reproduce ``GOLDEN["DDR4@2ch"]``
-    on ``cuda``, and the 4-channel HBM3 session of
+12. (in a worker process beside phase 5's runs) multi-channel: reproduce
+    ``GOLDEN["DDR4@2ch"]`` on ``cuda``, and the 4-channel HBM3 session of
     ``examples/multichannel.py`` against
-    ``tests/torch_multichannel_stats.json``.
+    ``tests/torch_multichannel_stats.json``;
+13. (run right after phase 10) the modern-controller features: the fused
+    kernel vs ``step_and_horizon_plain`` on the same CUDA tensors, bit for
+    bit in next state (the BlockHammer sketch and PRAC counters included),
+    every event field and the horizon, on DDR4, LPDDR5 (split activation),
+    HBM3 and GDDR7 (dual command bus: the sketch halves once per pass),
+    with BlockHammer (sketch counts around the threshold), PRAC (a bank at
+    the threshold in about half the refresh units) and a link latency of
+    80 (arrivals on both sides of the boundary), alone and together, and
+    with a user predicate over every ``PredCtx`` field (its mask computed
+    on the card; a dual command bus takes one launch per pass), 3
+    channels in one launch, clocks from 0 and from 2**24 + 12345, stepped
+    through 6 consecutive cycles and then around two ``nREFI`` multiples
+    (the sketch's decay cycles); then the kernel at one DDR4 lane with
+    BlockHammer off and on, timed back to back (CUDA events) and on the
+    device (``torch.profiler``);
+14. (run before phase 5) memory systems and predicates: the session of
+    ``examples/hetero_system.py`` (DDR5x2 + CXL-DDR4x2@80, 20,000 cycles,
+    interval 1.0, read ratio 0.7) with every launch count set to 0 just
+    before and read just after: its ``Stats`` and ``per_group`` leaves
+    equal ``tests/torch_hetero_stats.json``, with two fused launches (one
+    per spec group) and one host sync per loop iteration and no plain
+    step; then 100 cycles of it under ``torch.profiler`` (operator calls,
+    kernel launches and device-to-host copies per iteration, busy share);
+    in worker processes beside phase 5's golden runs: the hetero golden
+    hash ``GOLDEN["DDR5x2+DDR4x2@80"]`` (over ``FIELDS + ("group",)``),
+    ``run_batch`` over the system and the fixture's predicate sessions
+    (BlockHammer on a 2-row hammer and on benign traffic, PRAC on 4 rows
+    and the ``no_writes_ever`` user predicate, whose mask rides the
+    kernel), each with one fused launch per step and no plain step.
 
 The line before the last is a JSON object with one entry per kernel (its
-times, bound and launches; the fused controller step's launches are the
-batched session's, its times those of one 128-lane launch); the last line
-is
+times, bound and launches; the fused controller step's launches are those
+of the batched session and of phase 14's sessions, its times those of one
+128-lane launch); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.
 """
@@ -359,9 +388,11 @@ def golden_run(std: str, org: str, tim: str, device: str) -> dict:
                 wall=wall, launches=KS.launch_count, plain=C.plain_calls)
 
 
-def golden_phase(device: str):
-    """The golden runs, spread over worker processes: each run is bound by
-    its host loop, so processes on separate cores share the one card."""
+def golden_phase(device: str) -> int:
+    """The golden runs and the sessions of phases 12 and 14, spread over
+    worker processes (the longest first): each run is bound by its host
+    loop, so processes on separate cores share the one card.  Returns the
+    fused launches of phase 14's sessions."""
     import multiprocessing
     import os
     from concurrent.futures import ProcessPoolExecutor
@@ -373,11 +404,27 @@ def golden_phase(device: str):
     t0 = time.perf_counter()
     with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context(
             "spawn")) as pool:
+        jobs = [(job, pool.submit(system_run, job, device))
+                for job in SYSTEM_JOBS]
+        multi = pool.submit(multichannel_run, device)
         futures = [(std, pool.submit(golden_run, std, org, tim, device))
                    for std, (org, tim) in systems]
         results = [(std, f.result()) for std, f in futures]
+        system_results = [(job, f.result()) for job, f in jobs]
+        multi_lines = multi.result()
+    print(f"multi-channel on {device} (phase 12, in a worker process):")
+    for line in multi_lines:
+        print("  " + line)
+        if line.startswith("FAILED"):
+            fail(line[len("FAILED "):])
+    print(f"memory systems and predicates on {device} (phase 14, in worker "
+          "processes):")
+    doc = hetero_fixture()
+    launches = sum(check_system_run(job, r, doc)
+                   for job, r in system_results)
     print(f"golden command-stream hashes on {device} (3000 cycles; "
-          f"{workers} worker processes, {time.perf_counter() - t0:.1f} s):")
+          f"{workers} worker processes, {time.perf_counter() - t0:.1f} s "
+          "with phases 12 and 14):")
     for std, r in results:
         ok = r["n"] == golden[std]["n"] and r["sha256"] == golden[std]["sha256"]
         print(f"  {std:<9} commands {r['n']:>5}  steps {r['steps']:>5}  "
@@ -390,6 +437,7 @@ def golden_phase(device: str):
             fail(f"{std} run launched the fused kernel {r['launches']} times "
                  f"in {r['steps']} steps and called the plain step "
                  f"{r['plain']} times")
+    return launches
 
 
 def lanes_phase(device):
@@ -491,16 +539,20 @@ def lanes_phase(device):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def multichannel_phase(device):
-    """``GOLDEN["DDR4@2ch"]`` on ``cuda`` (fast-forward on), and the
-    4-channel HBM3 session of ``examples/multichannel.py`` against
-    ``tests/torch_multichannel_stats.json``, each with one fused launch
-    per executed step and no plain step."""
+def multichannel_run(device: str) -> list:
+    """Phase 12 (run in a worker process): ``GOLDEN["DDR4@2ch"]`` on
+    ``cuda`` (fast-forward on), and the 4-channel HBM3 session of
+    ``examples/multichannel.py`` against
+    ``tests/torch_multichannel_stats.json``, each with one fused launch per
+    executed step and no plain step.  Returns the report lines; a line
+    that starts with "FAILED" names a mismatch."""
+    sys.path.insert(0, str(ROOT / "src"))
     import torch
     from repro_torch.core import ControllerConfig, Simulator
     from repro_torch.core import controller as C
     from repro_torch.kernels import controller_step as KS
     from repro_torch.trace import capture, trace_sha256
+    lines = []
     golden = json.loads((ROOT / "tests" / "trace" /
                          "golden_hashes.json").read_text())["DDR4@2ch"]
     sim = Simulator("DDR4", "DDR4_8Gb_x8", "DDR4_2400R", channels=2,
@@ -513,13 +565,15 @@ def multichannel_phase(device):
     wall = time.perf_counter() - t0
     tr = capture(sim.cspec, dense)
     if len(tr) != golden["n"] or trace_sha256(tr) != golden["sha256"]:
-        fail("DDR4@2ch command stream differs from its golden hash")
+        lines.append("FAILED DDR4@2ch command stream differs from its "
+                     "golden hash")
     if KS.launch_count != stats.scan_steps or C.plain_calls:
-        fail(f"DDR4@2ch launched the fused kernel {KS.launch_count} times in "
-             f"{stats.scan_steps} steps, plain steps {C.plain_calls}")
-    print(f"DDR4@2ch golden hash on {device}: commands {len(tr)}, steps "
-          f"{stats.scan_steps}, fused launches {KS.launch_count}, plain "
-          f"steps 0, {wall:.2f} s: match")
+        lines.append(f"FAILED DDR4@2ch launched the fused kernel "
+                     f"{KS.launch_count} times in {stats.scan_steps} steps, "
+                     f"plain steps {C.plain_calls}")
+    lines.append(f"DDR4@2ch golden hash on {device}: commands {len(tr)}, "
+                 f"steps {stats.scan_steps}, fused launches "
+                 f"{KS.launch_count}, plain steps 0, {wall:.2f} s: match")
 
     doc = json.loads((ROOT / "tests" /
                       "torch_multichannel_stats.json").read_text())
@@ -536,16 +590,315 @@ def multichannel_phase(device):
     if got != doc["stats"]:
         diff = {k: (got[k], doc["stats"].get(k)) for k in got
                 if got[k] != doc["stats"].get(k)}
-        fail(f"4-channel HBM3 Stats differ from the reference fixture: {diff}")
+        lines.append(f"FAILED 4-channel HBM3 Stats differ from the reference "
+                     f"fixture: {diff}")
     if KS.launch_count != stats.scan_steps or C.plain_calls:
-        fail(f"4-channel HBM3 run launched the fused kernel "
-             f"{KS.launch_count} times in {stats.scan_steps} steps, plain "
-             f"steps {C.plain_calls}")
-    print(f"4-channel {r['standard']} {r['n_cycles']} cycles on {device}: "
-          f"Stats == reference fixture; wall {wall:.2f} s, executed steps "
-          f"{stats.scan_steps}, {stats.scan_steps / wall:.1f} steps/s, "
-          f"{r['n_cycles'] * r['channels'] / wall:.1f} channel-cycles/s, "
-          f"fused launches {KS.launch_count}, plain steps 0")
+        lines.append(f"FAILED 4-channel HBM3 run launched the fused kernel "
+                     f"{KS.launch_count} times in {stats.scan_steps} steps, "
+                     f"plain steps {C.plain_calls}")
+    lines.append(f"4-channel {r['standard']} {r['n_cycles']} cycles on "
+                 f"{device}: Stats == reference fixture; wall {wall:.2f} s "
+                 f"(in a worker process), executed steps {stats.scan_steps}, "
+                 f"{stats.scan_steps / wall:.1f} steps/s, "
+                 f"{r['n_cycles'] * r['channels'] / wall:.1f} "
+                 f"channel-cycles/s, fused launches {KS.launch_count}, plain "
+                 "steps 0")
+    return lines
+
+
+def predicate_kernel_phase(device):
+    """Phase 13: the fused kernel vs ``step_and_horizon_plain`` with the
+    modern-controller features, then one DDR4 lane timed with BlockHammer
+    off and on."""
+    import itertools
+    import torch
+    from repro_torch import testing as T
+    from repro_torch.core import ControllerConfig, compile_spec
+    from repro_torch.core import controller as C
+    from repro_torch.core import device as D
+    from repro_torch.core.standards import DEFAULT_SYSTEMS
+    from repro_torch.kernels import controller_step as KS
+    features = [(3, 0, 0, False), (0, 4, 0, False), (0, 0, 80, False),
+                (3, 4, 80, False), (2, 3, 0, False), (0, 0, 0, True),
+                (3, 4, 80, True)]
+    steps = max_err = 0
+    for i, (std, (bh, prac, link, user), clk0) in enumerate(
+            itertools.product(("DDR4", "LPDDR5", "HBM3", "GDDR7"), features,
+                              (0, (1 << 24) + 12345))):
+        org, tim = DEFAULT_SYSTEMS[std]
+        cspec = compile_spec(std, org, tim)
+        dp = D.dyn_params(cspec, device, channels=3)
+        cfg = ControllerConfig(scheduler=("FRFCFS", "FCFS")[i % 2],
+                               blockhammer_threshold=bh,
+                               prac_threshold=prac,
+                               extra_predicates=(T.reads_every_field,)
+                               if user else ())
+        # user predicates on a dual bus: one launch per pass
+        per_step = 2 if user and cspec.dual_command_bus else 1
+        cs, clk = T.predicate_ctrl_state(cspec, dp, device, seed=300 + i,
+                                         bh=bh, prac=prac, link=link,
+                                         clk0=clk0)
+        kcs = T.clone_ctrl(cs)
+        clocks = T.predicate_clocks(clk, dp.nREFI, 6)
+        for n, t in enumerate(clocks):
+            last = n == len(clocks) - 1         # the step without horizon
+            before = KS.launch_count
+            kcs, kev, kh = T.step_one_point(cspec, dp, cfg, kcs, t,
+                                            not last, link)
+            if last:
+                cs, pev = C.controller_step_plain(cspec, dp, cfg, cs, t,
+                                                  link)
+            else:
+                cs, pev, ph = C.step_and_horizon_plain(cspec, dp, cfg, cs,
+                                                       t, link)
+            torch.cuda.synchronize()
+            diff = {**T.ctrl_diff(kcs, cs), **T.events_diff(kev, pev)}
+            if not last:
+                h = int((kh.long() - ph.long()).abs().max())
+                diff.update({"horizon": h} if h else {})
+            max_err = max([max_err, *(v for v in diff.values()
+                                      if isinstance(v, int))])
+            if diff or KS.launch_count != before + per_step:
+                fail(f"fused step != plain version on {std} (BlockHammer "
+                     f"{bh}, PRAC {prac}, link {link}, user predicate "
+                     f"{user}, clock {t}): {diff}")
+            steps += 1
+
+    # one DDR4 lane (the engine's launch: one point at its device clock),
+    # BlockHammer off and on; the sketch costs 8 KB in and 8 KB out
+    cspec = compile_spec("DDR4", "DDR4_8Gb_x8", "DDR4_2400R")
+    dp = D.dyn_params(cspec, device)
+    times, bound = {}, {}
+    for bh in (0, 8, 0, 8):
+        cfg = ControllerConfig(blockhammer_threshold=bh)
+        cs, clk = T.predicate_ctrl_state(cspec, dp, device, seed=7, bh=8,
+                                         clk0=1000, channels=1)
+        one = T.one_point(cs, clk)
+        kern = lambda: C.step_and_horizon(cspec, dp, cfg, *one)
+        ms = cuda_ms(kern, 2000)
+        dev_us = device_us(kern, "controller_step_kernel")
+        times.setdefault(bh, []).append((ms, dev_us))
+        # bytes, as phase 3 counts them, plus the sketch in and out when on
+        plan = C.step_plan(cspec, dp, cfg, one[0])
+        inout = (*cs.dev, cs.hit_streak, cs.prac_count, cs.queue.valid)
+        nbytes = (plan.consts.numel() * 4
+                  + 2 * sum(t.numel() * t.element_size() for t in inout)
+                  + sum(t.numel() * t.element_size() for t in (
+                      cs.queue.is_write, cs.queue.is_probe, cs.queue.sub,
+                      cs.queue.row, cs.queue.arrive, *one[1:]))
+                  + plan.out.numel() * 4
+                  + (2 * cs.bh_sketch.numel() * 4 if bh else 0))
+        bound[bh] = (nbytes, nbytes / HBM_BYTES_PER_S * 1e9)
+    fmt = lambda v: "not measured" if v is None else f"{v:.3f}"
+    print(f"fused controller step with BlockHammer, PRAC, link latency and a "
+          f"user predicate vs plain version: {steps} steps on DDR4, LPDDR5, "
+          f"HBM3, GDDR7 (state "
+          f"with sketch and PRAC counters, events, horizon: max |diff| "
+          f"{max_err})")
+    for bh, runs in times.items():
+        print(f"  DDR4, 1 lane, BlockHammer {'on (8)' if bh else 'off'}: "
+              "back to back "
+              + " / ".join(f"{ms * 1e3:.2f}" for ms, _ in runs)
+              + " us (CUDA events, in turns off/on/off/on), device "
+              + " / ".join(fmt(d) for _, d in runs) + " us (torch.profiler); "
+              f"bound {bound[bh][1]:.3f} ns ({bound[bh][0]} B at 3.35 TB/s)")
+    return dict(steps=steps, max_err=max_err, times=times)
+
+
+def stats_doc(stats) -> dict:
+    """``Stats.to_dict()`` of one run plus every ``per_group`` leaf as
+    lists: the layout of ``tests/torch_hetero_stats.json``."""
+    d = stats.to_dict()
+    d["per_group"] = [{k: v.cpu().tolist() for k, v in ch._asdict().items()}
+                      for ch in stats.per_group]
+    return d
+
+
+def no_writes_ever(cspec, ctx):
+    """The fixture's user predicate (``tests/core/test_controllers.py``)."""
+    return ctx.cand_cmd != cspec.id_WR
+
+
+def hetero_fixture() -> dict:
+    return json.loads((ROOT / "tests" /
+                       "torch_hetero_stats.json").read_text())
+
+
+def system_run(job: str, device: str) -> dict:
+    """One of phase 14's worker sessions (run in a worker process, every
+    launch count set to 0 just before and read just after): the hetero
+    golden run, ``run_batch`` over the system, or a predicate session of
+    the fixture.  Returns what the main process checks."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.core import (ControllerConfig, FrontendConfig,
+                                  Simulator, compile_system)
+    from repro_torch.core import controller as C
+    from repro_torch.kernels import controller_step as KS
+    from repro_torch.trace import FIELDS, capture, trace_sha256
+    doc = hetero_fixture()
+    if job == "hetero_golden":
+        msys = compile_system(doc["system"])
+        sim = Simulator(system=msys, device=device,
+                        controller=ControllerConfig(scheduler="FRFCFS"))
+        run = lambda: sim.run(3000, interval=2.0, read_ratio=0.7, trace=True)
+    elif job == "batch":
+        b = doc["batch"]["run"]
+        sim = Simulator(system=doc["system"], device=device)
+        run = lambda: sim.run_batch(b["n_cycles"], b["intervals"],
+                                    b["read_ratios"], seed=b["seed"])
+    else:
+        p = doc["predicates"][job]["run"]
+        ctrl = dict(p["controller"])
+        if "extra_predicates" in ctrl:
+            ctrl["extra_predicates"] = tuple(
+                {"no_writes_ever": no_writes_ever}[n]
+                for n in ctrl["extra_predicates"])
+        sim = Simulator("DDR4", "DDR4_8Gb_x8", "DDR4_2400R", device=device,
+                        controller=ControllerConfig(**ctrl),
+                        frontend=FrontendConfig(**p["frontend"]))
+        if p["rows"]:
+            sim.cspec.rows = p["rows"]
+        run = lambda: sim.run(p["n_cycles"], interval=p["interval"],
+                              read_ratio=p["read_ratio"])
+    KS.launch_count = C.plain_calls = 0
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    out = dict(wall=time.perf_counter() - t0, launches=KS.launch_count,
+               plain=C.plain_calls, syncs=sim.host_syncs)
+    if job == "hetero_golden":
+        stats, dense = res
+        tr = capture(sim.msys, dense)
+        out.update(n=len(tr), sha256=trace_sha256(tr, FIELDS + ("group",)),
+                   steps=stats.scan_steps)
+    elif job == "batch":
+        pts, stats = res
+        out.update(points=[list(x) for x in pts],
+                   stats=[stats_doc(stats.point(i)) for i in range(len(pts))],
+                   steps=int(max(stats.scan_steps)))
+    else:
+        out.update(stats=stats_doc(res), steps=res.scan_steps)
+    return out
+
+
+SYSTEM_JOBS = ("blockhammer", "blockhammer_benign", "prac", "no_writes_ever",
+               "hetero_golden", "batch")
+
+
+def check_system_run(job: str, r: dict, doc: dict) -> int:
+    """Hold a worker's system session to the fixture ``doc`` and to its
+    launch and sync counts; returns its fused launches."""
+    groups = len(doc["system"]) if job in ("hetero_golden", "batch") else 1
+    if job == "hetero_golden":
+        golden = json.loads((ROOT / "tests" / "trace" /
+                             "golden_hashes.json").read_text())[
+            "DDR5x2+DDR4x2@80"]
+        ok = r["n"] == golden["n"] and r["sha256"] == golden["sha256"]
+        what = f"commands {r['n']}"
+    elif job == "batch":
+        ok = (r["points"] == doc["batch"]["points"]
+              and r["stats"] == doc["batch"]["stats"])
+        what = f"{len(r['points'])} points"
+    else:
+        want = doc["predicates"][job]["stats"]
+        ok = r["stats"] == want
+        what = f"deferred {r['stats']['deferred']}"
+    print(f"  {job:<19} {what:<18} steps {r['steps']:>6}  host syncs "
+          f"{r['syncs']:>6}  fused launches {r['launches']:>6}  plain steps "
+          f"{r['plain']:>5}  {r['wall']:7.2f} s  "
+          f"{'match' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{job}: differs from " + ("its golden hash"
+                                        if job == "hetero_golden" else
+                                        "tests/torch_hetero_stats.json"))
+    if (r["syncs"] != r["steps"] or r["launches"] != groups * r["syncs"]
+            or r["plain"]):
+        fail(f"{job}: {r['syncs']} host syncs, {r['launches']} fused "
+             f"launches and {r['plain']} plain steps for {r['steps']} loop "
+             f"iterations ({groups} spec groups)")
+    return r["launches"]
+
+
+def hetero_session_phase(device):
+    """Phase 14 in the main process: ``examples/hetero_system.py``'s
+    session against the fixture, with two fused launches (one per spec
+    group) and one host sync per loop iteration and no plain step; then
+    100 cycles of it under ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import (Simulator, avg_probe_latency_ns,
+                                  compile_system, peak_gbps, throughput_gbps)
+    from repro_torch.core import controller as C
+    from repro_torch.kernels import controller_step as KS
+    doc = hetero_fixture()
+    r = doc["session"]["run"]
+    msys = compile_system(doc["system"])
+    sim = Simulator(system=msys, device=device)
+    sim.run(50, interval=r["interval"], read_ratio=r["read_ratio"])
+    torch.cuda.synchronize()
+    sim.host_syncs = 0
+    KS.launch_count = C.plain_calls = 0
+    t0 = time.perf_counter()
+    stats = sim.run(r["n_cycles"], interval=r["interval"],
+                    read_ratio=r["read_ratio"], seed=r["seed"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain, iters = KS.launch_count, C.plain_calls, sim.host_syncs
+    got = stats_doc(stats)
+    if got != doc["session"]["stats"]:
+        diff = {k: (got[k], doc["session"]["stats"].get(k)) for k in got
+                if got[k] != doc["session"]["stats"].get(k)}
+        fail(f"hetero session Stats differ from the reference fixture: "
+             f"{diff}")
+    if iters != stats.scan_steps or launches != 2 * iters or plain:
+        fail(f"hetero session: {iters} host syncs and {launches} fused "
+             f"launches for {stats.scan_steps} loop iterations, plain steps "
+             f"{plain}")
+
+    window = 100
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sim.host_syncs = 0
+        KS.launch_count = 0
+        t1 = time.perf_counter()
+        sim.run(window, interval=r["interval"], read_ratio=r["read_ratio"])
+        torch.cuda.synchronize()
+        win_wall = time.perf_counter() - t1
+    win_iters, win_fused = sim.host_syncs, KS.launch_count
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    if not dev:
+        fail("hetero session: the profiler saw no device events, so the "
+             "device-to-host reads per iteration were not measured")
+    dtoh = sum(e.count for e in dev if e.key.startswith("Memcpy DtoH"))
+    kernels = sum(e.count for e in dev if not e.key.startswith("Memcpy")
+                  and not e.key.startswith("Memset"))
+    dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    n_ops = sum(e.count for e in prof.events()
+                if e.key.startswith("aten::") and e.cpu_parent is None)
+    if dtoh != win_iters:
+        fail(f"hetero session: {dtoh} device-to-host copies in {win_iters} "
+             "loop iterations, want one each")
+    print(f"hetero session {msys.label} ({msys.n_channels} channels, "
+          f"{msys.n_groups} spec groups), {r['n_cycles']} cycles on "
+          f"{device}: Stats and per-group leaves == reference fixture; wall "
+          f"{wall:.2f} s, loop iterations {iters}, {wall / iters * 1e3:.3f} "
+          f"ms per iteration, {r['n_cycles'] / wall:.1f} cycles/s, fused "
+          f"launches per iteration {launches / iters:.3f}, plain steps 0; "
+          f"throughput {throughput_gbps(msys, stats):.3f} GB/s of "
+          f"{peak_gbps(msys):.3f}, probe latency "
+          f"{avg_probe_latency_ns(msys, stats):.2f} ns")
+    print(f"  profile of {window} cycles ({win_iters} iterations, "
+          f"{win_wall:.3f} s): operator calls per iteration "
+          f"{n_ops / win_iters:.1f}, device kernel launches per iteration "
+          f"{kernels / win_iters:.1f} (fused {win_fused / win_iters:.3f}), "
+          f"device-to-host copies per iteration {dtoh / win_iters:.3f} "
+          f"(torch.profiler), device ms per iteration "
+          f"{dev_ms / win_iters:.4f}, busy share "
+          f"{dev_ms / 1e3 / win_wall:.1%}")
+    return launches
 
 
 def batched_phase(device, lane_device_us):
@@ -554,7 +907,7 @@ def batched_phase(device, lane_device_us):
     launch count set to 0 just before and read just after; each point's
     ``Stats`` must equal ``tests/torch_batch_stats.json``, with one fused
     launch and one host sync per loop iteration and no plain step.  Then
-    300 cycles of the same session under ``torch.profiler``: device-to-host
+    100 cycles of the same session under ``torch.profiler``: device-to-host
     copies per iteration (must be 1) and device time per iteration.
     ``lane_device_us`` is phase 10's device time of one 128-lane launch."""
     import torch
@@ -594,7 +947,7 @@ def batched_phase(device, lane_device_us):
              f"{plain}, readiness launches {R.launch_count}")
     P, nch, n = len(pts), r["channels"], r["n_cycles"]
 
-    window = 300
+    window = 100
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         sim.host_syncs = 0
@@ -1099,6 +1452,13 @@ def main() -> int:
     device = torch.device("cuda")
     t_start = time.perf_counter()
     print(card_line())
+    seconds = {}
+
+    def timed(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -1110,24 +1470,27 @@ def main() -> int:
     print("sm90 flash kernel SASS: " + sass_counts(
         build.library_path("flash_attention_sm90")))
 
-    max_err, krows = kernel_phase(device)
-    fused = fused_phase(device)
-    lanes = lanes_phase(device)
-    flash_err = flash_phase(device)
+    max_err, krows = timed("3 readiness", kernel_phase, device)
+    fused = timed("3 fused", fused_phase, device)
+    lanes = timed("10 lanes", lanes_phase, device)
+    preds = timed("13 predicates", predicate_kernel_phase, device)
+    flash_err = timed("4 flash", flash_phase, device)
     # each flash kernel at its path's shape (timed before the golden phase's
     # worker processes: after them the profiler may report no device time)
     sm90 = flash_timing(device, *SERVE_SHAPE, kernel="flash_fwd_sm90_kernel")
     flash_timing(device, *SERVE_SHAPE[:4], 128, kernel="flash_fwd_sm90_kernel")
     core = flash_timing(device, *reduced_shape(), kernel="flash_fwd_kernel")
-    # the batched session's profile window also needs the profiler's
-    # device time: it runs before the golden phase's worker processes
-    batch_launches = batched_phase(device, lanes["device_us"])
-    multichannel_phase(device)
-    golden_phase("cuda")
-    _, launches = main_path_phase(device)
-    fixture_phase(device)
-    core_launches = reduced_phase(device)
-    sm90_launches = lm_phase(device)
+    # the batched and hetero sessions' profile windows also need the
+    # profiler's device time: they run before the golden phase's workers
+    batch_launches = timed("11 batched", batched_phase, device,
+                           lanes["device_us"])
+    hetero_launches = timed("14 hetero session", hetero_session_phase,
+                            device)
+    system_launches = timed("5, 12, 14 in workers", golden_phase, "cuda")
+    _, launches = timed("6 main path", main_path_phase, device)
+    timed("7 fixture", fixture_phase, device)
+    core_launches = timed("8 reduced", reduced_phase, device)
+    sm90_launches = timed("9 serving", lm_phase, device)
 
     r = krows[MAIN["standard"]]
     bound_by = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
@@ -1152,8 +1515,9 @@ def main() -> int:
         "name": "controller_step", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/controller_step.cu",
         "replaces": "src/repro/kernels/timing_check.py:51",
-        "launches": batch_launches,
-        "max_abs_err": max(fused["max_err"], lanes["max_err"]),
+        "launches": batch_launches + hetero_launches + system_launches,
+        "max_abs_err": max(fused["max_err"], lanes["max_err"],
+                           preds["max_err"]),
         "ms": lanes["ms"], "plain_ms": lanes["plain_ms"],
         "bound_ms": lanes["bound_ms"], "bound_by": lanes["bound_by"],
         "library_ms": None},
@@ -1161,8 +1525,8 @@ def main() -> int:
                   core, flash_err["cuda_core"]),
         flash_row("flash_attention_sm90", "flash_attention_sm90.cu",
                   sm90_launches, sm90, flash_err["sm90"])]}))
-    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s",
-          file=sys.stderr)
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s; phases "
+          f"{json.dumps(seconds)}", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

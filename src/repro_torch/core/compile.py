@@ -9,8 +9,11 @@ the run's device once (``repro_torch.core.device.dyn_params``):
   * hierarchy-node indexing (flattened channel/rank/bankgroup/bank tree)
   * resolved timing preset (latency *expressions* -> cycles)
 
-Heterogeneous compositions (``compile_system`` / ``MemorySystemSpec``)
-are not ported yet, and neither is the compile-time spec-lint gate.
+Memory systems compose ordered spec groups (``SpecGroup``, one
+``CompiledSpec`` each, with a channel count and an optional CXL-style link
+latency) behind one system address mapper: ``MemorySystemSpec``,
+``compile_system`` and ``as_system``.  The compile-time spec-lint gate is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -198,6 +201,157 @@ def plan_latency_buckets(read_latency: int) -> tuple:
         edges.append(e)
         prev = e
     return tuple(edges)
+
+
+# --------------------------------------------------------------------------
+# Memory-system composition: ordered spec groups behind one address mapper
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecGroup:
+    """One homogeneous slice of a memory system: ``channels`` identical
+    channels of ``cspec``, optionally behind a CXL-style link that adds
+    ``link_latency`` cycles in each direction (requests become visible to
+    the group's controllers ``link_latency`` cycles after arrival, and
+    read data needs another ``link_latency`` cycles to come back)."""
+    cspec: CompiledSpec
+    channels: int = 1
+    link_latency: int = 0
+
+
+class MemorySystemSpec:
+    """An ordered list of :class:`SpecGroup`s composed behind one
+    system-level address mapper.
+
+    System channel ids are group-major: group 0 owns channels ``[0,
+    groups[0].channels)``, group 1 the next block, and so on.  Each group
+    keeps its own command namespace (its ``CompiledSpec``); the system
+    also carries a merged ``cmd_names`` table (first-seen name order
+    across groups) and per-group local->global id maps, so that traces and
+    aggregate ``cmd_counts`` name commands uniformly.  The homogeneous
+    ``Simulator(..., channels=N)`` path is the 1-group, zero-link case.
+    """
+
+    def __init__(self, groups):
+        groups = tuple(groups)
+        if not groups:
+            raise ValueError("a memory system needs at least one spec group")
+        for g in groups:
+            if not isinstance(g, SpecGroup):
+                raise TypeError(f"expected SpecGroup, got {type(g).__name__}")
+            if g.channels < 1:
+                raise ValueError(f"group channels must be >= 1, got "
+                                 f"{g.channels}")
+            if g.link_latency < 0:
+                raise ValueError("link_latency must be >= 0")
+            if g.cspec.n_channels != g.channels:
+                raise ValueError(
+                    f"group cspec compiled for {g.cspec.n_channels} "
+                    f"channel(s) but the group declares {g.channels} — "
+                    "compile the group spec with channels=<group channels> "
+                    "(compile_system does this for you)")
+        self.groups = groups
+        self.n_groups = len(groups)
+        self.n_channels = sum(g.channels for g in groups)
+        #: first system channel id of each group
+        self.chan_base = np.concatenate(
+            [[0], np.cumsum([g.channels for g in groups])[:-1]]).astype(
+                np.int64)
+        #: owning group of each system channel, shape (n_channels,)
+        self.chan_group = np.repeat(np.arange(self.n_groups, dtype=np.int64),
+                                    [g.channels for g in groups])
+        names: list = []
+        maps = []
+        for g in groups:
+            local = []
+            for n in g.cspec.cmd_names:
+                if n not in names:
+                    names.append(n)
+                local.append(names.index(n))
+            maps.append(np.asarray(local, np.int64))
+        self.cmd_names = names
+        self.n_cmds = len(names)
+        #: per-group (n_cmds_g,) arrays mapping local command id -> merged id
+        self.group_cmd_maps = tuple(maps)
+
+    @property
+    def homogeneous(self) -> bool:
+        """True when the system is the plain multi-channel special case."""
+        return self.n_groups == 1 and self.groups[0].link_latency == 0
+
+    @property
+    def tCK_ps(self) -> int:
+        """Reference clock of the system: every group steps on one shared
+        cycle index, read on group 0's clock."""
+        return self.groups[0].cspec.tCK_ps
+
+    def group_of_channel(self, chan: int) -> int:
+        return int(self.chan_group[chan])
+
+    @property
+    def label(self) -> str:
+        parts = []
+        for g in self.groups:
+            p = f"{g.cspec.standard or g.cspec.name}x{g.channels}"
+            if g.link_latency:
+                p += f"@{g.link_latency}"
+            parts.append(p)
+        return "+".join(parts)
+
+    def __repr__(self):
+        return f"MemorySystemSpec({self.label})"
+
+
+def compile_system(groups) -> MemorySystemSpec:
+    """Compile a memory system from group descriptors, each one of:
+
+      * a mapping ``dict(standard=..., org_preset=..., timing_preset=...,
+        timing_overrides=None, channels=1, link_latency=0)``;
+      * a tuple ``(standard, org_preset, timing_preset[, channels
+        [, link_latency]])``;
+      * a :class:`SpecGroup` (used as is);
+      * a :class:`CompiledSpec` (its ``n_channels`` channels, link 0).
+    """
+    out = []
+    for g in groups:
+        if isinstance(g, SpecGroup):
+            out.append(g)
+            continue
+        if isinstance(g, CompiledSpec):
+            out.append(SpecGroup(g, g.n_channels, 0))
+            continue
+        if isinstance(g, dict):
+            d = dict(g)
+            std = d.pop("standard")
+            org = d.pop("org_preset")
+            tim = d.pop("timing_preset")
+            ov = d.pop("timing_overrides", None)
+            ch = int(d.pop("channels", 1))
+            ll = int(d.pop("link_latency", 0))
+            if d:
+                raise TypeError(f"unknown group descriptor keys {sorted(d)}")
+        else:
+            std, org, tim, *rest = g
+            ch = int(rest[0]) if rest else 1
+            ll = int(rest[1]) if len(rest) > 1 else 0
+            ov = None
+        out.append(SpecGroup(compile_spec(std, org, tim, ov, channels=ch),
+                             ch, ll))
+    return MemorySystemSpec(out)
+
+
+def as_system(spec) -> MemorySystemSpec:
+    """Coerce a CompiledSpec / MemorySystemSpec / descriptor list into a
+    :class:`MemorySystemSpec` (a bare spec becomes the 1-group system)."""
+    if isinstance(spec, MemorySystemSpec):
+        return spec
+    if isinstance(spec, CompiledSpec):
+        return MemorySystemSpec((SpecGroup(spec, spec.n_channels, 0),))
+    if isinstance(spec, (list, tuple)):
+        return compile_system(spec)
+    raise TypeError(f"cannot build a memory system from "
+                    f"{type(spec).__name__}")
 
 
 def compile_spec(standard, org_preset: str, timing_preset: str,

@@ -10,10 +10,11 @@ A batch of design points adds a point axis before it (``(P, C, ...)``:
 ``vmap`` over load points.
 
 Ported: the FR-FCFS / FCFS schedulers, the refresh engine, the
-refresh-urgency and ACT-2 predicates, the controller step and the channel
-horizon.  The BlockHammer and PRAC predicates and user-supplied
-``extra_predicates`` are not ported yet: a :class:`ControllerConfig` that
-asks for them raises.
+refresh-urgency and ACT-2 predicates, the BlockHammer (count-min sketch)
+and PRAC (per-bank activation counters, alerts served by the refresh
+engine) predicates, user ``extra_predicates``, a CXL-style link latency
+in front of a spec group's channels, the controller step and the channel
+horizon.
 
 The step has two versions that compute the same function bit for bit:
 the fused CUDA kernel of ``repro_torch.kernels.controller_step`` (one
@@ -23,7 +24,11 @@ events and the next horizon) and its plain PyTorch version here
 :func:`step_and_horizon_plain`, and :func:`step_lanes_plain` over points
 at their own clocks).  :func:`controller_step` and
 :func:`step_and_horizon` dispatch: the kernel on CUDA tensors, the plain
-version on CPU tensors, an error otherwise.
+version on CPU tensors, an error otherwise.  User ``extra_predicates`` are
+Python callables over :class:`PredCtx` tensors, which the kernel cannot
+run: on the card they are evaluated on the device over every lane
+(:func:`user_mask`) and their verdict rides the kernel's launch, one
+launch per pass on a dual command bus.
 """
 from __future__ import annotations
 
@@ -127,7 +132,7 @@ class CtrlState(NamedTuple):
     dev: D.DeviceState
     queue: Queue
     hit_streak: torch.Tensor   # (C, n_banks) consecutive row-hit services
-    bh_sketch: torch.Tensor    # (C, 2, SKETCH) BlockHammer sketch (unused)
+    bh_sketch: torch.Tensor    # (C, 2, SKETCH) BlockHammer count-min sketch
     prac_count: torch.Tensor   # (C, n_banks) ACT counter since recovery
 
 
@@ -171,10 +176,15 @@ def _tree(fn, *trees):
 
 
 class PredCtx(NamedTuple):
-    """Everything a filtering predicate may look at."""
+    """Everything a filtering predicate may look at.  Its tensors have a
+    leading lane axis (the channels of one point in the plain step, every
+    lane of the batch in :func:`user_mask`), so a predicate works per row;
+    ``clk`` broadcasts against them: a host int in the plain step, a
+    ``(lanes, 1)`` int32 tensor of the lanes' clocks in
+    :func:`user_mask`."""
     dp: D.DynParams
     cs: CtrlState
-    clk: int
+    clk: object
     cand_cmd: torch.Tensor     # (C, Q) candidate command per slot
     cand_row: torch.Tensor     # (C, Q)
     open_hit: torch.Tensor     # (C, Q) request's row is open
@@ -215,6 +225,56 @@ def pred_act2_follows_act1(cspec, ctx):
     return ~is_act2 | activating
 
 
+MASK32 = 0xFFFFFFFF
+
+
+def _bh_hashes(bank, row):
+    """The BlockHammer sketch's two hashes of ``(bank, row)`` tensors: the
+    reference's uint32 arithmetic in int64 masked to 32 bits (torch has
+    no uint32 multiply on the CPU); ``SKETCH`` is a power of two, so the
+    modulo is a mask.  The 32-bit multiplier is split in 16-bit halves so
+    that no product leaves int64."""
+    k = (bank.long() * 1_000_003 + row.long()) & MASK32
+    a = 2654435761
+    kh = ((a & 0xFFFF) * k + ((((a >> 16) * k) & 0xFFFF) << 16)) & MASK32
+    h0 = (kh >> 5) & (SKETCH - 1)
+    h1 = ((k * 40503 + 2057) & MASK32) & (SKETCH - 1)
+    return h0, h1
+
+
+def _opener(cspec) -> int:
+    return cspec.id_ACT1 if cspec.split_activation else cspec.id_ACT
+
+
+def make_pred_blockhammer(threshold: int):
+    """BlockHammer: defer row opens to rows whose estimated activation
+    count (the count-min sketch's) has reached the blacklist threshold."""
+    def pred(cspec, ctx):
+        is_open_cmd = ctx.cand_cmd == _opener(cspec)
+        h0, h1 = _bh_hashes(ctx.bank, ctx.cand_row)
+        sk = ctx.cs.bh_sketch
+        est = torch.minimum(D.take(sk[:, 0], h0), D.take(sk[:, 1], h1))
+        return ~(is_open_cmd & (est >= threshold))
+    return pred
+
+
+def _prac_alert(cspec, prac_count, threshold: int):
+    """``(C, U)``: a bank of the refresh unit has reached the threshold."""
+    C = prac_count.shape[0]
+    return (prac_count >= threshold).reshape(
+        C, cspec.n_refresh_units, -1).any(2)
+
+
+def make_pred_prac(threshold: int):
+    """PRAC: once a bank's activation counter crosses the alert threshold,
+    requests to its refresh unit are blocked until the recovery (a
+    priority REFab) resets the unit's counters."""
+    def pred(cspec, ctx):
+        return ~D.take(_prac_alert(cspec, ctx.cs.prac_count, threshold),
+                       ctx.ru)
+    return pred
+
+
 # --------------------------------------------------------------------------
 # Controller configuration
 # --------------------------------------------------------------------------
@@ -229,24 +289,30 @@ class ControllerConfig:
     refresh_urgent_margin: int = 4
     # stagger the initial refresh phase across channels (multi-channel)
     refresh_stagger: bool = True
-    blockhammer_threshold: int = 0     # not ported: must stay 0
-    prac_threshold: int = 0            # not ported: must stay 0
-    extra_predicates: tuple = ()       # not ported: must stay empty
+    blockhammer_threshold: int = 0     # 0 = disabled
+    prac_threshold: int = 0            # 0 = disabled
+    #: user predicates ``(cspec, ctx) -> bool (C, Q)`` over the
+    #: :class:`PredCtx` tensors; on CUDA their verdict rides the kernel
+    extra_predicates: tuple = ()
 
     def __post_init__(self):
-        for name in ("blockhammer_threshold", "prac_threshold",
-                     "extra_predicates"):
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"ControllerConfig({name}=...) is not ported to "
-                    "repro_torch yet — see ROADMAP.md queue 1")
         if self.scheduler not in SCHEDULERS:
             raise ValueError(f"unknown scheduler {self.scheduler!r}; "
                              f"known: {sorted(SCHEDULERS)}")
 
-    def predicates(self) -> tuple:
-        return (pred_refresh_urgency, pred_act2_follows_act1,
-                pred_act2_exclusive)
+    def predicates(self, cspec=None) -> tuple:
+        """The pass's predicates in the reference's order: refresh urgency,
+        the two ACT-2 predicates, BlockHammer, PRAC, then the user's.
+        With ``cspec`` of a standard without split activation the ACT-2
+        predicates (all-true there) are left out."""
+        preds = [pred_refresh_urgency]
+        if cspec is None or cspec.split_activation:
+            preds += [pred_act2_follows_act1, pred_act2_exclusive]
+        if self.blockhammer_threshold:
+            preds.append(make_pred_blockhammer(self.blockhammer_threshold))
+        if self.prac_threshold:
+            preds.append(make_pred_prac(self.prac_threshold))
+        return tuple(preds) + tuple(self.extra_predicates)
 
 
 class StepEvents(NamedTuple):
@@ -289,8 +355,15 @@ def _refresh_plan(cspec, dp, cs, clk, cfg: ControllerConfig):
     candidate command."""
     dev = cs.dev
     since = clk - dev.last_ref
-    due = since >= dp.nREFI
-    urgent = (since >= dp.nREFI + cfg.refresh_urgent_margin) & due
+    due_time = since >= dp.nREFI
+    urgent = since >= dp.nREFI + cfg.refresh_urgent_margin
+    due = due_time
+    if cfg.prac_threshold:
+        # PRAC recovery rides the refresh engine, and is always urgent
+        alert = _prac_alert(cspec, cs.prac_count, cfg.prac_threshold)
+        due = due_time | alert
+        urgent = urgent | (alert & ~due_time)
+    urgent = urgent & due
     if not cfg.refresh_enabled:
         due = torch.zeros_like(due)
         urgent = torch.zeros_like(urgent)
@@ -340,10 +413,14 @@ def _try_issue_refresh(cspec, dp, cs, clk, due, urgent, ref_cmd, cmd_ok,
             ref_bank)
 
 
-def _select_and_issue(cspec, dp, cs, clk, cfg, preds, cmd_ok, sched_fn):
+def _select_and_issue(cspec, dp, cs, clk, cfg, preds, cmd_ok, sched_fn,
+                      link_latency: int = 0):
     """One pass of the base pipeline restricted to commands with
     ``cmd_ok[cmd]`` (``None``: every command; dual C/A runs this twice).
-    Returns ``(cs', events dict)``."""
+    ``link_latency`` models a CXL-style link in front of the channels: a
+    request becomes a candidate at ``arrive + link_latency``, and read
+    data takes another ``link_latency`` cycles back.  Returns ``(cs',
+    events dict)``."""
     tab = dp.tables
     q = cs.queue
     bank = D.flat_bank(cspec, tab, q.sub)
@@ -359,6 +436,8 @@ def _select_and_issue(cspec, dp, cs, clk, cfg, preds, cmd_ok, sched_fn):
     mask = q.valid & timing_ready
     if cmd_ok is not None:
         mask = mask & D.lut(cmd_ok, cand_cmd)
+    if link_latency:
+        mask = mask & (q.arrive + link_latency <= clk)
     pre_pred = mask
     for p in preds:
         mask = mask & p(cspec, ctx)
@@ -398,11 +477,25 @@ def _select_and_issue(cspec, dp, cs, clk, cfg, preds, cmd_ok, sched_fn):
     b_hit = tab.bank_ids == b[:, None]
     streak = torch.where(served[:, None] & b_hit, cs.hit_streak + 1,
                          cs.hit_streak)
-    opener = cspec.id_ACT1 if cspec.split_activation else cspec.id_ACT
-    streak = streak.masked_fill((do & (cmd == opener))[:, None] & b_hit, 0)
+    is_open_cmd = do & (cmd == _opener(cspec))
+    streak = streak.masked_fill(is_open_cmd[:, None] & b_hit, 0)
+
+    # BlockHammer: the row open counts in the sketch, which halves on
+    # nREFI multiples (once per pass, as in the reference)
+    sk = cs.bh_sketch
+    if cfg.blockhammer_threshold:
+        h0, h1 = _bh_hashes(b, rowv)
+        sk = sk.scatter_add(2, torch.stack([h0, h1], 1)[:, :, None],
+                            is_open_cmd[:, None, None].expand(-1, 2, 1)
+                            .to(I32))
+        if clk % dp.nREFI == 0:
+            sk = sk >> 1
+    prac = cs.prac_count
+    if cfg.prac_threshold:
+        prac = prac + (is_open_cmd[:, None] & b_hit).to(I32)
 
     probe = fin_rd & at_slot(q.is_probe)
-    completion = clk + dp.read_latency
+    completion = clk + dp.read_latency + link_latency
     ev = dict(
         cmd=torch.where(do, cmd, ref_cmd_done.masked_fill(~ref_issued, -1)),
         bank=torch.where(do, b, ref_bank.masked_fill(~ref_issued, -1)),
@@ -415,7 +508,7 @@ def _select_and_issue(cspec, dp, cs, clk, cfg, preds, cmd_ok, sched_fn):
         deferred=deferred,
     )
     cs = cs._replace(dev=dev, queue=q._replace(valid=valid),
-                     hit_streak=streak)
+                     hit_streak=streak, bh_sketch=sk, prac_count=prac)
     return cs, ev
 
 
@@ -428,7 +521,8 @@ HORIZON_MAX = 1 << 30
 
 
 def channel_horizon_plain(cspec: CompiledSpec, dp: D.DynParams,
-                          cfg: ControllerConfig, cs: CtrlState, clk):
+                          cfg: ControllerConfig, cs: CtrlState, clk,
+                          link_latency: int = 0):
     """Earliest cycle ``>= clk`` at which each channel could issue any
     command — queue candidate or refresh engine — on the current state,
     ``(C,)``.  Conservative by construction (predicate, bus-kind and
@@ -436,11 +530,12 @@ def channel_horizon_plain(cspec: CompiledSpec, dp: D.DynParams,
     as ``repro.core.controller.channel_horizon``:
 
     * queue: per valid slot, the earliest-ready table at the slot's
-      prerequisite command;
+      prerequisite command, and not before ``arrive + link_latency``;
     * refresh: per unit, ``max(due clock, earliest-ready of its
-      PREab/REFab candidate)``;
+      PREab/REFab candidate)``; a PRAC alert makes the unit due now;
     * clock expiry (``data_clock_sync``): the first ``clock_until`` still
-      in the future.
+      in the future;
+    * BlockHammer: the next ``nREFI`` multiple (the sketch decays there).
     """
     tab = dp.tables
     q = cs.queue
@@ -448,12 +543,17 @@ def channel_horizon_plain(cspec: CompiledSpec, dp: D.DynParams,
     cand_cmd, _, _ = D.prereq(cspec, dp, cs.dev, q.is_write, q.sub, q.row,
                               clk)
     table = D.earliest_ready_table_plain(cspec, dp, cs.dev)
-    h = D.table_at(table, cand_cmd, bank).masked_fill(
-        ~q.valid, HORIZON_MAX).amin(1)
+    t_slot = D.table_at(table, cand_cmd, bank)
+    if link_latency:
+        t_slot = torch.maximum(t_slot, q.arrive + link_latency)
+    h = t_slot.masked_fill(~q.valid, HORIZON_MAX).amin(1)
     if cfg.refresh_enabled:
         dev = cs.dev
         C, U = dev.last_ref.shape
         due_t = dev.last_ref + dp.nREFI
+        if cfg.prac_threshold:
+            due_t = due_t.masked_fill(
+                _prac_alert(cspec, cs.prac_count, cfg.prac_threshold), clk)
         any_open = (dev.row_state.reshape(C, U, -1) != D.ROW_CLOSED).any(2)
         ref_cmd = torch.full_like(due_t, cspec.id_REFab).masked_fill(
             any_open, cspec.id_PREab)
@@ -463,6 +563,8 @@ def channel_horizon_plain(cspec: CompiledSpec, dp: D.DynParams,
     if cspec.data_clock_sync:
         cu = cs.dev.clock_until
         h = torch.minimum(h, cu.masked_fill(cu <= clk, HORIZON_MAX).amin(1))
+    if cfg.blockhammer_threshold:
+        h = h.clamp(max=(clk + dp.nREFI - 1) // dp.nREFI * dp.nREFI)
     return h.clamp(min=clk)
 
 
@@ -500,36 +602,36 @@ plain_calls = 0
 
 def controller_step_plain(cspec: CompiledSpec, dp: D.DynParams,
                           cfg: ControllerConfig, cs: CtrlState,
-                          clk) -> tuple:
-    """One controller cycle of every channel in plain PyTorch.  Dual-C/A
-    standards run the selection pipeline twice — a column pass and a row
-    pass; others run it once."""
+                          clk, link_latency: int = 0) -> tuple:
+    """One controller cycle of every channel in plain PyTorch at host
+    clock ``clk``.  Dual-C/A standards run the selection pipeline twice —
+    a column pass and a row pass; others run it once.  ``link_latency``
+    is the spec group's CXL-style link (see :func:`_select_and_issue`)."""
     global plain_calls
     plain_calls += 1
-    preds = cfg.predicates()
-    if not cspec.split_activation:      # both ACT-2 predicates are all-true
-        preds = (pred_refresh_urgency,)
+    preds = cfg.predicates(cspec)
     sched_fn = SCHEDULERS[cfg.scheduler]
     if cspec.dual_command_bus:
         tab = dp.tables
         cs, ev_col = _select_and_issue(cspec, dp, cs, clk, cfg, preds,
-                                       tab.col_cmds, sched_fn)
+                                       tab.col_cmds, sched_fn, link_latency)
         cs, ev_row = _select_and_issue(cspec, dp, cs, clk, cfg, preds,
-                                       tab.row_cmds, sched_fn)
+                                       tab.row_cmds, sched_fn, link_latency)
         return cs, _pack_events(ev_col, ev_row)
     cs, ev = _select_and_issue(cspec, dp, cs, clk, cfg, preds, None,
-                               sched_fn)
+                               sched_fn, link_latency)
     return cs, _pack_events(ev)
 
 
 def step_and_horizon_plain(cspec: CompiledSpec, dp: D.DynParams,
                            cfg: ControllerConfig, cs: CtrlState,
-                           clk) -> tuple:
+                           clk, link_latency: int = 0) -> tuple:
     """The fused kernel's plain version: :func:`controller_step_plain` at
     ``clk``, then :func:`channel_horizon_plain` at ``clk + 1`` on the new
     state.  Returns ``(cs', events, horizon (C,))``."""
-    cs, ev = controller_step_plain(cspec, dp, cfg, cs, clk)
-    return cs, ev, channel_horizon_plain(cspec, dp, cfg, cs, clk + 1)
+    cs, ev = controller_step_plain(cspec, dp, cfg, cs, clk, link_latency)
+    return cs, ev, channel_horizon_plain(cspec, dp, cfg, cs, clk + 1,
+                                         link_latency)
 
 
 def idle_events(lanes: int, device) -> StepEvents:
@@ -548,16 +650,18 @@ def idle_events(lanes: int, device) -> StepEvents:
 
 def step_lanes_plain(cspec: CompiledSpec, dp: D.DynParams,
                      cfg: ControllerConfig, cs: CtrlState, clk, active,
-                     horizon: bool = True) -> tuple:
+                     horizon: bool = True, link_latency: int = 0) -> tuple:
     """The fused kernel's plain version over ``P x C`` lanes (``cs``
-    leaves ``(P, C, ...)``; ``clk`` and ``active`` ``(P,)`` tensors): each
-    active point's channels take one step at the point's clock
-    (:func:`step_and_horizon_plain`, or :func:`controller_step_plain`
-    without ``horizon``); an inactive point's lanes keep their state and
-    give idle events and the horizon ``HORIZON_MAX``.  Returns ``(cs',
-    StepEvents, horizon (P, C))``.  It loops over the points in Python: it
-    is the kernel's yardstick and the engine's step on the CPU."""
-    clks, acts = clk.tolist(), active.tolist()
+    leaves ``(P, C, ...)``; ``clk`` and ``active`` ``(P,)`` tensors or
+    host lists): each active point's channels take one step at the
+    point's clock (:func:`step_and_horizon_plain`, or
+    :func:`controller_step_plain` without ``horizon``); an inactive
+    point's lanes keep their state and give idle events and the horizon
+    ``HORIZON_MAX``.  Returns ``(cs', StepEvents, horizon (P, C))``.  It
+    loops over the points in Python: it is the kernel's yardstick and the
+    engine's step on the CPU."""
+    host = lambda x: x.tolist() if isinstance(x, torch.Tensor) else list(x)
+    clks, acts = host(clk), host(active)
     nch = cs.queue.valid.shape[1]
     device = cs.queue.valid.device
     parts = []
@@ -567,9 +671,11 @@ def step_lanes_plain(cspec: CompiledSpec, dp: D.DynParams,
         if not on:
             ev = idle_events(nch, device)
         elif horizon:
-            cs_p, ev, h = step_and_horizon_plain(cspec, dp, cfg, cs_p, t)
+            cs_p, ev, h = step_and_horizon_plain(cspec, dp, cfg, cs_p, t,
+                                                 link_latency)
         else:
-            cs_p, ev = controller_step_plain(cspec, dp, cfg, cs_p, t)
+            cs_p, ev = controller_step_plain(cspec, dp, cfg, cs_p, t,
+                                             link_latency)
         parts.append((cs_p, ev, h))
     stack = lambda *xs: torch.stack(xs)
     return (_tree(stack, *(c for c, _, _ in parts)),
@@ -606,21 +712,24 @@ def _events_view(out: torch.Tensor) -> tuple:
 
 
 def step_plan(cspec: CompiledSpec, dp: D.DynParams, cfg: ControllerConfig,
-              cs: CtrlState) -> KS.StepPlan:
-    """The kernel's plan for this (spec, latencies, config, queue depth,
-    lanes, device), built at first use and kept (a few per process), for
-    ``cs`` leaves ``(P, C, ...)``; the events and the horizon are views of
-    the plan's buffer in the lanes' shape."""
+              cs: CtrlState, link_latency: int = 0) -> KS.StepPlan:
+    """The kernel's plan for this (spec, latencies, config, link latency,
+    queue depth, lanes, device), built at first use and kept (a few per
+    process), for ``cs`` leaves ``(P, C, ...)``; the events and the
+    horizon are views of the plan's buffer in the lanes' shape.  Each
+    spec group of a memory system has its own ``dp``, so its own plan and
+    buffer."""
     *shape, Q = cs.queue.valid.shape
     dev = cs.queue.valid.device
-    key = (id(dp), cfg, Q, tuple(shape), dev)
+    key = (id(dp), cfg, int(link_latency), Q, tuple(shape), dev)
     hit = _PLANS.get(key)
     if hit is not None and hit[0] is dp:
         return hit[1]
     if len(shape) != 2:
         raise ValueError("controller step: the state's leaves must be "
                          f"(points, channels, ...), got {tuple(shape)}")
-    plan = KS.build_plan(cspec, dp, cfg, Q, shape[1], dev, shape[0])
+    plan = KS.build_plan(cspec, dp, cfg, Q, shape[1], dev, shape[0],
+                         link_latency)
     plan.events, plan.horizon = _events_view(
         plan.out.view(plan.lane_shape + (KS.EVENT["EvWords"],)))
     if len(_PLANS) >= 8:
@@ -636,34 +745,73 @@ def _device_kind(cs: CtrlState) -> str:
     return kind
 
 
-def _dispatch(cspec, dp, cfg, cs, clk, active, horizon: bool) -> tuple:
+def user_mask(cspec: CompiledSpec, dp: D.DynParams, cfg: ControllerConfig,
+              cs: CtrlState, clk: torch.Tensor) -> torch.Tensor:
+    """The user predicates' verdict ``(P, C, Q)`` bool on a state of
+    ``(P, C, ...)`` leaves at the points' clocks ``clk`` ``(P,)``: the AND
+    of ``cfg.extra_predicates`` over the :class:`PredCtx` that
+    :func:`_select_and_issue` builds at the start of a pass, every lane at
+    once (its point's clock as a ``(lanes, 1)`` column), on the state's
+    device and without a host sync."""
+    shape = cs.queue.valid.shape
+    lanes = _tree(lambda a: a.reshape((-1,) + a.shape[2:]), cs)
+    t = clk.repeat_interleave(shape[1])[:, None]
+    q = lanes.queue
+    bank = D.flat_bank(cspec, dp.tables, q.sub)
+    cand_cmd, cand_row, open_hit = D.prereq(cspec, dp, lanes.dev,
+                                            q.is_write, q.sub, q.row, t)
+    _, urgent, _ = _refresh_plan(cspec, dp, lanes, t, cfg)
+    ctx = PredCtx(dp=dp, cs=lanes, clk=t, cand_cmd=cand_cmd,
+                  cand_row=cand_row, open_hit=open_hit, bank=bank,
+                  ru=q.sub[:, :, 0], ref_urgent=urgent)
+    mask = torch.ones_like(q.valid)
+    for p in cfg.extra_predicates:
+        mask = mask & p(cspec, ctx)
+    return mask.reshape(shape).contiguous()
+
+
+def _dispatch(cspec, dp, cfg, cs, clk, active, horizon: bool,
+              link_latency: int) -> tuple:
     if _device_kind(cs) == "cpu":
-        return step_lanes_plain(cspec, dp, cfg, cs, clk, active, horizon)
-    plan = step_plan(cspec, dp, cfg, cs)
-    KS.controller_step_cuda(plan, cs, clk, active, horizon)
+        return step_lanes_plain(cspec, dp, cfg, cs, clk, active, horizon,
+                                link_latency)
+    plan = step_plan(cspec, dp, cfg, cs, link_latency)
+    if not cfg.extra_predicates:
+        KS.controller_step_cuda(plan, cs, clk, active, horizon)
+        return cs, plan.events, plan.horizon
+    # a dual bus takes one launch per pass: the row pass's predicates read
+    # the state the column pass left
+    for only in ((0, 1) if cspec.dual_command_bus else (-1,)):
+        KS.controller_step_cuda(plan, cs, clk, active, horizon and only != 0,
+                                user_mask(cspec, dp, cfg, cs, clk), only)
     return cs, plan.events, plan.horizon
 
 
 def controller_step(cspec: CompiledSpec, dp: D.DynParams,
                     cfg: ControllerConfig, cs: CtrlState,
-                    clk: torch.Tensor, active: torch.Tensor) -> tuple:
+                    clk: torch.Tensor, active: torch.Tensor,
+                    link_latency: int = 0) -> tuple:
     """One controller cycle of every lane: ``(cs', StepEvents)``.
 
     ``clk`` is a ``(P,)`` int32 tensor of per-point clocks with ``active``
     ``(P,)`` bool (``cs`` leaves ``(P, C, ...)``; inactive points are left
-    as they are); a single run is one point.
-    On CUDA tensors it launches the fused kernel, which updates ``cs``'s
+    as they are); a single run is one point.  ``link_latency`` is the
+    lanes' spec group's link.  On CUDA tensors it launches the fused
+    kernel (after :func:`user_mask` where there are user predicates; one
+    launch per pass of a dual command bus then), which updates ``cs``'s
     tensors in place and returns views of a buffer the next launch
     overwrites (see ``repro_torch.kernels.controller_step``); on CPU
     tensors it runs the plain version."""
-    return _dispatch(cspec, dp, cfg, cs, clk, active, False)[:2]
+    return _dispatch(cspec, dp, cfg, cs, clk, active, False,
+                     link_latency)[:2]
 
 
 def step_and_horizon(cspec: CompiledSpec, dp: D.DynParams,
                      cfg: ControllerConfig, cs: CtrlState,
-                     clk: torch.Tensor, active: torch.Tensor) -> tuple:
+                     clk: torch.Tensor, active: torch.Tensor,
+                     link_latency: int = 0) -> tuple:
     """:func:`controller_step` at ``clk`` and the channel horizon at
     ``clk + 1`` on the new state, ``(cs', StepEvents, horizon (P, C))``:
-    one kernel launch on CUDA tensors, :func:`step_lanes_plain` on CPU
+    the kernel on CUDA tensors, :func:`step_lanes_plain` on CPU
     tensors."""
-    return _dispatch(cspec, dp, cfg, cs, clk, active, True)
+    return _dispatch(cspec, dp, cfg, cs, clk, active, True, link_latency)

@@ -1,14 +1,17 @@
-"""Cycle-level memory-system engine for one homogeneous standard.
+"""Cycle-level memory-system engine.
 
 The counterpart of ``repro.core.engine``: it composes (frontend ->
-address mapper -> controller -> device) into one cycle function and runs
-it for ``n_cycles``.  All simulation state lives on the run's device.  A
-run steps a batch of ``P`` design points (load points; ``P = 1`` for
-``Simulator.run``) of ``C`` channels each: the controller state holds
-``P * C`` lanes, point-major, and the frontend state one entry per point.
-The cycle loop itself runs on the host, one Python iteration per executed
+address mapper -> controllers -> devices) into one cycle function and
+runs it for ``n_cycles``.  All simulation state lives on the run's
+device.  A memory system is one or more spec groups (``Simulator(...,
+channels=N)`` is the 1-group case, ``Simulator(system=...)`` the general
+one); group ``g`` has ``C_g`` channels behind an optional CXL-style link.
+A run steps a batch of ``P`` design points (load points; ``P = 1`` for
+``Simulator.run``): each group's controller state holds ``P * C_g``
+lanes, point-major, and the frontend state one entry per point.  The
+cycle loop itself runs on the host, one Python iteration per executed
 cycle, and every iteration makes one launch of the fused controller step
-over all lanes on CUDA.
+per spec group on CUDA (each group has its own plan).
 
 Two loops, bit-exact twins as in the reference:
 
@@ -18,15 +21,15 @@ Two loops, bit-exact twins as in the reference:
   at its own clock — what the reference's ``vmap`` of its
   ``lax.while_loop`` computes: every iteration executes one cycle of each
   point whose clock is below ``n_cycles`` (a finished point is frozen),
-  then reads every point's busy verdict and event horizon back in ONE
-  host sync (one packed ``(2, P)`` tensor) and jumps each point's clock
-  over its provably idle cycles in closed form (frontend accumulator
-  refill + LCG jump).  The host uploads the next iteration's clocks,
-  active flags and jumps in one non-blocking copy.
+  then reads every point's busy verdict and event horizon (over the
+  frontend and every group) back in ONE host sync (one packed ``(2, P)``
+  tensor) and jumps each point's clock over its provably idle cycles in
+  closed form (frontend accumulator refill + LCG jump).  The host uploads
+  the next iteration's clocks, active flags and jumps in one non-blocking
+  copy.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-entry: heterogeneous ``system=`` compositions, trace replay, windowed
-telemetry and channel sharding.
+entry: trace replay, windowed telemetry and channel sharding.
 """
 from __future__ import annotations
 
@@ -40,7 +43,8 @@ from repro_torch import _device
 from repro_torch.core import controller as C
 from repro_torch.core import device as D
 from repro_torch.core import frontend as F
-from repro_torch.core.compile import CompiledSpec, compile_spec
+from repro_torch.core.compile import (CompiledSpec, MemorySystemSpec,
+                                      as_system, compile_spec)
 
 I32 = torch.int32
 
@@ -59,10 +63,13 @@ class ChannelStats(NamedTuple):
 
 class Stats(NamedTuple):
     """Aggregate run statistics plus the per-channel breakdown (the
-    reference's fields; ``per_group`` is the 1-tuple of the one spec
-    group).  Counters are tensors on the run's device (or numpy arrays
-    after ``convert.stats_to_numpy``); ``cycles``, ``scan_steps`` and
-    ``skipped_cycles`` are host ints.  A batch of ``P`` points
+    reference's fields).  The scalar fields sum over every channel of
+    every spec group; ``per_channel`` splits them by system channel
+    (group-major), its ``cmd_counts`` in the system's merged command
+    namespace; ``per_group`` holds each group's :class:`ChannelStats` in
+    its own namespace.  Counters are tensors on the run's device (or numpy
+    arrays after ``convert.stats_to_numpy``); ``cycles``, ``scan_steps``
+    and ``skipped_cycles`` are host ints.  A batch of ``P`` points
     (``Simulator.run_batch``) has a leading ``(P,)`` axis on every leaf,
     the three host counts as ``(P,)`` numpy arrays; :meth:`point` picks one
     point out as a scalar ``Stats``."""
@@ -85,14 +92,15 @@ class Stats(NamedTuple):
     def point(self, i: int) -> "Stats":
         """Point ``i`` of batched stats, as the scalar ``Stats`` of one run
         (``to_dict`` and the derived metrics apply to it)."""
-        ch = ChannelStats(*(a[i] for a in self.per_channel))
+        pick = lambda ch: ChannelStats(*(a[i] for a in ch))
         host = lambda v: int(np.asarray(v)[i])
         return Stats(
             cycles=host(self.cycles),
             **{k: getattr(self, k)[i] for k in (
                 "reads_done", "writes_done", "probe_lat_sum", "probe_cnt",
                 "data_bus_busy", "cmd_counts", "deferred")},
-            per_channel=ch, per_group=(ch,),
+            per_channel=pick(self.per_channel),
+            per_group=tuple(pick(g) for g in self.per_group),
             scan_steps=host(self.scan_steps),
             skipped_cycles=host(self.skipped_cycles))
 
@@ -120,8 +128,10 @@ def _np(x) -> np.ndarray:
 class TraceArrays(NamedTuple):
     """Dense per-cycle trace of ``run(..., trace=True)``: ``[T, 2]``
     fields for a single channel ([cycles, bus slots]; slot 0 is the
-    column C/A bus, slot 1 the row bus), ``[T, C, 2]`` for ``C``
-    channels.  ``cmd`` is -1 on idle slots."""
+    column C/A bus, slot 1 the row bus), ``[T, C, 2]`` for ``C`` system
+    channels (a system's groups concatenated group-major; ``cmd`` ids are
+    then group-local, which ``trace.capture`` resolves).  ``cmd`` is -1
+    on idle slots."""
     cmd: torch.Tensor
     bank: torch.Tensor
     row: torch.Tensor
@@ -154,9 +164,24 @@ def _accum_channel_stats(cspec: CompiledSpec, dp: D.DynParams,
     )
 
 
-def _aggregate_stats(ch: ChannelStats, cycles: list, steps: list) -> Stats:
-    """Fold the ``(P, C, ...)`` running stats into batched :class:`Stats`:
-    per point, the sums over its channels."""
+def _aggregate_stats(msys: MemorySystemSpec, chs: list, cycles: list,
+                     steps: list) -> Stats:
+    """Fold the groups' ``(P, C_g, ...)`` running stats into batched
+    :class:`Stats`: per point, the sums over every channel.
+    ``per_channel`` concatenates the groups' channels (group-major), each
+    group's command counts lifted into the merged namespace."""
+    lifted = []
+    for gmap, ch in zip(msys.group_cmd_maps, chs):
+        c = ch.cmd_counts
+        lift = c.new_zeros(c.shape[:-1] + (msys.n_cmds,))
+        lifted.append(lift.index_copy(
+            -1, torch.as_tensor(gmap, device=c.device), c))
+    cat = lambda f: torch.cat([getattr(ch, f) for ch in chs], 1)
+    ch = ChannelStats(
+        reads_done=cat("reads_done"), writes_done=cat("writes_done"),
+        probe_lat_sum=cat("probe_lat_sum"), probe_cnt=cat("probe_cnt"),
+        data_bus_busy=cat("data_bus_busy"),
+        cmd_counts=torch.cat(lifted, 1), deferred=cat("deferred"))
     s = lambda a: a.sum(1, dtype=I32)
     cycles, steps = np.asarray(cycles), np.asarray(steps)
     return Stats(
@@ -164,7 +189,7 @@ def _aggregate_stats(ch: ChannelStats, cycles: list, steps: list) -> Stats:
         writes_done=s(ch.writes_done), probe_lat_sum=s(ch.probe_lat_sum),
         probe_cnt=s(ch.probe_cnt), data_bus_busy=s(ch.data_bus_busy),
         cmd_counts=s(ch.cmd_counts), deferred=s(ch.deferred),
-        per_channel=ch, per_group=(ch,), scan_steps=steps,
+        per_channel=ch, per_group=tuple(chs), scan_steps=steps,
         skipped_cycles=cycles - steps)
 
 
@@ -212,23 +237,29 @@ class _Upload:
         self.dev.copy_(self.host, non_blocking=True)
 
 
-def make_run(cspec: CompiledSpec, ccfg: C.ControllerConfig,
-             fcfg: F.FrontendConfig, n_cycles: int, trace: bool,
-             fast_forward: bool = True, points: int = 1):
-    """Build the run function ``(dp, fp, seed, device) -> RunResult`` of
+def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
+             n_cycles: int, trace: bool, fast_forward: bool = True,
+             points: int = 1):
+    """Build the run function ``(dps, fp, seed, device) -> RunResult`` of
     ``points`` design points (``fp``'s ``(P,)`` load knobs; batched
-    :class:`Stats`).
+    :class:`Stats`) over ``spec``, a :class:`CompiledSpec` or a
+    :class:`MemorySystemSpec` (``dps``: one ``DynParams`` per group).
 
+    Each iteration inserts the frontend's requests into the groups'
+    queues, then steps every group's lanes (one fused launch per group on
+    CUDA, each with the group's link latency), folds each group's events
+    into its stats and the completions of all groups into the frontend.
     ``fast_forward`` (default on) executes one cycle per point and loop
     iteration, then jumps each point to ``min(max(horizon, clk + 1),
     n_cycles)``, where the horizon is the earliest cycle at which the
-    point's frontend or channels could act (``F.arrival_horizon``, the
-    step's channel horizon) — or the next cycle when this one accepted or
-    issued anything.  With ``trace`` (one point only) the dense per-cycle
-    buffers are idle-initialized and every executed cycle is written at
-    its true index, so the trace is bit-identical to the per-cycle loop's.
+    point's frontend or any group's channels could act — or the next
+    cycle when this one accepted or issued anything in any group.  With
+    ``trace`` (one point only) the dense per-cycle buffers are
+    idle-initialized and every executed cycle is written at its true
+    index, so the trace is bit-identical to the per-cycle loop's.
     """
-    channels = cspec.n_channels
+    msys = as_system(spec)
+    groups = msys.groups
     if trace and points != 1:
         raise ValueError("trace=True records one point's run")
     if not 0 <= n_cycles <= 2**30:
@@ -236,62 +267,82 @@ def make_run(cspec: CompiledSpec, ccfg: C.ControllerConfig,
                          "controller step takes clocks below 2**30")
     P = points
 
-    def run(dp: D.DynParams, fp: F.FrontParams, seed: int, device):
-        ft = F.front_tables(cspec, fcfg, channels, device)
-        k_draws = int(ft.draw_c.numel())
+    def run(dps, fp: F.FrontParams, seed: int, device):
+        if isinstance(dps, D.DynParams):
+            dps = (dps,)
+        if len(dps) != msys.n_groups:
+            raise ValueError(f"expected {msys.n_groups} DynParams (one per "
+                             f"spec group), got {len(dps)}")
+        st = F.system_front_tables(msys, fcfg, device)
+        k_draws = st.k_draws
         a_cyc, c_cyc = F.lcg_affine(k_draws)
         cap = fcfg.max_backlog_fp
 
-        def cycle(cs, ch, fs, clk, active, front_clk, front_active):
-            """One executed cycle of every active point at its clock; with
-            fast-forward the controller step also returns the lanes'
-            horizon at ``clk + 1`` on its new state (the frontend's commit
-            and finish leave ``cs`` as it is), one kernel launch on CUDA.
-            The step takes the device clocks ``clk`` and flags ``active``;
-            the frontend the same as ``front_clk`` and ``front_active``, a
-            host int and None where every point runs at one clock (it then
-            fills requests with ``masked_fill`` and skips the masks)."""
-            queue, draft = F.frontend_insert(cspec, fcfg, fp, fs, cs.queue,
-                                             front_clk, ft, front_active)
-            cs = cs._replace(queue=queue)
-            hc = None
-            if fast_forward:
-                cs, ev, hc = C.step_and_horizon(cspec, dp, ccfg, cs, clk,
-                                                active)
-            else:
-                cs, ev = C.controller_step(cspec, dp, ccfg, cs, clk, active)
-            ch = _accum_channel_stats(cspec, dp, ch, ev)
-            absorb = F.absorb_locals(ev)
+        def cycle(css, chs, fs, clk, active, front_clk, front_active):
+            """One executed cycle of every active point at its clock in
+            every group; with fast-forward each group's step also returns
+            its lanes' horizon at ``clk + 1`` on the new state (the
+            frontend's commit and finish leave the controller state as it
+            is), one kernel launch per group on CUDA.  The steps take the
+            device clocks ``clk`` and flags ``active``; the frontend the
+            same as ``front_clk`` and ``front_active``, a host int and None
+            where
+            every point runs at one clock (it then fills requests with
+            ``masked_fill`` and skips the masks).  Returns the busy
+            verdict and the minimum horizon over the groups."""
+            queues, draft = F.system_frontend_insert(
+                msys, fcfg, fp, fs, tuple(cs.queue for cs in css),
+                front_clk, st, front_active)
+            step = C.step_and_horizon if fast_forward else C.controller_step
+            new_css, new_chs, evs, hc = [], [], [], None
+            for grp, dp, cs, ch, queue in zip(groups, dps, css, chs, queues):
+                out = step(grp.cspec, dp, ccfg, cs._replace(queue=queue),
+                           clk, active, grp.link_latency)
+                ev = out[1]
+                if fast_forward:
+                    h = out[2].amin(-1)
+                    hc = h if hc is None else torch.minimum(hc, h)
+                new_css.append(out[0])
+                new_chs.append(_accum_channel_stats(grp.cspec, dp, ch, ev))
+                evs.append(ev)
+            absorb = F.absorb_locals(evs[0])
+            for ev in evs[1:]:
+                absorb = absorb + F.absorb_locals(ev)
             fs = F.frontend_commit(fcfg, fp, fs, draft, draft.okp, draft.ok)
             fs = F.frontend_finish(fs, fp, absorb[0], absorb[1], absorb[2])
-            busy = (draft.okp + draft.ok
-                    + (ev.cmd >= 0).sum((-2, -1), dtype=I32)) > 0
-            return cs, ch, fs, ev, busy, hc
+            busy = draft.okp + draft.ok
+            for ev in evs:
+                busy = busy + (ev.cmd >= 0).sum((-2, -1), dtype=I32)
+            return new_css, new_chs, fs, evs, busy > 0, hc
 
-        cs = C.init_ctrl_state(cspec, ccfg.queue_depth, channels, device,
-                               ccfg.refresh_stagger, P)
-        ch = _zero_channel_stats(cspec, (P, channels), device)
+        css = [C.init_ctrl_state(g.cspec, ccfg.queue_depth, g.channels,
+                                 device, ccfg.refresh_stagger, P)
+               for g in groups]
+        chs = [_zero_channel_stats(g.cspec, (P, g.channels), device)
+               for g in groups]
         fs = F.init_front(seed, device, P)
         clks, ys = [], []
         syncs = 0
 
-        def record(ev, clk):
+        def record(evs, clk):
             if trace:
                 clks.append(clk)
-                ys.append(torch.stack([ev.cmd[0], ev.bank[0], ev.row[0],
-                                       ev.arrive[0],
-                                       ev.hit_ready[0].to(I32)]))
+                ys.append(torch.stack([
+                    torch.cat([getattr(ev, f)[0] for ev in evs])
+                    for f in ("cmd", "bank", "row", "arrive")]
+                    + [torch.cat([ev.hit_ready[0] for ev in evs]).to(I32)]))
 
         up = _Upload(P, device)
         if not fast_forward:
             # every point at one clock, counted on the device
             up.send([0] * P, [(0, 1, 0)] * P, [True] * P)
             for clk in range(n_cycles):
-                cs, ch, fs, ev, _, _ = cycle(cs, ch, fs, up.clk, up.active,
-                                             clk, None)
-                record(ev, clk)
+                css, chs, fs, evs, _, _ = cycle(
+                    css, chs, fs, up.clk, up.active, clk, None)
+                record(evs, clk)
                 up.clk.add_(1)
-            stats = _aggregate_stats(ch, [n_cycles] * P, [n_cycles] * P)
+            stats = _aggregate_stats(msys, chs, [n_cycles] * P,
+                                     [n_cycles] * P)
         else:
             jump_of = {0: (0, 1, 0)}     # d -> (refill, ra, rc), memoized
 
@@ -316,12 +367,12 @@ def make_run(cspec: CompiledSpec, ccfg: C.ControllerConfig,
                                      k_draws)
                 # one point: the host's int clock serves the frontend
                 one = P == 1
-                cs, ch, fs, ev, busy, hc = cycle(
-                    cs, ch, fs, up.clk, up.active, at[0] if one else up.clk,
-                    None if one else up.active)
-                record(ev, at[0])
+                css, chs, fs, evs, busy, hc = cycle(
+                    css, chs, fs, up.clk, up.active,
+                    at[0] if one else up.clk, None if one else up.active)
+                record(evs, at[0])
                 h = torch.minimum(F.arrival_horizon(
-                    fcfg, fp, fs, at[0] + 1 if one else up.nxt), hc.amin(-1))
+                    fcfg, fp, fs, at[0] + 1 if one else up.nxt), hc)
                 # the iteration's one host sync: busy verdicts + horizons
                 is_busy, h = torch.stack([busy.to(I32), h]).tolist()
                 syncs += 1
@@ -334,11 +385,12 @@ def make_run(cspec: CompiledSpec, ccfg: C.ControllerConfig,
                     target = min(t if is_busy[p] else max(h[p], t), n_cycles)
                     dists[p] = target - t
                     at[p] = target
-            stats = _aggregate_stats(ch, [n_cycles] * P, steps)
+            stats = _aggregate_stats(msys, chs, [n_cycles] * P, steps)
         if not trace:
             return RunResult(stats, syncs)
-        return RunResult((stats, _dense_trace(clks, ys, n_cycles, channels,
-                                              device)), syncs)
+        return RunResult((stats, _dense_trace(clks, ys, n_cycles,
+                                              msys.n_channels, device)),
+                         syncs)
 
     return run
 
@@ -362,14 +414,23 @@ def _dense_trace(clks, ys, n_cycles, channels, device) -> TraceArrays:
 @dataclasses.dataclass
 class Simulator:
     """User-facing memory-system handle: one (standard, org, timing)
-    triple, run on ``device`` (``None`` = ``"cuda"``; raises without
-    CUDA).
+    triple with a channel count and mapper order, OR a composition of spec
+    groups via ``system=`` (a :class:`MemorySystemSpec` or a list of group
+    descriptors, see ``compile_system``), run on ``device`` (``None`` =
+    ``"cuda"``; raises without CUDA).
 
     >>> sim = Simulator("DDR4", "DDR4_8Gb_x8", "DDR4_2400R", device="cpu")
     >>> stats = sim.run(10_000, interval=4.0, read_ratio=1.0)
 
     >>> pts, stats = sim.run_batch(10_000, [8, 2], [1.0, 0.5])
     >>> stats.point(0).to_dict()
+
+    >>> cxl = Simulator(system=[
+    ...     dict(standard="DDR5", org_preset="DDR5_16Gb_x8",
+    ...          timing_preset="DDR5_4800B", channels=2),
+    ...     dict(standard="DDR4", org_preset="DDR4_8Gb_x8",
+    ...          timing_preset="DDR4_2400R", channels=2, link_latency=80),
+    ... ], device="cpu")
 
     ``host_syncs`` counts the device->host reads of every run's cycle
     loop (one per loop iteration with fast-forward, none without).
@@ -386,16 +447,15 @@ class Simulator:
     #: convenience override for ``frontend.mapper`` (None keeps it)
     mapper: str | None = None
     replay: object = None
+    #: a composition of spec groups: a :class:`MemorySystemSpec` or a list
+    #: of group descriptors; exclusive with the (standard, org, timing)
+    #: triple
     system: object = None
     channel_shard: object = None
     fast_forward: bool = True
     device: object = None
 
     def __post_init__(self):
-        if self.system is not None:
-            raise NotImplementedError(
-                "Simulator(system=...): heterogeneous compositions are not "
-                "ported to repro_torch yet — see ROADMAP.md queue 1 item 9")
         if self.replay is not None:
             raise NotImplementedError(
                 "Simulator(replay=...): trace replay is not ported to "
@@ -404,17 +464,37 @@ class Simulator:
             raise NotImplementedError(
                 "Simulator(channel_shard=...): multi-GPU channel sharding "
                 "is not ported yet — see ROADMAP.md queue 1 item 12")
-        if self.standard is None:
-            raise ValueError("Simulator needs a (standard, org_preset, "
-                             "timing_preset) triple")
+        if self.system is not None:
+            if self.standard is not None:
+                raise ValueError("pass either a (standard, org_preset, "
+                                 "timing_preset) triple or system=..., "
+                                 "not both")
+            if self.channels != 1 or self.timing_overrides is not None:
+                raise ValueError(
+                    "channels=/timing_overrides= apply to the (standard, "
+                    "org, timing) path only — a system=... composition "
+                    "carries its own per-group channel counts and timing "
+                    "overrides (see compile_system)")
+            self.msys = as_system(self.system)
+            self.cspec = self.msys.groups[0].cspec \
+                if self.msys.n_groups == 1 else None
+        else:
+            if self.standard is None:
+                raise ValueError("Simulator needs a (standard, org_preset, "
+                                 "timing_preset) triple or system=...")
+            self.cspec = compile_spec(self.standard, self.org_preset,
+                                      self.timing_preset,
+                                      self.timing_overrides,
+                                      channels=self.channels)
+            self.msys = as_system(self.cspec)
         self.device = _device.resolve(self.device)
-        self.cspec = compile_spec(self.standard, self.org_preset,
-                                  self.timing_preset, self.timing_overrides,
-                                  channels=self.channels)
         if self.mapper is not None:
             self.frontend = dataclasses.replace(self.frontend,
                                                 mapper=self.mapper)
-        self.dp = D.dyn_params(self.cspec, self.device, self.channels)
+        #: one DynParams per spec group (``dp``: group 0's)
+        self.dps = tuple(D.dyn_params(g.cspec, self.device, g.channels)
+                         for g in self.msys.groups)
+        self.dp = self.dps[0]
         self.host_syncs = 0
 
     def run(self, n_cycles: int, interval: float | None = None,
@@ -441,54 +521,84 @@ class Simulator:
         ``(pts, stats)``, ``pts`` the ``(interval, read_ratio)`` pairs in
         the reference's order and ``stats`` batched :class:`Stats` (use
         ``stats.point(i)`` for one point).  The points run in lockstep, one
-        fused launch per loop iteration for all of them on CUDA."""
+        fused launch per spec group and loop iteration for all of them on
+        CUDA."""
         pts = [(i, r) for i in intervals for r in read_ratios]
         return pts, self._run(pts, n_cycles, False, seed, self.fast_forward)
 
     def _run(self, pts, n_cycles, trace, seed, fast_forward):
         ff = self.fast_forward if fast_forward is None else fast_forward
         fp = F.stack_params(pts, self.frontend.probe_gap, self.device)
-        res = make_run(self.cspec, self.controller, self.frontend, n_cycles,
-                       trace, ff, len(pts))(self.dp, fp, seed, self.device)
+        res = make_run(self.msys, self.controller, self.frontend, n_cycles,
+                       trace, ff, len(pts))(self.dps, fp, seed, self.device)
         self.host_syncs += res.host_syncs
         return res.out
 
 
 # --------------------------------------------------------------------------
-# Derived metrics (one scalar run of one homogeneous spec)
+# Derived metrics (one scalar run)
 # --------------------------------------------------------------------------
+#
+# Every helper takes a CompiledSpec (homogeneous system) or a
+# MemorySystemSpec.  For several groups the math is group-correct: each
+# group's bytes and clock come from its own spec, and a spec/stats
+# mismatch raises.
 
 
-def throughput_gbps(cspec: CompiledSpec, stats) -> float:
-    """Achieved data throughput in GB/s (1e9 bytes per second)."""
-    moved = float(int(stats.reads_done) + int(stats.writes_done)) \
-        * cspec.access_bytes
-    seconds = float(stats.cycles) * cspec.tCK_ps * 1e-12
-    return moved / seconds / 1e9 if seconds else 0.0
+def _check_system_stats(msys: MemorySystemSpec, stats):
+    got = len(getattr(stats, "per_group", ()) or ())
+    if got != msys.n_groups:
+        raise ValueError(
+            f"stats carry {got} spec group(s) but the system has "
+            f"{msys.n_groups} — these stats were produced by a different "
+            "memory system (pass the matching spec/system)")
 
 
-def peak_gbps(cspec: CompiledSpec) -> float:
-    """Theoretical peak of the system's data buses in GB/s."""
-    return cspec.n_channels * cspec.peak_bytes_per_cycle \
-        / (cspec.tCK_ps * 1e-12) / 1e9
+def throughput_gbps(spec, stats) -> float:
+    """Achieved data throughput in GB/s (1e9 bytes per second): each
+    group's bytes moved over the run's time on its own clock, summed."""
+    msys = as_system(spec)
+    _check_system_stats(msys, stats)
+    total = 0.0
+    for grp, ch in zip(msys.groups, stats.per_group):
+        moved = float(int(_np(ch.reads_done).sum())
+                      + int(_np(ch.writes_done).sum())) \
+            * grp.cspec.access_bytes
+        seconds = float(stats.cycles) * grp.cspec.tCK_ps * 1e-12
+        total += moved / seconds / 1e9 if seconds else 0.0
+    return total
 
 
-def avg_probe_latency_ns(cspec: CompiledSpec, stats) -> float:
-    """Mean random-probe read latency in nanoseconds, NaN when no probe
+def peak_gbps(spec) -> float:
+    """Theoretical peak of the system's data buses in GB/s, summed over
+    the groups (each on its own clock)."""
+    msys = as_system(spec)
+    return sum(g.channels * g.cspec.peak_bytes_per_cycle
+               / (g.cspec.tCK_ps * 1e-12) / 1e9 for g in msys.groups)
+
+
+def avg_probe_latency_ns(spec, stats) -> float:
+    """Mean random-probe read latency in nanoseconds (arrival to data
+    completion; CXL-attached groups include the round-trip link time) on
+    the system's reference clock (group 0's), NaN when no probe
     finished."""
     if int(stats.probe_cnt) == 0:
         return float("nan")
     cycles = float(int(stats.probe_lat_sum)) / float(int(stats.probe_cnt))
-    return cycles * cspec.tCK_ps * 1e-3
+    return cycles * as_system(spec).tCK_ps * 1e-3
 
 
-def row_hit_rate(cspec: CompiledSpec, stats) -> float:
-    """``1 - ACT / (RD + WR)`` over the run's command counts, NaN when no
-    data command issued."""
-    counts = _np(stats.cmd_counts)
-    names = cspec.cmd_names
-    act = sum(int(counts[i]) for i, n in enumerate(names)
-              if n.startswith("ACT"))
-    data = sum(int(counts[i]) for i, n in enumerate(names)
-               if n in ("RD", "WR", "RDA", "WRA"))
+def row_hit_rate(spec, stats) -> float:
+    """``1 - ACT / (RD + WR)`` over every group's own command counts, NaN
+    when no data command issued."""
+    msys = as_system(spec)
+    _check_system_stats(msys, stats)
+    act = data = 0
+    for grp, ch in zip(msys.groups, stats.per_group):
+        counts = _np(ch.cmd_counts).sum(axis=0)
+        names = grp.cspec.cmd_names
+        act += sum(int(counts[i]) for i, n in enumerate(names)
+                   if n.startswith("ACT"))
+        data += sum(int(counts[i]) for i, n in enumerate(names)
+                    if n in ("RD", "WR", "RDA", "WRA"))
     return 1.0 - act / data if data else float("nan")

@@ -1,6 +1,6 @@
 """Traffic-generator frontend for one spec: streaming + serialized probes.
 
-The counterpart of ``repro.core.frontend`` (single-spec paths only):
+The counterpart of ``repro.core.frontend``:
 
   1. *streaming* requests at a configurable inter-arrival interval with a
      configurable read ratio, addressed by a ``sequential`` linear counter
@@ -18,8 +18,13 @@ number (:func:`rng_draws_per_cycle`), so they are computed together as
 affine images of the cycle's starting state — the same values as drawing
 them one after another with :func:`_lcg`.
 
-Trace replay (``pattern="trace"``) and the heterogeneous-system frontend
-are not ported yet and raise.
+A memory system of several spec groups decodes its requests through the
+system channel digit (:func:`system_frontend_insert`, the reference's
+``system_frontend_insert``): the channel first, then every group's own
+fields from the rest, and the request goes to the one (group, channel)
+that owns the system channel.  A 1-group system takes the single-spec
+path unchanged.  Trace replay (``pattern="trace"``) is not ported yet and
+raises.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import controller as C
-from repro_torch.core.addrmap import make_layout
+from repro_torch.core.addrmap import make_layout, make_system_layout
 from repro_torch.core.compile import CompiledSpec
 
 I32 = torch.int32
@@ -124,22 +129,35 @@ class FrontTables(NamedTuple):
     chan_ids: torch.Tensor        # (channels,) int32
 
 
+def _i64(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.int64), device=device)
+
+
+def _decode_tables(layout, order, device) -> tuple:
+    """``(counts, strides, perm)`` of a layout: its radices, mixed-radix
+    place values and the permutation to the field ``order``."""
+    names = [n for n, _ in layout]
+    counts = np.asarray([c for _, c in layout], np.int64)
+    return (_i64(counts, device),
+            _i64(np.concatenate([[1], np.cumprod(counts)[:-1]]), device),
+            _i64([names.index(n) for n in order], device))
+
+
+def _draw_tables(k: int, device) -> tuple:
+    """``(a_lo, a_hi, c)`` of ``lcg^1 .. lcg^k``: the affine maps of a
+    cycle's ``k`` draws, ``a`` split in 16-bit halves for :func:`_mul32`."""
+    a = np.asarray([lcg_affine(i)[0] for i in range(1, k + 1)], np.int64)
+    c = np.asarray([lcg_affine(i)[1] for i in range(1, k + 1)], np.int64)
+    return _i64(a & 0xFFFF, device), _i64(a >> 16, device), _i64(c, device)
+
+
 def front_tables(cspec: CompiledSpec, cfg: FrontendConfig, channels: int,
                  device) -> FrontTables:
     layout = make_layout(cspec, cfg.mapper)
-    names = [n for n, _ in layout]
-    counts = np.asarray([c for _, c in layout], np.int64)
-    strides = np.concatenate([[1], np.cumprod(counts)[:-1]])
     order = ["channel"] + list(cspec.levels[1:]) + ["row", "col"]
-    perm = np.asarray([names.index(n) for n in order], np.int64)
-    k = rng_draws_per_cycle(cfg, layout)
-    a = np.asarray([lcg_affine(i)[0] for i in range(1, k + 1)], np.int64)
-    c = np.asarray([lcg_affine(i)[1] for i in range(1, k + 1)], np.int64)
-    i64 = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=device)
     return FrontTables(
-        layout=layout, counts=i64(counts), strides=i64(strides),
-        perm=i64(perm), draw_a_lo=i64(a & 0xFFFF), draw_a_hi=i64(a >> 16),
-        draw_c=i64(c),
+        layout, *_decode_tables(layout, order, device),
+        *_draw_tables(rng_draws_per_cycle(cfg, ("single", layout)), device),
         chan_ids=torch.arange(channels, dtype=I32, device=device))
 
 
@@ -309,6 +327,155 @@ def frontend_step(cspec: CompiledSpec, cfg: FrontendConfig, fp: FrontParams,
 
 
 # --------------------------------------------------------------------------
+# System-level frontend: one mapper routing across spec groups
+# --------------------------------------------------------------------------
+
+
+class GroupFront(NamedTuple):
+    """One spec group's decode tables in a multi-group system: the radices
+    and place values of its layout without the channel field, the
+    permutation to ``(sub-levels..., row, col)``, and the system channel
+    ids its queue rows hold."""
+    counts: torch.Tensor          # (n_g,) int64
+    strides: torch.Tensor         # (n_g,) int64
+    perm: torch.Tensor            # (n_g,) int64
+    chan_ids: torch.Tensor        # (C_g,) int32 system channel ids
+
+
+class SystemTables(NamedTuple):
+    """Per-run device constants of the system frontend: ``single`` holds
+    the 1-group system's :class:`FrontTables` (and the rest is unused);
+    otherwise the groups' decode tables and the cycle's LCG draws."""
+    single: FrontTables | None
+    groups: tuple                 # per group GroupFront
+    n_channels: int
+    n_slots: int                  # the widest group's field count
+    draw_a_lo: torch.Tensor | None
+    draw_a_hi: torch.Tensor | None
+    draw_c: torch.Tensor | None
+
+    @property
+    def k_draws(self) -> int:
+        """The run's LCG draws per cycle."""
+        ft = self.single if self.single is not None else self
+        return int(ft.draw_c.numel())
+
+
+def system_front_tables(msys, cfg: FrontendConfig, device) -> SystemTables:
+    """The frontend's device tables of a memory system, read from the
+    groups' geometry at the time of the call (a run builds them when it
+    starts, so an edit such as ``cspec.rows = 2`` after construction is
+    honoured, as in the reference)."""
+    sys_layout = make_system_layout(msys, cfg.mapper)
+    if sys_layout[0] == "single":
+        g = msys.groups[0]
+        return SystemTables(front_tables(g.cspec, cfg, g.channels, device),
+                            (), g.channels, 0, None, None, None)
+    _, n_channels, bases, sublayouts = sys_layout
+    groups = tuple(
+        GroupFront(*_decode_tables(
+            lay, list(grp.cspec.levels[1:]) + ["row", "col"], device),
+            chan_ids=torch.arange(base, base + grp.channels, dtype=I32,
+                                  device=device))
+        for grp, base, lay in zip(msys.groups, bases, sublayouts))
+    return SystemTables(None, groups, n_channels,
+                        max(len(lay) for lay in sublayouts),
+                        *_draw_tables(rng_draws_per_cycle(cfg, sys_layout),
+                                      device))
+
+
+def _group_pack(gf: GroupFront, values):
+    """Layout-ordered field values ``S + (n_g,)`` of one group -> (sub,
+    row, col) shaped to broadcast against its queue's ``S + (C_g, Q)``."""
+    v = values.to(I32).index_select(-1, gf.perm)
+    q = v.view(v.shape[:-1] + (1, 1, v.shape[-1]))
+    return q[..., :-2], q[..., -2], q[..., -1]
+
+
+def _system_route(st: SystemTables, queues: tuple, chan, is_write, is_probe,
+                  per_group, arrive, want):
+    """Insert one request per point into the owning group's owning
+    channel: exactly one (group, channel) can accept, and a full target
+    queue refuses.  Returns ``(queues', ok S)``."""
+    new_q, ok = [], None
+    for gf, q_g, (sub, row, col) in zip(st.groups, queues, per_group):
+        q_g, oks = C.queue_insert(
+            q_g, is_write, is_probe, sub, row, col, arrive,
+            want[..., None] & (chan[..., None] == gf.chan_ids))
+        new_q.append(q_g)
+        ok = oks.any(-1) if ok is None else ok | oks.any(-1)
+    return tuple(new_q), ok
+
+
+def system_frontend_insert(msys, cfg: FrontendConfig, fp: FrontParams,
+                           fs: FrontState, queues: tuple, clk,
+                           st: SystemTables, active=None):
+    """The multi-group twin of :func:`frontend_insert`: ``queues`` is the
+    per-group tuple of ``S + (C_g, Q)`` queues.  A 1-group system runs
+    :func:`frontend_insert` unchanged.  The cycle's draws are the
+    reference's, in its order: for a probe, one draw picks the system
+    channel and one draw per field slot (the widest group's field count)
+    feeds every group's fields; a random stream request draws the same
+    way; the last draw decides read or write."""
+    if st.single is not None:
+        q0, draft = frontend_insert(msys.groups[0].cspec, cfg, fp, fs,
+                                    queues[0], clk, st.single, active)
+        return (q0,), draft
+    draws = _draws(st, fs.rng) if st.draw_c.numel() else None
+    n = 1 + st.n_slots
+    used = 0
+    lane = lambda x: x.view(x.shape + (1, 1))        # S -> S + (C, Q)
+    arrive = lane(clk) if isinstance(clk, torch.Tensor) else clk
+    zero = torch.zeros_like(fs.seq)
+    okp = ok = zero
+    want = zero.bool()
+    accum = fs.accum_fp
+
+    def rand_addr(d):
+        chan = ((d[..., 0] >> 8) % st.n_channels).to(I32)
+        fields = d[..., 1:] >> 8
+        return chan, [_group_pack(gf, fields[..., :gf.counts.numel()]
+                                  % gf.counts) for gf in st.groups]
+
+    if cfg.probes:
+        want_p = ~fs.probe_busy & (fs.probe_next <= clk)
+        if active is not None:
+            want_p = want_p & active
+        chan, per_group = rand_addr(draws[..., :n])
+        used = n
+        queues, okp_b = _system_route(st, queues, chan, False, True,
+                                      per_group, arrive, want_p)
+        okp = okp_b.to(I32)
+
+    if cfg.stream:
+        accum = (accum + 256).clamp(max=cfg.max_backlog_fp)
+        want = accum >= fp.interval_fp
+        if active is not None:
+            want = want & active
+            accum = torch.where(active, accum, fs.accum_fp)
+        if cfg.pattern == "sequential":
+            seq = fs.seq.to(torch.int64)
+            chan = (seq % st.n_channels).to(I32)
+            q = (seq // st.n_channels)[..., None]
+            per_group = [_group_pack(gf, (q // gf.strides) % gf.counts)
+                         for gf in st.groups]
+        else:
+            chan, per_group = rand_addr(draws[..., used:used + n])
+        is_write = ((draws[..., -1] >> 9) % 256) >= fp.read_ratio_fp
+        queues, ok_b = _system_route(st, queues, chan, lane(is_write), False,
+                                     per_group, arrive, want)
+        ok = ok_b.to(I32)
+
+    rng = fs.rng
+    if draws is not None:
+        rng = draws[..., -1]
+        if active is not None:
+            rng = torch.where(active, rng, fs.rng)
+    return queues, FrontDraft(rng=rng, accum=accum, want=want, okp=okp,
+                              ok=ok)
+
+
+# --------------------------------------------------------------------------
 # Event-horizon helpers (the engine's fast-forward path)
 # --------------------------------------------------------------------------
 
@@ -316,15 +483,26 @@ def frontend_step(cspec: CompiledSpec, cfg: FrontendConfig, fp: FrontParams,
 HORIZON_MAX = 1 << 30
 
 
-def rng_draws_per_cycle(cfg: FrontendConfig, layout) -> int:
-    """Static number of LCG draws :func:`frontend_insert` performs per
-    cycle (``layout`` is the single spec's mapper layout)."""
-    n_fields = len(layout)
+def rng_draws_per_cycle(cfg: FrontendConfig, sys_layout) -> int:
+    """Static number of LCG draws :func:`frontend_insert` /
+    :func:`system_frontend_insert` performs per cycle, for a system layout
+    of :func:`repro_torch.core.addrmap.make_system_layout`.  The draws are
+    unconditional, so an idle cycle advances the rng by exactly this
+    count; with several groups it grows with the widest group's field
+    count."""
+    if sys_layout[0] == "single":
+        n_fields = len(sys_layout[1])
+        probe_draws = n_fields
+        stream_draws = {"sequential": 1, "random": n_fields + 1}
+    else:
+        n_slots = max(len(lay) for lay in sys_layout[3])
+        probe_draws = 1 + n_slots
+        stream_draws = {"sequential": 1, "random": 1 + n_slots + 1}
     draws = 0
     if cfg.probes:
-        draws += n_fields
+        draws += probe_draws
     if cfg.stream:
-        draws += {"sequential": 1, "random": n_fields + 1}[cfg.pattern]
+        draws += stream_draws[cfg.pattern]
     return draws
 
 

@@ -4,8 +4,11 @@
 ``csrc/controller_step.cu`` (built for ``sm_90a`` at first use, see
 ``build.py``): one block per lane does what
 ``repro_torch.core.controller.step_and_horizon_plain`` does (readiness
-table, candidates, predicates, refresh engine, scheduler, issue, events
-and, with ``horizon``, the event horizon at ``clk + 1``), bit for bit.  A
+table, candidates, predicates — BlockHammer and PRAC included, and the
+user predicates' verdict when the caller passes it as ``user_mask`` —
+refresh engine, scheduler, issue, events and, with ``horizon``, the
+event horizon at ``clk + 1``, under the plan's link latency), bit for
+bit.  A
 lane is one channel of one design point.  One launch steps ``P`` points
 of ``C`` channels, each at its point's clock (``clk`` a ``(P,)`` int32
 tensor on the card, with the ``(P,)`` bool ``active``; the state's leaves
@@ -16,8 +19,9 @@ kernel
 path; the source note says what bounds it.
 
 Aliasing.  The kernel updates the controller state IN PLACE: every tensor
-of ``cs.dev``, ``cs.queue.valid``, ``cs.hit_streak`` and ``cs.prac_count``
-is overwritten with the next state (an inactive lane's is left as it
+of ``cs.dev``, ``cs.queue.valid``, ``cs.hit_streak``, ``cs.prac_count``
+and, with BlockHammer on, ``cs.bh_sketch`` is overwritten with the next
+state (an inactive lane's is left as it
 was), so the caller must not keep them as the old state (the engine drops
 the old state each cycle; a test clones its inputs first).  The events and
 the horizon are views of one int32 buffer that the plan owns and the next
@@ -33,6 +37,12 @@ before any launch: there is no path back to the eager step on CUDA.
 
 ``launch_count`` counts kernel launches, so a run can show that its main
 path went through the kernel.
+
+The source compiles one kernel instance per set of features
+(:data:`FEATURE`: link latency, BlockHammer, PRAC, user mask); the
+launch picks the plan's (:attr:`StepPlan.features`, plus the user flag
+when a mask is passed), so a run without a feature does not pay for its
+gates.
 """
 from __future__ import annotations
 
@@ -48,7 +58,7 @@ launch_count = 0
 #: the ``kMax*`` constants of the source)
 LIMITS = dict(Threads=256, MaxQueue=256, MaxNodes=128, MaxCmds=16,
               MaxBanks=128, MaxUnits=8, MaxRingRows=8, MaxRingDepth=8,
-              MaxSubLevels=5, MaxConsts=1024)
+              MaxSubLevels=5, MaxConsts=1024, Sketch=1024)
 
 #: header words of the packed plan, in the order of the source's ``Header``
 #: (the last name is the count of the others)
@@ -58,6 +68,7 @@ HEADER = (
     "IdPre", "IdOpener", "IdAct2", "IdRd", "IdWr", "IdSyncRd", "IdSyncWr",
     "IdRefab", "IdPreab",
     "NREFI", "NAAD", "ClockIdle", "ReadLatency", "UrgentMargin",
+    "LinkLatency", "BhThreshold", "PracThreshold",
     "OffKeys", "OffA", "OffScope", "OffFx", "OffPass", "OffBankStride",
     "OffNodeMul", "OffNodeOff", "OffRingCmd", "OffRingLevel", "OffRingNode",
     "NConsts", "HeaderWords")
@@ -70,13 +81,22 @@ EVENT = dict(EvCmd=0, EvBank=2, EvRow=4, EvArrive=6, EvProbeLatency=8,
              EvHitReadyByte=48, EvServedReadByte=50, EvServedWriteByte=51,
              EvServedProbeByte=52, EvWords=16)
 
+#: the source's ``Feature`` flags: each compiles a feature's gates into a
+#: kernel instance (the last name is the count of instances)
+FEATURE = dict(FeatLink=1, FeatBh=2, FeatPrac=4, FeatUser=8, Features=16)
+
+#: device pointers the launch takes, in the order of the source's
+#: ``StepPtrs``: the plan, ten state arrays, six queue arrays, the events
+#: buffer, the clocks, the active flags and the user predicates' mask
+PTRS = ("consts", "last_issue", "win_ring", "row_state", "act1_row",
+        "act1_clk", "clock_until", "last_ref", "hit_streak", "prac_count",
+        "bh_sketch", "valid", "is_write", "is_probe", "sub", "row", "arrive",
+        "out", "clk", "active", "user_mask")
+NUM_PTRS = len(PTRS)
+PTR = {name: i for i, name in enumerate(PTRS)}
+
 #: the tables after the header, in the order they are packed (each at the
 #: offset its ``Off<name>`` header word gives)
-#: device pointers the launch takes (the source's ``StepPtrs``): the plan,
-#: nine state arrays, six queue arrays, the events buffer, the clocks and
-#: the active flags
-NUM_PTRS = 19
-
 TABLES = ("Keys", "A", "Scope", "Fx", "Pass", "BankStride", "NodeMul",
           "NodeOff", "RingCmd", "RingLevel", "RingNode")
 
@@ -102,10 +122,16 @@ class StepPlan:
         self.out = torch.zeros((self.lanes, EVENT["EvWords"]),
                                dtype=torch.int32, device=self.device)
         self.ptrs = (ctypes.c_void_p * NUM_PTRS)()
-        self.ptrs[0] = self.consts.data_ptr()
-        self.ptrs[16] = self.out.data_ptr()
+        self.ptrs[PTR["consts"]] = self.consts.data_ptr()
+        self.ptrs[PTR["out"]] = self.out.data_ptr()
         self.checked = None          # data_ptrs of the last checked state
         self.events = self.horizon = None
+        f = FEATURE
+        #: the kernel instance's flags the header's words switch on
+        self.features = ((f["FeatLink"] if self.dim("LinkLatency") else 0)
+                         | (f["FeatBh"] if self.dim("BhThreshold") else 0)
+                         | (f["FeatPrac"] if self.dim("PracThreshold")
+                            else 0))
 
     def dim(self, name: str) -> int:
         return int(self.host[H[name]])
@@ -123,11 +149,13 @@ class StepPlan:
 
 
 def build_plan(cspec, dp, cfg, depth: int, channels: int, device,
-               points: int) -> StepPlan:
+               points: int, link_latency: int = 0) -> StepPlan:
     """Pack the constant tables of ``cspec`` (latencies and scalar timings
-    of ``dp``) and the options of ``cfg`` for a queue of ``depth`` slots in
-    each of ``channels`` channels of ``points`` design points; raises
-    ``ValueError`` for what the kernel does not take."""
+    of ``dp``) and the options of ``cfg`` (BlockHammer and PRAC thresholds
+    included) for a queue of ``depth`` slots in each of ``channels``
+    channels of ``points`` design points behind a link of
+    ``link_latency`` cycles; raises ``ValueError`` for what the kernel
+    does not take."""
     tab = dp.tables
     L1 = len(cspec.levels) - 1
     F, B, U = int(cspec.n_cmds), int(cspec.n_banks), int(cspec.n_refresh_units)
@@ -147,6 +175,9 @@ def build_plan(cspec, dp, cfg, depth: int, channels: int, device,
         if have > cap:
             raise ValueError(f"controller-step kernel: {what} {have} above "
                              f"its limit {cap} ({cspec.name})")
+    if link_latency < 0:
+        raise ValueError(f"controller-step kernel: link latency "
+                         f"{link_latency} below 0")
     if depth < 1 or channels < 1 or points < 1:
         raise ValueError("controller-step kernel: needs a queue, a channel "
                          f"and a point, got depth {depth}, channels "
@@ -182,7 +213,9 @@ def build_plan(cspec, dp, cfg, depth: int, channels: int, device,
         IdSyncRd=sync_rd, IdSyncWr=sync_wr, IdRefab=cspec.id_REFab,
         IdPreab=cspec.id_PREab, NREFI=dp.nREFI, NAAD=dp.nAAD,
         ClockIdle=dp.clock_idle, ReadLatency=dp.read_latency,
-        UrgentMargin=cfg.refresh_urgent_margin)
+        UrgentMargin=cfg.refresh_urgent_margin, LinkLatency=link_latency,
+        BhThreshold=cfg.blockhammer_threshold,
+        PracThreshold=cfg.prac_threshold)
     words = [np.zeros(H["HeaderWords"], np.int64)]
     off = H["HeaderWords"]
     for name in TABLES:
@@ -211,7 +244,8 @@ def _lib():
         from repro_torch.kernels import build
         lib = build.load("controller_step")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.controller_step_launch.argtypes = [vp, vp, ci, ci, ci, vp]
+        lib.controller_step_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci,
+                                               vp]
         lib.controller_step_launch.restype = ci
         lib.controller_step_num_ptrs.restype = ci
         lib.controller_step_error_string.argtypes = [ci]
@@ -226,7 +260,8 @@ def _lib():
 def _state_tensors(cs):
     d = cs.dev
     return (d.last_issue, d.win_ring, d.row_state, d.act1_row, d.act1_clk,
-            d.clock_until, d.last_ref, cs.hit_streak, cs.prac_count)
+            d.clock_until, d.last_ref, cs.hit_streak, cs.prac_count,
+            cs.bh_sketch)
 
 
 def _check(plan: StepPlan, named: list):
@@ -267,9 +302,10 @@ def _check_state(plan: StepPlan, cs):
             ("clock_until", st[5], i32, C + (U,)),
             ("last_ref", st[6], i32, C + (U,)),
             ("hit_streak", st[7], i32, C + (B,)),
-            ("prac_count", st[8], i32, C + (B,))])
+            ("prac_count", st[8], i32, C + (B,)),
+            ("bh_sketch", st[9], i32, C + (2, LIMITS["Sketch"]))])
         for i, p in enumerate(ptrs):
-            plan.ptrs[1 + i] = p
+            plan.ptrs[PTR["last_issue"] + i] = p
         plan.checked = ptrs
     q = cs.queue
     b = torch.bool
@@ -285,32 +321,46 @@ def _check_state(plan: StepPlan, cs):
 
 
 def controller_step_cuda(plan: StepPlan, cs, clk: torch.Tensor,
-                         active: torch.Tensor, horizon: bool):
+                         active: torch.Tensor, horizon: bool,
+                         user_mask: torch.Tensor | None = None,
+                         only_pass: int = -1):
     """Launch the fused step on the current stream (no synchronise): the
     state of ``cs`` is updated in place, the events (and, with
     ``horizon``, the horizon at ``clk + 1``) land in ``plan.out``.
     ``clk`` and ``active`` are the ``(P,)`` int32 clocks and bool flags of
     the plan's points on its device; the caller keeps the clocks in ``[0,
-    2**30)`` (the engine checks them on the host, where it sets them)."""
+    2**30)`` (the engine checks them on the host, where it sets them).
+
+    ``user_mask``, a ``(P, C, Q)`` bool tensor, is the user predicates'
+    verdict on the state the pass starts from; the kernel ANDs it into its
+    own predicates.  ``only_pass`` 0 or 1 runs that pass of a dual command
+    bus alone (-1: every pass): the column pass writes its events, and the
+    row pass, launched next, adds its own to them."""
     global launch_count
     P = plan.points
     _check(plan, [("clk", clk, torch.int32, (P,)),
                   ("active", active, torch.bool, (P,))])
+    features = plan.features
+    if user_mask is not None:
+        _check(plan, [("user_mask", user_mask, torch.bool,
+                       plan.lane_shape + (plan.depth,))])
+        features |= FEATURE["FeatUser"]
+    if only_pass not in (-1, 0, 1) or (only_pass == 1
+                                       and not plan.dim("Dual")):
+        raise ValueError(f"controller-step kernel: only_pass {only_pass} "
+                         "is not a pass of this standard's command bus")
     _check_state(plan, cs)
     q = cs.queue
     p = plan.ptrs
-    p[10] = q.valid.data_ptr()
-    p[11] = q.is_write.data_ptr()
-    p[12] = q.is_probe.data_ptr()
-    p[13] = q.sub.data_ptr()
-    p[14] = q.row.data_ptr()
-    p[15] = q.arrive.data_ptr()
-    p[17] = clk.data_ptr()
-    p[18] = active.data_ptr()
+    for name in ("valid", "is_write", "is_probe", "sub", "row", "arrive"):
+        p[PTR[name]] = getattr(q, name).data_ptr()
+    p[PTR["clk"]] = clk.data_ptr()
+    p[PTR["active"]] = active.data_ptr()
+    p[PTR["user_mask"]] = None if user_mask is None else user_mask.data_ptr()
     lib = _lib()
     rc = lib.controller_step_launch(
-        p, plan.head, plan.lanes, plan.channels, int(horizon),
-        torch.cuda.current_stream(plan.device).cuda_stream)
+        p, plan.head, plan.lanes, plan.channels, int(horizon), only_pass,
+        features, torch.cuda.current_stream(plan.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("controller-step kernel launch failed: "
                            + lib.controller_step_error_string(rc).decode())

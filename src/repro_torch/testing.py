@@ -101,6 +101,65 @@ def random_ctrl_state(cspec: CompiledSpec, dp: D.DynParams, device,
     return cs, clk
 
 
+def predicate_ctrl_state(cspec: CompiledSpec, dp: D.DynParams, device,
+                         seed: int, bh: int = 0, prac: int = 0,
+                         link: int = 0, clk0: int = 0, depth: int = 32,
+                         channels: int = 3) -> tuple:
+    """:func:`random_ctrl_state` with BlockHammer and PRAC state around
+    their thresholds and arrivals around a link's boundary:
+
+    * ``bh``: sketch counts in ``[0, 2 bh)``, so some rows are
+      blacklisted and some not;
+    * ``prac``: every bank's counter in ``[prac - 3, prac)``, and in about
+      half of the refresh units one bank at ``prac`` (an alert);
+    * ``link``: arrivals from ``link + 4`` cycles before the clock to 4
+      cycles after ``clk - link``.
+
+    Returns ``(cs, clk)``; step it at :func:`predicate_clocks` to reach
+    the sketch's decay cycles."""
+    cs, clk = random_ctrl_state(cspec, dp, device, seed, clk0, depth,
+                                channels)
+    rng = np.random.default_rng(seed + 15485863)
+    B, U = cspec.n_banks, cspec.n_refresh_units
+    if bh:
+        cs = cs._replace(bh_sketch=_i32(
+            rng.integers(0, 2 * bh, (channels, 2, C.SKETCH)), device))
+    if prac:
+        count = rng.integers(max(prac - 3, 0), prac, (channels, B))
+        for c in range(channels):
+            for u in range(U):
+                if rng.random() < 0.5:
+                    count[c, u * (B // U) + rng.integers(B // U)] = prac
+        cs = cs._replace(prac_count=_i32(count, device))
+    if link:
+        arrive = clk - link + rng.integers(-4, 5, (channels, depth))
+        cs = cs._replace(queue=cs.queue._replace(arrive=_i32(arrive,
+                                                             device)))
+    return cs, clk
+
+
+def predicate_clocks(clk: int, nrefi: int, n: int = 12) -> list:
+    """Increasing clocks to step a controller state at: ``n`` consecutive
+    cycles from ``clk``, then the three cycles around the next ``nREFI``
+    multiple (the BlockHammer sketch decays on it) and around the one
+    after."""
+    m = (clk + n) // nrefi * nrefi + nrefi
+    return (list(range(clk, clk + n)) + [m - 1, m, m + 1]
+            + [m + nrefi - 1, m + nrefi, m + nrefi + 1])
+
+
+def reads_every_field(cspec: CompiledSpec, ctx: C.PredCtx) -> torch.Tensor:
+    """A user predicate over every :class:`~repro_torch.core.controller.PredCtx`
+    field but ``dp`` (the clock, the candidates, row hits, banks, refresh
+    units, urgency and the PRAC counters), true for some slots and false
+    for others: it holds the kernel's user mask, computed on the device
+    over all lanes, against the plain step's predicates."""
+    urgent = D.take(ctx.ref_urgent, ctx.ru)
+    hot = D.take(ctx.cs.prac_count, ctx.bank) > 0
+    return (((ctx.cand_row + ctx.clk + ctx.bank) % 3 != 0) | ctx.open_hit
+            | urgent | hot | (ctx.cand_cmd == cspec.id_PRE))
+
+
 def lane_case(cspec: CompiledSpec, dp: D.DynParams, device, seed: int,
               points: int, channels: int, reset: bool,
               stagger: bool = True, depth: int = 32) -> tuple:
@@ -154,13 +213,14 @@ def one_point(cs: C.CtrlState, clk: int) -> tuple:
 
 
 def step_one_point(cspec: CompiledSpec, dp: D.DynParams, cfg, cs, clk: int,
-                   horizon: bool = True) -> tuple:
+                   horizon: bool = True, link_latency: int = 0) -> tuple:
     """The dispatched step (``C.step_and_horizon``, or
     ``C.controller_step`` without ``horizon``) of a ``(C, ...)`` state at
-    host clock ``clk``, as a batch of one point: ``(cs', StepEvents,
-    horizon (C,) or None)`` in the channels' shape."""
+    host clock ``clk`` behind a link of ``link_latency`` cycles, as a
+    batch of one point: ``(cs', StepEvents, horizon (C,) or None)`` in the
+    channels' shape."""
     fn = C.step_and_horizon if horizon else C.controller_step
-    out = fn(cspec, dp, cfg, *one_point(cs, clk))
+    out = fn(cspec, dp, cfg, *one_point(cs, clk), link_latency)
     first = lambda a: a[0]
     return (C._tree(first, out[0]), C._tree(first, out[1]),
             out[2][0] if horizon else None)
@@ -186,7 +246,8 @@ def ctrl_diff(a: C.CtrlState, b: C.CtrlState) -> dict:
             *((f"queue.{k}", getattr(a.queue, k), getattr(b.queue, k))
               for k in a.queue._fields),
             ("hit_streak", a.hit_streak, b.hit_streak),
-            ("prac_count", a.prac_count, b.prac_count)):
+            ("prac_count", a.prac_count, b.prac_count),
+            ("bh_sketch", a.bh_sketch, b.bh_sketch)):
         d = int((x.long() - y.long()).abs().max()) if x.numel() else 0
         if d:
             out[name] = d

@@ -14,7 +14,10 @@
   points (``step_lanes_plain``, the batched kernel's yardstick) against
   per-point scalar ``step_and_horizon_plain``.
 * The wrapper raises for what the kernel does not take, before any build
-  or launch; the library digest follows the headers a source includes.
+  or launch; the user predicates' device mask equals what the plain pass's
+  predicates see, and on the card it rides the kernel (one launch per
+  pass of a dual command bus); the library digest follows the headers a
+  source includes.
 
 The kernel itself runs only on the card: ``tests/test_torch_cuda.py``
 (``-m cuda``) and ``chip_smoke.py`` hold it against this plain version."""
@@ -150,11 +153,11 @@ def test_cycle_reads_back_only_its_one_sync():
     assert reads == [] and sim.host_syncs == stats.scan_steps == 60
 
 
-def _plan(std, org, tim, depth=32, channels=1, **cfg):
+def _plan(std, org, tim, depth=32, channels=1, link=0, **cfg):
     cspec = compile_spec(std, org, tim)
     dp = TD.dyn_params(cspec, "cpu", channels)
     plan = KS.build_plan(cspec, dp, TC.ControllerConfig(**cfg), depth,
-                         channels, "cpu", 1)
+                         channels, "cpu", 1, link)
     return cspec, dp, plan
 
 
@@ -176,6 +179,20 @@ def test_plan_fields_match_the_spec_tables(std, org, tim):
         cspec.dual_command_bus)
     assert (d("NREFI"), d("NAAD"), d("ClockIdle"), d("ReadLatency")) == (
         dp.nREFI, dp.nAAD, dp.clock_idle, dp.read_latency)
+    assert (d("LinkLatency"), d("BhThreshold"), d("PracThreshold")) == (
+        0, 0, 0)
+    # the modern-controller words: a group's link and the two thresholds
+    _, _, other = _plan(std, org, tim, link=80, blockhammer_threshold=8,
+                        prac_threshold=16)
+    assert (other.dim("LinkLatency"), other.dim("BhThreshold"),
+            other.dim("PracThreshold")) == (80, 8, 16)
+    # each word picks its feature's kernel instance
+    f = KS.FEATURE
+    assert plan.features == 0
+    assert other.features == f["FeatLink"] | f["FeatBh"] | f["FeatPrac"]
+    # ... and nothing else: the tables after the header are the same
+    np.testing.assert_array_equal(other.host[H_TABLES:],
+                                  plan.host[H_TABLES:])
 
     # bank and node of every address; the refresh unit is sub[0] and owns
     # the banks [u * Bpr, (u + 1) * Bpr)
@@ -230,6 +247,10 @@ def test_plan_fields_match_the_spec_tables(std, org, tim):
     assert plan.consts.dtype == torch.int32 and plan.out.shape == (3, 16)
 
 
+#: the first table word of a plan: the header's length
+H_TABLES = KS.H["HeaderWords"]
+
+
 def _enum(name: str) -> list:
     body = re.search(r"enum %s : int \{(.*?)\};" % name,
                      SOURCE.read_text(), re.S).group(1)
@@ -243,6 +264,12 @@ def test_plan_and_event_layout_match_the_source():
     consts = dict(re.findall(r"constexpr int k(\w+) = (\d+);",
                              SOURCE.read_text()))
     assert {k: int(consts[k]) for k in KS.LIMITS} == KS.LIMITS
+    ptrs = re.search(r"struct StepPtrs \{(.*?)\};", SOURCE.read_text(),
+                     re.S).group(1)
+    names = re.findall(r"\*\s*(\w+);", ptrs)
+    assert tuple(names) == KS.PTRS and KS.NUM_PTRS == 21
+    feats = dict(e[1:].replace(" ", "").split("=") for e in _enum("Feature"))
+    assert {k: int(v) for k, v in feats.items()} == KS.FEATURE
 
 
 def test_events_view_reads_the_packed_row():
@@ -269,6 +296,8 @@ def test_wrapper_raises_for_what_the_kernel_does_not_take():
         _plan(std, org, tim, depth=300)
     with pytest.raises(ValueError, match="needs a queue"):
         _plan(std, org, tim, depth=0)
+    with pytest.raises(ValueError, match="link latency -1"):
+        _plan(std, org, tim, link=-1)
     cspec, dp, plan = _plan(std, org, tim, depth=16, channels=2)
     cs = TC.init_ctrl_state(cspec, 16, 2, "cpu", points=1)
     clk = torch.tensor([5], dtype=torch.int32)
@@ -279,8 +308,11 @@ def test_wrapper_raises_for_what_the_kernel_does_not_take():
         row=torch.zeros((1, 2, 8), dtype=torch.int32)))
     strided = cs._replace(queue=cs.queue._replace(
         arrive=torch.zeros((16, 2), dtype=torch.int32).t()[None]))
+    bad_sketch = cs._replace(bh_sketch=torch.zeros((1, 2, 2, 512),
+                                                   dtype=torch.int32))
     for state, match in ((bad_dtype, "last_issue"), (bad_shape, "queue.row"),
-                         (strided, "queue.arrive"), (cs, "CUDA tensors")):
+                         (strided, "queue.arrive"),
+                         (bad_sketch, "bh_sketch"), (cs, "CUDA tensors")):
         with pytest.raises(ValueError, match=match):
             KS.controller_step_cuda(plan, state, clk, on, True)
     # the clocks are per-point int32 tensors, one per point of the plan
@@ -289,6 +321,13 @@ def test_wrapper_raises_for_what_the_kernel_does_not_take():
                                     on, "clk"), (clk, True, "active")):
         with pytest.raises(ValueError, match=match):
             KS.controller_step_cuda(plan, cs, bad_clk, bad_on, True)
+    # the user mask is (P, C, Q) bool; a single bus has no row pass
+    for mask in (torch.ones((1, 2, 15), dtype=torch.bool),
+                 torch.ones((1, 2, 16), dtype=torch.int32)):
+        with pytest.raises(ValueError, match="user_mask"):
+            KS.controller_step_cuda(plan, cs, clk, on, True, mask)
+    with pytest.raises(ValueError, match="only_pass 1"):
+        KS.controller_step_cuda(plan, cs, clk, on, True, None, 1)
     # the clocks stay in [0, 2**30): a run checks its length before a launch
     from repro_torch.core import Simulator
     with pytest.raises(ValueError, match="clocks below 2"):
@@ -297,6 +336,82 @@ def test_wrapper_raises_for_what_the_kernel_does_not_take():
     meta = TC.init_ctrl_state(cspec, 16, 2, "meta", points=1)
     with pytest.raises(NotImplementedError):
         TC.controller_step(cspec, dp, TC.ControllerConfig(), meta, clk, on)
+
+
+@pytest.mark.parametrize("std", ["DDR4", "HBM3", "LPDDR5"])
+def test_user_mask_is_the_plain_pass_verdict(std):
+    """``user_mask`` over all lanes at per-point clocks equals, point by
+    point, what the user predicates return inside the plain pass — on a
+    dual command bus for the column pass and, on the state it leaves, the
+    row pass."""
+    org, tim = DEFAULT_SYSTEMS[std]
+    cspec = compile_spec(std, org, tim, channels=2)
+    dp = TD.dyn_params(cspec, "cpu", 2)
+    seen = []
+
+    def pred(cspec, ctx):
+        v = T.reads_every_field(cspec, ctx)
+        seen.append(v.expand_as(ctx.cand_cmd).clone())
+        return v
+    cfg = TC.ControllerConfig(extra_predicates=(pred,))
+    cs, clk, _ = T.lane_case(cspec, dp, "cpu", 5, 3, 2, False)
+    tab = dp.tables
+    kinds = [tab.col_cmds, tab.row_cmds] if cspec.dual_command_bus \
+        else [None]
+    for cmd_ok in kinds:
+        seen.clear()
+        got = TC.user_mask(cspec, dp, cfg, cs, clk)
+        seen.clear()
+        parts = []
+        for p, t in enumerate(clk.tolist()):
+            cs_p, _ = TC._select_and_issue(
+                cspec, dp, TC._tree(lambda a: a[p].clone(), cs), t, cfg,
+                cfg.predicates(cspec), cmd_ok, TC.frfcfs)
+            parts.append(cs_p)
+        assert got.shape == cs.queue.valid.shape and got.dtype == torch.bool
+        assert torch.equal(got, torch.stack(seen))
+        assert 0 < int(got.sum()) < got.numel()
+        cs = TC._tree(lambda *xs: torch.stack(xs), *parts)
+
+
+@pytest.mark.parametrize("std", ["DDR4", "HBM3"])
+def test_user_predicates_ride_the_kernel_on_the_card(std, monkeypatch):
+    """Where the state would take the kernel (the device kind made "cuda"
+    here, the launch recorded), a configuration with user predicates
+    launches the kernel with their mask — once, or once per pass of a dual
+    command bus, each mask on the state its pass starts from — and never
+    the plain step."""
+    org, tim = DEFAULT_SYSTEMS[std]
+    cspec = compile_spec(std, org, tim, channels=2)
+    dp = TD.dyn_params(cspec, "cpu", 2)
+    cfg = TC.ControllerConfig(extra_predicates=(T.reads_every_field,))
+    cs, clk, active = T.lane_case(cspec, dp, "cpu", 7, 3, 2, False)
+    calls = []
+
+    def launch(plan, cs, clk, active, horizon, user_mask=None,
+               only_pass=-1):
+        calls.append((only_pass, horizon, user_mask.clone()))
+        cs.dev.row_state.fill_(TD.ROW_CLOSED)   # an in-place update
+    monkeypatch.setattr(TC, "_device_kind", lambda cs: "cuda")
+    monkeypatch.setattr(KS, "controller_step_cuda", launch)
+    plain = TC.plain_calls
+    for horizon in (True, False):
+        calls.clear()
+        start = T.clone_ctrl(cs)
+        fn = TC.step_and_horizon if horizon else TC.controller_step
+        fn(cspec, dp, cfg, cs, clk, active)
+        if cspec.dual_command_bus:
+            assert [c[:2] for c in calls] == [(0, False), (1, horizon)]
+            moved = start._replace(dev=start.dev._replace(
+                row_state=torch.full_like(start.dev.row_state,
+                                          TD.ROW_CLOSED)))
+            assert torch.equal(calls[1][2], TC.user_mask(
+                cspec, dp, cfg, moved, clk))
+        else:
+            assert [c[:2] for c in calls] == [(-1, horizon)]
+        assert torch.equal(calls[0][2], TC.user_mask(cspec, dp, cfg, start,
+                                                     clk))
+    assert TC.plain_calls == plain and KS._LIB is None
 
 
 def test_library_digest_follows_included_headers(tmp_path, monkeypatch):

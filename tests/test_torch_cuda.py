@@ -24,7 +24,14 @@ and the reduced GQA Llama of ``tests/torch_serve_fixture.npz`` served on
 tokens.  The fused step over (point x channel) lanes at per-point clocks
 is held against ``step_lanes_plain`` (1, 5 and 32 points of 1, 2 and 4
 channels, DDR4, LPDDR5, HBM3); ``run_batch`` on ``cuda`` equals the CPU
-run point by point, and the ``DDR4@2ch`` golden stream reproduces."""
+run point by point, and the ``DDR4@2ch`` golden stream reproduces.  With
+BlockHammer, PRAC and a link latency (DDR4, LPDDR5, HBM3, GDDR7; around
+the sketch's decay cycles) and with a user predicate (its mask computed
+on the card) the fused step equals the plain version; the
+``DDR5x2+DDR4x2@80`` system reproduces its golden stream with one fused
+launch per spec group and loop iteration, and a run with a user predicate
+launches the kernel once per executed step (once per pass on a dual
+command bus) and never the plain step."""
 import itertools
 import json
 import os
@@ -218,6 +225,69 @@ def test_two_channel_golden_stream_on_cuda(cuda):
     assert KS.launch_count - before == stats.scan_steps
     tr = capture(sim.cspec, dense)
     assert len(tr) == golden["n"] and trace_sha256(tr) == golden["sha256"]
+
+
+PRED_FEATURES = [(3, 0, 0, False), (0, 4, 0, False), (0, 0, 80, False),
+                 (3, 4, 80, False), (0, 0, 0, True), (3, 4, 80, True)]
+
+
+@pytest.mark.parametrize("std", ["DDR4", "LPDDR5", "HBM3", "GDDR7"])
+@pytest.mark.parametrize("bh,prac,link,user", PRED_FEATURES)
+def test_fused_step_with_predicates_equals_plain_version(cuda, std, bh,
+                                                         prac, link, user):
+    org, tim = DEFAULT_SYSTEMS[std]
+    cspec = compile_spec(std, org, tim)
+    dp = D.dyn_params(cspec, cuda, channels=3)
+    cfg = ControllerConfig(blockhammer_threshold=bh, prac_threshold=prac,
+                           extra_predicates=(T.reads_every_field,) if user
+                           else ())
+    cs, clk = T.predicate_ctrl_state(cspec, dp, cuda, seed=bh + prac + link,
+                                     bh=bh, prac=prac, link=link)
+    kcs = T.clone_ctrl(cs)
+    for t in T.predicate_clocks(clk, dp.nREFI, 4):
+        kcs, kev, kh = T.step_one_point(cspec, dp, cfg, kcs, t, True, link)
+        cs, pev, ph = C.step_and_horizon_plain(cspec, dp, cfg, cs, t, link)
+        torch.cuda.synchronize()
+        assert not T.ctrl_diff(kcs, cs), (std, t)
+        assert not T.events_diff(kev, pev), (std, t)
+        assert torch.equal(kh, ph), (std, t)
+
+
+def test_hetero_golden_stream_on_cuda(cuda):
+    from repro_torch.core import compile_system
+    from repro_torch.trace import FIELDS
+    golden = json.load(open(os.path.join(HERE, "trace", "golden_hashes.json"))
+                       )["DDR5x2+DDR4x2@80"]
+    msys = compile_system([
+        dict(standard="DDR5", org_preset="DDR5_16Gb_x8",
+             timing_preset="DDR5_4800B", channels=2),
+        dict(standard="DDR4", org_preset="DDR4_8Gb_x8",
+             timing_preset="DDR4_2400R", channels=2, link_latency=80)])
+    sim = Simulator(system=msys,
+                    controller=ControllerConfig(scheduler="FRFCFS"))
+    before, plain = KS.launch_count, C.plain_calls
+    stats, dense = sim.run(3000, interval=2.0, read_ratio=0.7, trace=True)
+    assert KS.launch_count - before == 2 * stats.scan_steps
+    assert C.plain_calls == plain and sim.host_syncs == stats.scan_steps
+    tr = capture(msys, dense)
+    assert len(tr) == golden["n"]
+    assert trace_sha256(tr, FIELDS + ("group",)) == golden["sha256"]
+
+
+@pytest.mark.parametrize("std", ["DDR4", "HBM3"])
+def test_user_predicate_rides_the_kernel_on_cuda(cuda, std):
+    pred = lambda cspec, ctx: ctx.cand_cmd != cspec.id_WR   # noqa: E731
+    cfg = ControllerConfig(extra_predicates=(pred,))
+    org, tim = DEFAULT_SYSTEMS[std]
+    sim = Simulator(std, org, tim, controller=cfg)
+    before, plain = KS.launch_count, C.plain_calls
+    got = sim.run(600, interval=2.0, read_ratio=0.5)
+    passes = 2 if sim.cspec.dual_command_bus else 1
+    assert KS.launch_count - before == passes * got.scan_steps
+    assert C.plain_calls == plain and got.scan_steps == sim.host_syncs
+    want = Simulator(std, org, tim, controller=cfg,
+                     device="cpu").run(600, interval=2.0, read_ratio=0.5)
+    assert got.to_dict() == want.to_dict()
 
 
 def test_golden_stream_on_cuda(cuda):

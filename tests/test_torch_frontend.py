@@ -113,7 +113,7 @@ def test_arrival_horizon_and_idle_advance_match_reference(ci):
     k = JF.rng_draws_per_cycle(jcfg, ("single", j_layout(jcspec,
                                                          jcfg.mapper)))
     assert k == TF.rng_draws_per_cycle(
-        tcfg, TF.front_tables(cspec, tcfg, 1, "cpu").layout)
+        tcfg, ("single", TF.front_tables(cspec, tcfg, 1, "cpu").layout))
     a, c = JF.lcg_affine(k)
     for _ in range(12):
         fs = _random_front(rng, jcfg.max_backlog_fp)

@@ -148,19 +148,18 @@ def _sim(**kw):
     return Simulator("DDR4", "DDR4_8Gb_x8", "DDR4_2400R", device="cpu", **kw)
 
 
+def _sim_system(groups):
+    from repro_torch.core import Simulator
+    return Simulator(system=groups, device="cpu")
+
+
 def _unported():
-    from repro_torch.core import ControllerConfig, FrontendConfig
+    from repro_torch.core import FrontendConfig
     return {
-        "system": lambda: _sim(system=[("DDR4", "DDR4_8Gb_x8",
-                                        "DDR4_2400R")]),
         "replay": lambda: _sim(replay=object()),
         "channel_shard": lambda: _sim(channel_shard=2),
         "telemetry": lambda: _sim().run(100, telemetry=50),
         "trace_pattern": lambda: FrontendConfig(pattern="trace"),
-        "blockhammer": lambda: ControllerConfig(blockhammer_threshold=8),
-        "prac": lambda: ControllerConfig(prac_threshold=8),
-        "extra_predicates": lambda: ControllerConfig(
-            extra_predicates=(lambda cspec, ctx: None,)),
         "lint_warn": lambda: TC.compile_spec("DDR4", "DDR4_8Gb_x8",
                                              "DDR4_2400R", lint="warn"),
         "lint_error": lambda: TC.compile_spec("DDR4", "DDR4_8Gb_x8",
@@ -177,7 +176,26 @@ def test_unported_option_raises(option):
 def _ported():
     """Options that raised until they were ported, each run at a tiny
     size: ``channels=2`` builds a 2-channel run, ``run_batch`` returns
-    ``(pts, stats)`` with a leading point axis."""
+    ``(pts, stats)`` with a leading point axis, ``system=`` runs a
+    composition of spec groups, and the BlockHammer, PRAC and user
+    predicates configure the controller."""
+    from repro_torch.core import ControllerConfig
+
+    def system():
+        sim = _sim_system([("DDR4", "DDR4_8Gb_x8", "DDR4_2400R"),
+                           ("DDR5", "DDR5_16Gb_x8", "DDR5_4800B", 1, 20)])
+        stats = sim.run(40, interval=2.0)
+        assert sim.msys.n_groups == 2 and len(stats.per_group) == 2
+        assert tuple(stats.per_channel.cmd_counts.shape) == (
+            2, sim.msys.n_cmds)
+
+    def predicate(**cfg):
+        def check():
+            stats = _sim(controller=ControllerConfig(**cfg)).run(
+                40, interval=2.0)
+            assert stats.cycles == 40
+        return check
+
     def channels():
         sim = _sim(channels=2)
         stats = sim.run(40, interval=2.0)
@@ -192,7 +210,11 @@ def _ported():
         assert tuple(stats.per_channel.cmd_counts.shape[:2]) == (4, 2)
         assert list(stats.cycles) == [40] * 4
         assert stats.point(3).to_dict()["cycles"] == 40
-    return {"channels": channels, "run_batch": run_batch}
+    return {"channels": channels, "run_batch": run_batch, "system": system,
+            "blockhammer": predicate(blockhammer_threshold=8),
+            "prac": predicate(prac_threshold=8),
+            "extra_predicates": predicate(extra_predicates=(
+                lambda cspec, ctx: ctx.cand_cmd >= 0,))}
 
 
 @pytest.mark.parametrize("option", sorted(_ported()))

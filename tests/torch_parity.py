@@ -11,8 +11,9 @@ rewrites ``tests/torch_serve_fixture.npz`` from the JAX package, and
 
     PYTHONPATH=src python tests/torch_parity.py --write-sim-fixtures
 
-rewrites ``tests/torch_batch_stats.json`` and
-``tests/torch_multichannel_stats.json``."""
+rewrites ``tests/torch_batch_stats.json``,
+``tests/torch_multichannel_stats.json`` and
+``tests/torch_hetero_stats.json``."""
 from __future__ import annotations
 
 import hashlib
@@ -118,6 +119,33 @@ def random_ctrl(std, org, tim, seed, depth=32):
     return jc, jdp, cs, clk
 
 
+def predicate_ctrl(std, org, tim, seed, bh=0, prac=0, link=0, depth=32):
+    """:func:`random_ctrl` with BlockHammer and PRAC state around their
+    thresholds and arrivals around the link boundary: sketch counts in
+    ``[0, 2 bh)`` (so some rows are blacklisted and some not), in each
+    refresh unit every bank's PRAC counter below ``prac`` or, in about
+    half of the units, one bank at it, and arrivals from ``link + 4``
+    before the clock to 4 after ``clk - link``."""
+    import jax.numpy as jnp
+    jc, jdp, cs, clk = random_ctrl(std, org, tim, seed, depth)
+    rng = np.random.default_rng(seed + 31)
+    if bh:
+        cs = cs._replace(bh_sketch=jnp.asarray(
+            rng.integers(0, 2 * bh, cs.bh_sketch.shape), jnp.int32))
+    if prac:
+        B, U = jc.n_banks, jc.n_refresh_units
+        count = rng.integers(max(prac - 3, 0), prac, B)
+        for u in range(U):
+            if rng.random() < 0.5:
+                count[u * (B // U) + rng.integers(B // U)] = prac
+        cs = cs._replace(prac_count=jnp.asarray(count, jnp.int32))
+    if link:
+        arrive = clk - link + rng.integers(-4, 5, depth)
+        cs = cs._replace(queue=cs.queue._replace(
+            arrive=jnp.asarray(arrive, jnp.int32)))
+    return jc, jdp, cs, clk
+
+
 def tree_np(x):
     import jax
     return jax.tree.map(np.asarray, x)
@@ -213,9 +241,109 @@ def multichannel_fixture() -> dict:
     return dict(run=r, stats=stats.to_dict())
 
 
+#: the memory system of ``examples/hetero_system.py``: two DDR5 channels
+#: and two CXL-attached DDR4 channels (80 cycles of link latency)
+HETERO_SYSTEM = [dict(standard="DDR5", org_preset="DDR5_16Gb_x8",
+                      timing_preset="DDR5_4800B", channels=2),
+                 dict(standard="DDR4", org_preset="DDR4_8Gb_x8",
+                      timing_preset="DDR4_2400R", channels=2,
+                      link_latency=80)]
+#: the sessions ``chip_smoke.py`` holds the port to on the card
+#: (``tests/torch_hetero_stats.json``): the example's session, ``run_batch``
+#: over its system, and the predicate sessions of
+#: ``benchmarks/bench_features.py`` (BlockHammer on a 2-row hammer and on
+#: benign traffic, PRAC on 4 rows) plus ``tests/core/test_controllers.py``'s
+#: user predicate, each a DDR4_8Gb_x8 / DDR4_2400R run
+HETERO_RUN = dict(n_cycles=20_000, interval=1.0, read_ratio=0.7,
+                  seed=0x1234)
+HETERO_BATCH = dict(n_cycles=4_000, intervals=[8.0, 2.0], read_ratios=[1.0],
+                    seed=0x1234)
+PREDICATE_RUNS = {
+    "blockhammer": dict(controller=dict(blockhammer_threshold=8),
+                        frontend=dict(pattern="random", probes=False),
+                        rows=2, n_cycles=20_000, interval=2.0,
+                        read_ratio=1.0),
+    "blockhammer_benign": dict(controller=dict(blockhammer_threshold=1024),
+                               frontend=dict(probes=False), rows=None,
+                               n_cycles=20_000, interval=2.0,
+                               read_ratio=1.0),
+    "prac": dict(controller=dict(prac_threshold=16),
+                 frontend=dict(pattern="random", probes=False), rows=4,
+                 n_cycles=20_000, interval=2.0, read_ratio=1.0),
+    "no_writes_ever": dict(controller=dict(extra_predicates=[
+        "no_writes_ever"]), frontend=dict(probes=False), rows=None,
+        n_cycles=4_000, interval=2.0, read_ratio=0.5),
+}
+HETERO_FIXTURE = os.path.join(HERE, "torch_hetero_stats.json")
+
+
+def no_writes_ever(cspec, ctx):
+    """``tests/core/test_controllers.py``'s user predicate: the same
+    expression runs on the reference's and the port's tensors."""
+    return ctx.cand_cmd != cspec.id_WR
+
+
+USER_PREDICATES = {"no_writes_ever": no_writes_ever}
+
+
+def stats_doc(stats) -> dict:
+    """``Stats.to_dict()`` of one scalar run (either package's) plus every
+    ``per_group`` leaf as lists, in each group's own namespace."""
+    d = stats.to_dict()
+    d["per_group"] = [{k: np.asarray(
+        v.cpu() if hasattr(v, "cpu") else v).tolist()
+        for k, v in ch._asdict().items()} for ch in stats.per_group]
+    return d
+
+
+def controller_kwargs(run: dict) -> dict:
+    """A :data:`PREDICATE_RUNS` entry's controller options, the user
+    predicates resolved by name."""
+    c = dict(run["controller"])
+    if "extra_predicates" in c:
+        c["extra_predicates"] = tuple(USER_PREDICATES[n]
+                                      for n in c["extra_predicates"])
+    return c
+
+
+def hetero_fixture() -> dict:
+    """The reference's results of the card's system and predicate
+    sessions (:data:`HETERO_RUN`, :data:`HETERO_BATCH`,
+    :data:`PREDICATE_RUNS`)."""
+    import jax
+    from repro.core import ControllerConfig, FrontendConfig, Simulator
+    from repro.core import compile_system
+    msys = compile_system(HETERO_SYSTEM)
+    r = HETERO_RUN
+    session = Simulator(system=msys).run(
+        r["n_cycles"], interval=r["interval"], read_ratio=r["read_ratio"],
+        seed=r["seed"])
+    b = HETERO_BATCH
+    pts, stats = Simulator(system=msys).run_batch(
+        b["n_cycles"], b["intervals"], b["read_ratios"], seed=b["seed"])
+    batch = [stats_doc(jax.tree.map(lambda a, i=i: np.asarray(a)[i], stats))
+             for i in range(len(pts))]
+    preds = {}
+    for name, p in PREDICATE_RUNS.items():
+        sim = Simulator("DDR4", "DDR4_8Gb_x8", "DDR4_2400R",
+                        controller=ControllerConfig(**controller_kwargs(p)),
+                        frontend=FrontendConfig(**p["frontend"]))
+        if p["rows"]:
+            sim.cspec.rows = p["rows"]
+        preds[name] = dict(run=p, stats=stats_doc(sim.run(
+            p["n_cycles"], interval=p["interval"],
+            read_ratio=p["read_ratio"])))
+    return dict(system=HETERO_SYSTEM,
+                session=dict(run=r, stats=stats_doc(session)),
+                batch=dict(run=b, points=[list(p) for p in pts],
+                           stats=batch),
+                predicates=preds)
+
+
 def write_sim_fixtures():
     for path, doc in ((BATCH_FIXTURE, batch_fixture()),
-                      (MULTI_FIXTURE, multichannel_fixture())):
+                      (MULTI_FIXTURE, multichannel_fixture()),
+                      (HETERO_FIXTURE, hetero_fixture())):
         with open(path, "w") as f:
             json.dump(doc, f, indent=1)
             f.write("\n")

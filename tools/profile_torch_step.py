@@ -3,7 +3,7 @@
 
     PYTHONPATH=src python tools/profile_torch_step.py [--device cuda]
         [--standard DDR5] [--cycles 3000] [--interval 2.0] [--read-ratio 0.8]
-        [--channels 1] [--points 1]
+        [--channels 1] [--points 1] [--user-predicate]
 
 With ``--points 1`` it profiles one ``Simulator.run`` at ``--interval``
 and ``--read-ratio``; with ``--points P > 1`` one ``Simulator.run_batch``
@@ -12,7 +12,10 @@ of the first ``P`` load points of the batched session (intervals [1, 1.5,
 first ``P / 4`` intervals with every ratio, or interval 1 with the first
 ``P`` ratios for ``P <= 4``).  A
 "step" below is one loop iteration: one executed cycle of every point
-still running, one fused launch over all ``P * channels`` lanes.
+still running, one fused launch over all ``P * channels`` lanes.  With
+``--user-predicate`` the controller takes the user predicate of
+``tests/core/test_controllers.py`` (no write ever issues), whose mask the
+cycle computes on the device before each launch.
 
 Prints (after a short warm-up run): wall seconds, loop iterations,
 milliseconds per iteration, host syncs, fused controller-step launches and
@@ -57,12 +60,13 @@ def main() -> int:
     ap.add_argument("--channels", type=int, default=1)
     ap.add_argument("--points", type=int, default=1,
                     choices=[1, 2, 3, 4, 8, 12, 16, 20, 24, 28, 32])
+    ap.add_argument("--user-predicate", action="store_true")
     args = ap.parse_args()
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import Simulator
+    from repro_torch.core import ControllerConfig, Simulator
     from repro_torch.core import controller as C
     from repro_torch.kernels import controller_step as KS
 
@@ -73,8 +77,11 @@ def main() -> int:
             torch.cuda.synchronize()
 
     org, tim = DEFAULT_SYSTEMS[args.standard]
+    preds = ((lambda cspec, ctx: ctx.cand_cmd != cspec.id_WR,)
+             if args.user_predicate else ())
     sim = Simulator(args.standard, org, tim, channels=args.channels,
-                    device=args.device)
+                    device=args.device,
+                    controller=ControllerConfig(extra_predicates=preds))
     n_rr = min(args.points, len(READ_RATIOS))
     intervals = INTERVALS[:args.points // n_rr]
     read_ratios = READ_RATIOS[:n_rr]
@@ -125,7 +132,8 @@ def main() -> int:
     print(ka.table(sort_by=sort, row_limit=15))
     print(json.dumps({
         "standard": args.standard, "channels": args.channels,
-        "points": args.points, "device": args.device,
+        "points": args.points, "user_predicate": args.user_predicate,
+        "device": args.device,
         "device_name": torch.cuda.get_device_name(0) if cuda else "cpu",
         "cycles": args.cycles, "steps": steps, "wall_s": wall,
         "ms_per_step": wall / steps * 1e3,
