@@ -9,11 +9,18 @@ Phases, each fatal on any mismatch or exception:
 2. build every CUDA kernel of the main paths with ``nvcc`` into
    ``build/kernels/`` (all sources compiled in parallel) and count the
    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in the
-   tensor-core flash kernel's SASS (``cuobjdump``);
+   tensor-core flash kernel's SASS, ``HMMA`` (mma.sync) in the CUDA-core
+   one's, and the (max,+) kernels' DPX add-max (``cuobjdump``);
 3. hold the readiness kernel against its plain version on the card, bit
    for bit, on random device histories of every default system
    (timestamps below and above 2**24), and time kernel and plain version
-   with CUDA events at the main path's shapes; then hold the fused
+   with CUDA events at the main path's shapes; hold the general (max,+)
+   kernel of the same source bit for bit against its plain version at the
+   reference test's shapes and 2048^3, int32 (wrapping sums) through its
+   launcher and fp32 (-3e38 start, -inf rows, a NaN) through
+   ``timing_check.maxplus_matmul``, and ``ops.readiness_matrix`` on the
+   card against the CPU's, then time it at 128^3 and 2048^3 in both
+   dtypes with its bound; then hold the fused
    controller-step kernel against ``step_and_horizon_plain`` on the same
    CUDA tensors, bit for bit in next state, every event field and the
    horizon, on random controller states of every default system (clocks
@@ -33,7 +40,8 @@ Phases, each fatal on any mismatch or exception:
    tensor; then time kernel, plain version and
    ``scaled_dot_product_attention`` (the library call, never on a path)
    at the serving path's prefill shape (B 4, T 1000, Hq 32, Hkv 8, D 64,
-   bf16, causal), at D 128, and the CUDA-core kernel at phase 8's shape;
+   bf16, causal), at D 128, and the CUDA-core kernel at phase 8's shape
+   in bf16 and fp32 and at the serving shape in fp32, each against SDPA;
 5. reproduce the 11 single-spec golden command-stream hashes of
    ``tests/trace/golden_hashes.json`` on ``cuda`` (3000 cycles, interval
    2.0, read ratio 0.7, FR-FCFS, fast-forward on), each run launching the
@@ -117,7 +125,9 @@ Phases, each fatal on any mismatch or exception:
 The line before the last is a JSON object with one entry per kernel (its
 times, bound and launches; the fused controller step's launches are those
 of the batched session and of phase 14's sessions, its times those of one
-128-lane launch); the last line is
+128-lane launch; the readiness table and the general (max,+) product, off
+every main path, report the main path's 0 launches and their DDR5 and
+2048^3 int32 times); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.
 """
@@ -125,6 +135,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -189,10 +200,37 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(fn, reps: int = 20, sleep_cycles: int = 20_000_000):
+    """Mean milliseconds per call of ``fn`` on the device with the host
+    ahead of it: a sleep kernel (``sleep_cycles`` SM clocks, ~10 ms) holds
+    the stream while the host enqueues ``reps`` calls between two events,
+    so the events time the calls' device work back to back without host
+    gaps, every kernel of a call included.  None (not measured) when the
+    host took longer to enqueue them than the sleep lasted."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(sleep_cycles)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    if host_ms >= ev[0].elapsed_time(ev[1]):
+        return None
+    return ev[1].elapsed_time(ev[2]) / reps
+
+
 def device_us(fn, kernel: str, reps: int = 200):
-    """Mean device time in µs of the kernel whose name contains
-    ``kernel`` over ``reps`` calls of ``fn``, from ``torch.profiler``;
-    None when the profiler reports no device time for it."""
+    """Mean device time in µs per launch of the kernel whose name contains
+    ``kernel`` over ``reps`` calls of ``fn``, from ``torch.profiler`` (a
+    mean over the launches it recorded: it may record fewer than were
+    made); None when the profiler reports no device time for it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -261,6 +299,141 @@ def kernel_phase(device):
               f"{r['plain_ms'] * 1e3:>9.2f} "
               f"{max(r['bytes_ms'], r['ops_ms']) * 1e6:>9.3f}")
     return max_err, {r["std"]: r for r in rows}
+
+
+MAXPLUS_SHAPES = [(8, 16, 8), (32, 30, 10), (1, 1, 1), (129, 70, 12),
+                  (128, 128, 128), (5, 200, 3), (2048, 2048, 2048)]
+#: the general (max,+) product's timed shapes
+MAXPLUS_TIMED = [(128, 128, 128), (2048, 2048, 2048)]
+
+
+def maxplus_operands(Q, K, C, dtype, device, seed):
+    """T, A on the card: int32 over the whole range (sums wrap), or fp32
+    with values on both sides of 2**24, -3e38 entries (some outputs with
+    every term at -inf) and, at the small shapes, a NaN."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if dtype == "int32":
+        T = rng.integers(-(1 << 31), 1 << 31, (Q, K), dtype=np.int64)
+        A = rng.integers(-(1 << 31), 1 << 31, (K, C), dtype=np.int64)
+        T, A = T.astype(np.int32), A.astype(np.int32)
+    else:
+        T = rng.integers(-(1 << 25), 1 << 25, (Q, K)).astype(np.float32)
+        A = rng.integers(-(1 << 10), 1 << 24, (K, C)).astype(np.float32)
+        T[rng.random((Q, K)) < 0.2] = -3e38
+        A[rng.random((K, C)) < 0.5] = -3e38
+        T[0] = -3e38
+        A[:, -1] = -3e38
+        if Q * K < 1 << 16 and Q > 1:
+            T[Q // 2, K // 2] = np.nan
+    return (torch.as_tensor(T, device=device),
+            torch.as_tensor(A, device=device))
+
+
+def maxplus_phase(device):
+    """The general (max,+) kernel of ``csrc/readiness.cu`` vs its plain
+    version, bit for bit: int32 through the launcher (start INT32_MIN) and
+    fp32 through ``timing_check.maxplus_matmul`` (start -3e38), at the
+    reference test's shapes and 2048^3; ``ops.readiness_matrix`` on the
+    card equal to the CPU's on DDR4, LPDDR5 and HBM3; then both dtypes
+    timed at 128^3 and 2048^3 (CUDA events back to back, torch.profiler
+    device time, the plain version) with the bound: 2 Q K C operations (an
+    add and a max) at the CUDA cores' 67 T/s, or T, A and out bytes once
+    at 3.35 TB/s."""
+    import numpy as np
+    import torch
+    from repro_torch.core import compile_spec
+    from repro_torch._device import sm_count
+    from repro_torch.core import device as D
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import readiness as R
+    from repro_torch.kernels.timing_check import NEG, maxplus_matmul
+    from repro_torch.testing import random_device_state
+
+    def run(dtype, T, A):
+        if dtype == "int32":
+            return R.maxplus_cuda(T, A, R.INT32_MIN)
+        return maxplus_matmul(T, A)
+
+    def plain(dtype, T, A):
+        return R.maxplus_plain(T, A, R.INT32_MIN if dtype == "int32"
+                               else NEG)
+
+    checked, max_err = 0, 0.0
+    for (Q, K, C), dtype in [(s, d) for s in MAXPLUS_SHAPES
+                             for d in ("int32", "float32")]:
+        T, A = maxplus_operands(Q, K, C, dtype, device, Q + K + C)
+        before = R.launch_count
+        got = run(dtype, T, A)
+        want = plain(dtype, T, A)
+        torch.cuda.synchronize()
+        if R.launch_count != before + 1:
+            fail(f"maxplus kernel call counted {R.launch_count - before} "
+                 "launches")
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"maxplus kernel at {(Q, K, C)} {dtype}: {got.dtype} "
+                 f"{tuple(got.shape)}, want {want.dtype} {tuple(want.shape)}")
+        # bit for bit: int32 exactly; fp32 with NaN at the same places and
+        # the same bits everywhere else
+        nan = torch.isnan(got)
+        if not torch.equal(nan, torch.isnan(want)):
+            fail(f"maxplus kernel's NaNs != plain version's at {(Q, K, C)}")
+        g, w = got[~nan], want[~nan]
+        bits = (lambda x: x) if dtype == "int32" else \
+            (lambda x: x.view(torch.int32))
+        err = float((g.double() - w.double()).abs().max()) if g.numel() \
+            else 0.0
+        max_err = max(max_err, err)
+        if not torch.equal(bits(g), bits(w)):
+            fail(f"maxplus kernel != plain version at {(Q, K, C)} {dtype}: "
+                 f"max |diff| {err}")
+        checked += 1
+    for std in ("DDR4", "LPDDR5", "HBM3"):
+        org, tim = {"DDR4": ("DDR4_8Gb_x8", "DDR4_2400R"),
+                    "LPDDR5": ("LPDDR5_8Gb_x16", "LPDDR5_6400"),
+                    "HBM3": ("HBM3_16Gb", "HBM3_5200")}[std]
+        cspec = compile_spec(std, org, tim)
+        dp = D.dyn_params(cspec, "cpu", channels=2)
+        st, _ = random_device_state(cspec, dp, "cpu", seed=5, clk0=1000,
+                                    channels=2)
+        rng = np.random.default_rng(5)
+        subs = np.stack([rng.integers(0, int(n), 64) for n in
+                         cspec.level_counts[1:]], 1).astype(np.int32)
+        keys = ops.build_keys(cspec)
+        want = ops.readiness_matrix(cspec, keys, cspec.ct_lat, st, subs)
+        got = ops.readiness_matrix(cspec, keys, cspec.ct_lat,
+                                   D.DeviceState(*(f.to(device) for f in st)),
+                                   subs)
+        if not torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32)):
+            fail(f"ops.readiness_matrix on the card != on the CPU ({std})")
+    print(f"maxplus kernel vs plain version: bit for bit at {checked} "
+          f"(shape, dtype) cases (max |diff| {max_err}); ops.readiness_matrix "
+          "on the card == on the CPU (DDR4, LPDDR5, HBM3)")
+    rows = {}
+    for (Q, K, C), dtype in [(s, d) for s in MAXPLUS_TIMED
+                             for d in ("int32", "float32")]:
+        T, A = maxplus_operands(Q, K, C, dtype, device, 1)
+        big = Q * K * C > 1 << 24
+        kern_ms = cuda_ms(lambda: run(dtype, T, A), 20 if big else 2000)
+        dev_us = device_us(lambda: run(dtype, T, A), "maxplus::",
+                           reps=10 if big else 200)
+        plain_ms = cuda_ms(lambda: plain(dtype, T, A), 3 if big else 100)
+        ops_ms = 2 * Q * K * C / CUDA_CORE_OPS_PER_S * 1e3
+        bytes_ms = 4 * (Q * K + K * C + Q * C) / HBM_BYTES_PER_S * 1e3
+        plan = R.maxplus_plan(Q, K, C, sm_count(torch.device(device)))
+        rows[(Q, K, C, dtype)] = r = dict(
+            ms=kern_ms, device_us=dev_us, plain_ms=plain_ms,
+            bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        dev = ("not measured" if dev_us is None
+               else f"{dev_us / 1e3:.5f} ms")
+        print(f"  maxplus {(Q, K, C)} {dtype} (plan {plan}): kernel "
+              f"{kern_ms:.5f} ms back to back, device {dev}, plain "
+              f"{plain_ms:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}; {r['bound_ms'] / kern_ms:.1%} of it)")
+    return max_err, rows
 
 
 def fused_phase(device):
@@ -1010,9 +1183,10 @@ def main_path_phase(device):
                 if got[k] != want["stats"].get(k)}
         fail(f"main-path Stats differ from the reference fixture: {diff}")
     steps = stats.scan_steps
-    if launches != steps or plain:
+    if launches != steps or plain or dense:
         fail(f"main path launched the fused kernel {launches} times in "
-             f"{steps} steps and called the plain step {plain} times")
+             f"{steps} steps, the readiness kernels {dense} times and "
+             f"called the plain step {plain} times")
     print(f"main path {MAIN['standard']} {MAIN['n_cycles']} cycles: Stats "
           f"== reference fixture; wall {wall:.2f} s, executed steps {steps},"
           f" {steps / wall:.1f} steps/s, {MAIN['n_cycles'] / wall:.1f} "
@@ -1130,26 +1304,31 @@ def flash_phase(device):
     return max_err
 
 
-def flash_timing(device, B, T, Hq, Hkv, D, kernel: str):
-    """One flash kernel at a path's shape, bf16 causal in the model's
-    layout: back-to-back and device-only times, the plain version's and
+def flash_timing(device, B, T, Hq, Hkv, D, kernel: str,
+                 dtype: str = "bfloat16"):
+    """One flash kernel at a path's shape, causal in the model's layout:
+    back-to-back times, device time per call (``queued_ms``) and per
+    launch (``torch.profiler``, the kernel whose name contains
+    ``kernel``: one launch a call), the plain version's and
     ``scaled_dot_product_attention``'s (the library call, never on the
-    path), and the bound: ``2 B Hq T^2 D`` operations at 989 TFLOP/s
-    against q, k, v and o bytes once at 3.35 TB/s."""
+    path), and the bound: ``2 B Hq T^2 D`` operations (multiply-adds of
+    both products over the causal half) at 989 TFLOP/s in bf16 or 67
+    TFLOP/s in fp32 (CUDA cores), against q, k, v and o bytes once at 3.35
+    TB/s."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=device).manual_seed(11)
     q, k, v = (torch.randn(B, T, h, D, generator=gen, device=device)
-               .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+               .to(getattr(torch, dtype)) for h in (Hq, Hkv, Hkv))
     t = lambda x: x.transpose(1, 2)
     kern = lambda: FA.flash_attention_bthd(q, k, v, causal=True)
     plain = lambda: FA.attention_plain(t(q), t(k), t(v), causal=True,
                                        sm_scale=D ** -0.5)
     err = (kern().float() - t(plain()).float()).abs().max().item()
-    if err > FLASH_TOL["bfloat16"]:
+    if err > FLASH_TOL[dtype]:
         fail(f"flash {kernel} != plain version at "
-             f"{(B, T, Hq, Hkv, D)}: max |diff| {err}")
+             f"{(B, T, Hq, Hkv, D)} {dtype}: max |diff| {err}")
     qh, kh, vh = (t(x).contiguous() for x in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
                                                   enable_gqa=True)
@@ -1159,30 +1338,36 @@ def flash_timing(device, B, T, Hq, Hkv, D, kernel: str):
     plain_ms = cuda_ms(plain, 10)
     sdpa_ms = cuda_ms(sdpa, 50)
     kern_ms2 = cuda_ms(kern, 50)
+    kern_q, sdpa_q = queued_ms(kern), queued_ms(sdpa)
     flops = 2 * B * Hq * T * T * D
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    ops_ms = flops / BF16_TENSOR_OPS_PER_S * 1e3
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    rate = BF16_TENSOR_OPS_PER_S if dtype == "bfloat16" else \
+        CUDA_CORE_OPS_PER_S
+    ops_ms = flops / rate * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"{kernel} at (B, T, Hq, Hkv, D) = {(B, T, Hq, Hkv, D)} bf16 "
+    fmt = lambda x, scale=1: ("not measured" if x is None
+                              else f"{x * scale:.4f} ms")
+    print(f"{kernel} at (B, T, Hq, Hkv, D) = {(B, T, Hq, Hkv, D)} {dtype} "
           f"causal: max |diff| vs plain {err:.3e}, vs SDPA {sdpa_err:.3e}; "
           f"kernel {kern_ms:.4f} / {kern_ms2:.4f} ms back to back (CUDA "
-          f"events, before / after SDPA), device "
-          f"{'not measured' if dev_us is None else f'{dev_us / 1e3:.4f} ms'}"
-          f" (torch.profiler); plain {plain_ms:.4f} ms; "
-          f"scaled_dot_product_attention {sdpa_ms:.4f} ms; bound "
-          f"{max(ops_ms, bytes_ms):.4f} ms ({flops / 1e9:.2f} GFLOP at 989 "
-          f"TFLOP/s: {ops_ms:.4f} ms; {nbytes / 1e6:.1f} MB at 3.35 TB/s: "
-          f"{bytes_ms:.4f} ms)")
+          f"events, before / after SDPA), device {fmt(kern_q)} queued, "
+          f"{fmt(dev_us, 1e-3)} torch.profiler; plain {plain_ms:.4f} ms; "
+          f"scaled_dot_product_attention {sdpa_ms:.4f} ms back to back, "
+          f"device {fmt(sdpa_q)} queued; bound "
+          f"{max(ops_ms, bytes_ms):.6f} ms ({flops / 1e9:.4f} GFLOP at "
+          f"{rate / 1e12:.0f} TFLOP/s: {ops_ms:.6f} ms; {nbytes / 1e6:.2f} "
+          f"MB at 3.35 TB/s: {bytes_ms:.6f} ms)")
     return dict(max_err=err, ms=kern_ms, device_us=dev_us,
                 plain_ms=plain_ms, library_ms=sdpa_ms,
                 bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def sass_counts(lib_path) -> str:
-    """``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in a
-    built library's SASS, from the toolkit's ``cuobjdump``; fails if
-    either is missing, "not available" without ``cuobjdump``."""
+def sass_counts(lib_path, required, shown=(), what="kernel") -> str:
+    """Instructions whose SASS mnemonic starts with each of ``required``
+    and ``shown`` in a built library, from the toolkit's ``cuobjdump``;
+    fails if one of ``required`` is missing, "not available" without
+    ``cuobjdump``."""
     import shutil
     from repro_torch.kernels import build
     tool = Path(build.nvcc()).parent / "cuobjdump"
@@ -1196,10 +1381,10 @@ def sass_counts(lib_path) -> str:
     lines = [ln.split() for ln in out.stdout.splitlines()
              if ln.strip().startswith("/*")]
     n = {op: sum(any(tok.startswith(op) for tok in ln) for ln in lines)
-         for op in ("HGMMA", "UTMALDG")}
-    if not all(n.values()):
-        fail(f"sm90 flash kernel SASS lacks wgmma or TMA: {n}")
-    return f"HGMMA {n['HGMMA']}, UTMALDG {n['UTMALDG']}"
+         for op in (*required, *shown)}
+    if not all(n[op] for op in required):
+        fail(f"{what} SASS lacks one of {required}: {n}")
+    return ", ".join(f"{op} {c}" for op, c in n.items())
 
 
 @contextlib.contextmanager
@@ -1338,10 +1523,11 @@ def lm_phase(device):
     toks, first = serve_batch(cfg, params, prompts, N, device=device,
                               timings=timings)
     launches = FA.sm90_launch_count
-    if launches != cfg.n_layers or FA.launch_count:
+    if launches != cfg.n_layers or FA.launch_count or R.launch_count:
         fail(f"serving session launched the sm90 flash kernel {launches} "
-             f"times and the CUDA-core one {FA.launch_count} times, want "
-             f"{cfg.n_layers} (one per layer) and 0")
+             f"times, the CUDA-core one {FA.launch_count} times and the "
+             f"readiness kernels {R.launch_count} times, want "
+             f"{cfg.n_layers} (one per layer), 0 and 0")
     peak = torch.cuda.max_memory_allocated(device)
     seq = torch.cat([first[:, None], toks], 1)
     if seq.shape != (B, N + 1) or int(seq.min()) < 0 \
@@ -1466,11 +1652,31 @@ def main() -> int:
                        "flash_attention_sm90")
     print(f"built kernels in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
-        print(f"nvcc {name}:\n{log.strip()}")
+        # the full -Xptxas -v report goes beside the library; stdout gets
+        # each entry's registers and any spill
+        path = build.library_path(name).with_suffix(".nvcc.log")
+        path.write_text(log)
+        regs = re.findall(r"Used (\d+) registers", log)
+        spills = sorted(set(re.findall(r"\d+ bytes spill stores", log))
+                        - {"0 bytes spill stores"})
+        print(f"nvcc {name}: {len(regs)} entries, registers "
+              f"{min(map(int, regs), default=0)}-"
+              f"{max(map(int, regs), default=0)}, spills "
+              f"{spills or 'none'} (log: {path.relative_to(ROOT)})")
     print("sm90 flash kernel SASS: " + sass_counts(
-        build.library_path("flash_attention_sm90")))
+        build.library_path("flash_attention_sm90"), ("HGMMA", "UTMALDG"),
+        what="sm90 flash kernel"))
+    # mma.sync (HMMA) for bf16, ldmatrix (LDSM), cp.async (LDGSTS); the
+    # (max,+) kernels' DPX add-max (VIADDMNMX) and fp32 max (FMNMX)
+    print("CUDA-core flash kernel SASS: " + sass_counts(
+        build.library_path("flash_attention"), ("HMMA",), ("LDSM", "LDGSTS"),
+        what="CUDA-core flash kernel"))
+    print("readiness / (max,+) kernels SASS: " + sass_counts(
+        build.library_path("readiness"), (), ("VIADDMNMX", "FMNMX",
+                                               "LDGSTS")))
 
     max_err, krows = timed("3 readiness", kernel_phase, device)
+    mp_err, mp = timed("3 maxplus", maxplus_phase, device)
     fused = timed("3 fused", fused_phase, device)
     lanes = timed("10 lanes", lanes_phase, device)
     preds = timed("13 predicates", predicate_kernel_phase, device)
@@ -1479,7 +1685,10 @@ def main() -> int:
     # worker processes: after them the profiler may report no device time)
     sm90 = flash_timing(device, *SERVE_SHAPE, kernel="flash_fwd_sm90_kernel")
     flash_timing(device, *SERVE_SHAPE[:4], 128, kernel="flash_fwd_sm90_kernel")
-    core = flash_timing(device, *reduced_shape(), kernel="flash_fwd_kernel")
+    core = flash_timing(device, *reduced_shape(), kernel="flash_core_")
+    flash_timing(device, *reduced_shape(), kernel="flash_core_",
+                 dtype="float32")
+    flash_timing(device, *SERVE_SHAPE, kernel="flash_core_", dtype="float32")
     # the batched and hetero sessions' profile windows also need the
     # profiler's device time: they run before the golden phase's workers
     batch_launches = timed("11 batched", batched_phase, device,
@@ -1493,6 +1702,7 @@ def main() -> int:
     sm90_launches = timed("9 serving", lm_phase, device)
 
     r = krows[MAIN["standard"]]
+    big = mp[(*MAXPLUS_TIMED[-1], "int32")]
     bound_by = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
 
     def flash_row(name, source, launches, t, err):
@@ -1511,6 +1721,13 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_err,
         "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
         "bound_ms": max(r["bytes_ms"], r["ops_ms"]), "bound_by": bound_by,
+        "library_ms": None}, {
+        "name": "maxplus_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/readiness.cu",
+        "replaces": "src/repro/kernels/timing_check.py:51",
+        "launches": launches, "max_abs_err": mp_err,
+        "ms": big["ms"], "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
         "library_ms": None}, {
         "name": "controller_step", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/controller_step.cu",

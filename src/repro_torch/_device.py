@@ -23,3 +23,15 @@ def resolve(device=None) -> torch.device:
         raise RuntimeError(f"device {device!r} requested but CUDA is not "
                            "available")
     return dev
+
+
+_SMS: dict = {}
+
+
+def sm_count(dev: torch.device) -> int:
+    """Streaming multiprocessors of the card ``dev`` (read once per card):
+    the kernels' launch plans size their grids by it."""
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]

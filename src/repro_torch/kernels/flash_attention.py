@@ -23,8 +23,10 @@ the dtype and head dim alone:
   (``wgmma``, TMA, ``mbarrier`` ring) for bf16 at D 64 and 128.  TMA needs
   a 16-byte aligned base and 16-byte multiples for every stride:
   :func:`sm90_plan` checks them and raises on anything else;
-* ``"cuda_core"`` — ``csrc/flash_attention.cu`` for fp32 at any D and
-  bf16 at D 16 and 32 (tensor-core TF32 would miss fp32's 2e-5).
+* ``"cuda_core"`` — ``csrc/flash_attention.cu`` for bf16 at D 16 and 32
+  (on the tensor cores, ``mma.sync``) and fp32 at any D (on the CUDA
+  cores: tensor-core TF32 would miss fp32's 2e-5), one block per 64-row
+  q tile.
 
 A case a kernel takes always goes to it: a failed build or launch raises
 and never falls back to the other kernel or to the plain version.  On CPU
@@ -56,7 +58,8 @@ SM90_BLOCK_K = 128
 SM90_STORE_ROWS = 64
 SM90_BOX_COLS = 64
 
-#: CUDA-core kernel launches since import (or the last reset by the caller)
+#: "cuda_core" kernel launches since import (or the last reset by the
+#: caller)
 launch_count = 0
 #: tensor-core (sm90) kernel launches, counted the same way
 sm90_launch_count = 0
@@ -163,7 +166,7 @@ def _lib(name: str):
             fn = lib.flash_attention_launch
             err = lib.flash_attention_error_string
             fn.argtypes = ([ci, ci, vp, vp, vp, vp] + [ci] * 5 + [ll] * 12
-                           + [ci, ctypes.c_float, vp])
+                           + [ci, ctypes.c_float, ci, vp])
         else:
             fn, err = lib.flash_sm90_launch, lib.flash_sm90_error_string
             fn.argtypes = ([ci, vp, vp, vp, vp] + [ci] * 5
@@ -203,12 +206,13 @@ def attention_cuda(q, k, v, *, causal: bool, sm_scale: float,
     global launch_count, sm90_launch_count
     B, Hq, Hkv, Tq, Tk, D = _check(q, k, v, head_axis)
     dev = q.device
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != dev or t.dtype != q.dtype or t.stride(3) != 1:
+    strides = [t.stride() for t in (q, k, v)]
+    for name, t, st in zip("qkv", (q, k, v), strides):
+        if t.device != dev or t.dtype != q.dtype or st[3] != 1:
             raise ValueError(f"flash attention kernel: {name} must be on "
                              f"{dev} in {q.dtype} with a contiguous last "
                              f"axis, got {t.dtype} on {t.device}, strides "
-                             f"{t.stride()}")
+                             f"{st}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash attention kernel: dtype {q.dtype} (takes "
                          "float32 or bfloat16)")
@@ -219,14 +223,9 @@ def attention_cuda(q, k, v, *, causal: bool, sm_scale: float,
     out = torch.empty(q.shape, dtype=q.dtype, device=dev)
     if B * Hq * Tq == 0:
         return out
-    plan = sm90_plan(q, k, v, out, head_axis) if kernel == "sm90" else None
-    t_axis = 3 - head_axis
-
-    def bth(t):
-        return t.stride(0), t.stride(t_axis), t.stride(head_axis)
-
     stream = torch.cuda.current_stream(dev).cuda_stream
     if kernel == "sm90":
+        plan = sm90_plan(q, k, v, out, head_axis)
         lib = _lib("flash_attention_sm90")
         geom = (ctypes.c_ulonglong * 32)(*(x for g in plan
                                            for x in g.packed()))
@@ -236,10 +235,17 @@ def attention_cuda(q, k, v, *, causal: bool, sm_scale: float,
         err = lib.flash_sm90_error_string
     else:
         lib = _lib("flash_attention")
+        t_axis = 3 - head_axis
+        bth = [(st[0], st[t_axis], st[head_axis])
+               for st in (*strides, out.stride())]
+        # cp.async stages k/v rows in 16-byte pieces
+        es = q.element_size()
+        aligned = (k.data_ptr() | v.data_ptr()) % 16 == 0 and all(
+            x * es % 16 == 0 for x in bth[1] + bth[2])
         rc = lib.flash_attention_launch(
             _DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, Hq, Hkv, Tq, Tk, *bth(q), *bth(k), *bth(v),
-            *bth(out), int(causal), float(sm_scale), stream)
+            out.data_ptr(), B, Hq, Hkv, Tq, Tk, *bth[0], *bth[1], *bth[2],
+            *bth[3], int(causal), float(sm_scale), int(aligned), stream)
         err = lib.flash_attention_error_string
     if rc != 0:
         raise RuntimeError(f"flash attention {kernel} kernel launch failed: "

@@ -1,20 +1,26 @@
-"""The timing-readiness table: CUDA kernel wrapper and its plain version.
+"""The timing-readiness table and the (max,+) product: CUDA kernel
+wrappers and their plain versions.
 
-``readiness_table(tables, last_issue, win_ring)`` returns the dense
-``(channels, n_cmds, n_banks)`` int32 table of the earliest cycle at which
-each command may issue at each bank — ``repro.core.device.
-earliest_ready_table`` bit for bit, with a leading channel axis.
+``csrc/readiness.cu`` (built for ``sm_90a`` at first use, see ``build.py``)
+holds two (max,+) kernels, both bound here:
 
-* On CUDA tensors it launches ``csrc/readiness.cu`` (built for ``sm_90a``
-  at first use, see ``build.py``) on the current stream, or raises.  It
-  replaces the TPU kernel ``repro/kernels/timing_check.py::
-  maxplus_matmul``; the source note there says what bounds it.
-* On CPU tensors it runs :func:`readiness_table_plain`, the same function
-  in plain PyTorch (a gather plus an ``amax``).  That is the only place
-  the plain version stands in for the kernel.
+* :func:`readiness_table` — the dense ``(channels, n_cmds, n_banks)``
+  int32 table of the earliest cycle at which each command may issue at
+  each bank, ``repro.core.device.earliest_ready_table`` bit for bit with a
+  leading channel axis.  On CUDA tensors it launches the kernel, or
+  raises; on CPU tensors it runs :func:`readiness_table_plain` (a gather
+  plus an ``amax``), the only place the plain version stands in for it.
+* :func:`maxplus_cuda` — ``out[q, c] = max(init, max_k T[q, k] + A[k, c])``
+  on CUDA tensors, int32 or fp32, the TPU kernel ``repro/kernels/
+  timing_check.py::maxplus_matmul`` on arbitrary operands.  Its public
+  entry point, with the reference's fp32 semantics, is ``repro_torch.
+  kernels.timing_check.maxplus_matmul``; :func:`maxplus_plain` is its
+  plain version.
 
-``launch_count`` counts kernel launches (never plain-version calls), so a
-run can show that its main path went through the kernel.
+Both replace the TPU kernel; the source note says what bounds them.
+
+``launch_count`` counts launches of either kernel (never plain-version
+calls), so a run can show that its path went through them.
 """
 from __future__ import annotations
 
@@ -24,8 +30,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch._device import sm_count
+
 NEG = -(1 << 28)                 # "never issued"
 ABSENT = -(1 << 31)              # no constraint of key k targets command f
+INT32_MIN = -(1 << 31)
 
 #: kernel launches since import (or the last reset by the caller)
 launch_count = 0
@@ -125,6 +134,39 @@ def readiness_table_plain(tables: ReadinessTables, last_issue: torch.Tensor,
     return allowed.amax(dim=1)
 
 
+def maxplus_plain(T: torch.Tensor, A: torch.Tensor, init) -> torch.Tensor:
+    """Plain version of the (max,+) kernel: ``max(init, max_k T[:, k, None]
+    + A[k])`` in ``T``'s dtype (int32 adds wrap; fp32 maxima propagate
+    NaN), chunked over K so at most 2**26 sums are live."""
+    Q, K = T.shape
+    C = A.shape[1]
+    out = torch.full((Q, C), init, dtype=T.dtype, device=T.device)
+    step = max(1, (1 << 26) // max(1, Q * C))
+    for k0 in range(0, K, step):
+        part = (T[:, k0:k0 + step, None] + A[None, k0:k0 + step]).amax(1)
+        out = torch.maximum(out, part)
+    return out
+
+
+#: the general product's tile configurations (``csrc/readiness.cu``)
+MAXPLUS_ONE_BLOCK, MAXPLUS_TILE32, MAXPLUS_TILE128 = 0, 1, 2
+#: one block's static shared memory, and the most steps given to it
+SMEM_BYTES = 48 * 1024
+ONE_BLOCK_STEPS = 1 << 20
+
+
+def maxplus_plan(Q: int, K: int, C: int, n_sm: int) -> int:
+    """The tile configuration for a ``(Q, K) x (K, C)`` product on a card
+    of ``n_sm`` SMs: one block when both operands fit its shared memory
+    and the work is small; 128 x 128 tiles (8 x 8 per thread) when they
+    give at least ``n_sm / 2`` blocks; else 32 x 32 tiles (2 x 2)."""
+    if 4 * (Q * K + K * C) <= SMEM_BYTES and Q * K * C <= ONE_BLOCK_STEPS:
+        return MAXPLUS_ONE_BLOCK
+    if 2 * (-(-Q // 128)) * (-(-C // 128)) >= n_sm:
+        return MAXPLUS_TILE128
+    return MAXPLUS_TILE32
+
+
 _LIB = None
 
 
@@ -137,6 +179,9 @@ def _lib():
         lib.readiness_table_launch.argtypes = [vp, vp, vp, vp, vp] \
             + [ci] * 7 + [vp]
         lib.readiness_table_launch.restype = ci
+        lib.maxplus_launch.argtypes = [ci, ci, vp, vp, vp, ci, ci, ci,
+                                       ctypes.c_float, ci, vp]
+        lib.maxplus_launch.restype = ci
         lib.readiness_error_string.argtypes = [ci]
         lib.readiness_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -172,6 +217,44 @@ def readiness_table_cuda(tables: ReadinessTables, last_issue: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("readiness kernel launch failed: "
+                           + lib.readiness_error_string(rc).decode())
+    launch_count += 1
+    return out
+
+
+_MAXPLUS_DTYPES = {torch.float32: 0, torch.int32: 1}
+
+
+def maxplus_cuda(T: torch.Tensor, A: torch.Tensor, init) -> torch.Tensor:
+    """Launch the (max,+) kernel on the current stream (no synchronise):
+    ``out[q, c] = max(init, max_k T[q, k] + A[k, c])`` for contiguous
+    ``T (Q, K)`` and ``A (K, C)`` of one dtype, int32 or float32, on one
+    card; the tile configuration from :func:`maxplus_plan`."""
+    global launch_count
+    dev = T.device
+    if T.dim() != 2 or A.dim() != 2 or T.shape[1] != A.shape[0]:
+        raise ValueError(f"maxplus kernel: shapes {tuple(T.shape)} x "
+                         f"{tuple(A.shape)} do not chain")
+    for name, x in (("T", T), ("A", A)):
+        if x.device != dev or x.dtype != T.dtype \
+                or x.dtype not in _MAXPLUS_DTYPES or not x.is_contiguous():
+            raise ValueError(f"maxplus kernel: {name} must be a contiguous "
+                             f"int32 or float32 tensor on {dev} of T's "
+                             f"dtype, got {x.dtype} on {x.device}")
+    Q, K = T.shape
+    C = A.shape[1]
+    out = torch.empty((Q, C), dtype=T.dtype, device=dev)
+    if Q == 0 or C == 0:
+        return out
+    lib = _lib()
+    is_int = T.dtype == torch.int32
+    rc = lib.maxplus_launch(
+        _MAXPLUS_DTYPES[T.dtype], maxplus_plan(Q, K, C, sm_count(dev)),
+        T.data_ptr(), A.data_ptr(), out.data_ptr(), Q, K, C,
+        0.0 if is_int else float(init), int(init) if is_int else 0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("maxplus kernel launch failed: "
                            + lib.readiness_error_string(rc).decode())
     launch_count += 1
     return out

@@ -31,7 +31,13 @@ on the card) the fused step equals the plain version; the
 ``DDR5x2+DDR4x2@80`` system reproduces its golden stream with one fused
 launch per spec group and loop iteration, and a run with a user predicate
 launches the kernel once per executed step (once per pass on a dual
-command bus) and never the plain step."""
+command bus) and never the plain step.  The general (max,+) kernel of
+``readiness.cu`` equals its plain version bit for bit in every tile
+configuration (int32 sums that wrap, fp32 rows of -inf terms), the
+readiness table holds its masks at latencies and timestamps far past the
+default ones, ``ops.earliest_for`` on the card equals the CPU's, and
+the CUDA-core flash kernel's tiles and unaligned k/v hold the plain
+version's tolerances."""
 import itertools
 import json
 import os
@@ -92,6 +98,96 @@ def test_kernel_rejects_wrong_dtype(cuda):
     with pytest.raises(ValueError):
         R.readiness_table(dp.tables.ready, st.last_issue.long(),
                           st.win_ring)
+
+
+def _maxplus_operands(Q, K, C, dtype, cuda, seed):
+    """int32 over the whole range (sums wrap) or fp32 with -3e38 entries
+    (outputs whose every term is -inf) and values past 2**24."""
+    rng = np.random.default_rng(seed)
+    if dtype == torch.int32:
+        T = rng.integers(-(1 << 31), 1 << 31, (Q, K)).astype(np.int32)
+        A = rng.integers(-(1 << 31), 1 << 31, (K, C)).astype(np.int32)
+    else:
+        T = rng.integers(-(1 << 25), 1 << 25, (Q, K)).astype(np.float32)
+        A = rng.integers(0, 1 << 24, (K, C)).astype(np.float32)
+        T[rng.random((Q, K)) < 0.2] = -3e38
+        A[rng.random((K, C)) < 0.5] = -3e38
+        T[:1] = -3e38
+        A[:, C - 1:] = -3e38
+    return torch.as_tensor(T, device=cuda), torch.as_tensor(A, device=cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("Q,K,C", [(8, 16, 8), (32, 30, 10), (1, 1, 1),
+                                   (129, 70, 12), (128, 128, 128),
+                                   (5, 200, 3), (0, 4, 3), (3, 0, 5),
+                                   (300, 257, 130), (1100, 33, 1100)])
+def test_maxplus_kernel_equals_plain_version(cuda, dtype, Q, K, C):
+    """The general (max,+) kernel in each tile configuration (one block,
+    32- and 128-wide tiles, ragged edges) bit for bit with its plain
+    version; fp32 through ``timing_check.maxplus_matmul`` (start -3e38),
+    int32 through the launcher (start INT32_MIN)."""
+    from repro_torch.kernels.timing_check import NEG, maxplus_matmul
+    T, A = _maxplus_operands(Q, K, C, dtype, cuda, Q + 7 * K + C)
+    init = R.INT32_MIN if dtype == torch.int32 else NEG
+    before = R.launch_count
+    got = (R.maxplus_cuda(T, A, init) if dtype == torch.int32
+           else maxplus_matmul(T, A))
+    assert R.launch_count == before + (Q * C > 0)
+    want = R.maxplus_plain(T, A, init)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (Q, C)
+    if dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want)
+
+
+def test_maxplus_kernel_rejects_what_it_does_not_take(cuda):
+    z = lambda *s, dt=torch.int32: torch.zeros(*s, dtype=dt, device=cuda)
+    for T, A in ((z(4, 3), z(4, 3)), (z(4, 3), z(3, 2, dt=torch.float32)),
+                 (z(4, 3, dt=torch.int64), z(3, 2, dt=torch.int64)),
+                 (z(3, 4).T, z(3, 2)), (z(4, 3), z(3, 2).cpu())):
+        with pytest.raises(ValueError):
+            R.maxplus_cuda(T, A, 0)
+
+
+@pytest.mark.parametrize("std,org,tim", [SYSTEMS[i] for i in (1, 7, 9)])
+def test_readiness_kernel_explicit_masks(cuda, std, org, tim):
+    """Latencies past 2**28 and negative ones, and timestamps past the
+    2**30 clock cap: the kernel's explicit masks still equal the plain
+    version."""
+    cspec = compile_spec(std, org, tim)
+    dp = D.dyn_params(cspec, cuda, channels=3)
+    lat = np.asarray(cspec.ct_lat, np.int64)
+    lat[::3] = (1 << 28) + 5
+    lat[1::5] = -7
+    for tables, clk0 in ((R.build_tables(cspec, lat, cuda), 0),
+                         (dp.tables.ready, 5 * (1 << 28) - 100)):
+        st, _ = T.random_device_state(cspec, dp, cuda, 4, clk0, channels=3)
+        got = R.readiness_table(tables, st.last_issue, st.win_ring)
+        want = R.readiness_table_plain(tables, st.last_issue, st.win_ring)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (std, clk0)
+
+
+@pytest.mark.parametrize("std,org,tim", [SYSTEMS[i] for i in (1, 7, 9)])
+def test_readiness_matrix_on_cuda_equals_cpu(cuda, std, org, tim):
+    from repro_torch.kernels import ops
+    cspec = compile_spec(std, org, tim)
+    dp = D.dyn_params(cspec, "cpu", channels=2)
+    st, _ = T.random_device_state(cspec, dp, "cpu", 9, 500, channels=2)
+    rng = np.random.default_rng(9)
+    subs = np.stack([rng.integers(0, int(n), 40) for n in
+                     cspec.level_counts[1:]], 1).astype(np.int32)
+    cand = rng.integers(0, cspec.n_cmds, 40)
+    keys = ops.build_keys(cspec)
+    want = ops.earliest_for(cspec, keys, cspec.ct_lat, st, subs, cand)
+    before = R.launch_count
+    got = ops.earliest_for(cspec, keys, cspec.ct_lat,
+                           D.DeviceState(*(f.to(cuda) for f in st)), subs,
+                           cand)
+    assert R.launch_count == before + 1
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("std,org,tim", SYSTEMS)
@@ -326,6 +422,50 @@ def test_flash_kernel_equals_plain_version(cuda, dtype, tol, D, causal):
         torch.testing.assert_close(got, want, atol=tol, rtol=tol)
         torch.testing.assert_close(got2.transpose(1, 2), want, atol=tol,
                                    rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,T,Hq,Hkv,D", [(4, 256, 2, 2, 32),
+                                          (1, 256, 2, 2, 16),
+                                          (2, 300, 8, 2, 32)])
+def test_core_kernel_tiles(cuda, dtype, tol, causal, B, T, Hq, Hkv, D):
+    """The reduced model's prefill shape, a ragged last q tile and GQA:
+    one counted launch a call, the same bits on a repeat, within the
+    tolerance of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(T + D)
+    q, k, v = (torch.randn(B, T, h, D, generator=gen, device=cuda)
+               .to(dtype) for h in (Hq, Hkv, Hkv))
+    before = _counts()
+    got = FA.flash_attention_bthd(q, k, v, causal=causal)
+    assert _counts() == _stepped(before, "cuda_core", 1)
+    assert torch.equal(FA.flash_attention_bthd(q, k, v, causal=causal), got)
+    t = lambda x: x.transpose(1, 2)
+    want = t(FA.attention_plain(t(q), t(k), t(v), causal=causal,
+                                sm_scale=D ** -0.5))
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_core_kernel_unaligned_kv(cuda, dtype, tol):
+    """k and v one element off a 16-byte boundary: staged through
+    registers instead of cp.async."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    flat = torch.randn(1 + 2 * 100 * 2 * 32, generator=gen,
+                       device=cuda).to(dtype)
+    k = flat[1:].view(2, 100, 2, 32)
+    v = (flat[1:] * 0.5).view(2, 100, 2, 32)
+    q = torch.randn(2, 100, 4, 32, generator=gen, device=cuda).to(dtype)
+    got = FA.flash_attention_bthd(q, k, v, causal=True)
+    t = lambda x: x.transpose(1, 2)
+    want = t(FA.attention_plain(t(q), t(k), t(v), causal=True,
+                                sm_scale=32 ** -0.5))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
 
 
 def _counts():

@@ -16,7 +16,8 @@ kernel for each, and a JSON summary as the last line with
 ``decode_busy_share`` (device time per step over the unprofiled wall
 time per step), ``flash_device_ms`` (the flash kernels' device time
 per launch in the prefill: ``flash_fwd_sm90_kernel`` at head dim 64/128
-in bf16, ``flash_fwd_kernel`` otherwise) and ``flash_share_of_prefill``.
+in bf16, the ``flash_core_*`` kernels otherwise) and
+``flash_share_of_prefill``.
 Device numbers are ``null`` when the profiler reports no device work.
 """
 from __future__ import annotations
@@ -92,7 +93,7 @@ def main() -> int:
         sync()
     pre_rows = device_rows(prof)
     pre_dev = sum(e.self_device_time_total for e in pre_rows) / 1e3
-    flash = [e for e in pre_rows if "flash_fwd_kernel" in e.key
+    flash = [e for e in pre_rows if "flash_core_" in e.key
              or "flash_fwd_sm90_kernel" in e.key]
     flash_ms = (sum(e.self_device_time_total for e in flash) / 1e3
                 / max(1, sum(e.count for e in flash))) if flash else None
