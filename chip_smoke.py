@@ -120,12 +120,28 @@ Phases, each fatal on any mismatch or exception:
     ``run_batch`` over the system and the fixture's predicate sessions
     (BlockHammer on a 2-row hammer and on benign traffic, PRAC on 4 rows
     and the ``no_writes_ever`` user predicate, whose mask rides the
-    kernel), each with one fused launch per step and no plain step.
+    kernel), each with one fused launch per step and no plain step;
+15. (in worker processes beside phase 5's runs) windowed telemetry and
+    trace replay, each session with every launch count set to 0 just
+    before and read just after, one fused launch per spec group and one
+    host sync per loop iteration, no plain step, and its ms per
+    iteration printed: the README's DDR5 session at ``telemetry=1000``
+    (its ``Stats`` equal ``tests/torch_main_path_stats.json``, its 20
+    windows ``tests/torch_telemetry_stats.json``) and the
+    ``DDR5x2+DDR4x2@80`` system, 4,000 cycles at ``telemetry=256``; a
+    DDR4 source run (4,000 cycles, interval 4.0, read ratio 0.5) through
+    ``capture`` and ``to_replay(deps=True)`` (the stream's fingerprint
+    equal to ``tests/torch_replay_stats.json``'s) replayed 20,000 cycles
+    with ``FrontendConfig(pattern="trace", probes=False)`` (``Stats`` and
+    command-stream sha256 equal to the fixture's), the same for the
+    hetero system with probes (4,000 cycles), and ``run_batch`` at
+    intervals [8, 2] over the DDR4 stream without its arrival clocks
+    (probes on).
 
 The line before the last is a JSON object with one entry per kernel (its
 times, bound and launches; the fused controller step's launches are those
-of the batched session and of phase 14's sessions, its times those of one
-128-lane launch; the readiness table and the general (max,+) product, off
+of the batched session and of phases 14 and 15's sessions, its times those
+of one 128-lane launch; the readiness table and the general (max,+) product, off
 every main path, report the main path's 0 launches and their DDR5 and
 2048^3 int32 times); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
@@ -562,10 +578,10 @@ def golden_run(std: str, org: str, tim: str, device: str) -> dict:
 
 
 def golden_phase(device: str) -> int:
-    """The golden runs and the sessions of phases 12 and 14, spread over
-    worker processes (the longest first): each run is bound by its host
-    loop, so processes on separate cores share the one card.  Returns the
-    fused launches of phase 14's sessions."""
+    """The golden runs and the sessions of phases 12, 14 and 15, spread
+    over worker processes (the longest first): each run is bound by its
+    host loop, so processes on separate cores share the one card.  Returns
+    the fused launches of phase 14's sessions and of phase 15's."""
     import multiprocessing
     import os
     from concurrent.futures import ProcessPoolExecutor
@@ -577,6 +593,8 @@ def golden_phase(device: str) -> int:
     t0 = time.perf_counter()
     with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context(
             "spawn")) as pool:
+        p15 = [(job, pool.submit(phase15_run, job, device))
+               for job in PHASE15_JOBS]
         jobs = [(job, pool.submit(system_run, job, device))
                 for job in SYSTEM_JOBS]
         multi = pool.submit(multichannel_run, device)
@@ -584,6 +602,7 @@ def golden_phase(device: str) -> int:
                    for std, (org, tim) in systems]
         results = [(std, f.result()) for std, f in futures]
         system_results = [(job, f.result()) for job, f in jobs]
+        p15_results = [(job, f.result()) for job, f in p15]
         multi_lines = multi.result()
     print(f"multi-channel on {device} (phase 12, in a worker process):")
     for line in multi_lines:
@@ -595,9 +614,12 @@ def golden_phase(device: str) -> int:
     doc = hetero_fixture()
     launches = sum(check_system_run(job, r, doc)
                    for job, r in system_results)
+    print(f"windowed telemetry and trace replay on {device} (phase 15, in "
+          "worker processes):")
+    p15_launches = sum(check_phase15(job, r) for job, r in p15_results)
     print(f"golden command-stream hashes on {device} (3000 cycles; "
           f"{workers} worker processes, {time.perf_counter() - t0:.1f} s "
-          "with phases 12 and 14):")
+          "with phases 12, 14 and 15):")
     for std, r in results:
         ok = r["n"] == golden[std]["n"] and r["sha256"] == golden[std]["sha256"]
         print(f"  {std:<9} commands {r['n']:>5}  steps {r['steps']:>5}  "
@@ -610,7 +632,155 @@ def golden_phase(device: str) -> int:
             fail(f"{std} run launched the fused kernel {r['launches']} times "
                  f"in {r['steps']} steps and called the plain step "
                  f"{r['plain']} times")
-    return launches
+    return launches, p15_launches
+
+
+def telemetry_doc(telem) -> dict:
+    """A ``Telemetry`` as the lists of ``tests/torch_telemetry_stats.json``."""
+    fields = ("reads", "writes", "probe_lat_sum", "probe_cnt",
+              "data_bus_busy", "deferred", "occ_sum", "cmd_counts",
+              "lat_hist")
+    return dict(t_end=telem.t_end.tolist(), groups=[
+        {f: getattr(g, f).tolist() for f in fields} for g in telem.groups])
+
+
+def phase15_run(job: str, device: str) -> dict:
+    """One of phase 15's sessions (run in a worker process, every launch
+    count set to 0 just before the measured run and read just after): the
+    README DDR5 session or the hetero system with windowed telemetry, a
+    captured DDR4 or hetero run replayed through ``to_replay(deps=True)``,
+    or ``run_batch`` over the DDR4 stream without its arrival clocks.
+    Returns what the main process checks."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import dataclasses
+    import torch
+    from repro_torch.core import FrontendConfig, Simulator, compile_system
+    from repro_torch.core import controller as C
+    from repro_torch.kernels import controller_step as KS
+    from repro_torch.trace import FIELDS, capture, to_replay, trace_sha256
+    tdoc = json.loads((ROOT / "tests" /
+                       "torch_telemetry_stats.json").read_text())
+    rdoc = json.loads((ROOT / "tests" / "torch_replay_stats.json").read_text())
+    msys = compile_system(tdoc["system"])
+    out = {}
+    if job.startswith("telemetry"):
+        r = tdoc["runs"]["session" if job == "telemetry_session" else
+                         "hetero"]
+        sim = (Simulator(r["standard"], r["org_preset"], r["timing_preset"],
+                         device=device) if job == "telemetry_session"
+               else Simulator(system=msys, device=device))
+        run = lambda: sim.run(r["n_cycles"], interval=r["interval"],
+                              read_ratio=r["read_ratio"], seed=r["seed"],
+                              telemetry=r["window"])
+    else:
+        rr = rdoc["runs"]
+        hetero = job == "replay_hetero"
+        s = rr["hetero_source" if hetero else "source"]
+
+        def simulator(**kw):
+            if hetero:
+                return Simulator(system=msys, device=device, **kw)
+            return Simulator(s["standard"], s["org_preset"],
+                             s["timing_preset"], device=device, **kw)
+        src = simulator()
+        _, dense = src.run(s["n_cycles"], interval=s["interval"],
+                           read_ratio=s["read_ratio"], seed=s["seed"],
+                           trace=True)
+        stream = to_replay(capture(src.msys, dense), src.msys, deps=True)
+        if job == "replay_batch":
+            stream = dataclasses.replace(stream, arrive=None,
+                                         fingerprint="")
+        out["fingerprint"] = stream.fingerprint
+        # the DDR4 replay without probes, the others with them
+        sim = simulator(frontend=FrontendConfig(pattern="trace",
+                                                probes=job != "replay"),
+                        replay=stream)
+        if job == "replay_batch":
+            b = rr["batch"]
+            run = lambda: sim.run_batch(b["n_cycles"], b["intervals"],
+                                        b["read_ratios"], seed=b["seed"])
+        else:
+            r = rr["hetero_replay" if job == "replay_hetero" else "replay"]
+            run = lambda: sim.run(r["n_cycles"], seed=r["seed"], trace=True)
+    torch.cuda.synchronize()
+    sim.host_syncs = 0
+    KS.launch_count = C.plain_calls = 0
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    out.update(wall=time.perf_counter() - t0, launches=KS.launch_count,
+               plain=C.plain_calls, syncs=sim.host_syncs,
+               groups=sim.msys.n_groups)
+    if job == "replay_batch":
+        pts, stats = res
+        out.update(points=[list(x) for x in pts],
+                   stats=[stats.point(i).to_dict() for i in range(len(pts))],
+                   steps=int(max(stats.scan_steps)))
+        return out
+    stats, extra = res
+    out.update(stats=stats_doc(stats), steps=stats.scan_steps)
+    if job.startswith("telemetry"):
+        extra.check(stats)
+        out["telemetry"] = telemetry_doc(extra)
+    else:
+        tr = capture(sim.msys, extra)
+        fields = FIELDS + (("group",) if job == "replay_hetero" else ())
+        out.update(n=len(tr), sha256=trace_sha256(tr, fields))
+    return out
+
+
+PHASE15_JOBS = ("telemetry_session", "replay", "replay_hetero",
+                "telemetry_hetero", "replay_batch")
+
+
+def check_phase15(job: str, r: dict) -> int:
+    """Hold a phase-15 session to its fixture and to one fused launch per
+    spec group and one host sync per loop iteration, no plain step;
+    returns its fused launches."""
+    tdoc = json.loads((ROOT / "tests" /
+                       "torch_telemetry_stats.json").read_text())
+    rdoc = json.loads((ROOT / "tests" / "torch_replay_stats.json").read_text())
+    if job == "telemetry_session":
+        want = tdoc["session"]
+        main = json.loads((ROOT / "tests" /
+                           "torch_main_path_stats.json").read_text())["stats"]
+        got = {k: v for k, v in r["stats"].items() if k != "per_group"}
+        ok = (r["stats"] == want["stats"] and got == main
+              and r["telemetry"] == want["telemetry"])
+        what = f"{len(r['telemetry']['t_end'])} windows"
+    elif job == "telemetry_hetero":
+        want = tdoc["hetero"]
+        ok = r["stats"] == want["stats"] and r["telemetry"] == want["telemetry"]
+        what = f"{len(r['telemetry']['t_end'])} windows"
+    elif job == "replay_batch":
+        want = rdoc["batch"]
+        ok = (r["fingerprint"] == want["fingerprint"]
+              and r["points"] == want["points"] and r["stats"] == want["stats"])
+        what = f"{len(r['points'])} points"
+    else:
+        want = rdoc["hetero"] if job == "replay_hetero" else dict(
+            rdoc["replay"], fingerprint=rdoc["source"]["fingerprint"])
+        stats = (r["stats"] if job == "replay_hetero" else
+                 {k: v for k, v in r["stats"].items() if k != "per_group"})
+        ok = (r["fingerprint"] == want["fingerprint"] and stats == want["stats"]
+              and (r["n"], r["sha256"]) == (want["n"], want["sha256"]))
+        what = f"commands {r['n']}"
+    ms = r["wall"] / max(r["syncs"], 1) * 1e3
+    print(f"  {job:<17} {what:<15} steps {r['steps']:>6}  host syncs "
+          f"{r['syncs']:>6}  fused launches {r['launches']:>6} "
+          f"({r['groups']} per step)  plain steps {r['plain']}  "
+          f"{r['wall']:6.2f} s  {ms:.3f} ms/iteration  "
+          f"{'match' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{job}: differs from its fixture (tests/torch_"
+             + ("telemetry" if job.startswith("telemetry") else "replay")
+             + "_stats.json)")
+    if (r["syncs"] != r["steps"] or r["launches"] != r["groups"] * r["steps"]
+            or r["plain"]):
+        fail(f"{job}: {r['syncs']} host syncs, {r['launches']} fused "
+             f"launches and {r['plain']} plain steps for {r['steps']} loop "
+             f"iterations ({r['groups']} spec groups)")
+    return r["launches"]
 
 
 def lanes_phase(device):
@@ -1695,7 +1865,8 @@ def main() -> int:
                            lanes["device_us"])
     hetero_launches = timed("14 hetero session", hetero_session_phase,
                             device)
-    system_launches = timed("5, 12, 14 in workers", golden_phase, "cuda")
+    system_launches, p15_launches = timed("5, 12, 14, 15 in workers",
+                                          golden_phase, "cuda")
     _, launches = timed("6 main path", main_path_phase, device)
     timed("7 fixture", fixture_phase, device)
     core_launches = timed("8 reduced", reduced_phase, device)
@@ -1732,7 +1903,8 @@ def main() -> int:
         "name": "controller_step", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/controller_step.cu",
         "replaces": "src/repro/kernels/timing_check.py:51",
-        "launches": batch_launches + hetero_launches + system_launches,
+        "launches": (batch_launches + hetero_launches + system_launches
+                     + p15_launches),
         "max_abs_err": max(fused["max_err"], lanes["max_err"],
                            preds["max_err"]),
         "ms": lanes["ms"], "plain_ms": lanes["plain_ms"],

@@ -28,8 +28,19 @@ Two loops, bit-exact twins as in the reference:
   the next iteration's clocks, active flags and jumps in one non-blocking
   copy.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-entry: trace replay, windowed telemetry and channel sharding.
+Trace replay (``Simulator(replay=...)``, ``FrontendConfig(pattern=
+"trace")``) sends the stream's columns to the device once per run and
+gathers each point's next request per cycle.  Windowed telemetry
+(``run(telemetry=W)``, ``make_run(..., telemetry_window=W)``) folds its
+gauges (served residency, the cumulative probe-latency histogram) beside
+the stats each executed cycle, caps every point's jump at its next
+window boundary and, when a point lands on one, copies that point's
+counters into a preallocated ``(n_windows, P, C, ...)`` device buffer,
+read back once after the loop: no host sync of its own.  With
+``telemetry=0`` none of it runs.
+
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP entry:
+channel sharding.
 """
 from __future__ import annotations
 
@@ -125,6 +136,23 @@ def _np(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+class GroupWindowSnap(NamedTuple):
+    """One spec group's cumulative counters at each window boundary (the
+    reference's ``GroupWindowSnap``): ``ch`` the :class:`ChannelStats` and
+    ``tm`` the packed gauges ``(..., C, 1 + n_edges)`` — column 0 the
+    cycle-sum of queue occupancy over ``[0, boundary)``, then the count of
+    served probes with latency ``<= edge k``.  Numpy leaves with a leading
+    ``(n_windows,)`` axis, then ``(P,)`` from ``make_run``."""
+    ch: ChannelStats
+    tm: np.ndarray
+
+
+#: the scalar counters of a packed snapshot row, in column order; the
+#: command counts and the gauges follow
+_SNAP_FIELDS = ("reads_done", "writes_done", "probe_lat_sum", "probe_cnt",
+                "data_bus_busy", "deferred")
+
+
 class TraceArrays(NamedTuple):
     """Dense per-cycle trace of ``run(..., trace=True)``: ``[T, 2]``
     fields for a single channel ([cycles, bus slots]; slot 0 is the
@@ -162,6 +190,80 @@ def _accum_channel_stats(cspec: CompiledSpec, dp: D.DynParams,
         cmd_counts=ch.cmd_counts + issued,
         deferred=ch.deferred + ev.deferred,
     )
+
+
+def _accum_gauges(edges: torch.Tensor, tm: torch.Tensor,
+                  ev: C.StepEvents, clk) -> torch.Tensor:
+    """Fold one cycle's telemetry gauges into ``tm`` ``(P, C, 1 + E)``:
+    the served requests' queue residency ``clk - arrive`` (a request
+    leaves its queue slot on the column bus, so its arrival is
+    ``ev.arrive[..., 0]``) and, per latency edge, the served probes at or
+    under it (an unserved probe's latency counts as ``1 << 30``)."""
+    served = ev.served_read | ev.served_write
+    res = (clk.view(-1, 1) - ev.arrive[..., 0]).masked_fill(~served, 0)
+    lat = ev.probe_latency.masked_fill(~ev.served_probe, 1 << 30)
+    return tm + torch.cat([res[..., None], (lat[..., None] <= edges).to(I32)],
+                          -1)
+
+
+def _snap_rows(cs: C.CtrlState, ch: ChannelStats, tm: torch.Tensor, clk: int,
+               p: int | None = None) -> torch.Tensor:
+    """One group's packed snapshot at clock ``clk``: ``(P, C, F)`` rows,
+    or point ``p``'s ``(C, F)`` — the :data:`_SNAP_FIELDS`, the command
+    counts, then the gauges with the residency of the requests still
+    queued at ``clk`` added to column 0."""
+    pick = (lambda a: a) if p is None else (lambda a: a[p])
+    q = cs.queue
+    resid = (clk - pick(q.arrive)).masked_fill(~pick(q.valid), 0).sum(
+        -1, dtype=I32)
+    g = pick(tm)
+    return torch.cat([torch.stack([pick(getattr(ch, f))
+                                   for f in _SNAP_FIELDS], -1),
+                      pick(ch.cmd_counts), g[..., :1] + resid[..., None],
+                      g[..., 1:]], -1)
+
+
+def _unpack_snaps(cspec: CompiledSpec, buf: np.ndarray) -> GroupWindowSnap:
+    """Packed snapshot rows ``(..., F)`` -> :class:`GroupWindowSnap`."""
+    n = len(_SNAP_FIELDS)
+    col = dict(zip(_SNAP_FIELDS, np.moveaxis(buf[..., :n], -1, 0)))
+    return GroupWindowSnap(
+        ch=ChannelStats(cmd_counts=buf[..., n:n + cspec.n_cmds], **col),
+        tm=buf[..., n + cspec.n_cmds:])
+
+
+def _point_snaps(snaps: tuple, i: int) -> tuple:
+    """Point ``i`` of ``make_run``'s ``(n_windows, P, C, ...)`` snapshots."""
+    return tuple(GroupWindowSnap(ChannelStats(*(a[:, i] for a in s.ch)),
+                                 s.tm[:, i]) for s in snaps)
+
+
+def check_replay(msys: MemorySystemSpec, replay: F.ReplayStream):
+    """The reference's checks of a replay stream against a memory
+    system: not empty, ``arrive`` non-decreasing, channels in range and
+    ``sub`` as wide as the widest group's sub-levels."""
+    if len(replay) == 0:
+        raise ValueError("replay stream is empty — nothing to replay")
+    if replay.arrive is not None \
+            and np.any(np.diff(np.asarray(replay.arrive)) < 0):
+        raise ValueError(
+            "replay arrive column must be non-decreasing (injection is "
+            "index-ordered) — sort the stream into arrival order as "
+            "trace.to_replay does")
+    top = int(np.max(replay.chan))
+    if top >= msys.n_channels or int(np.min(replay.chan)) < 0:
+        raise ValueError(
+            f"replay stream targets channel {top} but the memory system "
+            f"has {msys.n_channels} channel(s) — re-encode the stream "
+            "through this system's mapper (ReplayStream.from_addresses) "
+            "instead of reusing captured channels")
+    max_sub = max(len(g.cspec.levels) - 1 for g in msys.groups)
+    if replay.sub.shape[1] != max_sub:
+        raise ValueError(
+            f"replay sub columns are {replay.sub.shape[1]} wide but this "
+            f"system needs {max_sub} sub-level indices — rebuild the "
+            "stream against this system (ReplayStream.from_addresses / "
+            "trace.to_replay)")
 
 
 def _aggregate_stats(msys: MemorySystemSpec, chs: list, cycles: list,
@@ -239,7 +341,8 @@ class _Upload:
 
 def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
              n_cycles: int, trace: bool, fast_forward: bool = True,
-             points: int = 1):
+             points: int = 1, replay: F.ReplayStream | None = None,
+             telemetry_window: int = 0):
     """Build the run function ``(dps, fp, seed, device) -> RunResult`` of
     ``points`` design points (``fp``'s ``(P,)`` load knobs; batched
     :class:`Stats`) over ``spec``, a :class:`CompiledSpec` or a
@@ -257,6 +360,15 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
     ``trace`` (one point only) the dense per-cycle buffers are
     idle-initialized and every executed cycle is written at its true
     index, so the trace is bit-identical to the per-cycle loop's.
+
+    ``replay`` feeds ``pattern="trace"`` (checked by
+    :func:`check_replay`).  ``telemetry_window = W > 0`` also returns, per
+    spec group, a :class:`GroupWindowSnap` of every point's cumulative
+    counters at each multiple of ``W`` (and at ``n_cycles`` when the last
+    window is ragged or ``n_cycles < W``): a fast-forward jump never
+    crosses a boundary, and a point that lands on one is snapshotted
+    there.  The run's output is ``stats``, then the trace, then the
+    snapshots, as a tuple when there is more than the stats.
     """
     msys = as_system(spec)
     groups = msys.groups
@@ -265,7 +377,15 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
     if not 0 <= n_cycles <= 2**30:
         raise ValueError(f"n_cycles {n_cycles} outside [0, 2**30]: the "
                          "controller step takes clocks below 2**30")
+    F.require_replay(fcfg, replay)
+    if replay is not None:
+        check_replay(msys, replay)
     P = points
+    W = telemetry_window
+    n_full = n_cycles // W if W else 0
+    # a ragged tail (or n_cycles < W) gets one more window
+    n_windows = n_full + (1 if W and (n_cycles % W or not n_full) else 0)
+    paced = F.paced_by_arrive(fcfg, replay)
 
     def run(dps, fp: F.FrontParams, seed: int, device):
         if isinstance(dps, D.DynParams):
@@ -274,11 +394,12 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
             raise ValueError(f"expected {msys.n_groups} DynParams (one per "
                              f"spec group), got {len(dps)}")
         st = F.system_front_tables(msys, fcfg, device)
+        rt = None if replay is None else F.replay_tables(replay, device)
         k_draws = st.k_draws
         a_cyc, c_cyc = F.lcg_affine(k_draws)
         cap = fcfg.max_backlog_fp
 
-        def cycle(css, chs, fs, clk, active, front_clk, front_active):
+        def cycle(css, chs, tms, fs, clk, active, front_clk, front_active):
             """One executed cycle of every active point at its clock in
             every group; with fast-forward each group's step also returns
             its lanes' horizon at ``clk + 1`` on the new state (the
@@ -288,14 +409,16 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
             same as ``front_clk`` and ``front_active``, a host int and None
             where
             every point runs at one clock (it then fills requests with
-            ``masked_fill`` and skips the masks).  Returns the busy
+            ``masked_fill`` and skips the masks).  ``tms`` are the groups'
+            telemetry gauges (None without telemetry).  Returns the busy
             verdict and the minimum horizon over the groups."""
             queues, draft = F.system_frontend_insert(
                 msys, fcfg, fp, fs, tuple(cs.queue for cs in css),
-                front_clk, st, front_active)
+                front_clk, st, front_active, rt)
             step = C.step_and_horizon if fast_forward else C.controller_step
             new_css, new_chs, evs, hc = [], [], [], None
-            for grp, dp, cs, ch, queue in zip(groups, dps, css, chs, queues):
+            for gi, (grp, dp, cs, ch, queue) in enumerate(
+                    zip(groups, dps, css, chs, queues)):
                 out = step(grp.cspec, dp, ccfg, cs._replace(queue=queue),
                            clk, active, grp.link_latency)
                 ev = out[1]
@@ -304,11 +427,14 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
                     hc = h if hc is None else torch.minimum(hc, h)
                 new_css.append(out[0])
                 new_chs.append(_accum_channel_stats(grp.cspec, dp, ch, ev))
+                if tms is not None:
+                    tms[gi] = _accum_gauges(edges[gi], tms[gi], ev, clk)
                 evs.append(ev)
             absorb = F.absorb_locals(evs[0])
             for ev in evs[1:]:
                 absorb = absorb + F.absorb_locals(ev)
-            fs = F.frontend_commit(fcfg, fp, fs, draft, draft.okp, draft.ok)
+            fs = F.frontend_commit(fcfg, fp, fs, draft, draft.okp, draft.ok,
+                                   paced)
             fs = F.frontend_finish(fs, fp, absorb[0], absorb[1], absorb[2])
             busy = draft.okp + draft.ok
             for ev in evs:
@@ -323,6 +449,23 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
         fs = F.init_front(seed, device, P)
         clks, ys = [], []
         syncs = 0
+        tms = bufs = edges = None
+        if W:
+            edges = [torch.as_tensor(g.cspec.lat_bucket_edges, dtype=I32,
+                                     device=device) for g in groups]
+            tms = [torch.zeros((P, g.channels, 1 + len(e)), dtype=I32,
+                               device=device) for g, e in zip(groups, edges)]
+            bufs = [torch.zeros((n_windows, P, g.channels,
+                                 len(_SNAP_FIELDS) + g.cspec.n_cmds
+                                 + 1 + len(e)), dtype=I32, device=device)
+                    for g, e in zip(groups, edges)]
+
+        def snapshot(k, clk, p=None):
+            """Copy the groups' counters at clock ``clk`` (every point, or
+            point ``p``) into window ``k`` of the snapshot buffers."""
+            for buf, cs, ch, tm in zip(bufs, css, chs, tms):
+                rows = _snap_rows(cs, ch, tm, clk, p)
+                (buf[k] if p is None else buf[k, p]).copy_(rows)
 
         def record(evs, clk):
             if trace:
@@ -338,11 +481,12 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
             up.send([0] * P, [(0, 1, 0)] * P, [True] * P)
             for clk in range(n_cycles):
                 css, chs, fs, evs, _, _ = cycle(
-                    css, chs, fs, up.clk, up.active, clk, None)
+                    css, chs, tms, fs, up.clk, up.active, clk, None)
                 record(evs, clk)
                 up.clk.add_(1)
-            stats = _aggregate_stats(msys, chs, [n_cycles] * P,
-                                     [n_cycles] * P)
+                if W and (clk + 1) % W == 0:
+                    snapshot((clk + 1) // W - 1, clk + 1)
+            steps = [n_cycles] * P
         else:
             jump_of = {0: (0, 1, 0)}     # d -> (refill, ra, rc), memoized
 
@@ -368,11 +512,11 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
                 # one point: the host's int clock serves the frontend
                 one = P == 1
                 css, chs, fs, evs, busy, hc = cycle(
-                    css, chs, fs, up.clk, up.active,
+                    css, chs, tms, fs, up.clk, up.active,
                     at[0] if one else up.clk, None if one else up.active)
                 record(evs, at[0])
                 h = torch.minimum(F.arrival_horizon(
-                    fcfg, fp, fs, at[0] + 1 if one else up.nxt), hc)
+                    fcfg, fp, fs, at[0] + 1 if one else up.nxt, rt), hc)
                 # the iteration's one host sync: busy verdicts + horizons
                 is_busy, h = torch.stack([busy.to(I32), h]).tolist()
                 syncs += 1
@@ -382,15 +526,28 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
                         continue
                     steps[p] += 1
                     t = at[p] + 1
-                    target = min(t if is_busy[p] else max(h[p], t), n_cycles)
+                    end = n_cycles
+                    if W:                # never jump across a boundary
+                        end = min(end, (at[p] // W + 1) * W)
+                    target = min(t if is_busy[p] else max(h[p], t), end)
                     dists[p] = target - t
                     at[p] = target
-            stats = _aggregate_stats(msys, chs, [n_cycles] * P, steps)
-        if not trace:
-            return RunResult(stats, syncs)
-        return RunResult((stats, _dense_trace(clks, ys, n_cycles,
-                                              msys.n_channels, device)),
-                         syncs)
+                    if n_full and target % W == 0:
+                        # the state after the executed cycle, at the
+                        # boundary's clock (an idle jump moves only the
+                        # frontend)
+                        snapshot(target // W - 1, target, p)
+        stats = _aggregate_stats(msys, chs, [n_cycles] * P, steps)
+        out = (stats,)
+        if trace:
+            out += (_dense_trace(clks, ys, n_cycles, msys.n_channels,
+                                 device),)
+        if W:
+            if n_windows > n_full:       # the ragged tail / n_cycles < W
+                snapshot(n_windows - 1, n_cycles)
+            out += (tuple(_unpack_snaps(g.cspec, b.cpu().numpy())
+                          for g, b in zip(groups, bufs)),)
+        return RunResult(out if len(out) > 1 else stats, syncs)
 
     return run
 
@@ -432,6 +589,11 @@ class Simulator:
     ...          timing_preset="DDR4_2400R", channels=2, link_latency=80),
     ... ], device="cpu")
 
+    >>> stats, telem = sim.run(10_000, telemetry=1000)   # 10 windows
+    >>> replayed = Simulator("DDR4", "DDR4_8Gb_x8", "DDR4_2400R",
+    ...                      frontend=FrontendConfig(pattern="trace"),
+    ...                      replay=stream, device="cpu")
+
     ``host_syncs`` counts the device->host reads of every run's cycle
     loop (one per loop iteration with fast-forward, none without).
     """
@@ -446,7 +608,8 @@ class Simulator:
     channels: int = 1
     #: convenience override for ``frontend.mapper`` (None keeps it)
     mapper: str | None = None
-    replay: object = None
+    #: the request stream of ``FrontendConfig(pattern="trace")``
+    replay: F.ReplayStream | None = None
     #: a composition of spec groups: a :class:`MemorySystemSpec` or a list
     #: of group descriptors; exclusive with the (standard, org, timing)
     #: triple
@@ -456,10 +619,6 @@ class Simulator:
     device: object = None
 
     def __post_init__(self):
-        if self.replay is not None:
-            raise NotImplementedError(
-                "Simulator(replay=...): trace replay is not ported to "
-                "repro_torch yet — see ROADMAP.md queue 1 item 10")
         if self.channel_shard not in (None, False):
             raise NotImplementedError(
                 "Simulator(channel_shard=...): multi-GPU channel sharding "
@@ -501,19 +660,23 @@ class Simulator:
             read_ratio: float | None = None, trace: bool = False,
             seed: int = 0x1234, telemetry: int = 0,
             fast_forward: bool | None = None):
-        """Run ``n_cycles``.  Returns ``stats``, or ``(stats, trace)``
-        with ``trace=True``."""
-        if telemetry:
-            raise NotImplementedError(
-                "run(telemetry=W): windowed telemetry is not ported to "
-                "repro_torch yet — see ROADMAP.md queue 1 item 8")
+        """Run ``n_cycles``.  Returns ``stats``, plus the dense trace with
+        ``trace=True``, plus a :class:`repro_torch.telemetry.Telemetry` of
+        ``W``-cycle windows with ``telemetry=W > 0``: ``(stats, trace,
+        telem)`` with both."""
         fcfg = self.frontend
         point = (fcfg.interval if interval is None else interval,
                  fcfg.read_ratio if read_ratio is None else read_ratio)
-        out = self._run([point], n_cycles, trace, seed, fast_forward)
-        if trace:
-            return out[0].point(0), out[1]
-        return out.point(0)
+        out = self._run([point], n_cycles, trace, seed, fast_forward,
+                        telemetry)
+        if not (trace or telemetry):
+            return out.point(0)
+        res = (out[0].point(0),) + ((out[1],) if trace else ())
+        if telemetry:
+            from repro_torch import telemetry as T
+            res += (T.build(self.msys, _point_snaps(out[-1], 0),
+                            window=telemetry, n_cycles=n_cycles),)
+        return res
 
     def run_batch(self, n_cycles: int, intervals, read_ratios,
                   seed: int = 0x1234):
@@ -526,11 +689,12 @@ class Simulator:
         pts = [(i, r) for i in intervals for r in read_ratios]
         return pts, self._run(pts, n_cycles, False, seed, self.fast_forward)
 
-    def _run(self, pts, n_cycles, trace, seed, fast_forward):
+    def _run(self, pts, n_cycles, trace, seed, fast_forward, telemetry=0):
         ff = self.fast_forward if fast_forward is None else fast_forward
         fp = F.stack_params(pts, self.frontend.probe_gap, self.device)
         res = make_run(self.msys, self.controller, self.frontend, n_cycles,
-                       trace, ff, len(pts))(self.dps, fp, seed, self.device)
+                       trace, ff, len(pts), self.replay,
+                       telemetry)(self.dps, fp, seed, self.device)
         self.host_syncs += res.host_syncs
         return res.out
 

@@ -6,7 +6,11 @@ The counterpart of ``repro.core.frontend``:
      configurable read ratio, addressed by a ``sequential`` linear counter
      decoded through the mapper layout or by ``random`` draws;
   2. *serialized random-access probes*: a probe is only issued after the
-     previous probe's data returned.
+     previous probe's data returned;
+  3. *trace replay* (``pattern="trace"``): the pre-decoded request columns
+     of a :class:`ReplayStream`, taken in order (wrapping around), at the
+     streaming pace or at the captured arrival clocks, with optional
+     read-after-write / write-after-read holds.
 
 The frontend state is a :class:`FrontState` of tensors on the run's
 device: 0-d for one run, ``(P,)`` for a batch of ``P`` design points
@@ -23,20 +27,23 @@ system channel digit (:func:`system_frontend_insert`, the reference's
 ``system_frontend_insert``): the channel first, then every group's own
 fields from the rest, and the request goes to the one (group, channel)
 that owns the system channel.  A 1-group system takes the single-spec
-path unchanged.  Trace replay (``pattern="trace"``) is not ported yet and
-raises.
+path unchanged.  A replay stream's columns go to the run's device once
+(:func:`replay_tables`); each cycle gathers every point's next request by
+``seq % n``.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import controller as C
-from repro_torch.core.addrmap import make_layout, make_system_layout
-from repro_torch.core.compile import CompiledSpec
+from repro_torch.core.addrmap import (AddressMapper, SystemAddressMapper,
+                                      make_layout, make_system_layout)
+from repro_torch.core.compile import CompiledSpec, MemorySystemSpec
 
 I32 = torch.int32
 MASK32 = 0xFFFFFFFF
@@ -61,6 +68,7 @@ class FrontState(NamedTuple):
     sent: torch.Tensor            # int32 streaming requests injected
     dropped_backpressure: torch.Tensor
     served: torch.Tensor          # int32 non-probe requests served
+    #                               (the replay dependency hold reads it)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,18 +79,15 @@ class FrontendConfig:
     probes: bool = True
     stream: bool = True
     #: streaming address pattern: ``sequential`` (linear counter decoded
-    #: through ``mapper``) or ``random``; ``trace`` is not ported yet
+    #: through ``mapper``), ``random``, or ``trace`` (replay the
+    #: :class:`ReplayStream` given to the engine)
     pattern: str = "sequential"
     #: address-mapper order (see ``repro_torch.core.addrmap.MAPPERS``)
     mapper: str = "RoCoBaRaCh"
     max_backlog_fp: int = 256 * 64   # accumulator cap: ≤64 queued arrivals
 
     def __post_init__(self):
-        if self.pattern == "trace":
-            raise NotImplementedError(
-                'FrontendConfig(pattern="trace"): trace replay is not '
-                "ported to repro_torch yet — see ROADMAP.md queue 1 item 10")
-        if self.pattern not in ("sequential", "random"):
+        if self.pattern not in ("sequential", "random", "trace"):
             raise ValueError(f"unknown pattern {self.pattern!r}")
 
     def params(self) -> FrontParams:
@@ -177,6 +182,157 @@ def init_front(seed: int = 0x1234, device="cpu",
 
 
 # --------------------------------------------------------------------------
+# Trace-driven replay source
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ReplayStream:
+    """Pre-decoded replay request columns (the reference's
+    ``ReplayStream``): host numpy int32 arrays of equal length ``N`` —
+    target ``chan``, per-channel ``sub`` level indices ``(N, L-1)``,
+    ``row``, ``col`` and ``is_write``.  For a memory system of several
+    spec groups ``chan`` is the system channel and ``sub`` is padded to
+    the widest group's sub-level count.  ``arrive`` (optional) holds each
+    request's captured arrival clock: replay then injects request ``k`` at
+    its arrival rebased to the stream start (a wrapped lap repeats the
+    pattern shifted by the span plus the mean gap) instead of at the
+    streaming interval.  ``dep`` (optional) holds a same-row producer
+    index per request (-1 = none): such a request waits until every
+    earlier stream request has been served.  ``fingerprint`` is the
+    reference's digest of the columns (``arrive`` and ``dep`` included
+    when present), so both packages fingerprint one stream alike."""
+    chan: np.ndarray
+    sub: np.ndarray
+    row: np.ndarray
+    col: np.ndarray
+    is_write: np.ndarray
+    arrive: np.ndarray | None = None
+    fingerprint: str = ""
+    dep: np.ndarray | None = None
+
+    def __post_init__(self):
+        if not self.fingerprint:
+            h = hashlib.sha256()
+            cols = (self.chan, self.sub, self.row, self.col, self.is_write)
+            if self.arrive is not None:
+                cols = cols + (self.arrive,)
+            if self.dep is not None:
+                cols = cols + (self.dep,)
+            for a in cols:
+                h.update(np.ascontiguousarray(a, np.int32).tobytes())
+            object.__setattr__(self, "fingerprint", h.hexdigest()[:16])
+
+    def __len__(self) -> int:
+        return int(self.chan.shape[0])
+
+    @classmethod
+    def from_addresses(cls, spec, addrs, is_write=None,
+                       order: str = "RoBaRaCoCh") -> "ReplayStream":
+        """Decode a linear byte-address stream through ``order``;
+        ``spec`` is a :class:`CompiledSpec` or a :class:`MemorySystemSpec`
+        (decoded through the system channel digit)."""
+        addrs = np.asarray(addrs, np.int64)
+        if isinstance(spec, MemorySystemSpec):
+            chan, sub, row, col = SystemAddressMapper(
+                spec, order).to_chan_sub_row_col(addrs)
+        else:
+            chan, sub, row, col = AddressMapper(
+                spec, order).to_chan_sub_row_col(addrs)
+        wr = np.zeros(len(chan), np.int32) if is_write is None \
+            else np.asarray(is_write, np.int32)
+        i32 = lambda a: np.ascontiguousarray(a, np.int32)
+        return cls(chan=i32(chan), sub=i32(sub), row=i32(row), col=i32(col),
+                   is_write=i32(wr))
+
+
+class ReplayTables(NamedTuple):
+    """A :class:`ReplayStream`'s columns on the run's device (int32), sent
+    once per run: ``arrive`` rebased to the stream's first arrival, and
+    the wrap lap's length ``span + gap`` (the reference's pacing
+    scalars)."""
+    chan: torch.Tensor            # (n,)
+    sub: torch.Tensor             # (n, L-1)
+    row: torch.Tensor
+    col: torch.Tensor
+    is_write: torch.Tensor        # (n,) bool
+    arrive: torch.Tensor | None   # (n,) rebased arrival clocks
+    dep: torch.Tensor | None      # (n,) producer index, -1 = none
+    n: int
+    lap_len: int                  # span + gap of one lap
+
+
+def replay_tables(replay: ReplayStream, device) -> ReplayTables:
+    """Send a stream's columns to ``device`` as int32 tensors."""
+    i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                    device=device)
+    n = len(replay)
+    arrive, lap_len = None, 0
+    if replay.arrive is not None:
+        arr = np.asarray(replay.arrive, np.int64)
+        base = int(arr[0])
+        span = int(arr[-1]) - base
+        lap_len = span + max(span // max(n - 1, 1), 1)
+        arrive = i32(arr - base)
+    return ReplayTables(
+        chan=i32(replay.chan), sub=i32(replay.sub), row=i32(replay.row),
+        col=i32(replay.col), is_write=i32(replay.is_write) != 0,
+        arrive=arrive, dep=None if replay.dep is None else i32(replay.dep),
+        n=n, lap_len=lap_len)
+
+
+def paced_by_arrive(cfg: FrontendConfig, replay) -> bool:
+    """True when the captured ``arrive`` clocks pace the replay instead of
+    the interval accumulator (a static property of config and stream;
+    ``replay`` a :class:`ReplayStream` or its :class:`ReplayTables`)."""
+    return (cfg.stream and cfg.pattern == "trace" and replay is not None
+            and replay.arrive is not None)
+
+
+def _gather(col: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``col[idx]`` per point: ``idx.shape + col.shape[1:]``."""
+    return col.index_select(0, idx.reshape(-1)).view(idx.shape
+                                                     + col.shape[1:])
+
+
+def _due(rt: ReplayTables, fs: FrontState, idx):
+    """The paced due clock of each point's stream position ``seq``:
+    ``arrive[seq % n] + (seq // n) * (span + gap)``, in int32."""
+    return _gather(rt.arrive, idx) + (fs.seq // rt.n) * rt.lap_len
+
+
+def _replay_next(rt: ReplayTables, fs: FrontState, want, clk):
+    """Each point's request at its stream position ``seq``: ``(want,
+    chan, sub, row, col, is_write)``, ``sub`` ``S + (L-1,)``, the rest
+    ``S``.  The gate is the reference's ``_replay_want``: with ``arrive``
+    the request is due at ``arrive[seq % n] + (seq // n) * (span + gap)``,
+    which replaces the accumulator gate ``want``; with ``dep`` a request
+    with a producer also waits until ``served >= seq`` (every earlier
+    request served).  int32 throughout, as the reference computes it."""
+    idx = fs.seq % rt.n
+    if rt.arrive is not None:
+        want = _due(rt, fs, idx) <= clk
+    if rt.dep is not None:
+        want = want & ((_gather(rt.dep, idx) < 0) | (fs.served >= fs.seq))
+    return (want, _gather(rt.chan, idx), _gather(rt.sub, idx),
+            _gather(rt.row, idx), _gather(rt.col, idx),
+            _gather(rt.is_write, idx))
+
+
+def _lane_sub(sub):
+    """``S + (L-1,)`` sub-level indices -> ``S + (1, 1, L-1)``, to
+    broadcast against a queue's ``S + (C, Q, L-1)``."""
+    return sub.view(sub.shape[:-1] + (1, 1, sub.shape[-1]))
+
+
+def require_replay(cfg: FrontendConfig, replay):
+    """Raise when ``pattern="trace"`` streams without a replay stream."""
+    if cfg.stream and cfg.pattern == "trace" and replay is None:
+        raise ValueError('pattern="trace" needs a ReplayStream '
+                         "(Simulator(..., replay=...))")
+
+
+# --------------------------------------------------------------------------
 # Address generation
 # --------------------------------------------------------------------------
 
@@ -243,15 +399,18 @@ def route_insert(queues: C.Queue, ft: FrontTables, chan, is_write, is_probe,
 
 def frontend_insert(cspec: CompiledSpec, cfg: FrontendConfig,
                     fp: FrontParams, fs: FrontState, queues: C.Queue, clk,
-                    ft: FrontTables, active=None):
-    """Decode + insert up to one probe and one streaming request per point
-    into ``queues`` this cycle, without touching ``fs`` — the accept flags
-    come back in a :class:`FrontDraft` for :func:`frontend_commit`.  Probes
-    insert first so a saturated stream cannot starve them.  ``clk`` is a
-    host int or a tensor of ``fs``'s shape (each point's clock); ``queues``
-    leaves are ``S + (C, Q[, L-1])`` for ``fs``'s shape ``S``; a point
-    whose ``active`` flag is off inserts nothing and keeps its rng and
-    accumulator."""
+                    ft: FrontTables, active=None,
+                    replay: ReplayTables | None = None):
+    """Decode + insert up to one probe and one streaming (or replayed)
+    request per point into ``queues`` this cycle, without touching ``fs``
+    — the accept flags come back in a :class:`FrontDraft` for
+    :func:`frontend_commit`.  Probes insert first so a saturated stream
+    cannot starve them.  ``clk`` is a host int or a tensor of ``fs``'s
+    shape (each point's clock); ``queues`` leaves are ``S + (C, Q[,
+    L-1])`` for ``fs``'s shape ``S``; a point whose ``active`` flag is off
+    inserts nothing and keeps its rng and accumulator.  ``replay`` is the
+    device stream ``pattern="trace"`` needs (:func:`replay_tables`)."""
+    require_replay(cfg, replay)
     n = len(ft.layout)
     draws = _draws(ft, fs.rng) if ft.draw_c.numel() else None
     used = 0
@@ -275,15 +434,20 @@ def frontend_insert(cspec: CompiledSpec, cfg: FrontendConfig,
     if cfg.stream:
         accum = (accum + 256).clamp(max=cfg.max_backlog_fp)
         want = accum >= fp.interval_fp
+        if cfg.pattern == "trace":
+            want, chan, sub, row, col, is_write = _replay_next(
+                replay, fs, want, clk)
+            sub, row, col = _lane_sub(sub), lane(row), lane(col)
+        else:
+            if cfg.pattern == "sequential":
+                chan, sub, row, col = _seq_addr(cspec, ft, fs.seq)
+            else:
+                chan, sub, row, col = _rand_addr(cspec, ft,
+                                                 draws[..., used:used + n])
+            is_write = ((draws[..., -1] >> 9) % 256) >= fp.read_ratio_fp
         if active is not None:
             want = want & active
             accum = torch.where(active, accum, fs.accum_fp)
-        if cfg.pattern == "sequential":
-            chan, sub, row, col = _seq_addr(cspec, ft, fs.seq)
-        else:
-            chan, sub, row, col = _rand_addr(cspec, ft,
-                                             draws[..., used:used + n])
-        is_write = ((draws[..., -1] >> 9) % 256) >= fp.read_ratio_fp
         queues, ok_b = route_insert(queues, ft, chan, lane(is_write), False,
                                     sub, row, col, arrive, want)
         ok = ok_b.to(I32)
@@ -298,8 +462,11 @@ def frontend_insert(cspec: CompiledSpec, cfg: FrontendConfig,
 
 
 def frontend_commit(cfg: FrontendConfig, fp: FrontParams, fs: FrontState,
-                    draft: FrontDraft, okp_total, ok_total) -> FrontState:
-    """Fold the accept counts into :class:`FrontState`."""
+                    draft: FrontDraft, okp_total, ok_total,
+                    paced: bool = False) -> FrontState:
+    """Fold the accept counts into :class:`FrontState`; a replay paced by
+    its arrival clocks (``paced``, :func:`paced_by_arrive`) keeps the
+    accumulator as refilled."""
     probe_busy = fs.probe_busy
     if cfg.probes:
         probe_busy = probe_busy | (okp_total > 0)
@@ -309,7 +476,8 @@ def frontend_commit(cfg: FrontendConfig, fp: FrontParams, fs: FrontState,
     if cfg.stream:
         okb = ok_total > 0
         oki = okb.to(I32)
-        accum = accum - oki * fp.interval_fp
+        if not paced:
+            accum = accum - oki * fp.interval_fp
         seq = seq + oki
         sent = sent + oki
         dropped = dropped + (draft.want & ~okb).to(I32)
@@ -409,18 +577,23 @@ def _system_route(st: SystemTables, queues: tuple, chan, is_write, is_probe,
 
 def system_frontend_insert(msys, cfg: FrontendConfig, fp: FrontParams,
                            fs: FrontState, queues: tuple, clk,
-                           st: SystemTables, active=None):
+                           st: SystemTables, active=None,
+                           replay: ReplayTables | None = None):
     """The multi-group twin of :func:`frontend_insert`: ``queues`` is the
     per-group tuple of ``S + (C_g, Q)`` queues.  A 1-group system runs
     :func:`frontend_insert` unchanged.  The cycle's draws are the
     reference's, in its order: for a probe, one draw picks the system
     channel and one draw per field slot (the widest group's field count)
     feeds every group's fields; a random stream request draws the same
-    way; the last draw decides read or write."""
+    way; the last draw decides read or write.  A replayed request carries
+    its system channel and a ``sub`` padded to the widest group: each
+    group takes its first ``L_g - 1`` columns."""
     if st.single is not None:
         q0, draft = frontend_insert(msys.groups[0].cspec, cfg, fp, fs,
-                                    queues[0], clk, st.single, active)
+                                    queues[0], clk, st.single, active,
+                                    replay)
         return (q0,), draft
+    require_replay(cfg, replay)
     draws = _draws(st, fs.rng) if st.draw_c.numel() else None
     n = 1 + st.n_slots
     used = 0
@@ -450,18 +623,25 @@ def system_frontend_insert(msys, cfg: FrontendConfig, fp: FrontParams,
     if cfg.stream:
         accum = (accum + 256).clamp(max=cfg.max_backlog_fp)
         want = accum >= fp.interval_fp
+        if cfg.pattern == "trace":
+            want, chan, sub, row, col, is_write = _replay_next(
+                replay, fs, want, clk)
+            row, col = lane(row), lane(col)
+            per_group = [(_lane_sub(sub[..., :gf.perm.numel() - 2]), row,
+                          col) for gf in st.groups]
+        else:
+            if cfg.pattern == "sequential":
+                seq = fs.seq.to(torch.int64)
+                chan = (seq % st.n_channels).to(I32)
+                q = (seq // st.n_channels)[..., None]
+                per_group = [_group_pack(gf, (q // gf.strides) % gf.counts)
+                             for gf in st.groups]
+            else:
+                chan, per_group = rand_addr(draws[..., used:used + n])
+            is_write = ((draws[..., -1] >> 9) % 256) >= fp.read_ratio_fp
         if active is not None:
             want = want & active
             accum = torch.where(active, accum, fs.accum_fp)
-        if cfg.pattern == "sequential":
-            seq = fs.seq.to(torch.int64)
-            chan = (seq % st.n_channels).to(I32)
-            q = (seq // st.n_channels)[..., None]
-            per_group = [_group_pack(gf, (q // gf.strides) % gf.counts)
-                         for gf in st.groups]
-        else:
-            chan, per_group = rand_addr(draws[..., used:used + n])
-        is_write = ((draws[..., -1] >> 9) % 256) >= fp.read_ratio_fp
         queues, ok_b = _system_route(st, queues, chan, lane(is_write), False,
                                      per_group, arrive, want)
         ok = ok_b.to(I32)
@@ -489,15 +669,17 @@ def rng_draws_per_cycle(cfg: FrontendConfig, sys_layout) -> int:
     of :func:`repro_torch.core.addrmap.make_system_layout`.  The draws are
     unconditional, so an idle cycle advances the rng by exactly this
     count; with several groups it grows with the widest group's field
-    count."""
+    count.  A replayed stream draws nothing."""
     if sys_layout[0] == "single":
         n_fields = len(sys_layout[1])
         probe_draws = n_fields
-        stream_draws = {"sequential": 1, "random": n_fields + 1}
+        stream_draws = {"sequential": 1, "random": n_fields + 1,
+                        "trace": 0}
     else:
         n_slots = max(len(lay) for lay in sys_layout[3])
         probe_draws = 1 + n_slots
-        stream_draws = {"sequential": 1, "random": 1 + n_slots + 1}
+        stream_draws = {"sequential": 1, "random": 1 + n_slots + 1,
+                        "trace": 0}
     draws = 0
     if cfg.probes:
         draws += probe_draws
@@ -574,7 +756,7 @@ def idle_jump(cfg: FrontendConfig, fs: FrontState, refill, ra, rc,
 
 
 def arrival_horizon(cfg: FrontendConfig, fp: FrontParams, fs: FrontState,
-                    cur):
+                    cur, replay: ReplayTables | None = None):
     """Earliest cycle ``>= cur`` at which the frontend could next attempt
     an insert, assuming no intervening completions (conservative, as in
     the reference), per point (``cur`` an int or a tensor of ``fs``'s
@@ -584,12 +766,19 @@ def arrival_horizon(cfg: FrontendConfig, fp: FrontParams, fs: FrontState,
     * stream: ``want`` first fires at the ``j``-th cycle from ``cur`` with
       ``min(accum + 256*(j+1), cap) >= interval`` — never, where the cap
       can't reach the interval (a per-point mask, as the reference's
-      ``jnp.where``)."""
+      ``jnp.where``);
+    * a ``replay`` paced by its arrival clocks: the position's due clock,
+      the exact gate of :func:`_replay_next` (dependency holds ignored)."""
     h = torch.full_like(fs.seq, HORIZON_MAX)
     if cfg.probes:
         h = fs.probe_next.clamp(min=cur).masked_fill(fs.probe_busy,
                                                      HORIZON_MAX)
-    if cfg.stream:
+    if paced_by_arrive(cfg, replay):
+        due = _due(replay, fs, fs.seq % replay.n)
+        due = (due.clamp(min=cur) if not isinstance(cur, torch.Tensor)
+               else torch.maximum(due, cur))
+        h = torch.minimum(h, due)
+    elif cfg.stream:
         need = fp.interval_fp - fs.accum_fp
         j = ((need + 255) // 256 - 1).clamp(min=0)
         never = fp.interval_fp > cfg.max_backlog_fp

@@ -20,7 +20,10 @@ import hashlib
 import numpy as np
 import torch
 
-from repro_torch.core.compile import MemorySystemSpec
+from repro_torch.core import spec as S
+from repro_torch.core.compile import (CompiledSpec, MemorySystemSpec,
+                                      as_system)
+from repro_torch.core.frontend import ReplayStream
 
 #: Columnar int32 fields of a CommandTrace, in digest order (the ``group``
 #: column is digested only when asked for, as the reference's v3 format).
@@ -105,3 +108,89 @@ def trace_sha256(tr: CommandTrace, fields=FIELDS) -> str:
     for f in fields:
         h.update(np.ascontiguousarray(getattr(tr, f), np.int32).tobytes())
     return h.hexdigest()
+
+
+def _unflatten_banks(cspec: CompiledSpec, bank: np.ndarray,
+                     width: int) -> np.ndarray:
+    """Flat bank ids -> ``(N, width)`` sub-level indices (zero-padded)."""
+    counts = cspec.level_counts
+    b = bank.astype(np.int64)
+    subs = []
+    for i in range(len(counts) - 1, 0, -1):
+        subs.append(b % int(counts[i]))
+        b = b // int(counts[i])
+    sub = np.stack(subs[::-1], axis=-1)
+    if sub.shape[-1] < width:
+        pad = np.zeros(sub.shape[:-1] + (width - sub.shape[-1],), np.int64)
+        sub = np.concatenate([sub, pad], axis=-1)
+    return sub
+
+
+def _replay_deps(chan, bank, row, is_wr) -> np.ndarray:
+    """Same-row RAW/WAR dependency index per request, -1 = none: a read
+    depends on the latest earlier write to its (chan, bank, row), a write
+    on the latest earlier read.  Producers precede their dependents in
+    the arrival-ordered stream."""
+    dep = np.full(len(chan), -1, np.int64)
+    last_w: dict = {}
+    last_r: dict = {}
+    for k in range(len(chan)):
+        key = (int(chan[k]), int(bank[k]), int(row[k]))
+        if is_wr[k]:
+            dep[k] = last_r.get(key, -1)
+            last_w[key] = k
+        else:
+            dep[k] = last_w.get(key, -1)
+            last_r[key] = k
+    return dep
+
+
+def to_replay(trace: CommandTrace, spec, *, deps: bool = False
+              ) -> ReplayStream:
+    """The replay stream of a captured trace's served requests (its final
+    RD/WR commands with an arrival clock), in arrival order (a stable
+    sort; issue order is the scheduler's), with their channel, sub-level
+    indices (a system trace resolves each command through its group),
+    row and captured ``arrive`` clocks, which then pace the replay.  With
+    ``deps=True`` it also carries the same-row RAW/WAR dependencies
+    (``ReplayStream.dep``).  ``spec`` (the ``CompiledSpec`` or
+    ``MemorySystemSpec`` of the captured run) is required: the port's
+    :class:`CommandTrace` carries no metadata to rebuild it from.  Feed
+    the result to ``Simulator(..., frontend=FrontendConfig(
+    pattern="trace"), replay=...)``."""
+    msys = as_system(spec)
+    if msys.n_groups == 1:
+        fx = np.asarray(msys.groups[0].cspec.cmd_fx)[trace.cmd]
+    else:
+        # the trace's namespace is the merged one: resolve per group
+        fx_lut = np.zeros((msys.n_groups, len(trace.cmd_names)), np.int64)
+        for g, grp in enumerate(msys.groups):
+            fx_lut[g, msys.group_cmd_maps[g]] = grp.cspec.cmd_fx
+        fx = fx_lut[trace.group, trace.cmd]
+    is_wr = (fx & S.FX_FINAL_WR) != 0
+    sel = np.nonzero((((fx & S.FX_FINAL_RD) != 0) | is_wr)
+                     & (trace.arrive >= 0))[0]
+    if len(sel) == 0:
+        raise ValueError("trace has no served column commands to replay")
+    sel = sel[np.argsort(trace.arrive[sel], kind="stable")]
+    width = max(len(g.cspec.levels) - 1 for g in msys.groups)
+    if msys.n_groups == 1:
+        sub = _unflatten_banks(msys.groups[0].cspec, trace.bank[sel], width)
+    else:
+        sub = np.zeros((len(sel), width), np.int64)
+        gsel = trace.group[sel]
+        for g, grp in enumerate(msys.groups):
+            m = gsel == g
+            if np.any(m):
+                sub[m] = _unflatten_banks(grp.cspec, trace.bank[sel][m],
+                                          width)
+    i32 = lambda a: np.ascontiguousarray(a, np.int32)
+    chan = i32(trace.chan[sel])
+    row = i32(np.maximum(trace.row[sel], 0))
+    dep = None
+    if deps:
+        dep = i32(_replay_deps(chan, trace.bank[sel], row, is_wr[sel]))
+    return ReplayStream(
+        chan=chan, sub=i32(sub), row=row,
+        col=np.zeros(len(sel), np.int32), is_write=i32(is_wr[sel]),
+        arrive=i32(trace.arrive[sel]), dep=dep)

@@ -31,7 +31,8 @@ on the card) the fused step equals the plain version; the
 ``DDR5x2+DDR4x2@80`` system reproduces its golden stream with one fused
 launch per spec group and loop iteration, and a run with a user predicate
 launches the kernel once per executed step (once per pass on a dual
-command bus) and never the plain step.  The general (max,+) kernel of
+command bus) and never the plain step.  A paced replay with dependencies
+and windowed telemetry on ``cuda`` equals the CPU run window for window.  The general (max,+) kernel of
 ``readiness.cu`` equals its plain version bit for bit in every tile
 configuration (int32 sums that wrap, fp32 rows of -inf terms), the
 readiness table holds its masks at latencies and timestamps far past the
@@ -53,13 +54,14 @@ from repro_torch import testing as T                        # noqa: E402
 from repro_torch.core import ControllerConfig, Simulator, compile_spec  # noqa: E402,E501
 from repro_torch.core import controller as C                # noqa: E402
 from repro_torch.core import device as D                    # noqa: E402
+from repro_torch.core import FrontendConfig                 # noqa: E402
 from repro_torch.core.standards import DEFAULT_SYSTEMS      # noqa: E402
 from repro_torch.kernels import controller_step as KS      # noqa: E402
 from repro_torch.kernels import flash_attention as FA       # noqa: E402
 from repro_torch.kernels import readiness as R              # noqa: E402
 from repro_torch.models import model as M                   # noqa: E402
 from repro_torch.serve.step import make_prefill_step, serve_batch  # noqa: E402,E501
-from repro_torch.trace import capture, trace_sha256         # noqa: E402
+from repro_torch.trace import capture, to_replay, trace_sha256  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -308,6 +310,34 @@ def test_run_batch_on_cuda_equals_the_cpu(cuda):
     _, off_cpu = off_sims[1].run_batch(300, **kw)
     for i in range(len(pts)):
         assert off.point(i).to_dict() == off_cpu.point(i).to_dict(), pts[i]
+
+
+def test_telemetry_and_replay_on_cuda_equal_the_cpu(cuda):
+    """A paced replay with dependencies and windowed telemetry on the card
+    equals the port's CPU run (``Stats`` and every window), with one fused
+    launch and one host sync per loop iteration and no plain step."""
+    src = Simulator("DDR4", "DDR4_8Gb_x8", "DDR4_2400R", device="cpu")
+    _, dense = src.run(1200, interval=16.0, read_ratio=0.5, trace=True)
+    stream = to_replay(capture(src.cspec, dense), src.cspec, deps=True)
+    runs = []
+    for d in (cuda, "cpu"):
+        sim = Simulator("DDR4", "DDR4_8Gb_x8", "DDR4_2400R", replay=stream,
+                        frontend=FrontendConfig(pattern="trace"), device=d)
+        before, plain = KS.launch_count, C.plain_calls
+        stats, telem = sim.run(2000, telemetry=256)
+        runs.append((stats, telem))
+        if d is cuda:
+            assert KS.launch_count - before == sim.host_syncs \
+                == stats.scan_steps
+            assert C.plain_calls == plain
+            telem.check(stats)
+    (got, gt), (want, wt) = runs
+    assert got.to_dict() == want.to_dict()
+    np.testing.assert_array_equal(gt.t_end, wt.t_end)
+    for a, b in zip(gt.groups, wt.groups):
+        for f in ("reads", "writes", "occ_sum", "cmd_counts", "lat_hist",
+                  "probe_lat_sum", "deferred"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
 
 
 def test_two_channel_golden_stream_on_cuda(cuda):

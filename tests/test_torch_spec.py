@@ -154,12 +154,8 @@ def _sim_system(groups):
 
 
 def _unported():
-    from repro_torch.core import FrontendConfig
     return {
-        "replay": lambda: _sim(replay=object()),
         "channel_shard": lambda: _sim(channel_shard=2),
-        "telemetry": lambda: _sim().run(100, telemetry=50),
-        "trace_pattern": lambda: FrontendConfig(pattern="trace"),
         "lint_warn": lambda: TC.compile_spec("DDR4", "DDR4_8Gb_x8",
                                              "DDR4_2400R", lint="warn"),
         "lint_error": lambda: TC.compile_spec("DDR4", "DDR4_8Gb_x8",
@@ -177,9 +173,12 @@ def _ported():
     """Options that raised until they were ported, each run at a tiny
     size: ``channels=2`` builds a 2-channel run, ``run_batch`` returns
     ``(pts, stats)`` with a leading point axis, ``system=`` runs a
-    composition of spec groups, and the BlockHammer, PRAC and user
-    predicates configure the controller."""
-    from repro_torch.core import ControllerConfig
+    composition of spec groups, the BlockHammer, PRAC and user
+    predicates configure the controller, ``telemetry=W`` returns windows
+    that sum to the run's ``Stats``, and ``pattern="trace"`` replays a
+    ``replay=`` stream."""
+    from repro_torch.core import (ControllerConfig, FrontendConfig,
+                                  ReplayStream)
 
     def system():
         sim = _sim_system([("DDR4", "DDR4_8Gb_x8", "DDR4_2400R"),
@@ -210,7 +209,25 @@ def _ported():
         assert tuple(stats.per_channel.cmd_counts.shape[:2]) == (4, 2)
         assert list(stats.cycles) == [40] * 4
         assert stats.point(3).to_dict()["cycles"] == 40
+    def telemetry():
+        stats, telem = _sim().run(100, interval=2.0, telemetry=50)
+        assert list(telem.t_end) == [50, 100]
+        telem.check(stats)
+
+    def replay():
+        stream = ReplayStream.from_addresses(
+            _sim().cspec, np.arange(16) * 64, np.arange(16) % 2)
+        stats = _sim(frontend=FrontendConfig(pattern="trace", probes=False),
+                     replay=stream).run(200, interval=2.0)
+        assert int(stats.reads_done) > 0 and stats.cycles == 200
+
+    def trace_pattern():
+        assert FrontendConfig(pattern="trace").pattern == "trace"
+        with pytest.raises(ValueError, match="ReplayStream"):
+            _sim(frontend=FrontendConfig(pattern="trace")).run(10)
     return {"channels": channels, "run_batch": run_batch, "system": system,
+            "telemetry": telemetry, "replay": replay,
+            "trace_pattern": trace_pattern,
             "blockhammer": predicate(blockhammer_threshold=8),
             "prac": predicate(prac_threshold=8),
             "extra_predicates": predicate(extra_predicates=(

@@ -12,8 +12,8 @@ rewrites ``tests/torch_serve_fixture.npz`` from the JAX package, and
     PYTHONPATH=src python tests/torch_parity.py --write-sim-fixtures
 
 rewrites ``tests/torch_batch_stats.json``,
-``tests/torch_multichannel_stats.json`` and
-``tests/torch_hetero_stats.json``."""
+``tests/torch_multichannel_stats.json``, ``tests/torch_hetero_stats.json``,
+``tests/torch_telemetry_stats.json`` and ``tests/torch_replay_stats.json``."""
 from __future__ import annotations
 
 import hashlib
@@ -214,6 +214,112 @@ def jax_stats_dict(std, n_cycles=3000, interval=2.0, read_ratio=0.7,
                    read_ratio=read_ratio).to_dict()
 
 
+TELEMETRY_FIELDS = ("reads", "writes", "probe_lat_sum", "probe_cnt",
+                    "data_bus_busy", "deferred", "occ_sum", "cmd_counts",
+                    "lat_hist")
+
+
+def assert_telemetry_equal(jt, tt):
+    """Every window's counters, window ends and group metadata of the
+    reference's ``Telemetry`` ``jt`` equal the port's ``tt`` exactly."""
+    assert (jt.window, jt.n_cycles) == (tt.window, tt.n_cycles)
+    np.testing.assert_array_equal(jt.t_end, tt.t_end)
+    assert len(jt.groups) == len(tt.groups)
+    for g, (a, b) in enumerate(zip(jt.groups, tt.groups)):
+        for f in ("standard", "channels", "link_latency", "tCK_ps",
+                  "access_bytes", "cmd_names", "lat_edges"):
+            assert getattr(a, f) == getattr(b, f), (g, f)
+        for f in TELEMETRY_FIELDS:
+            x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+            assert x.shape == y.shape, (g, f, x.shape, y.shape)
+            np.testing.assert_array_equal(x, y, err_msg=f"group {g} {f}")
+    assert jt.meta == tt.meta
+
+
+#: the windowed-telemetry cases of ``tests/test_torch_telemetry*.py``: a
+#: ragged DDR4 run, one shorter than its window, one of exactly four
+#: windows, a 2-channel HBM3 run and a DDR5 + CXL-DDR4@40 system
+TELEMETRY_HETERO = [dict(standard="DDR5", org_preset="DDR5_16Gb_x8",
+                         timing_preset="DDR5_4800B", channels=1),
+                    dict(standard="DDR4", org_preset="DDR4_8Gb_x8",
+                         timing_preset="DDR4_2400R", channels=1,
+                         link_latency=40)]
+
+#: (name, Simulator arguments, cycles, window, run arguments)
+TELEMETRY_CASES = {
+    "ddr4_ragged": (dict(standard="DDR4", org_preset="DDR4_8Gb_x8",
+                         timing_preset="DDR4_2400R"), 1500, 256,
+                    dict(interval=6.0, read_ratio=0.7)),
+    "hbm3_2ch": (dict(standard="HBM3", org_preset="HBM3_16Gb",
+                      timing_preset="HBM3_5200", channels=2), 2000, 128,
+                 dict(interval=3.0, read_ratio=0.8)),
+    "hetero": (dict(system=TELEMETRY_HETERO), 1200, 300,
+               dict(interval=2.0, read_ratio=0.7)),
+    "short": (dict(standard="DDR4", org_preset="DDR4_8Gb_x8",
+                   timing_preset="DDR4_2400R"), 100, 256, dict(interval=4.0)),
+    "exact": (dict(standard="DDR4", org_preset="DDR4_8Gb_x8",
+                   timing_preset="DDR4_2400R"), 1024, 256,
+              dict(interval=8.0, read_ratio=0.5)),
+}
+
+
+def telemetry_pair(kw, n, W, run, **sim_kw):
+    """The reference's and the port's ``(stats, telem)`` of one case."""
+    from repro.core import Simulator as JSim
+    from repro_torch.core import Simulator
+    js, jt = JSim(**kw, **sim_kw).run(n, telemetry=W, **run)
+    sim = Simulator(**kw, device="cpu", **sim_kw)
+    s, t = sim.run(n, telemetry=W, **run)
+    return js, jt, s, t, sim
+
+
+def check_telemetry_case(case, rerun=True):
+    """The case's windows equal the reference's and sum to its ``Stats``;
+    with ``rerun`` the port's run without telemetry gives the same
+    counters (fast-forward executes more steps with telemetry: a jump
+    stops at each window boundary)."""
+    kw, n, W, run = TELEMETRY_CASES[case]
+    js, jt, s, t, sim = telemetry_pair(kw, n, W, run)
+    assert s.to_dict() == js.to_dict()
+    assert_telemetry_equal(jt, t)
+    t.check(s)
+    jt.check(s)
+    assert t.n_windows == max(-(-n // W), 1)
+    assert sim.host_syncs == s.scan_steps       # no sync of its own
+    if rerun:
+        from repro_torch.core import Simulator
+        plain = Simulator(**kw, device="cpu").run(n, **run).to_dict()
+        got = s.to_dict()
+        for d in (plain, got):
+            d.pop("scan_steps")
+            d.pop("skipped_cycles")
+        assert plain == got
+
+
+def check_config(sim_kw: dict, n_cycles=1500, controller=None,
+                 frontend=None, **run):
+    """A DDR-family run of the port on the CPU (``Simulator(**sim_kw)``)
+    gives the reference's ``Stats.to_dict()`` and command-stream sha256;
+    ``controller`` / ``frontend`` are the two configs' keyword arguments.
+    Returns the port's stats."""
+    from repro.core import ControllerConfig as JCtl
+    from repro.core import FrontendConfig as JFront
+    from repro.core import Simulator as JSim
+    from repro.trace import capture as j_capture
+    from repro_torch.core import ControllerConfig, FrontendConfig, Simulator
+    from repro_torch.trace import capture
+    ctl, front = controller or {}, frontend or {}
+    jsim = JSim(**sim_kw, controller=JCtl(**ctl), frontend=JFront(**front))
+    js, jd = jsim.run(n_cycles, trace=True, **run)
+    sim = Simulator(**sim_kw, controller=ControllerConfig(**ctl),
+                    frontend=FrontendConfig(**front), device="cpu")
+    s, dense = sim.run(n_cycles, trace=True, **run)
+    assert s.to_dict() == js.to_dict()
+    assert trace_sha256(capture(sim.cspec, dense)) \
+        == trace_sha256(j_capture(jsim.cspec, jd))
+    return s
+
+
 def batch_fixture() -> dict:
     """The reference's ``run_batch`` of :data:`BATCH_RUN`: the run, the
     points in ``run_batch``'s order and each point's ``Stats.to_dict()``."""
@@ -340,10 +446,126 @@ def hetero_fixture() -> dict:
                 predicates=preds)
 
 
+TELEMETRY_FIXTURE = os.path.join(HERE, "torch_telemetry_stats.json")
+REPLAY_FIXTURE = os.path.join(HERE, "torch_replay_stats.json")
+#: the telemetry sessions ``chip_smoke.py`` phase 15 holds the port to
+#: (``tests/torch_telemetry_stats.json``): the README's DDR5 session in
+#: 1,000-cycle windows and the hetero system in 256-cycle windows
+TELEMETRY_RUNS = dict(
+    session=dict(standard="DDR5", org_preset="DDR5_16Gb_x8",
+                 timing_preset="DDR5_4800B", n_cycles=20_000, interval=2.0,
+                 read_ratio=0.8, seed=0x1234, window=1000),
+    hetero=dict(n_cycles=4_000, interval=1.0, read_ratio=0.7, seed=0x1234,
+                window=256))
+#: the replay sessions of phase 15 (``tests/torch_replay_stats.json``): a
+#: DDR4 source run captured and turned into a paced stream with
+#: dependencies, replayed 20,000 cycles without probes; the same for the
+#: hetero system (probes on); and ``run_batch`` over the DDR4 stream
+#: without its arrival clocks (probes on)
+REPLAY_RUNS = dict(
+    source=dict(standard="DDR4", org_preset="DDR4_8Gb_x8",
+                timing_preset="DDR4_2400R", n_cycles=4_000, interval=4.0,
+                read_ratio=0.5, seed=0x1234),
+    replay=dict(n_cycles=20_000, seed=0x1234),
+    hetero_source=dict(n_cycles=4_000, interval=4.0, read_ratio=0.5,
+                       seed=0x1234),
+    hetero_replay=dict(n_cycles=4_000, seed=0x1234),
+    batch=dict(n_cycles=4_000, intervals=[8.0, 2.0], read_ratios=[1.0],
+               seed=0x1234))
+
+
+def telemetry_doc(telem) -> dict:
+    """A ``Telemetry`` (either package's) as JSON-ready lists."""
+    return dict(t_end=np.asarray(telem.t_end).tolist(), groups=[
+        {f: np.asarray(getattr(g, f)).tolist() for f in TELEMETRY_FIELDS}
+        for g in telem.groups])
+
+
+def telemetry_fixture() -> dict:
+    """The reference's ``(stats, telemetry)`` of :data:`TELEMETRY_RUNS`."""
+    from repro.core import Simulator
+    s = dict(TELEMETRY_RUNS["session"])
+    sim = Simulator(s.pop("standard"), s.pop("org_preset"),
+                    s.pop("timing_preset"))
+    doc = dict(runs=TELEMETRY_RUNS, system=HETERO_SYSTEM)
+    for name, sim in (("session", sim),
+                      ("hetero", Simulator(system=HETERO_SYSTEM))):
+        r = TELEMETRY_RUNS[name]
+        stats, telem = sim.run(r["n_cycles"], interval=r["interval"],
+                               read_ratio=r["read_ratio"], seed=r["seed"],
+                               telemetry=r["window"])
+        doc[name] = dict(stats=stats_doc(stats),
+                         telemetry=telemetry_doc(telem))
+    return doc
+
+
+def replay_fixture() -> dict:
+    """The reference's replay sessions of :data:`REPLAY_RUNS`: each
+    stream's fingerprint and length, each replay's ``Stats`` (every
+    ``per_group`` leaf for the system) and command-stream digest."""
+    import dataclasses
+    import jax
+    from repro.core import FrontendConfig, Simulator, compile_system
+    from repro.trace import capture, to_replay
+    from repro.trace.capture import FIELDS
+    r = REPLAY_RUNS
+    src = r["source"]
+    sim = Simulator(src["standard"], src["org_preset"], src["timing_preset"])
+    msys = compile_system(HETERO_SYSTEM)
+
+    def stream(sim, spec, s):
+        _, dense = sim.run(s["n_cycles"], interval=s["interval"],
+                           read_ratio=s["read_ratio"], seed=s["seed"],
+                           trace=True)
+        return to_replay(capture(spec, dense), spec, deps=True)
+
+    def digest(tr, fields=FIELDS):
+        h = hashlib.sha256()
+        for f in fields:
+            h.update(np.ascontiguousarray(getattr(tr, f), np.int32)
+                     .tobytes())
+        return dict(n=len(tr), sha256=h.hexdigest())
+
+    rs = stream(sim, sim.cspec, src)
+    doc = dict(runs=r, system=HETERO_SYSTEM,
+               source=dict(fingerprint=rs.fingerprint, n=len(rs)))
+    rep = Simulator(src["standard"], src["org_preset"], src["timing_preset"],
+                    frontend=FrontendConfig(pattern="trace", probes=False),
+                    replay=rs)
+    stats, dense = rep.run(r["replay"]["n_cycles"], seed=r["replay"]["seed"],
+                           trace=True)
+    doc["replay"] = dict(stats=stats.to_dict(),
+                         **digest(capture(rep.cspec, dense)))
+
+    hs = stream(Simulator(system=msys), msys, r["hetero_source"])
+    rep = Simulator(system=msys, frontend=FrontendConfig(pattern="trace"),
+                    replay=hs)
+    stats, dense = rep.run(r["hetero_replay"]["n_cycles"],
+                           seed=r["hetero_replay"]["seed"], trace=True)
+    doc["hetero"] = dict(fingerprint=hs.fingerprint, n_stream=len(hs),
+                         stats=stats_doc(stats),
+                         **digest(capture(msys, dense), FIELDS + ("group",)))
+
+    unpaced = dataclasses.replace(rs, arrive=None, fingerprint="")
+    b = r["batch"]
+    pts, stats = Simulator(
+        src["standard"], src["org_preset"], src["timing_preset"],
+        frontend=FrontendConfig(pattern="trace"), replay=unpaced).run_batch(
+        b["n_cycles"], b["intervals"], b["read_ratios"], seed=b["seed"])
+    doc["batch"] = dict(fingerprint=unpaced.fingerprint,
+                        points=[list(p) for p in pts],
+                        stats=[jax.tree.map(lambda a, i=i: np.asarray(a)[i],
+                                            stats).to_dict()
+                               for i in range(len(pts))])
+    return doc
+
+
 def write_sim_fixtures():
     for path, doc in ((BATCH_FIXTURE, batch_fixture()),
                       (MULTI_FIXTURE, multichannel_fixture()),
-                      (HETERO_FIXTURE, hetero_fixture())):
+                      (HETERO_FIXTURE, hetero_fixture()),
+                      (TELEMETRY_FIXTURE, telemetry_fixture()),
+                      (REPLAY_FIXTURE, replay_fixture())):
         with open(path, "w") as f:
             json.dump(doc, f, indent=1)
             f.write("\n")

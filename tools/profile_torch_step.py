@@ -3,7 +3,8 @@
 
     PYTHONPATH=src python tools/profile_torch_step.py [--device cuda]
         [--standard DDR5] [--cycles 3000] [--interval 2.0] [--read-ratio 0.8]
-        [--channels 1] [--points 1] [--user-predicate]
+        [--channels 1] [--points 1] [--user-predicate] [--telemetry W]
+        [--replay]
 
 With ``--points 1`` it profiles one ``Simulator.run`` at ``--interval``
 and ``--read-ratio``; with ``--points P > 1`` one ``Simulator.run_batch``
@@ -15,7 +16,14 @@ first ``P / 4`` intervals with every ratio, or interval 1 with the first
 still running, one fused launch over all ``P * channels`` lanes.  With
 ``--user-predicate`` the controller takes the user predicate of
 ``tests/core/test_controllers.py`` (no write ever issues), whose mask the
-cycle computes on the device before each launch.
+cycle computes on the device before each launch.  With ``--telemetry W``
+(one point only) every run folds the windowed-telemetry gauges and takes
+a snapshot at each multiple of ``W``.  With ``--replay`` the simulator
+replays a stream instead of its synthetic one: a 4,000-cycle source run
+of the same system (interval 4.0, read ratio 0.5) captured on the device
+and turned into a paced stream with dependencies
+(``trace.to_replay(deps=True)``), replayed with
+``FrontendConfig(pattern="trace", probes=False)``.
 
 Prints (after a short warm-up run): wall seconds, loop iterations,
 milliseconds per iteration, host syncs, fused controller-step launches and
@@ -61,14 +69,19 @@ def main() -> int:
     ap.add_argument("--points", type=int, default=1,
                     choices=[1, 2, 3, 4, 8, 12, 16, 20, 24, 28, 32])
     ap.add_argument("--user-predicate", action="store_true")
+    ap.add_argument("--telemetry", type=int, default=0, metavar="W")
+    ap.add_argument("--replay", action="store_true")
     args = ap.parse_args()
+    if args.telemetry and args.points != 1:
+        ap.error("--telemetry profiles one point (--points 1)")
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import ControllerConfig, Simulator
+    from repro_torch.core import ControllerConfig, FrontendConfig, Simulator
     from repro_torch.core import controller as C
     from repro_torch.kernels import controller_step as KS
+    from repro_torch.trace import capture, to_replay
 
     cuda = torch.device(args.device).type == "cuda"
 
@@ -82,6 +95,14 @@ def main() -> int:
     sim = Simulator(args.standard, org, tim, channels=args.channels,
                     device=args.device,
                     controller=ControllerConfig(extra_predicates=preds))
+    if args.replay:
+        _, dense = sim.run(4000, interval=4.0, read_ratio=0.5, trace=True)
+        stream = to_replay(capture(sim.cspec, dense), sim.cspec, deps=True)
+        sim = Simulator(args.standard, org, tim, channels=args.channels,
+                        device=args.device, controller=sim.controller,
+                        frontend=FrontendConfig(pattern="trace",
+                                                probes=False),
+                        replay=stream)
     n_rr = min(args.points, len(READ_RATIOS))
     intervals = INTERVALS[:args.points // n_rr]
     read_ratios = READ_RATIOS[:n_rr]
@@ -92,7 +113,10 @@ def main() -> int:
         before = sim.host_syncs
         if args.points == 1:
             st = sim.run(n, interval=args.interval,
-                         read_ratio=args.read_ratio)
+                         read_ratio=args.read_ratio,
+                         telemetry=args.telemetry)
+            if args.telemetry:
+                st = st[0]
             return sim.host_syncs - before, st.scan_steps
         _, st = sim.run_batch(n, intervals, read_ratios)
         return sim.host_syncs - before, int(sum(st.scan_steps))
@@ -105,7 +129,9 @@ def main() -> int:
     sync()
     wall = time.perf_counter() - t0
     print(f"{args.standard} x {args.channels} channels, {args.points} "
-          f"points, {args.cycles} cycles on {args.device}: wall "
+          f"points, {args.cycles} cycles on {args.device}"
+          + (f", telemetry={args.telemetry}" if args.telemetry else "")
+          + (", replay" if args.replay else "") + ": wall "
           f"{wall:.3f} s, loop iterations {steps}, executed point-cycles "
           f"{executed}, {wall / steps * 1e3:.3f} ms/iteration, host syncs "
           f"{steps}, fused controller-step launches {KS.launch_count}, "
@@ -133,6 +159,7 @@ def main() -> int:
     print(json.dumps({
         "standard": args.standard, "channels": args.channels,
         "points": args.points, "user_predicate": args.user_predicate,
+        "telemetry": args.telemetry, "replay": args.replay,
         "device": args.device,
         "device_name": torch.cuda.get_device_name(0) if cuda else "cpu",
         "cycles": args.cycles, "steps": steps, "wall_s": wall,
