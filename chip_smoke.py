@@ -138,9 +138,30 @@ Phases, each fatal on any mismatch or exception:
     intervals [8, 2] over the DDR4 stream without its arrival clocks
     (probes on).
 
+16. the paper's Fig. 1 sweep through ``repro_torch.dse.execute``: the
+    grid of ``benchmarks/bench_latency_throughput.py`` (11 standards x 6
+    intervals x 3 read ratios, FR-FCFS, seed 0x1234; ``DSE_FIG1`` of
+    ``tests/torch_parity.py``) cut to 5,000 cycles, 198 points in 11
+    compile groups, each group one cached batched run with one fused
+    launch per loop iteration over its 18 points and one host sync.  In
+    the main process while phase 5's workers run: a sweep with a
+    violating override (DDR4, ``nRC`` 1) raises ``SpecLintError`` before
+    any launch; the sweep on a fresh ``RunCache`` (11 misses, every launch
+    count set to 0 just before and read just after) equals
+    ``tests/torch_dse_stats.json`` point by point exactly (every column,
+    the command counts); a two-point DDR4 ``capture_traces`` sweep gives
+    the fixture's sha256 per point; ``python -m repro_torch.dse.sweep
+    --standards DDR4,HBM3 --intervals 16,4,1 --cycles 2000 --out
+    build/dse_smoke`` exits 0 in a subprocess and its artifact loads.
+    After the workers, alone: the same sweep again (0 misses, 11 hits,
+    nothing built), held to the fixture the same way, with its wall
+    seconds per group and in total, point-cycles/s, ms and launches per
+    iteration.
+
 The line before the last is a JSON object with one entry per kernel (its
 times, bound and launches; the fused controller step's launches are those
-of the batched session and of phases 14 and 15's sessions, its times those
+of the batched session, of phases 14 and 15's sessions and of phase 16's
+two Fig. 1 sweeps, its times those
 of one 128-lane launch; the readiness table and the general (max,+) product, off
 every main path, report the main path's 0 launches and their DDR5 and
 2048^3 int32 times); the last line is
@@ -577,11 +598,13 @@ def golden_run(std: str, org: str, tim: str, device: str) -> dict:
                 wall=wall, launches=KS.launch_count, plain=C.plain_calls)
 
 
-def golden_phase(device: str) -> int:
+def golden_phase(device: str, meanwhile=None) -> tuple:
     """The golden runs and the sessions of phases 12, 14 and 15, spread
     over worker processes (the longest first): each run is bound by its
-    host loop, so processes on separate cores share the one card.  Returns
-    the fused launches of phase 14's sessions and of phase 15's."""
+    host loop, so processes on separate cores share the one card.  The
+    main process runs ``meanwhile()`` while they do.  Returns the fused
+    launches of phase 14's sessions and of phase 15's, and what
+    ``meanwhile`` returned."""
     import multiprocessing
     import os
     from concurrent.futures import ProcessPoolExecutor
@@ -600,6 +623,7 @@ def golden_phase(device: str) -> int:
         multi = pool.submit(multichannel_run, device)
         futures = [(std, pool.submit(golden_run, std, org, tim, device))
                    for std, (org, tim) in systems]
+        extra = meanwhile() if meanwhile is not None else None
         results = [(std, f.result()) for std, f in futures]
         system_results = [(job, f.result()) for job, f in jobs]
         p15_results = [(job, f.result()) for job, f in p15]
@@ -632,7 +656,7 @@ def golden_phase(device: str) -> int:
             fail(f"{std} run launched the fused kernel {r['launches']} times "
                  f"in {r['steps']} steps and called the plain step "
                  f"{r['plain']} times")
-    return launches, p15_launches
+    return launches, p15_launches, extra
 
 
 def telemetry_doc(telem) -> dict:
@@ -781,6 +805,206 @@ def check_phase15(job: str, r: dict) -> int:
              f"launches and {r['plain']} plain steps for {r['steps']} loop "
              f"iterations ({r['groups']} spec groups)")
     return r["launches"]
+
+
+def dse_parity():
+    """``tests/torch_parity.py``: phase 16's grid (``DSE_FIG1``, the
+    constant ``tests/torch_dse_stats.json`` was written from) and its
+    ``sweep_spec``."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_parity
+    return torch_parity
+
+
+def dse_fig1() -> dict:
+    return dse_parity().DSE_FIG1
+
+
+def dse_spec(run: dict, **kw):
+    """The port's ``SweepSpec`` of a fixture run."""
+    from repro_torch import dse
+    return dse_parity().sweep_spec(dse, run, **kw)
+
+
+def dse_check(what: str, res, want: dict, launches: int, plain: int,
+              readiness: int):
+    """Hold a sweep's result to its fixture entry (every column exactly,
+    NaN where NaN; the command counts) and to one fused launch per spec
+    group and loop iteration, one host sync per iteration, each group's
+    iterations its points' most executed cycles, and no plain step."""
+    import numpy as np
+    for k, col in want["columns"].items():
+        got = np.asarray(getattr(res, k))
+        ref = np.asarray(col, got.dtype)
+        same = got == ref
+        if got.dtype.kind == "f":
+            same |= np.isnan(got) & np.isnan(ref)
+        if not same.all():
+            bad = int(np.flatnonzero(~same)[0])
+            fail(f"{what}: {k} of point {want['labels'][bad]} is "
+                 f"{got[bad]!r}, the reference's {col[bad]!r}")
+    counts = [np.asarray(c).tolist() for c in res.cmd_counts]
+    if counts != want["cmd_counts"] or res.cmd_names != want["cmd_names"]:
+        fail(f"{what}: command counts differ from the reference fixture")
+    if [pt.label for pt in res.points] != want["labels"]:
+        fail(f"{what}: points differ from the fixture's")
+    m = res.meta
+    start, expect = 0, 0
+    for g in m["groups"]:
+        steps = res.scan_steps[start:start + g["n_points"]]
+        start += g["n_points"]
+        # a capturing group runs its points one at a time
+        want_iters = int(sum(steps) if res.traces else max(steps))
+        if g["iterations"] != want_iters:
+            fail(f"{what}: group {g['system']} ran {g['iterations']} loop "
+                 f"iterations for {want_iters}")
+        expect += g["iterations"] * g["n_spec_groups"]
+    if (m["host_syncs"] != sum(g["iterations"] for g in m["groups"])
+            or launches != expect or plain or readiness):
+        fail(f"{what}: {launches} fused launches for {expect} (group x "
+             f"iteration), {m['host_syncs']} host syncs, {plain} plain "
+             f"steps, {readiness} readiness launches")
+
+
+def dse_run(what: str, spec, cache, device, want: dict):
+    """One ``execute`` on the card with every launch count set to 0 just
+    before and read just after, held by :func:`dse_check`; returns the
+    result, its wall seconds and its fused launches."""
+    import torch
+    from repro_torch import dse
+    from repro_torch.core import controller as C
+    from repro_torch.kernels import controller_step as KS
+    from repro_torch.kernels import readiness as R
+    torch.cuda.synchronize()
+    KS.launch_count = R.launch_count = C.plain_calls = 0
+    t0 = time.perf_counter()
+    res = dse.execute(spec, cache=cache, devices=[device])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = KS.launch_count
+    dse_check(what, res, want, launches, C.plain_calls, R.launch_count)
+    return res, wall, launches
+
+
+def dse_phase(device) -> dict:
+    """Phase 16, the cold half (run in the main process while the golden
+    phase's workers share the card): the lint gate, the Fig. 1 sweep on a
+    fresh cache (11 misses), the capture sweep and the CLI in a
+    subprocess.  Returns the cache and the launches."""
+    import torch
+    from repro_torch import dse
+    from repro_torch.analysis import SpecLintError
+    from repro_torch.core import engine as E
+    from repro_torch.kernels import controller_step as KS
+    doc = json.loads((ROOT / "tests" / "torch_dse_stats.json").read_text())
+    run = dse_fig1()
+    if doc["fig1"]["run"] != run:
+        fail("phase 16: tests/torch_dse_stats.json was written for another "
+             "grid than torch_parity.DSE_FIG1")
+    out = {}
+    # the lint gate: a violating corner raises before anything launches
+    KS.launch_count = 0
+    try:
+        dse.execute(dse.SweepSpec(
+            systems=(("DDR4", "DDR4_8Gb_x8", "DDR4_2400R", {"nRC": 1}),),
+            intervals=(8.0,), n_cycles=400), devices=[device])
+        fail("phase 16: the sweep with nRC=1 ran past the lint gate")
+    except SpecLintError as e:
+        if "trc-decomposition" not in e.report.rules_fired() \
+                or KS.launch_count:
+            fail(f"phase 16: lint gate fired {e.report.rules_fired()} "
+                 f"after {KS.launch_count} launches")
+    print(f"sweep lint gate on {device}: SpecLintError "
+          f"(trc-decomposition) before any launch, fused launches 0")
+
+    cache = E.RunCache()
+    res, wall, launches = dse_run("Fig. 1 sweep (cold)", dse_spec(run),
+                                  cache, device, doc["fig1"])
+    m = res.meta
+    G = doc["fig1"]["n_groups"]          # 11
+    if (m["n_groups"], m["compile_cache_misses"], m["compile_cache_hits"],
+            m["traces"]) != (G, G, 0, G):
+        fail(f"Fig. 1 sweep (cold): groups {m['n_groups']}, misses "
+             f"{m['compile_cache_misses']}, hits {m['compile_cache_hits']}, "
+             f"builds {m['traces']}; want {G}, {G}, 0, {G}")
+    print(f"Fig. 1 sweep (cold, beside the golden workers) on {device}: "
+          f"{m['n_points']} points in {m['n_groups']} groups x "
+          f"{run['n_cycles']} cycles == tests/torch_dse_stats.json; wall "
+          f"{wall:.2f} s, loop iterations {m['host_syncs']}, fused launches "
+          f"{launches}, plain steps 0; cache misses "
+          f"{m['compile_cache_misses']}, first-call seconds "
+          f"{m['cache']['first_call_s']}")
+    out.update(cache=cache, cold_launches=launches, cold_wall=wall,
+               cold_meta=m)
+
+    cap = doc["capture"]
+    res, wall, launches = dse_run(
+        "capture sweep", dse_spec(cap["run"], capture_traces=True),
+        E.RunCache(), device, cap)
+    from repro_torch.trace import trace_sha256
+    got = [dict(n=len(t), sha256=trace_sha256(t)) for t in res.traces]
+    if got != cap["traces"]:
+        fail(f"capture sweep: traces {got} != fixture {cap['traces']}")
+    print(f"capture sweep on {device}: {len(got)} DDR4 points, traces "
+          f"{[t['n'] for t in got]} commands, sha256 == fixture, "
+          f"{res.meta['compile_cache_misses']} cache miss, fused launches "
+          f"{launches} ({res.meta['host_syncs']} iterations), {wall:.2f} s")
+
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.dse.sweep", "--standards",
+           "DDR4,HBM3", "--intervals", "16,4,1", "--cycles", "2000",
+           "--out", "build/dse_smoke"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode:
+        fail(f"sweep CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    loaded = dse.SweepResult.load(str(ROOT / "build" / "dse_smoke"))
+    if len(loaded) != 6 or not (loaded.reads_done > 0).all():
+        fail(f"sweep CLI artifact: {len(loaded)} points")
+    print(f"sweep CLI ({' '.join(cmd[1:])}) exited 0 in "
+          f"{time.perf_counter() - t0:.1f} s; artifact "
+          f"build/dse_smoke.npz loads with {len(loaded)} points")
+    torch.cuda.synchronize()
+    return out
+
+
+def dse_warm_phase(device, cold: dict) -> int:
+    """Phase 16, the warm half (alone on the card): the same Fig. 1 sweep
+    again on the cold half's cache — 0 misses and 11 hits, nothing built —
+    held to the fixture as before, with its wall seconds per group and in
+    total, point-cycles/s, ms and launches per loop iteration.  Returns
+    the fused launches of both sweeps."""
+    doc = json.loads((ROOT / "tests" / "torch_dse_stats.json").read_text())
+    run = dse_fig1()
+    res, wall, launches = dse_run("Fig. 1 sweep (warm)", dse_spec(run),
+                                  cold["cache"], device, doc["fig1"])
+    m = res.meta
+    G = doc["fig1"]["n_groups"]          # 11
+    if (m["compile_cache_misses"], m["compile_cache_hits"],
+            m["traces"]) != (0, G, 0):
+        fail(f"Fig. 1 sweep (warm): misses {m['compile_cache_misses']}, "
+             f"hits {m['compile_cache_hits']}, builds {m['traces']}; want "
+             f"0, {G}, 0")
+    iters = m["host_syncs"]
+    P = m["n_points"] * run["n_cycles"]
+    print(f"Fig. 1 sweep (warm, alone) on {device}: {m['n_points']} points "
+          f"== tests/torch_dse_stats.json; wall {wall:.2f} s, "
+          f"{P / wall:.1f} point-cycles/s, executed point-cycles "
+          f"{int(res.scan_steps.sum())}, loop iterations {iters}, "
+          f"{wall / iters * 1e3:.3f} ms per iteration, fused launches per "
+          f"iteration {launches / iters:.3f}, plain steps 0; cache misses 0, "
+          f"hits {m['compile_cache_hits']}, first-call seconds (cold) "
+          f"{cold['cold_meta']['cache']['first_call_s']}")
+    cold_groups = {g["system"]: g for g in cold["cold_meta"]["groups"]}
+    for g in m["groups"]:
+        c = cold_groups[g["system"]]
+        print(f"  {g['system']:<9} {g['n_points']} points, iterations "
+              f"{g['iterations']:>5}, wall {g['wall_s']:6.2f} s warm "
+              f"({g['wall_s'] / g['iterations'] * 1e3:.3f} ms/iteration), "
+              f"{c['wall_s']:6.2f} s cold")
+    return cold["cold_launches"] + launches
 
 
 def lanes_phase(device):
@@ -1865,8 +2089,12 @@ def main() -> int:
                            lanes["device_us"])
     hetero_launches = timed("14 hetero session", hetero_session_phase,
                             device)
-    system_launches, p15_launches = timed("5, 12, 14, 15 in workers",
-                                          golden_phase, "cuda")
+    # phase 16's cold half runs in this process beside the workers, its
+    # warm half alone after them
+    system_launches, p15_launches, dse_cold = timed(
+        "5, 12, 14, 15 in workers; 16 cold", golden_phase, "cuda",
+        lambda: dse_phase(device))
+    dse_launches = timed("16 warm", dse_warm_phase, device, dse_cold)
     _, launches = timed("6 main path", main_path_phase, device)
     timed("7 fixture", fixture_phase, device)
     core_launches = timed("8 reduced", reduced_phase, device)
@@ -1904,7 +2132,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/controller_step.cu",
         "replaces": "src/repro/kernels/timing_check.py:51",
         "launches": (batch_launches + hetero_launches + system_launches
-                     + p15_launches),
+                     + p15_launches + dse_launches),
         "max_abs_err": max(fused["max_err"], lanes["max_err"],
                            preds["max_err"]),
         "ms": lanes["ms"], "plain_ms": lanes["plain_ms"],

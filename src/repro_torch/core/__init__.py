@@ -13,8 +13,9 @@ from repro_torch.core.compile import (CompiledSpec, MemorySystemSpec,
                                       SpecGroup, as_system, compile_spec,
                                       compile_system)
 from repro_torch.core.controller import ControllerConfig
-from repro_torch.core.engine import (Simulator, Stats, avg_probe_latency_ns,
-                                     peak_gbps, row_hit_rate,
+from repro_torch.core.engine import (RUN_CACHE, RunCache, Simulator, Stats,
+                                     avg_probe_latency_ns, channel_breakdown,
+                                     format_stats, peak_gbps, row_hit_rate,
                                      throughput_gbps)
 from repro_torch.core.frontend import FrontendConfig, ReplayStream
 from repro_torch.core.spec import (Command, DRAMSpec, Organization,
@@ -27,4 +28,5 @@ __all__ = [
     "Stats", "FrontendConfig", "ReplayStream", "Command", "DRAMSpec", "Organization",
     "TimingConstraint", "all_standards", "get_standard", "standards",
     "throughput_gbps", "peak_gbps", "avg_probe_latency_ns", "row_hit_rate",
+    "channel_breakdown", "format_stats", "RunCache", "RUN_CACHE",
 ]

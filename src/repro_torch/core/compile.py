@@ -12,8 +12,8 @@ the run's device once (``repro_torch.core.device.dyn_params``):
 Memory systems compose ordered spec groups (``SpecGroup``, one
 ``CompiledSpec`` each, with a channel count and an optional CXL-style link
 latency) behind one system address mapper: ``MemorySystemSpec``,
-``compile_system`` and ``as_system``.  The compile-time spec-lint gate is
-not ported yet.
+``compile_system`` and ``as_system``.  ``compile_spec(lint=...)`` runs
+the spec linter (``repro_torch.analysis``) at compile time.
 """
 from __future__ import annotations
 
@@ -359,12 +359,12 @@ def compile_spec(standard, org_preset: str, timing_preset: str,
                  channels: int = 1, lint: str | None = None) -> CompiledSpec:
     """Lower a standard to its dense-table form.
 
-    ``lint`` keeps the reference's signature: ``None`` reads the
-    ``REPRO_SPEC_LINT`` environment variable, ``"off"`` skips the pass.
-    The spec linter itself is not ported, so ``"warn"`` and ``"error"``
-    raise ``NotImplementedError`` instead of being ignored.
+    ``lint`` gates a compile-time run of the spec linter
+    (``repro_torch.analysis``) over the result: ``"error"`` raises on any
+    error-severity finding, ``"warn"`` prints the findings, ``"off"`` (the
+    default) skips the pass.  ``None`` reads the ``REPRO_SPEC_LINT``
+    environment variable.
     """
-    _check_lint_mode(lint)
     if isinstance(standard, str):
         standard = S.get_standard(standard)
     if channels < 1:
@@ -432,7 +432,7 @@ def compile_spec(standard, org_preset: str, timing_preset: str,
     nBL = timings["nBL"]
     read_latency = timings["nCL"] + nBL
 
-    return CompiledSpec(
+    cspec = CompiledSpec(
         name=standard.name, levels=levels,
         level_counts=np.array(counts, dtype=np.int64),
         level_offsets=offsets, num_nodes=num_nodes, n_banks=n_banks,
@@ -456,17 +456,26 @@ def compile_spec(standard, org_preset: str, timing_preset: str,
         timing_preset=timing_preset, n_channels=int(channels),
         lat_bucket_edges=plan_latency_buckets(read_latency),
     )
+    _lint_compiled(cspec, channels, lint)
+    return cspec
 
 
-def _check_lint_mode(lint: str | None):
-    """The reference's compile-time lint gate, minus the linter: an armed
-    gate raises rather than silently compiling unlinted."""
+def _lint_compiled(cspec: CompiledSpec, channels: int, lint: str | None):
+    """The compile-time spec-lint gate (the reference's): ``"error"``
+    raises on an error-severity finding, ``"warn"`` prints the findings,
+    ``"off"`` skips the pass; ``None`` reads ``REPRO_SPEC_LINT``.  The
+    linter is imported only when the gate is armed."""
     mode = lint if lint is not None else os.environ.get(
         "REPRO_SPEC_LINT", "off")
     if mode in ("off", "", None):
         return
     if mode not in ("warn", "error"):
         raise ValueError(f"lint mode must be off|warn|error, got {mode!r}")
-    raise NotImplementedError(
-        f"compile_spec(lint={mode!r}): the spec linter (repro.analysis) is "
-        "not ported to repro_torch yet — see ROADMAP.md queue 1")
+    from repro_torch.analysis.speclint import lint_compiled
+    report = lint_compiled(cspec, channels=max(1, channels))
+    if report.ok() and not report.warnings:
+        return
+    if mode == "error" and not report.ok():
+        raise ValueError("spec lint failed at compile time:\n"
+                         + report.summary())
+    print(report.summary())

@@ -712,17 +712,20 @@ def _events_view(out: torch.Tensor) -> tuple:
 
 
 def step_plan(cspec: CompiledSpec, dp: D.DynParams, cfg: ControllerConfig,
-              cs: CtrlState, link_latency: int = 0) -> KS.StepPlan:
+              cs: CtrlState, link_latency: int = 0,
+              plans: dict | None = None) -> KS.StepPlan:
     """The kernel's plan for this (spec, latencies, config, link latency,
-    queue depth, lanes, device), built at first use and kept (a few per
-    process), for ``cs`` leaves ``(P, C, ...)``; the events and the
-    horizon are views of the plan's buffer in the lanes' shape.  Each
-    spec group of a memory system has its own ``dp``, so its own plan and
-    buffer."""
+    queue depth, lanes, device), built at first use and kept, for ``cs``
+    leaves ``(P, C, ...)``; the events and the horizon are views of the
+    plan's buffer in the lanes' shape.  Each spec group of a memory system
+    has its own ``dp``, so its own plan and buffer.  ``plans`` is the
+    caller's store (a cached run keeps every plan it built); without it a
+    process-wide store keeps the last few."""
     *shape, Q = cs.queue.valid.shape
     dev = cs.queue.valid.device
     key = (id(dp), cfg, int(link_latency), Q, tuple(shape), dev)
-    hit = _PLANS.get(key)
+    store = _PLANS if plans is None else plans
+    hit = store.get(key)
     if hit is not None and hit[0] is dp:
         return hit[1]
     if len(shape) != 2:
@@ -732,9 +735,9 @@ def step_plan(cspec: CompiledSpec, dp: D.DynParams, cfg: ControllerConfig,
                          link_latency)
     plan.events, plan.horizon = _events_view(
         plan.out.view(plan.lane_shape + (KS.EVENT["EvWords"],)))
-    if len(_PLANS) >= 8:
+    if plans is None and len(_PLANS) >= 8:
         _PLANS.pop(next(iter(_PLANS)))
-    _PLANS[key] = (dp, plan)
+    store[key] = (dp, plan)
     return plan
 
 
@@ -771,11 +774,11 @@ def user_mask(cspec: CompiledSpec, dp: D.DynParams, cfg: ControllerConfig,
 
 
 def _dispatch(cspec, dp, cfg, cs, clk, active, horizon: bool,
-              link_latency: int) -> tuple:
+              link_latency: int, plans: dict | None) -> tuple:
     if _device_kind(cs) == "cpu":
         return step_lanes_plain(cspec, dp, cfg, cs, clk, active, horizon,
                                 link_latency)
-    plan = step_plan(cspec, dp, cfg, cs, link_latency)
+    plan = step_plan(cspec, dp, cfg, cs, link_latency, plans)
     if not cfg.extra_predicates:
         KS.controller_step_cuda(plan, cs, clk, active, horizon)
         return cs, plan.events, plan.horizon
@@ -790,7 +793,8 @@ def _dispatch(cspec, dp, cfg, cs, clk, active, horizon: bool,
 def controller_step(cspec: CompiledSpec, dp: D.DynParams,
                     cfg: ControllerConfig, cs: CtrlState,
                     clk: torch.Tensor, active: torch.Tensor,
-                    link_latency: int = 0) -> tuple:
+                    link_latency: int = 0, plans: dict | None = None
+                    ) -> tuple:
     """One controller cycle of every lane: ``(cs', StepEvents)``.
 
     ``clk`` is a ``(P,)`` int32 tensor of per-point clocks with ``active``
@@ -801,17 +805,20 @@ def controller_step(cspec: CompiledSpec, dp: D.DynParams,
     launch per pass of a dual command bus then), which updates ``cs``'s
     tensors in place and returns views of a buffer the next launch
     overwrites (see ``repro_torch.kernels.controller_step``); on CPU
-    tensors it runs the plain version."""
+    tensors it runs the plain version.  ``plans`` keeps the kernel's
+    plans (see :func:`step_plan`)."""
     return _dispatch(cspec, dp, cfg, cs, clk, active, False,
-                     link_latency)[:2]
+                     link_latency, plans)[:2]
 
 
 def step_and_horizon(cspec: CompiledSpec, dp: D.DynParams,
                      cfg: ControllerConfig, cs: CtrlState,
                      clk: torch.Tensor, active: torch.Tensor,
-                     link_latency: int = 0) -> tuple:
+                     link_latency: int = 0, plans: dict | None = None
+                     ) -> tuple:
     """:func:`controller_step` at ``clk`` and the channel horizon at
     ``clk + 1`` on the new state, ``(cs', StepEvents, horizon (P, C))``:
     the kernel on CUDA tensors, :func:`step_lanes_plain` on CPU
     tensors."""
-    return _dispatch(cspec, dp, cfg, cs, clk, active, True, link_latency)
+    return _dispatch(cspec, dp, cfg, cs, clk, active, True, link_latency,
+                     plans)

@@ -39,12 +39,20 @@ counters into a preallocated ``(n_windows, P, C, ...)`` device buffer,
 read back once after the loop: no host sync of its own.  With
 ``telemetry=0`` none of it runs.
 
+Runs go through :class:`RunCache` (``RUN_CACHE``, as the reference's
+``Simulator`` and ``repro.dse`` do): one :func:`make_run` per key, which
+keeps what it sends to its device (DynParams, frontend tables, the
+kernel's plans) for every later call.  ``format_stats``,
+``channel_breakdown`` and ``Stats.summary`` give the reference's text.
+
 Not ported yet, raising ``NotImplementedError`` with its ROADMAP entry:
 channel sharding.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -55,9 +63,14 @@ from repro_torch.core import controller as C
 from repro_torch.core import device as D
 from repro_torch.core import frontend as F
 from repro_torch.core.compile import (CompiledSpec, MemorySystemSpec,
-                                      as_system, compile_spec)
+                                      SpecGroup, as_system, compile_spec)
 
 I32 = torch.int32
+
+#: :func:`make_run` builds in this process (the reference's name, where it
+#: counts traces of a run closure): a sweep that hits :data:`RUN_CACHE`
+#: builds nothing
+TRACE_COUNT = 0
 
 
 class ChannelStats(NamedTuple):
@@ -130,6 +143,11 @@ class Stats(NamedTuple):
             for k in ("reads_done", "writes_done", "probe_cnt",
                       "data_bus_busy", "deferred")}
         return d
+
+    def summary(self, spec=None) -> str:
+        """Human-readable summary of one scalar run; with the run's spec
+        or system, group-aware physical units (see :func:`format_stats`)."""
+        return format_stats(self, spec)
 
 
 def _np(x) -> np.ndarray:
@@ -341,12 +359,18 @@ class _Upload:
 
 def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
              n_cycles: int, trace: bool, fast_forward: bool = True,
-             points: int = 1, replay: F.ReplayStream | None = None,
-             telemetry_window: int = 0):
+             points: int | None = None,
+             replay: F.ReplayStream | None = None,
+             telemetry_window: int = 0, plans: dict | None = None):
     """Build the run function ``(dps, fp, seed, device) -> RunResult`` of
-    ``points`` design points (``fp``'s ``(P,)`` load knobs; batched
-    :class:`Stats`) over ``spec``, a :class:`CompiledSpec` or a
+    the design points of ``fp`` (its ``(P,)`` load knobs; batched
+    :class:`Stats`; ``points``, when given, is the ``P`` every call must
+    bring) over ``spec``, a :class:`CompiledSpec` or a
     :class:`MemorySystemSpec` (``dps``: one ``DynParams`` per group).
+    The function keeps what it sends to a device once (the frontend and
+    replay tables, the kernel's plans in ``plans``, its own store unless
+    given one) for its later calls, so it must not outlive an edit of
+    ``spec`` (:class:`RunCache` hands it a snapshot).
 
     Each iteration inserts the frontend's requests into the groups'
     queues, then steps every group's lanes (one fused launch per group on
@@ -370,9 +394,10 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
     there.  The run's output is ``stats``, then the trace, then the
     snapshots, as a tuple when there is more than the stats.
     """
+    global TRACE_COUNT
     msys = as_system(spec)
     groups = msys.groups
-    if trace and points != 1:
+    if trace and points not in (None, 1):
         raise ValueError("trace=True records one point's run")
     if not 0 <= n_cycles <= 2**30:
         raise ValueError(f"n_cycles {n_cycles} outside [0, 2**30]: the "
@@ -380,12 +405,24 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
     F.require_replay(fcfg, replay)
     if replay is not None:
         check_replay(msys, replay)
-    P = points
+    TRACE_COUNT += 1
     W = telemetry_window
     n_full = n_cycles // W if W else 0
     # a ragged tail (or n_cycles < W) gets one more window
     n_windows = n_full + (1 if W and (n_cycles % W or not n_full) else 0)
     paced = F.paced_by_arrive(fcfg, replay)
+    uploaded: dict = {}         # device -> (frontend, replay, edges) tables
+    plans = {} if plans is None else plans   # controller.step_plan's store
+
+    def tables(device):
+        key = (device.type, device.index)
+        if key not in uploaded:
+            uploaded[key] = (
+                F.system_front_tables(msys, fcfg, device),
+                None if replay is None else F.replay_tables(replay, device),
+                [torch.as_tensor(g.cspec.lat_bucket_edges, dtype=I32,
+                                 device=device) for g in groups])
+        return uploaded[key]
 
     def run(dps, fp: F.FrontParams, seed: int, device):
         if isinstance(dps, D.DynParams):
@@ -393,8 +430,13 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
         if len(dps) != msys.n_groups:
             raise ValueError(f"expected {msys.n_groups} DynParams (one per "
                              f"spec group), got {len(dps)}")
-        st = F.system_front_tables(msys, fcfg, device)
-        rt = None if replay is None else F.replay_tables(replay, device)
+        device = torch.device(device)
+        P = int(fp.interval_fp.shape[0])
+        if points is not None and P != points:
+            raise ValueError(f"this run takes {points} point(s), got {P}")
+        if trace and P != 1:
+            raise ValueError("trace=True records one point's run")
+        st, rt, edges = tables(device)
         k_draws = st.k_draws
         a_cyc, c_cyc = F.lcg_affine(k_draws)
         cap = fcfg.max_backlog_fp
@@ -420,7 +462,7 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
             for gi, (grp, dp, cs, ch, queue) in enumerate(
                     zip(groups, dps, css, chs, queues)):
                 out = step(grp.cspec, dp, ccfg, cs._replace(queue=queue),
-                           clk, active, grp.link_latency)
+                           clk, active, grp.link_latency, plans)
                 ev = out[1]
                 if fast_forward:
                     h = out[2].amin(-1)
@@ -449,10 +491,8 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
         fs = F.init_front(seed, device, P)
         clks, ys = [], []
         syncs = 0
-        tms = bufs = edges = None
+        tms = bufs = None
         if W:
-            edges = [torch.as_tensor(g.cspec.lat_bucket_edges, dtype=I32,
-                                     device=device) for g in groups]
             tms = [torch.zeros((P, g.channels, 1 + len(e)), dtype=I32,
                                device=device) for g, e in zip(groups, edges)]
             bufs = [torch.zeros((n_windows, P, g.channels,
@@ -568,6 +608,245 @@ def _dense_trace(clks, ys, n_cycles, channels, device) -> TraceArrays:
                        hit_ready=f[4] != 0)
 
 
+# --------------------------------------------------------------------------
+# Run cache
+# --------------------------------------------------------------------------
+#
+# `make_run` builds a fresh closure every call; `RunCache` keeps one per
+# key: everything that changes the run (the system's fingerprint, the
+# controller and frontend configs less the load knobs, the cycle count,
+# trace, batch, replay stream, telemetry window, the device and
+# fast-forward).  Load knobs and the seed are call arguments, so sweeping
+# them never builds again.  An entry also holds what the run sends to its
+# device once: the frontend tables, and — shared with the other entries
+# of its system on that device — the groups' DynParams and the kernel's
+# plans.
+
+
+def _freeze(obj):
+    """Recursively convert configs/dicts into hashable cache-key tuples.
+
+    Callables (user predicates in ``extra_predicates``) freeze to their
+    qualified name, bytecode and constants, closure cells and default
+    arguments, so equal configs built by separate but identical factory
+    calls share one entry.  A predicate that reads a module-level global
+    which changes between runs is not re-keyed: bind state through
+    closures or defaults."""
+    if obj is None or isinstance(obj, (int, float, str, bool, bytes)):
+        return obj
+    if isinstance(obj, dict):
+        return tuple(sorted((k, _freeze(v)) for k, v in obj.items()))
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return (type(obj).__name__,) + tuple(
+            (f.name, _freeze(getattr(obj, f.name)))
+            for f in dataclasses.fields(obj))
+    if isinstance(obj, (list, tuple)):
+        return tuple(_freeze(x) for x in obj)
+    if callable(obj):
+        cells = getattr(obj, "__closure__", None) or ()
+        closure = tuple(_freeze(c.cell_contents) for c in cells)
+        defaults = (_freeze(getattr(obj, "__defaults__", None)),
+                    _freeze(getattr(obj, "__kwdefaults__", None)))
+        code = getattr(obj, "__code__", None)
+        code_key = ((code.co_code, _freeze(code.co_consts))
+                    if code is not None else id(obj))
+        return ("callable", getattr(obj, "__module__", ""),
+                getattr(obj, "__qualname__", repr(obj)), code_key, closure,
+                defaults)
+    try:
+        hash(obj)
+        return obj
+    except TypeError:
+        return repr(obj)
+
+
+def spec_fingerprint(cspec: CompiledSpec):
+    """Hashable identity of a compiled spec as a run uses it: the preset
+    names, the resolved timing table, ``rows`` and ``columns`` (which
+    benchmarks edit in place) and, when above 1, the channel count — the
+    reference's value, so stored trace artifacts of either package
+    verify."""
+    base = (cspec.standard, cspec.org_preset, cspec.timing_preset,
+            _freeze(cspec.timings), cspec.rows, cspec.columns)
+    return base if cspec.n_channels == 1 else base + (cspec.n_channels,)
+
+
+def system_fingerprint(spec):
+    """Hashable identity of a memory system: a bare spec and its 1-group
+    zero-link system keep :func:`spec_fingerprint`; a composition is the
+    tuple of (group fingerprint, channels, link latency)."""
+    if isinstance(spec, CompiledSpec):
+        return spec_fingerprint(spec)
+    msys = as_system(spec)
+    if msys.homogeneous:
+        return spec_fingerprint(msys.groups[0].cspec)
+    return tuple((spec_fingerprint(g.cspec), g.channels, g.link_latency)
+                 for g in msys.groups)
+
+
+def _device_key(device) -> tuple:
+    """``(type, index)`` of a run's device, the index resolved for CUDA
+    (``"cuda"`` and ``"cuda:0"`` are one device)."""
+    dev = torch.device(device)
+    index = dev.index
+    if dev.type == "cuda" and index is None:
+        index = torch.cuda.current_device()
+    return dev.type, index
+
+
+def run_key(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
+            n_cycles: int, trace: bool, batched: bool,
+            replay: F.ReplayStream | None = None, telemetry: int = 0,
+            device="cuda", fast_forward: bool = True):
+    """The reference's ``run_key`` with the run's device (type and index)
+    in place of its device count and mesh, and without ``donate``.  The
+    load knobs (``interval``, ``read_ratio``) are left out: they reach the
+    run as call arguments."""
+    fkey = tuple(kv for kv in _freeze(fcfg)
+                 if not (isinstance(kv, tuple)
+                         and kv[0] in ("interval", "read_ratio")))
+    return (system_fingerprint(spec), _freeze(ccfg), fkey, int(n_cycles),
+            bool(trace), bool(batched),
+            None if replay is None else replay.fingerprint, int(telemetry),
+            _device_key(device), bool(fast_forward))
+
+
+class _SystemUploads:
+    """What the runs of one system send to one device once: the groups'
+    DynParams (made at first use) and the kernel's plans, shared by every
+    :class:`RunCache` entry of that system and device (a 50-cycle warm-up
+    and the 20,000-cycle run after it build one plan)."""
+
+    def __init__(self, msys: MemorySystemSpec, device: torch.device):
+        self.msys = msys
+        self.device = device
+        self.plans: dict = {}
+        self._dps = None
+
+    @property
+    def dps(self) -> tuple:
+        if self._dps is None:
+            self._dps = tuple(D.dyn_params(g.cspec, self.device, g.channels)
+                              for g in self.msys.groups)
+        return self._dps
+
+
+class CachedRun:
+    """One :class:`RunCache` entry: :func:`make_run`'s function over a
+    snapshot of the spec, on one device, with its system's DynParams and
+    kernel plans there.  ``entry(fp, seed) -> RunResult``.  The first
+    call — the DynParams upload and the kernel's build at first use
+    included, synchronized on CUDA — is timed into the owning cache's
+    ``first_call_s``."""
+
+    def __init__(self, msys: MemorySystemSpec, fn,
+                 uploads: _SystemUploads, cache: "RunCache"):
+        self.msys = msys
+        self.fn = fn
+        self.device = uploads.device
+        self._uploads = uploads
+        self._cache = cache
+        self._timed = False
+
+    @property
+    def dps(self) -> tuple:
+        """One ``DynParams`` per spec group, on the entry's device."""
+        return self._uploads.dps
+
+    def __call__(self, fp: F.FrontParams, seed: int) -> RunResult:
+        if self._timed:
+            return self.fn(self.dps, fp, seed, self.device)
+        t0 = time.perf_counter()
+        out = self.fn(self.dps, fp, seed, self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._cache.first_call_s += time.perf_counter() - t0
+        self._timed = True
+        return out
+
+
+class RunCache:
+    """Memoizes :class:`CachedRun` entries (the reference's ``RunCache``).
+
+    ``get`` returns the entry of a key, building it on a miss;
+    ``hits``/``misses`` count lookups, the module-level
+    :data:`TRACE_COUNT` counts builds, and ``stats()`` publishes the
+    accounting for the run profiler and the sweep reports."""
+
+    def __init__(self):
+        self._runs: dict = {}
+        #: (system fingerprint, device) -> _SystemUploads
+        self._uploads: dict = {}
+        self.hits = 0
+        self.misses = 0
+        #: cumulative wall seconds of every entry's first call (DynParams
+        #: upload, kernel build at first use, one synchronized run)
+        self.first_call_s = 0.0
+
+    def __len__(self):
+        return len(self._runs)
+
+    def clear(self):
+        self._runs.clear()
+        self._uploads.clear()
+        self.hits = self.misses = 0
+        self.first_call_s = 0.0
+
+    def stats(self) -> dict:
+        """``entries``, ``hits``/``misses`` (since construction or
+        ``clear``), ``first_call_s``, ``devices`` (the devices of the
+        cached runs) and ``shard_topologies`` (``"lanes"``: every run
+        steps its (point x channel) lanes on one device; channel sharding
+        is not ported)."""
+        devices = {_device_key(e.device) for e in self._runs.values()}
+        return {"entries": len(self._runs), "hits": self.hits,
+                "misses": self.misses,
+                "first_call_s": round(self.first_call_s, 3),
+                "devices": len(devices),
+                "shard_topologies": ("lanes",) if self._runs else ()}
+
+    def get(self, spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
+            n_cycles: int, trace: bool = False, batched: bool = False,
+            replay: F.ReplayStream | None = None, telemetry: int = 0,
+            shard: int | None = None, fast_forward: bool = True,
+            device=None) -> CachedRun:
+        """The entry of a run of ``spec`` (a :class:`CompiledSpec` or a
+        :class:`MemorySystemSpec`) on ``device`` (``None``: the card).  A
+        batched entry takes any number of points per call; an unbatched
+        one (and every ``trace=True`` one) one point.  ``telemetry`` is
+        the window in cycles (0 = off)."""
+        if shard and int(shard) > 1:
+            raise NotImplementedError(
+                "RunCache.get(shard=...): multi-GPU channel sharding is "
+                "not ported yet — see ROADMAP.md queue 1 item 12")
+        device = _device.resolve(device)
+        key = run_key(spec, ccfg, fcfg, n_cycles, trace, batched, replay,
+                      telemetry, device, fast_forward)
+        entry = self._runs.get(key)
+        if entry is not None:
+            self.hits += 1
+            return entry
+        self.misses += 1
+        # close over a snapshot: a later in-place edit of the caller's
+        # spec (rows, columns, a timing) must not reach this entry
+        msys = MemorySystemSpec(tuple(
+            SpecGroup(copy.deepcopy(g.cspec), g.channels, g.link_latency)
+            for g in as_system(spec).groups))
+        ukey = (key[0], _device_key(device))
+        uploads = self._uploads.get(ukey)
+        if uploads is None:
+            uploads = self._uploads[ukey] = _SystemUploads(msys, device)
+        fn = make_run(msys, ccfg, fcfg, n_cycles, trace, fast_forward,
+                      None if batched else 1, replay, telemetry,
+                      uploads.plans)
+        entry = self._runs[key] = CachedRun(msys, fn, uploads, self)
+        return entry
+
+
+#: The process-wide cache of `Simulator` and `repro_torch.dse`.
+RUN_CACHE = RunCache()
+
+
 @dataclasses.dataclass
 class Simulator:
     """User-facing memory-system handle: one (standard, org, timing)
@@ -650,11 +929,22 @@ class Simulator:
         if self.mapper is not None:
             self.frontend = dataclasses.replace(self.frontend,
                                                 mapper=self.mapper)
-        #: one DynParams per spec group (``dp``: group 0's)
-        self.dps = tuple(D.dyn_params(g.cspec, self.device, g.channels)
-                         for g in self.msys.groups)
-        self.dp = self.dps[0]
+        self._dps = None
         self.host_syncs = 0
+
+    @property
+    def dps(self) -> tuple:
+        """One ``DynParams`` per spec group on the simulator's device, made
+        at first use (a run uses its :class:`RunCache` entry's)."""
+        if self._dps is None:
+            self._dps = tuple(D.dyn_params(g.cspec, self.device, g.channels)
+                              for g in self.msys.groups)
+        return self._dps
+
+    @property
+    def dp(self) -> D.DynParams:
+        """Group 0's ``DynParams``."""
+        return self.dps[0]
 
     def run(self, n_cycles: int, interval: float | None = None,
             read_ratio: float | None = None, trace: bool = False,
@@ -687,14 +977,20 @@ class Simulator:
         fused launch per spec group and loop iteration for all of them on
         CUDA."""
         pts = [(i, r) for i in intervals for r in read_ratios]
-        return pts, self._run(pts, n_cycles, False, seed, self.fast_forward)
+        return pts, self._run(pts, n_cycles, False, seed, self.fast_forward,
+                              batched=True)
 
-    def _run(self, pts, n_cycles, trace, seed, fast_forward, telemetry=0):
+    def _run(self, pts, n_cycles, trace, seed, fast_forward, telemetry=0,
+             batched=False):
+        """Run the points ``pts`` through the :data:`RUN_CACHE` entry of
+        this system and run configuration."""
         ff = self.fast_forward if fast_forward is None else fast_forward
-        fp = F.stack_params(pts, self.frontend.probe_gap, self.device)
-        res = make_run(self.msys, self.controller, self.frontend, n_cycles,
-                       trace, ff, len(pts), self.replay,
-                       telemetry)(self.dps, fp, seed, self.device)
+        entry = RUN_CACHE.get(self.msys, self.controller, self.frontend,
+                              n_cycles, trace=trace, batched=batched,
+                              replay=self.replay, telemetry=telemetry,
+                              fast_forward=ff, device=self.device)
+        res = entry(F.stack_params(pts, self.frontend.probe_gap,
+                                   self.device), seed)
         self.host_syncs += res.host_syncs
         return res.out
 
@@ -766,3 +1062,70 @@ def row_hit_rate(spec, stats) -> float:
         data += sum(int(counts[i]) for i, n in enumerate(names)
                     if n in ("RD", "WR", "RDA", "WRA"))
     return 1.0 - act / data if data else float("nan")
+
+
+def channel_breakdown(spec, stats) -> dict:
+    """Per-system-channel summary of one scalar run: ``{channel: {group,
+    standard, reads_done, writes_done, throughput_gbps, bus_util}}``, each
+    channel on its own group's access size and clock."""
+    msys = as_system(spec)
+    _check_system_stats(msys, stats)
+    out = {}
+    c_sys = 0
+    for g, (grp, ch) in enumerate(zip(msys.groups, stats.per_group)):
+        seconds = float(stats.cycles) * grp.cspec.tCK_ps * 1e-12
+        reads, writes = _np(ch.reads_done), _np(ch.writes_done)
+        busy = _np(ch.data_bus_busy)
+        for c in range(grp.channels):
+            moved = (int(reads[c]) + int(writes[c])) * grp.cspec.access_bytes
+            out[c_sys] = {
+                "group": g,
+                "standard": grp.cspec.standard or grp.cspec.name,
+                "reads_done": int(reads[c]),
+                "writes_done": int(writes[c]),
+                "throughput_gbps": moved / seconds / 1e9 if seconds else 0.0,
+                "bus_util": (float(busy[c]) / float(stats.cycles)
+                             if int(stats.cycles) else 0.0),
+            }
+            c_sys += 1
+    return out
+
+
+def format_stats(stats, spec=None) -> str:
+    """Human-readable summary of one scalar run's ``stats`` (the
+    reference's text): raw counters without a spec; with the run's spec or
+    system also GB/s against peak, probe latency in ns, the row-hit rate
+    and a per-channel table labelled by each channel's standard."""
+    cyc = int(stats.cycles)
+    lines = [f"cycles            {cyc:>14,}",
+             f"reads done        {int(stats.reads_done):>14,}",
+             f"writes done       {int(stats.writes_done):>14,}",
+             f"deferred          {int(stats.deferred):>14,}"]
+    skipped = int(stats.skipped_cycles)
+    if cyc:
+        lines.append(f"idle fast-forward {skipped / cyc:>14.1%}  "
+                     f"({int(stats.scan_steps):,} scan steps)")
+    if spec is None:
+        if cyc:
+            lines.append(f"bus busy          "
+                         f"{int(stats.data_bus_busy) / cyc:>14.1%}")
+        return "\n".join(lines)
+    msys = as_system(spec)
+    _check_system_stats(msys, stats)
+    ach = throughput_gbps(msys, stats)
+    lines += [f"throughput (GB/s) {ach:>14.2f}  "
+              f"(peak {peak_gbps(msys):.2f})",
+              f"probe latency(ns) {avg_probe_latency_ns(msys, stats):>14.1f}"]
+    hit = row_hit_rate(msys, stats)
+    if hit == hit:                          # NaN-safe
+        lines.append(f"row-hit rate      {hit:>14.1%}")
+    bd = channel_breakdown(msys, stats)
+    if len(bd) > 1 or msys.n_groups > 1:
+        lines.append("channel  standard     reads      writes   "
+                     "GB/s   bus-util")
+        for c, d in bd.items():
+            lines.append(
+                f"{c:>7}  {d['standard']:<9}{d['reads_done']:>10,}"
+                f"{d['writes_done']:>12,}{d['throughput_gbps']:>7.2f}"
+                f"{d['bus_util']:>10.1%}")
+    return "\n".join(lines)

@@ -1,16 +1,18 @@
 """Compact columnar command-trace capture.
 
-The counterpart of ``repro.trace.capture``'s capture: :func:`capture`
-compacts the dense ``[T, 2]`` (one channel) or ``[T, C, 2]`` (``C``
-channels) arrays of ``Simulator.run(..., trace=True)`` into one int32
-column per field, one entry per issued command, in issue order
-(cycle-major, then channel, column bus before row bus).  For a memory
-system of several spec groups (or one group behind a link) the engine's
-group-local command ids are resolved into the system's merged
-``cmd_names`` and a ``group`` column is attached.  :func:`trace_sha256`
-digests the columns in :data:`FIELDS` order — the digest
-``tests/trace/golden_hashes.json`` pins (the hetero system's over
-``FIELDS + ("group",)``).
+The counterpart of ``repro.trace.capture``: :func:`capture` compacts the
+dense ``[T, 2]`` (one channel) or ``[T, C, 2]`` (``C`` channels) arrays
+of ``Simulator.run(..., trace=True)`` into one int32 column per field,
+one entry per issued command, in issue order (cycle-major, then channel,
+column bus before row bus).  For a memory system of several spec groups
+(or one group behind a link) the engine's group-local command ids are
+resolved into the system's merged ``cmd_names`` and a ``group`` column is
+attached.  Every capture embeds the reference's metadata block
+(:func:`base_meta`: preset names, the resolved timing table, the spec
+fingerprint and the run configuration), so an artifact of either package
+re-audits against its spec.  :func:`trace_sha256` digests the columns in
+:data:`FIELDS` order — the digest ``tests/trace/golden_hashes.json`` pins
+(the hetero system's over ``FIELDS + ("group",)``).
 """
 from __future__ import annotations
 
@@ -20,9 +22,11 @@ import hashlib
 import numpy as np
 import torch
 
+from repro_torch.core import engine as E
 from repro_torch.core import spec as S
 from repro_torch.core.compile import (CompiledSpec, MemorySystemSpec,
-                                      as_system)
+                                      as_system, compile_spec,
+                                      compile_system)
 from repro_torch.core.frontend import ReplayStream
 
 #: Columnar int32 fields of a CommandTrace, in digest order (the ``group``
@@ -30,11 +34,20 @@ from repro_torch.core.frontend import ReplayStream
 FIELDS = ("clk", "cmd", "bank", "row", "bus", "arrive", "hit_ready", "chan")
 
 
+def spec_fingerprint_hex(spec) -> str:
+    """Stable hex digest of a compiled spec's or memory system's identity
+    (``engine.system_fingerprint``): the reference's digest, so a 1-group
+    zero-link system digests as its bare spec."""
+    return hashlib.sha256(
+        repr(E.system_fingerprint(spec)).encode()).hexdigest()[:16]
+
+
 @dataclasses.dataclass
 class CommandTrace:
     """Columnar DRAM command trace: one row per issued command (all
     columns ``(N,)`` int32 numpy arrays; ``group`` is all zero for a
-    homogeneous run)."""
+    homogeneous run).  ``meta`` is the :func:`base_meta` block: spec
+    provenance, resolved timings, fingerprint and run configuration."""
     clk: np.ndarray
     cmd: np.ndarray
     bank: np.ndarray
@@ -45,25 +58,173 @@ class CommandTrace:
     chan: np.ndarray
     n_cycles: int
     cmd_names: list
+    meta: dict = dataclasses.field(default_factory=dict)
     group: np.ndarray | None = None
 
     def __post_init__(self):
+        if self.chan is None:
+            self.chan = np.zeros_like(np.asarray(self.clk, np.int32))
         if self.group is None:
             self.group = np.zeros_like(np.asarray(self.clk, np.int32))
 
     def __len__(self) -> int:
         return int(self.clk.shape[0])
 
+    @property
+    def n_channels(self) -> int:
+        return int(self.meta.get("n_channels", 1))
+
+    @property
+    def n_groups(self) -> int:
+        return len(self.meta.get("system", ())) or 1
+
+    @property
+    def fingerprint(self) -> str:
+        return self.meta.get("fingerprint", "")
+
+    def cmd_count(self, name: str) -> int:
+        if name not in self.cmd_names:
+            return 0
+        return int(np.count_nonzero(self.cmd == self.cmd_names.index(name)))
+
+    def compiled_spec(self) -> CompiledSpec:
+        """Recompile the spec this trace was captured from (the stored
+        timing table replayed as overrides, the geometry edits replayed),
+        fingerprint-checked.  A system of several groups has no single
+        spec: use :meth:`compiled_system`."""
+        if self.n_groups > 1:
+            raise ValueError(
+                "this trace was captured from a heterogeneous memory "
+                "system — use compiled_system()")
+        if "system" in self.meta:
+            return self.compiled_system().groups[0].cspec
+        m = self.meta
+        cspec = compile_spec(m["standard"], m["org_preset"],
+                             m["timing_preset"],
+                             {k: int(v) for k, v in m["timings"].items()},
+                             channels=int(m.get("n_channels", 1)))
+        cspec.rows = int(m.get("rows", cspec.rows))
+        cspec.columns = int(m.get("columns", cspec.columns))
+        got = spec_fingerprint_hex(cspec)
+        if m.get("fingerprint") and got != m["fingerprint"]:
+            raise ValueError(
+                f"recompiled spec fingerprint {got} != captured "
+                f"{m['fingerprint']} — standard definition changed since "
+                "capture")
+        return cspec
+
+    def compiled_system(self) -> MemorySystemSpec:
+        """Recompile the (possibly heterogeneous) memory system this trace
+        was captured from, fingerprint-checked."""
+        if "system" not in self.meta:
+            return as_system(self.compiled_spec())
+        msys = system_from_meta(self.meta)
+        got = spec_fingerprint_hex(msys)
+        if self.fingerprint and got != self.fingerprint:
+            raise ValueError(
+                f"recompiled system fingerprint {got} != captured "
+                f"{self.fingerprint} — a standard definition changed "
+                "since capture")
+        return msys
+
+
+def config_doc(cfg) -> dict:
+    """JSON-representable scalar fields of a config dataclass (callables
+    such as ``extra_predicates`` are dropped): the one serialization rule
+    of run configs, shared with ``repro_torch.dse.results``."""
+    if cfg is None:
+        return {}
+    out = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if isinstance(v, (int, float, str, bool)) or v is None:
+            out[f.name] = v
+    return out
+
+
+def system_from_meta(meta: dict) -> MemorySystemSpec:
+    """Rebuild a memory system from a capture's ``meta["system"]`` block,
+    the geometry edits (rows, columns) replayed per group."""
+    msys = compile_system([
+        dict(standard=g["standard"], org_preset=g["org_preset"],
+             timing_preset=g["timing_preset"],
+             timing_overrides={k: int(v) for k, v in g["timings"].items()},
+             channels=int(g["channels"]),
+             link_latency=int(g.get("link_latency", 0)))
+        for g in meta["system"]])
+    for g, doc in zip(msys.groups, meta["system"]):
+        g.cspec.rows = int(doc.get("rows", g.cspec.rows))
+        g.cspec.columns = int(doc.get("columns", g.cspec.columns))
+    return msys
+
+
+def _group_doc(cspec: CompiledSpec, channels: int, link_latency: int) -> dict:
+    return {
+        "standard": cspec.standard or cspec.name,
+        "org_preset": cspec.org_preset,
+        "timing_preset": cspec.timing_preset,
+        "timings": {k: int(v) for k, v in cspec.timings.items()},
+        "rows": int(cspec.rows),
+        "columns": int(cspec.columns),
+        "tCK_ps": int(cspec.tCK_ps),
+        "n_banks": int(cspec.n_banks),
+        "channels": int(channels),
+        "link_latency": int(link_latency),
+        "dual_command_bus": bool(cspec.dual_command_bus),
+    }
+
+
+def base_meta(spec, controller=None, frontend=None, **extra) -> dict:
+    """The metadata block of every capture (the reference's): provenance,
+    resolved timings, fingerprint and the optional run configuration.  A
+    system of several groups, or one behind a link, has one block per
+    group under ``"system"``; a plain spec the flat block."""
+    if isinstance(spec, MemorySystemSpec) and not spec.homogeneous:
+        meta = {
+            "system": [_group_doc(g.cspec, g.channels, g.link_latency)
+                       for g in spec.groups],
+            "fingerprint": spec_fingerprint_hex(spec),
+            "n_channels": int(spec.n_channels),
+            "n_groups": int(spec.n_groups),
+        }
+    else:
+        if isinstance(spec, MemorySystemSpec):
+            spec = spec.groups[0].cspec
+        cspec = spec
+        meta = {
+            "standard": cspec.standard or cspec.name,
+            "org_preset": cspec.org_preset,
+            "timing_preset": cspec.timing_preset,
+            "timings": {k: int(v) for k, v in cspec.timings.items()},
+            "fingerprint": spec_fingerprint_hex(cspec),
+            "rows": int(cspec.rows),
+            "columns": int(cspec.columns),
+            "tCK_ps": int(cspec.tCK_ps),
+            "n_banks": int(cspec.n_banks),
+            "n_channels": int(cspec.n_channels),
+            "dual_command_bus": bool(cspec.dual_command_bus),
+        }
+    if controller is not None:
+        meta["controller"] = config_doc(controller)
+    if frontend is not None:
+        meta["frontend"] = config_doc(frontend)
+    meta.update({k: v for k, v in extra.items() if v is not None})
+    return meta
+
 
 def _host(a) -> np.ndarray:
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
-def capture(spec, trace) -> CommandTrace:
+def capture(spec, trace, *, point: int | None = None, controller=None,
+            frontend=None, **extra_meta) -> CommandTrace:
     """Compact a dense trace (``TraceArrays`` of ``[T, 2]`` tensors or
     arrays for one channel, ``[T, C, 2]`` for ``C`` channels) of a run of
     ``spec`` (a ``CompiledSpec`` or a ``MemorySystemSpec``) into a
-    :class:`CommandTrace`."""
+    :class:`CommandTrace`.  Arrays with a leading batch axis (the
+    reference's batched sweeps) need ``point=j``.  ``controller``,
+    ``frontend`` and ``extra_meta`` go into the metadata
+    (:func:`base_meta`)."""
     cmd, bank, row, arrive, hit_ready = (_host(a) for a in tuple(trace)[:5])
     msys = spec if isinstance(spec, MemorySystemSpec) else None
     if msys is not None and msys.homogeneous:
@@ -71,6 +232,12 @@ def capture(spec, trace) -> CommandTrace:
     n_channels = int(msys.n_channels if msys is not None
                      else getattr(spec, "n_channels", 1))
     want = 2 if n_channels == 1 else 3
+    if cmd.ndim == want + 1:
+        if point is None:
+            raise ValueError(f"batched {cmd.shape} trace: pass "
+                             "point=<batch index>")
+        cmd, bank, row, arrive, hit_ready = (
+            a[point] for a in (cmd, bank, row, arrive, hit_ready))
     if cmd.ndim != want:
         raise ValueError(f"expected {want}-d trace arrays for a "
                          f"{n_channels}-channel system, got {cmd.shape}")
@@ -98,6 +265,9 @@ def capture(spec, trace) -> CommandTrace:
         row=i32(row[idx]), bus=i32(bus_idx), arrive=i32(arrive[idx]),
         hit_ready=i32(hit_ready[idx].astype(np.int32)), chan=i32(chan),
         n_cycles=int(cmd.shape[0]), cmd_names=names,
+        meta=base_meta(spec if msys is None else msys,
+                       controller=controller, frontend=frontend,
+                       **extra_meta),
         group=None if group is None else i32(group))
 
 
@@ -145,7 +315,7 @@ def _replay_deps(chan, bank, row, is_wr) -> np.ndarray:
     return dep
 
 
-def to_replay(trace: CommandTrace, spec, *, deps: bool = False
+def to_replay(trace: CommandTrace, spec=None, *, deps: bool = False
               ) -> ReplayStream:
     """The replay stream of a captured trace's served requests (its final
     RD/WR commands with an arrival clock), in arrival order (a stable
@@ -154,11 +324,11 @@ def to_replay(trace: CommandTrace, spec, *, deps: bool = False
     row and captured ``arrive`` clocks, which then pace the replay.  With
     ``deps=True`` it also carries the same-row RAW/WAR dependencies
     (``ReplayStream.dep``).  ``spec`` (the ``CompiledSpec`` or
-    ``MemorySystemSpec`` of the captured run) is required: the port's
-    :class:`CommandTrace` carries no metadata to rebuild it from.  Feed
-    the result to ``Simulator(..., frontend=FrontendConfig(
+    ``MemorySystemSpec`` of the captured run) defaults to the one the
+    trace's metadata rebuilds (:meth:`CommandTrace.compiled_system`).
+    Feed the result to ``Simulator(..., frontend=FrontendConfig(
     pattern="trace"), replay=...)``."""
-    msys = as_system(spec)
+    msys = trace.compiled_system() if spec is None else as_system(spec)
     if msys.n_groups == 1:
         fx = np.asarray(msys.groups[0].cspec.cmd_fx)[trace.cmd]
     else:

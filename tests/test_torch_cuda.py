@@ -32,7 +32,9 @@ on the card) the fused step equals the plain version; the
 launch per spec group and loop iteration, and a run with a user predicate
 launches the kernel once per executed step (once per pass on a dual
 command bus) and never the plain step.  A paced replay with dependencies
-and windowed telemetry on ``cuda`` equals the CPU run window for window.  The general (max,+) kernel of
+and windowed telemetry on ``cuda`` equals the CPU run window for window,
+and a ``repro_torch.dse`` sweep of two groups (and a capturing one) on
+the card equals the CPU sweep point by point.  The general (max,+) kernel of
 ``readiness.cu`` equals its plain version bit for bit in every tile
 configuration (int32 sums that wrap, fp32 rows of -inf terms), the
 readiness table holds its masks at latencies and timestamps far past the
@@ -338,6 +340,46 @@ def test_telemetry_and_replay_on_cuda_equal_the_cpu(cuda):
         for f in ("reads", "writes", "occ_sum", "cmd_counts", "lat_hist",
                   "probe_lat_sum", "deferred"):
             np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
+def test_dse_sweep_on_cuda_equals_the_cpu(cuda, monkeypatch):
+    """``repro_torch.dse.execute`` of a 2-group sweep on the card equals
+    the port's CPU sweep point by point (every column, the command
+    counts, each point's captured trace), with one fused launch per loop
+    iteration of each group, one host sync each and no plain step; the
+    same sweep again from the cache builds no kernel plan."""
+    from repro_torch import dse
+    from repro_torch.core import engine as E
+    from repro_torch.core import FrontendConfig
+    spec = dse.SweepSpec(systems=("DDR4", "HBM3"), intervals=(16.0, 2.0),
+                         read_ratios=(1.0, 0.5), n_cycles=1500)
+    before, plain = KS.launch_count, C.plain_calls
+    cache = E.RunCache()
+    got = dse.execute(spec, cache=cache)
+    assert KS.launch_count - before == got.meta["host_syncs"] == sum(
+        g["iterations"] for g in got.meta["groups"])
+    assert C.plain_calls == plain and got.meta["device"] == "cuda"
+    builds = []
+    real = KS.build_plan
+    monkeypatch.setattr(KS, "build_plan",
+                        lambda *a, **k: builds.append(1) or real(*a, **k))
+    again = dse.execute(spec, cache=cache)
+    assert builds == [] and again.meta["compile_cache_hits"] == 2
+    np.testing.assert_array_equal(again.reads_done, got.reads_done)
+    want = dse.execute(spec, cache=E.RunCache(), devices=["cpu"])
+    for k in ("throughput_gbps", "latency_ns", "reads_done", "writes_done",
+              "probe_cnt", "deferred", "scan_steps", "skipped_cycles"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k), k)
+    assert [c.tolist() for c in got.cmd_counts] == \
+        [c.tolist() for c in want.cmd_counts]
+    cap = dse.SweepSpec(systems=("DDR4",), intervals=(8.0, 2.0),
+                        read_ratios=(0.7,), n_cycles=800,
+                        frontend=FrontendConfig(pattern="random"),
+                        capture_traces=True)
+    traces = [dse.execute(cap, cache=E.RunCache(), devices=d).traces
+              for d in (None, ["cpu"])]
+    assert [trace_sha256(t) for t in traces[0]] == \
+        [trace_sha256(t) for t in traces[1]]
 
 
 def test_two_channel_golden_stream_on_cuda(cuda):

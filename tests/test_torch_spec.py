@@ -119,7 +119,9 @@ def test_fresh_import_leaves_jax_and_reference_unloaded():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.convert\n"
         "import repro_torch.trace, repro_torch.kernels.readiness\n"
-        "import repro_torch.kernels.build\n"
+        "import repro_torch.kernels.build, repro_torch.analysis\n"
+        "import repro_torch.dse, repro_torch.dse.sweep\n"
+        "import repro_torch.core.proxy, repro_torch.telemetry\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
@@ -156,10 +158,6 @@ def _sim_system(groups):
 def _unported():
     return {
         "channel_shard": lambda: _sim(channel_shard=2),
-        "lint_warn": lambda: TC.compile_spec("DDR4", "DDR4_8Gb_x8",
-                                             "DDR4_2400R", lint="warn"),
-        "lint_error": lambda: TC.compile_spec("DDR4", "DDR4_8Gb_x8",
-                                              "DDR4_2400R", lint="error"),
     }
 
 
@@ -175,8 +173,9 @@ def _ported():
     ``(pts, stats)`` with a leading point axis, ``system=`` runs a
     composition of spec groups, the BlockHammer, PRAC and user
     predicates configure the controller, ``telemetry=W`` returns windows
-    that sum to the run's ``Stats``, and ``pattern="trace"`` replays a
-    ``replay=`` stream."""
+    that sum to the run's ``Stats``, ``pattern="trace"`` replays a
+    ``replay=`` stream, and ``compile_spec(lint="warn"|"error")`` lints
+    (an error-severity finding raises with ``"error"``)."""
     from repro_torch.core import (ControllerConfig, FrontendConfig,
                                   ReplayStream)
 
@@ -221,6 +220,21 @@ def _ported():
                      replay=stream).run(200, interval=2.0)
         assert int(stats.reads_done) > 0 and stats.cycles == 200
 
+    def lint(mode):
+        def check():
+            clean = TC.compile_spec("DDR4", "DDR4_8Gb_x8", "DDR4_2400R",
+                                    lint=mode)
+            assert clean.n_banks == 16
+            bad = lambda: TC.compile_spec("DDR4", "DDR4_8Gb_x8",
+                                          "DDR4_2400R", {"nRC": 1},
+                                          lint=mode)
+            if mode == "error":
+                with pytest.raises(ValueError, match="trc-decomposition"):
+                    bad()
+            else:
+                assert bad().timings["nRC"] == 1
+        return check
+
     def trace_pattern():
         assert FrontendConfig(pattern="trace").pattern == "trace"
         with pytest.raises(ValueError, match="ReplayStream"):
@@ -228,6 +242,7 @@ def _ported():
     return {"channels": channels, "run_batch": run_batch, "system": system,
             "telemetry": telemetry, "replay": replay,
             "trace_pattern": trace_pattern,
+            "lint_warn": lint("warn"), "lint_error": lint("error"),
             "blockhammer": predicate(blockhammer_threshold=8),
             "prac": predicate(prac_threshold=8),
             "extra_predicates": predicate(extra_predicates=(
@@ -253,8 +268,9 @@ def test_channels_build_one_lane_per_channel():
 
 def test_lint_env_gate_raises_and_off_compiles(monkeypatch):
     monkeypatch.setenv("REPRO_SPEC_LINT", "error")
-    with pytest.raises(NotImplementedError):
-        TC.compile_spec("DDR4", "DDR4_8Gb_x8", "DDR4_2400R")
+    with pytest.raises(ValueError, match="spec lint failed"):
+        TC.compile_spec("DDR4", "DDR4_8Gb_x8", "DDR4_2400R", {"nRC": 1})
+    assert TC.compile_spec("DDR4", "DDR4_8Gb_x8", "DDR4_2400R").n_banks == 16
     monkeypatch.setenv("REPRO_SPEC_LINT", "off")
     assert TC.compile_spec("DDR4", "DDR4_8Gb_x8", "DDR4_2400R").n_banks == 16
     with pytest.raises(ValueError):

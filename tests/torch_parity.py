@@ -13,7 +13,8 @@ rewrites ``tests/torch_serve_fixture.npz`` from the JAX package, and
 
 rewrites ``tests/torch_batch_stats.json``,
 ``tests/torch_multichannel_stats.json``, ``tests/torch_hetero_stats.json``,
-``tests/torch_telemetry_stats.json`` and ``tests/torch_replay_stats.json``."""
+``tests/torch_telemetry_stats.json``, ``tests/torch_replay_stats.json``
+and ``tests/torch_dse_stats.json``."""
 from __future__ import annotations
 
 import hashlib
@@ -560,12 +561,140 @@ def replay_fixture() -> dict:
     return doc
 
 
+DSE_FIXTURE = os.path.join(HERE, "torch_dse_stats.json")
+#: ``chip_smoke.py`` phase 16: the paper's Fig. 1 sweep
+#: (``benchmarks/bench_latency_throughput.py``'s 11 standards x 6
+#: intervals x 3 read ratios, FR-FCFS) cut to 5,000 cycles: 198 points in
+#: 11 compile groups (``tests/torch_dse_stats.json``)
+DSE_FIG1 = dict(
+    systems=[["DDR3", "DDR3_8Gb_x8", "DDR3_1600K"],
+             ["DDR4", "DDR4_8Gb_x8", "DDR4_2400R"],
+             ["DDR5", "DDR5_16Gb_x8", "DDR5_4800B"],
+             ["LPDDR5", "LPDDR5_8Gb_x16", "LPDDR5_6400"],
+             ["LPDDR6", "LPDDR6_16Gb_x16", "LPDDR6_8533"],
+             ["GDDR6", "GDDR6_8Gb_x16", "GDDR6_16"],
+             ["GDDR7", "GDDR7_16Gb_x32", "GDDR7_32"],
+             ["HBM2", "HBM2_8Gb", "HBM2_2Gbps"],
+             ["HBM3", "HBM3_16Gb", "HBM3_5200"],
+             ["HBM4", "HBM4_24Gb", "HBM4_8000"],
+             ["DDR5_VRR", "DDR5_16Gb_x8", "DDR5_4800B"]],
+    intervals=[64.0, 16.0, 8.0, 4.0, 2.0, 1.0], read_ratios=[1.0, 0.8, 0.5],
+    n_cycles=5_000, seed=0x1234, scheduler="FRFCFS")
+#: phase 16's trace-capture check: two DDR4 points with capture_traces
+DSE_CAPTURE = dict(systems=["DDR4"], intervals=[8.0, 2.0],
+                   read_ratios=[0.7], n_cycles=2_000, seed=0x1234,
+                   scheduler="FRFCFS")
+#: the per-point columns of a sweep the fixture holds
+DSE_COLUMNS = ("throughput_gbps", "latency_ns", "peak_gbps", "reads_done",
+               "writes_done", "probe_cnt", "deferred", "cycles",
+               "scan_steps", "skipped_cycles")
+
+
+def sweep_spec(dse, run: dict, **kw):
+    """The ``SweepSpec`` of :data:`DSE_FIG1` / :data:`DSE_CAPTURE` in
+    either package (``dse`` is ``repro.dse`` or ``repro_torch.dse``; the
+    controller config comes from the same package)."""
+    import importlib
+    core = importlib.import_module(dse.__name__.split(".")[0] + ".core")
+    return dse.SweepSpec(
+        systems=tuple(s if isinstance(s, str) else tuple(s)
+                      for s in run["systems"]),
+        intervals=tuple(run["intervals"]),
+        read_ratios=tuple(run["read_ratios"]), n_cycles=run["n_cycles"],
+        seed=run["seed"],
+        controllers=(core.ControllerConfig(scheduler=run["scheduler"]),),
+        **kw)
+
+
+def sweep_doc(result) -> dict:
+    """A ``SweepResult``'s per-point columns and command counts as lists
+    (floats as JSON numbers: ``repr`` round-trips them exactly)."""
+    return dict(
+        columns={k: np.asarray(getattr(result, k)).tolist()
+                 for k in DSE_COLUMNS},
+        cmd_counts=[np.asarray(c).tolist() for c in result.cmd_counts],
+        cmd_names=[list(n) for n in result.cmd_names],
+        labels=[pt.label for pt in result.points],
+        n_groups=result.meta["n_groups"])
+
+
+def packages():
+    """``(reference, port)``: each a namespace of its ``core``, ``dse`` and
+    ``engine`` modules, for specs built the same way in both."""
+    import importlib
+    import types
+    out = []
+    for top in ("repro", "repro_torch"):
+        out.append(types.SimpleNamespace(
+            core=importlib.import_module(top + ".core"),
+            dse=importlib.import_module(top + ".dse"),
+            engine=importlib.import_module(top + ".core.engine")))
+    return tuple(out)
+
+
+def assert_sweep_equal(j, t):
+    """Two ``SweepResult``s (reference ``j``, port ``t``) agree point by
+    point: every column (floats bit for bit, NaN where NaN), the command
+    counts and names, the points and the curves."""
+    for k in DSE_COLUMNS:
+        a, b = np.asarray(getattr(j, k)), np.asarray(getattr(t, k))
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    assert [c.tolist() for c in map(np.asarray, t.cmd_counts)] == \
+        [c.tolist() for c in map(np.asarray, j.cmd_counts)]
+    assert t.cmd_names == j.cmd_names
+    assert [p.label for p in t.points] == [p.label for p in j.points]
+    jc, tc = j.curves(), t.curves()
+    assert len(jc) == len(tc)
+    for a, b in zip(jc, tc):
+        assert (a.system, a.scheduler, a.read_ratio, a.knee, a.n_channels,
+                a.peak_gbps, a.peak_fraction) == \
+            (b.system, b.scheduler, b.read_ratio, b.knee, b.n_channels,
+             b.peak_gbps, b.peak_fraction)
+        for f in ("intervals", "throughput_gbps", "latency_ns"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    for k in ("n_points", "n_groups", "compile_cache_misses",
+              "compile_cache_hits", "traces", "seed", "padded_points"):
+        assert t.meta[k] == j.meta[k], k
+    assert t.meta["profile"]["fast_forward"] == \
+        j.meta["profile"]["fast_forward"]
+    assert t.to_table() == j.to_table()
+
+
+def check_sweep(make_spec, **kw):
+    """Execute ``make_spec(pkg)`` (a ``SweepSpec`` built from ``pkg.core``
+    and ``pkg.dse``) in both packages, each with a fresh cache, the port
+    on the CPU; assert the results equal and return ``(ref, port)``."""
+    jp, tp = packages()
+    j = jp.dse.execute(make_spec(jp), cache=jp.engine.RunCache(), **kw)
+    t = tp.dse.execute(make_spec(tp), cache=tp.engine.RunCache(),
+                       devices=["cpu"], **kw)
+    assert_sweep_equal(j, t)
+    return j, t
+
+
+def dse_fixture() -> dict:
+    """The reference's ``repro.dse.execute`` of :data:`DSE_FIG1` and of
+    the capture sweep :data:`DSE_CAPTURE` (each point's command-stream
+    digest and length) on the CPU."""
+    from repro import dse
+    from repro.core import engine as JE
+    fig1 = dse.execute(sweep_spec(dse, DSE_FIG1), cache=JE.RunCache())
+    cap = dse.execute(sweep_spec(dse, DSE_CAPTURE, capture_traces=True),
+                      cache=JE.RunCache())
+    return dict(fig1=dict(run=DSE_FIG1, **sweep_doc(fig1)),
+                capture=dict(run=DSE_CAPTURE, **sweep_doc(cap),
+                             traces=[dict(n=len(t), sha256=trace_sha256(t))
+                                     for t in cap.traces]))
+
+
 def write_sim_fixtures():
     for path, doc in ((BATCH_FIXTURE, batch_fixture()),
                       (MULTI_FIXTURE, multichannel_fixture()),
                       (HETERO_FIXTURE, hetero_fixture()),
                       (TELEMETRY_FIXTURE, telemetry_fixture()),
-                      (REPLAY_FIXTURE, replay_fixture())):
+                      (REPLAY_FIXTURE, replay_fixture()),
+                      (DSE_FIXTURE, dse_fixture())):
         with open(path, "w") as f:
             json.dump(doc, f, indent=1)
             f.write("\n")
