@@ -75,7 +75,9 @@ Phases, each fatal on any mismatch or exception:
     tensors, bit for bit in next state, every event field and the
     horizon: DDR4, LPDDR5 and HBM3; 1, 5 and 32 points of 1, 2 and 4
     channels; per-point clocks, every third point inactive; reset states
-    at clock 0 with refresh stagger on and off, and random states; then
+    at clock 0 with refresh stagger on and off, and random states; random
+    states with every point active at one clock (the plain version's
+    one-step branch); then
     time one launch at the batched session's 128 lanes (CUDA events back
     to back, ``torch.profiler`` for device time, the plain version);
 11. (run before phase 5) the batched latency-throughput session:
@@ -157,14 +159,34 @@ Phases, each fatal on any mismatch or exception:
     nothing built), held to the fixture the same way, with its wall
     seconds per group and in total, point-cycles/s, ms and launches per
     iteration.
+17. the validation workflow (``repro_torch.verify``), in worker processes
+    beside phase 5's runs, each with every launch count set to 0 just
+    before and read just after, held to ``tests/torch_verify_stats.json``
+    (the reference's results): (a) the smoke matrix ``verify.smoke()``
+    (DDR4, DDR5, HBM3 x 3 tiny configurations), one fused controller-step
+    launch and one readiness-table launch per 64-lane transition and no
+    plain step, with its wall seconds, edges/s and the transitions' share
+    of the wall; (b) the refresh-pressure exploration and the loosened
+    ACT->RD spec with and without the table check (divergence, minimised
+    path, the artifact read back); (c) the differential runs against
+    ``tests/verify/fixtures/*.cmdstream``; (d) ``verify_properties`` on
+    DDR4 (three streams, and with refresh off), HBM3 over 2 channels and
+    the DDR5 + CXL-DDR4 system; (e) the auditor's mutation matrix on the
+    11 golden traces, computed inside phase 5's workers.  After the
+    workers, alone: the exploration transition (queue insert, fused
+    controller step, readiness table) on the card against the plain one
+    on the CPU, bit for bit in next state, events and table, over 24
+    transitions of 64 lanes of each of the 9 smoke specs and the loosened
+    spec; then the readiness table at 64 lanes of each smoke spec against
+    its plain version, timed at HBM3's 4-bank spec.
 
 The line before the last is a JSON object with one entry per kernel (its
 times, bound and launches; the fused controller step's launches are those
-of the batched session, of phases 14 and 15's sessions and of phase 16's
-two Fig. 1 sweeps, its times those
-of one 128-lane launch; the readiness table and the general (max,+) product, off
-every main path, report the main path's 0 launches and their DDR5 and
-2048^3 int32 times); the last line is
+of the batched session, of phases 14, 15 and 17's runs and of phase 16's
+two Fig. 1 sweeps, its times those of one 128-lane launch; the readiness
+table's launches are phase 17's, its times those of 64 exploration lanes;
+the general (max,+) product, off every path, reports the main path's 0
+launches and its 2048^3 int32 times); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.
 """
@@ -585,6 +607,7 @@ def golden_run(std: str, org: str, tim: str, device: str) -> dict:
     from repro_torch.core import controller as C
     from repro_torch.kernels import controller_step as KS
     from repro_torch.trace import capture, trace_sha256
+    from repro_torch.verify import mutation_matrix
     sim = Simulator(std, org, tim, device=device,
                     controller=ControllerConfig(scheduler="FRFCFS"))
     KS.launch_count = C.plain_calls = 0
@@ -594,17 +617,20 @@ def golden_run(std: str, org: str, tim: str, device: str) -> dict:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     tr = capture(sim.cspec, dense)
+    # phase 17 (e): the auditor's mutation matrix on this very trace
+    rows = mutation_matrix({std: (sim.cspec, tr)})
     return dict(n=len(tr), sha256=trace_sha256(tr), steps=stats.scan_steps,
-                wall=wall, launches=KS.launch_count, plain=C.plain_calls)
+                wall=wall, launches=KS.launch_count, plain=C.plain_calls,
+                mutation={"/".join(k): v for k, v in rows.items()})
 
 
 def golden_phase(device: str, meanwhile=None) -> tuple:
-    """The golden runs and the sessions of phases 12, 14 and 15, spread
+    """The golden runs and the sessions of phases 12, 14, 15 and 17, spread
     over worker processes (the longest first): each run is bound by its
     host loop, so processes on separate cores share the one card.  The
     main process runs ``meanwhile()`` while they do.  Returns the fused
-    launches of phase 14's sessions and of phase 15's, and what
-    ``meanwhile`` returned."""
+    launches of phase 14's sessions and of phase 15's, phase 17's fused
+    and table launches, and what ``meanwhile`` returned."""
     import multiprocessing
     import os
     from concurrent.futures import ProcessPoolExecutor
@@ -616,11 +642,15 @@ def golden_phase(device: str, meanwhile=None) -> tuple:
     t0 = time.perf_counter()
     with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context(
             "spawn")) as pool:
+        p17 = pool.submit(verify_explore_run, device)
+        props = [(key, pool.submit(verify_props_run, key, device))
+                 for key in parity().PROPERTY_CASES]
         p15 = [(job, pool.submit(phase15_run, job, device))
                for job in PHASE15_JOBS]
         jobs = [(job, pool.submit(system_run, job, device))
                 for job in SYSTEM_JOBS]
         multi = pool.submit(multichannel_run, device)
+        diff = pool.submit(verify_diff_run, device)
         futures = [(std, pool.submit(golden_run, std, org, tim, device))
                    for std, (org, tim) in systems]
         extra = meanwhile() if meanwhile is not None else None
@@ -628,6 +658,8 @@ def golden_phase(device: str, meanwhile=None) -> tuple:
         system_results = [(job, f.result()) for job, f in jobs]
         p15_results = [(job, f.result()) for job, f in p15]
         multi_lines = multi.result()
+        p17_results = (p17.result(), diff.result(),
+                       {k: f.result() for k, f in props})
     print(f"multi-channel on {device} (phase 12, in a worker process):")
     for line in multi_lines:
         print("  " + line)
@@ -643,7 +675,7 @@ def golden_phase(device: str, meanwhile=None) -> tuple:
     p15_launches = sum(check_phase15(job, r) for job, r in p15_results)
     print(f"golden command-stream hashes on {device} (3000 cycles; "
           f"{workers} worker processes, {time.perf_counter() - t0:.1f} s "
-          "with phases 12, 14 and 15):")
+          "with phases 12, 14, 15 and 17):")
     for std, r in results:
         ok = r["n"] == golden[std]["n"] and r["sha256"] == golden[std]["sha256"]
         print(f"  {std:<9} commands {r['n']:>5}  steps {r['steps']:>5}  "
@@ -656,7 +688,10 @@ def golden_phase(device: str, meanwhile=None) -> tuple:
             fail(f"{std} run launched the fused kernel {r['launches']} times "
                  f"in {r['steps']} steps and called the plain step "
                  f"{r['plain']} times")
-    return launches, p15_launches, extra
+    print(f"validation workflow on {device} (phase 17, in worker "
+          "processes):")
+    p17_launches = check_verify(*p17_results, results)
+    return launches, p15_launches, p17_launches, extra
 
 
 def telemetry_doc(telem) -> dict:
@@ -807,23 +842,306 @@ def check_phase15(job: str, r: dict) -> int:
     return r["launches"]
 
 
-def dse_parity():
-    """``tests/torch_parity.py``: phase 16's grid (``DSE_FIG1``, the
-    constant ``tests/torch_dse_stats.json`` was written from) and its
-    ``sweep_spec``."""
+def _verify_counts():
+    """The three counts phase 17 reads: fused controller-step launches,
+    readiness-table launches and plain steps."""
+    from repro_torch.core import controller as C
+    from repro_torch.kernels import controller_step as KS
+    from repro_torch.kernels import readiness as R
+    return KS.launch_count, R.launch_count, C.plain_calls
+
+
+def _verify_reset():
+    import torch
+    from repro_torch.core import controller as C
+    from repro_torch.kernels import controller_step as KS
+    from repro_torch.kernels import readiness as R
+    torch.cuda.synchronize()
+    KS.launch_count = R.launch_count = C.plain_calls = 0
+
+
+def verify_explore_run(device: str) -> dict:
+    """Phase 17 (a) and (b), in a worker process, each with every launch
+    count set to 0 just before and read just after: the smoke matrix
+    (``verify.smoke()``: DDR4, DDR5, HBM3 x 3 configurations) with the
+    seconds spent in the transition (upload, fused step, readiness table,
+    copies back) apart from the oracle's; the refresh-pressure
+    exploration; then the loosened ACT->RD spec with and without the
+    table check, its artifacts written under ``build/verify_smoke`` and
+    read back."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import importlib
+    import torch
+    from repro_torch import trace, verify
+    from repro_torch.core import ControllerConfig
+    tp = parity()
+    X = importlib.import_module("repro_torch.verify.explore")
+    step_s = [0.0]
+    call = X._Step.__call__
+
+    def timed(self, *a):
+        t = time.perf_counter()
+        out = call(self, *a)
+        step_s[0] += time.perf_counter() - t
+        return out
+    X._Step.__call__ = timed
+    _verify_reset()
+    t0 = time.perf_counter()
+    res = verify.smoke(tp.VERIFY_STANDARDS, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fused, tables, plain = _verify_counts()
+    out = dict(smoke={"/".join(k): tp.explore_doc(r) for k, r in res.items()},
+               wall=wall, step_s=step_s[0], launches=fused, tables=tables,
+               plain=plain)
+    _verify_reset()
+    out["refresh_pressure"] = tp.explore_doc(tp.refresh_pressure_run(
+        verify, ControllerConfig, device=device))
+    art = ROOT / "build" / "verify_smoke"
+    cex = {}
+    for case in tp.LOOSEN_CASES:
+        d = art / case
+        for f in d.glob("*.npz") if d.is_dir() else ():
+            f.unlink()
+        row, r = tp.loosened_run(verify, ControllerConfig, case,
+                                 device=device, artifact_dir=str(d))
+        cex[case] = dict(doc=tp.cex_doc(r, row), artifact=tp.trace_doc(
+            trace.load(r.counterexample.artifact)))
+    torch.cuda.synchronize()
+    out.update(cex=cex, counts2=_verify_counts())
+    return out
+
+
+def verify_diff_run(device: str) -> dict:
+    """Phase 17 (c), in a worker process: the canonical 1,500-cycle runs
+    of DDR4, DDR5 and HBM3 on ``device`` against the pinned
+    ``tests/verify/fixtures/*.cmdstream``, with every launch count set to
+    0 just before and read just after."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.verify import differential as TD
+    tp = parity()
+    fx = ROOT / "tests" / "verify" / "fixtures"
+    _verify_reset()
+    t0 = time.perf_counter()
+    dumps, reports = {}, []
+    for std in tp.VERIFY_STANDARDS:
+        text = TD.dump_cmd_stream(*TD.golden_run(std, device=device))
+        dumps[std] = dict(sha=tp.sha(text), file=text == (
+            fx / f"{std}.cmdstream").read_text())
+        reports.append(TD.compare_streams(
+            std, TD.parse_cmd_stream(str(fx / f"{std}.cmdstream")),
+            TD.parse_cmd_stream(text)))
+    torch.cuda.synchronize()
+    return dict(dumps=dumps, reports={r.standard: tp.diff_doc(r)
+                                      for r in reports},
+                table=TD.accuracy_table(reports),
+                wall=time.perf_counter() - t0, counts=_verify_counts())
+
+
+def verify_props_run(key: str, device: str) -> dict:
+    """Phase 17 (d), in a worker process: one property run of
+    ``torch_parity.PROPERTY_CASES`` through the port's ``Simulator`` on
+    ``device``, with every launch count set to 0 just before and read
+    just after."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch import verify
+    from repro_torch.core import ControllerConfig
+    tp = parity()
+    _verify_reset()
+    t0 = time.perf_counter()
+    rep = tp.property_run(verify, ControllerConfig, key, device=device)
+    torch.cuda.synchronize()
+    return dict(doc=tp.property_doc(rep), wall=time.perf_counter() - t0,
+                counts=_verify_counts())
+
+
+def check_verify(explore: dict, diff: dict, props: dict,
+                 golden: list) -> dict:
+    """Hold phase 17's results to ``tests/torch_verify_stats.json``, with
+    the kernels' launches: the exploration one fused step and one
+    readiness table per transition and no plain step; every other run
+    some fused launches and no plain step.  Prints what was run; returns
+    the fused and table launches."""
+    tp = parity()
+    doc = json.loads(Path(tp.VERIFY_FIXTURE).read_text())
+    r = explore
+    edges = sum(d["edges"] for d in r["smoke"].values())
+    ok = r["smoke"] == doc["smoke"]
+    print(f"  (a) smoke matrix: {len(r['smoke'])} explorations, {edges} "
+          f"edges, states "
+          f"{sum(d['states_explored'] for d in r['smoke'].values())}, "
+          f"commands checked "
+          f"{sum(d['commands_checked'] for d in r['smoke'].values())}, "
+          f"tables checked "
+          f"{sum(d['tables_checked'] for d in r['smoke'].values())}, "
+          f"divergences "
+          f"{sum(len(d['divergences']) for d in r['smoke'].values())}; "
+          f"fused launches {r['launches']}, readiness-table launches "
+          f"{r['tables']}, plain steps {r['plain']}; wall {r['wall']:.2f} s, "
+          f"{edges / r['wall']:.1f} edges/s, transitions "
+          f"{r['step_s']:.2f} s ({r['step_s'] / r['wall'] * 100:.1f}% of the "
+          f"wall; the oracle and the frontier the rest), "
+          f"{r['step_s'] / max(r['launches'], 1) * 1e3:.3f} ms per "
+          f"transition of 64 lanes  {'match' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("phase 17 (a): the smoke matrix differs from "
+             "tests/torch_verify_stats.json")
+    if not (r["launches"] == r["tables"] > 0 and r["plain"] == 0):
+        fail(f"phase 17 (a): {r['launches']} fused launches, {r['tables']} "
+             f"table launches, {r['plain']} plain steps")
+    fused2, tables2, plain2 = r["counts2"]
+    ok = (r["refresh_pressure"] == doc["refresh_pressure"] and all(
+        c["doc"] == doc[case] and c["artifact"] == doc[case]["trace"]
+        for case, c in r["cex"].items()))
+    cx = r["cex"]["counterexample"]["doc"]
+    print(f"  (b) refresh pressure {r['refresh_pressure']['text']}; "
+          f"loosened ACT->RD: {cx['divergence']}, path {cx['path']}; "
+          f"table check: {r['cex']['table_divergence']['doc']['divergence']}"
+          f"; artifacts read back from build/verify_smoke; fused launches "
+          f"{fused2}, table launches {tables2}, plain steps {plain2}  "
+          f"{'match' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("phase 17 (b): a counterexample or the refresh-pressure "
+             "exploration differs from tests/torch_verify_stats.json")
+    if not (fused2 == tables2 > 0 and plain2 == 0):
+        fail(f"phase 17 (b): {fused2} fused launches, {tables2} table "
+             f"launches, {plain2} plain steps")
+    want = doc["differential"]
+    fused3, _, plain3 = diff["counts"]
+    ok = (diff["reports"] == want["reports"] and diff["table"] ==
+          want["table"] and all(d["file"] and d["sha"] == want["dumps"][s]
+                                for s, d in diff["dumps"].items()))
+    print(f"  (c) differential: "
+          + "; ".join(d["text"] for d in diff["reports"].values())
+          + f"; fused launches {fused3}, plain steps {plain3}, "
+          f"{diff['wall']:.2f} s  {'match' if ok else 'MISMATCH'}")
+    if not ok or not fused3 or plain3:
+        fail("phase 17 (c): the command streams differ from "
+             "tests/verify/fixtures or ran off the kernel")
+    fused4 = 0
+    for key, p in props.items():
+        f, _, pl = p["counts"]
+        fused4 += f
+        ok = p["doc"] == doc["properties"][key]
+        print(f"  (d) properties {key:<22} {p['doc']['checks']}  served "
+              f"{p['doc']['info']['served']}  fused launches {f}, plain "
+              f"steps {pl}, {p['wall']:.2f} s  {'match' if ok else 'MISMATCH'}")
+        if not ok or not f or pl:
+            fail(f"phase 17 (d): {key} differs from its fixture or ran off "
+                 "the kernel")
+    cells = {}
+    for _, g in golden:
+        cells.update(g["mutation"])
+    from repro_torch.verify import matrix_table
+    table = matrix_table({tuple(k.split("/")): v for k, v in cells.items()})
+    ok = (cells == doc["mutation_matrix"]["cells"]
+          and table == doc["mutation_matrix"]["table"])
+    print(f"  (e) mutation matrix on the 11 golden traces captured on the "
+          f"card: {sum(v == 'detected' for v in cells.values())}/"
+          f"{len(cells)} detected  {'match' if ok else 'MISMATCH'}")
+    if not ok or set(cells.values()) != {"detected"}:
+        fail("phase 17 (e): the mutation matrix differs from "
+             "tests/torch_verify_stats.json")
+    return dict(fused=r["launches"] + fused2 + fused3 + fused4,
+                tables=r["tables"] + tables2)
+
+
+def explore_table_phase(device) -> dict:
+    """Phase 17 at the exploration's shape (alone on the card, after the
+    workers).  First the whole transition (``testing.explore_walk``:
+    queue insert, fused controller step, readiness table) on the card
+    against the plain one on the CPU, bit for bit in next state, events
+    and table: 24 transitions of 64 lanes from reset over the 9 smoke
+    specs and the loosened ACT->RD spec, one fused and one table launch
+    each and no plain step.  Then the readiness table alone: 64 lanes of
+    each smoke spec's tiny geometry (random device histories), kernel
+    against its plain version bit for bit, timed at HBM3's 4-bank spec
+    (the largest table of the smoke matrix) with its bound."""
+    import importlib
+    import torch
+    from repro_torch.core import ControllerConfig
+    from repro_torch.core import device as D
+    from repro_torch.kernels import readiness as R
+    from repro_torch.testing import explore_walk, random_device_state
+    X = importlib.import_module("repro_torch.verify.explore")
+    walks = parity().explore_walk_specs(X, ControllerConfig)
+    n = step_err = 0
+    for key, cspec, ccfg in walks:
+        for d, launches, diff in explore_walk(cspec, ccfg, device,
+                                              seed=len(key)):
+            step_err = max([step_err, *diff.values()])
+            if diff or launches != (1, 1, 0):
+                fail(f"exploration transition on the card != plain one on "
+                     f"{key} at depth {d}: {diff}; (fused, table, plain) "
+                     f"launches {launches}")
+            n += 1
+    print(f"exploration transition on the card vs the plain one on the CPU: "
+          f"{n} transitions of 64 lanes over {len(walks)} specs (the 9 "
+          f"smoke specs and the loosened ACT->RD spec; state, events, "
+          f"table: max |diff| {step_err})")
+    max_err = 0
+    for i, std in enumerate(parity().VERIFY_STANDARDS):
+        for name, tkw, _, _ in X.SMOKE_CONFIGS:
+            cspec = X.tiny_spec(std, **tkw)
+            dp = D.dyn_params(cspec, device)
+            tab = dp.tables.ready
+            st, _ = random_device_state(cspec, dp, device, seed=7 + i,
+                                        clk0=0, channels=64, steps=30)
+            got = R.readiness_table_cuda(tab, st.last_issue, st.win_ring)
+            want = R.readiness_table_plain(tab, st.last_issue, st.win_ring)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            max_err = max(max_err, err)
+            if err or got.shape != want.shape:
+                fail(f"readiness kernel != plain version at 64 lanes of "
+                     f"{std} {name}: max |diff| {err}")
+    # the last spec: HBM3 b4-q2
+    run = lambda: R.readiness_table_cuda(tab, st.last_issue, st.win_ring)
+    kern_ms = cuda_ms(run, 2000)
+    plain_ms = cuda_ms(lambda: R.readiness_table_plain(
+        tab, st.last_issue, st.win_ring), 500)
+    dev_us = device_us(run, "readiness_table_kernel")
+    nbytes = 4 * (st.last_issue.numel() + st.win_ring.numel()
+                  + tab.keys.numel() + tab.A.numel()
+                  + 64 * cspec.n_cmds * cspec.n_banks)
+    ops = 3 * int(tab.present.sum()) * cspec.n_banks * 64
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / CUDA_CORE_OPS_PER_S * 1e3
+    print(f"readiness table at the exploration's shape (64 lanes of each "
+          f"of the 9 smoke specs, bit-exact, max |diff| {max_err}); at "
+          f"{std} {name} ({cspec.n_cmds} commands x {cspec.n_banks} banks, "
+          f"{tab.A.shape[0]} keys): kernel {kern_ms * 1e3:.2f} us back to "
+          f"back, device "
+          f"{'not measured' if dev_us is None else f'{dev_us:.3f} us'}, "
+          f"plain version {plain_ms * 1e3:.2f} us, bound "
+          f"{max(bytes_ms, ops_ms) * 1e6:.3f} ns ({nbytes} B: "
+          f"{bytes_ms * 1e6:.3f} ns; {ops} integer operations: "
+          f"{ops_ms * 1e6:.3f} ns)")
+    return dict(max_err=max_err, step_err=step_err, kernel_ms=kern_ms,
+                plain_ms=plain_ms, device_us=dev_us,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def parity():
+    """``tests/torch_parity.py``: the constants the fixtures were written
+    from and the docs they hold (phase 16's grid ``DSE_FIG1`` and its
+    ``sweep_spec``; phase 17's runs and result docs)."""
     sys.path.insert(0, str(ROOT / "tests"))
     import torch_parity
     return torch_parity
 
 
 def dse_fig1() -> dict:
-    return dse_parity().DSE_FIG1
+    return parity().DSE_FIG1
 
 
 def dse_spec(run: dict, **kw):
     """The port's ``SweepSpec`` of a fixture run."""
     from repro_torch import dse
-    return dse_parity().sweep_spec(dse, run, **kw)
+    return parity().sweep_spec(dse, run, **kw)
 
 
 def dse_check(what: str, res, want: dict, launches: int, plain: int,
@@ -1014,8 +1332,10 @@ def lanes_phase(device):
     {1, 5, 32} points of C in {1, 2, 4} channels, per-point clocks with
     every third point inactive (a finished point), reset states at clock 0
     with refresh stagger on and off (negative ``last_ref``) and random
-    states, 3 cycles in a row; then one launch timed at the batched
-    session's 128 lanes (32 points x 4 DDR4 channels)."""
+    states, then random states with every point active at one clock (the
+    plain version's other branch: all lanes as channels of one step), 3
+    cycles in a row; then one launch timed at the batched session's 128
+    lanes (32 points x 4 DDR4 channels)."""
     import itertools
     import torch
     from repro_torch import testing as T
@@ -1030,11 +1350,12 @@ def lanes_phase(device):
     steps = max_err = 0
     for i, ((std, org, tim), P, nch, case) in enumerate(itertools.product(
             systems, (1, 5, 32), (1, 2, 4),
-            ("stagger", "in phase", "random"))):
+            ("stagger", "in phase", "random", "lockstep"))):
         cspec = compile_spec(std, org, tim, channels=nch)
         dp = D.dyn_params(cspec, device, nch)
-        cs, clk, active = T.lane_case(cspec, dp, device, i, P, nch,
-                                      case != "random", case == "stagger")
+        cs, clk, active = T.lane_case(
+            cspec, dp, device, i, P, nch, case in ("stagger", "in phase"),
+            case == "stagger", lockstep=case == "lockstep")
         for step in range(3):
             kcs = T.clone_ctrl(cs)
             before = KS.launch_count
@@ -1089,7 +1410,8 @@ def lanes_phase(device):
     ops_ms = ops / CUDA_CORE_OPS_PER_S * 1e3
     print(f"fused controller step over lanes vs plain version: {steps} "
           f"steps (DDR4, LPDDR5, HBM3; 1/5/32 points x 1/2/4 channels; "
-          f"state, events, horizon: max |diff| {max_err})")
+          f"per-point clocks and lockstep; state, events, horizon: max "
+          f"|diff| {max_err})")
     print(f"  at {lanes} lanes (DDR4, {P} points x {nch} channels, queue "
           f"depth {cfg.queue_depth}): kernel {ms * 1e3:.2f} / "
           f"{ms2 * 1e3:.2f} us back to back (CUDA events, before / after "
@@ -2069,7 +2391,7 @@ def main() -> int:
         build.library_path("readiness"), (), ("VIADDMNMX", "FMNMX",
                                                "LDGSTS")))
 
-    max_err, krows = timed("3 readiness", kernel_phase, device)
+    max_err, _ = timed("3 readiness", kernel_phase, device)
     mp_err, mp = timed("3 maxplus", maxplus_phase, device)
     fused = timed("3 fused", fused_phase, device)
     lanes = timed("10 lanes", lanes_phase, device)
@@ -2091,18 +2413,17 @@ def main() -> int:
                             device)
     # phase 16's cold half runs in this process beside the workers, its
     # warm half alone after them
-    system_launches, p15_launches, dse_cold = timed(
-        "5, 12, 14, 15 in workers; 16 cold", golden_phase, "cuda",
+    system_launches, p15_launches, p17, dse_cold = timed(
+        "5, 12, 14, 15, 17 in workers; 16 cold", golden_phase, "cuda",
         lambda: dse_phase(device))
     dse_launches = timed("16 warm", dse_warm_phase, device, dse_cold)
+    xtab = timed("17 table", explore_table_phase, device)
     _, launches = timed("6 main path", main_path_phase, device)
     timed("7 fixture", fixture_phase, device)
     core_launches = timed("8 reduced", reduced_phase, device)
     sm90_launches = timed("9 serving", lm_phase, device)
 
-    r = krows[MAIN["standard"]]
     big = mp[(*MAXPLUS_TIMED[-1], "int32")]
-    bound_by = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
 
     def flash_row(name, source, launches, t, err):
         return {"name": name, "route": "cuda",
@@ -2117,9 +2438,10 @@ def main() -> int:
         "name": "readiness_table", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/readiness.cu",
         "replaces": "src/repro/kernels/timing_check.py:51",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
-        "bound_ms": max(r["bytes_ms"], r["ops_ms"]), "bound_by": bound_by,
+        "launches": launches + p17["tables"],
+        "max_abs_err": max(max_err, xtab["max_err"], xtab["step_err"]),
+        "ms": xtab["kernel_ms"], "plain_ms": xtab["plain_ms"],
+        "bound_ms": xtab["bound_ms"], "bound_by": xtab["bound_by"],
         "library_ms": None}, {
         "name": "maxplus_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/readiness.cu",
@@ -2132,9 +2454,9 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/controller_step.cu",
         "replaces": "src/repro/kernels/timing_check.py:51",
         "launches": (batch_launches + hetero_launches + system_launches
-                     + p15_launches + dse_launches),
+                     + p15_launches + dse_launches + p17["fused"]),
         "max_abs_err": max(fused["max_err"], lanes["max_err"],
-                           preds["max_err"]),
+                           preds["max_err"], xtab["step_err"]),
         "ms": lanes["ms"], "plain_ms": lanes["plain_ms"],
         "bound_ms": lanes["bound_ms"], "bound_by": lanes["bound_by"],
         "library_ms": None},

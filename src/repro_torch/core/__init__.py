@@ -7,12 +7,15 @@ Public surface (the counterparts of ``repro.core``'s names):
   * ``Simulator`` — the cycle-level engine, on CUDA by default
   * ``ControllerConfig`` / ``FrontendConfig``
   * ``ReplayStream`` — the request columns of ``pattern="trace"``
+  * ``DeviceUnderTest`` — the scalar numpy oracle and its probe API
+    (paper Listing 2)
 """
 from repro_torch.core import standards  # noqa: F401  (populates the registry)
 from repro_torch.core.compile import (CompiledSpec, MemorySystemSpec,
                                       SpecGroup, as_system, compile_spec,
                                       compile_system)
 from repro_torch.core.controller import ControllerConfig
+from repro_torch.core.dut import DeviceUnderTest, ProbeResult
 from repro_torch.core.engine import (RUN_CACHE, RunCache, Simulator, Stats,
                                      avg_probe_latency_ns, channel_breakdown,
                                      format_stats, peak_gbps, row_hit_rate,
@@ -24,7 +27,8 @@ from repro_torch.core.spec import (Command, DRAMSpec, Organization,
 
 __all__ = [
     "CompiledSpec", "compile_spec", "MemorySystemSpec", "SpecGroup",
-    "as_system", "compile_system", "ControllerConfig", "Simulator",
+    "as_system", "compile_system", "ControllerConfig", "DeviceUnderTest",
+    "ProbeResult", "Simulator",
     "Stats", "FrontendConfig", "ReplayStream", "Command", "DRAMSpec", "Organization",
     "TimingConstraint", "all_standards", "get_standard", "standards",
     "throughput_gbps", "peak_gbps", "avg_probe_latency_ns", "row_hit_rate",

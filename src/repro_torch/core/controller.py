@@ -168,9 +168,10 @@ def init_ctrl_state(cspec: CompiledSpec, depth: int, channels: int,
 
 
 def _tree(fn, *trees):
-    """``fn`` over the tensors of NamedTuples of the same structure."""
+    """``fn`` over the leaves (tensors, or host arrays) of NamedTuples of
+    the same structure."""
     first = trees[0]
-    if isinstance(first, torch.Tensor):
+    if not isinstance(first, tuple):
         return fn(*trees)
     return type(first)(*(_tree(fn, *leaves) for leaves in zip(*trees)))
 
@@ -658,12 +659,28 @@ def step_lanes_plain(cspec: CompiledSpec, dp: D.DynParams,
     :func:`controller_step_plain` without ``horizon``); an inactive
     point's lanes keep their state and give idle events and the horizon
     ``HORIZON_MAX``.  Returns ``(cs', StepEvents, horizon (P, C))``.  It
-    loops over the points in Python: it is the kernel's yardstick and the
-    engine's step on the CPU."""
+    loops over the points in Python, unless there are several points and
+    every one is active at one clock (an exploration chunk, or any batch
+    whose points run in lockstep): then all ``P * C`` lanes take one step
+    as channels.  It is the kernel's yardstick and the engine's step on
+    the CPU."""
     host = lambda x: x.tolist() if isinstance(x, torch.Tensor) else list(x)
     clks, acts = host(clk), host(active)
-    nch = cs.queue.valid.shape[1]
+    P, nch = cs.queue.valid.shape[:2]
     device = cs.queue.valid.device
+    if P > 1 and all(acts) and len(set(clks)) == 1:
+        # every point active at one clock: the lanes are independent
+        # channels of one step (the plain step treats channels apart)
+        flat = _tree(lambda a: a.reshape((P * nch,) + a.shape[2:]), cs)
+        if horizon:
+            flat, ev, h = step_and_horizon_plain(cspec, dp, cfg, flat,
+                                                 clks[0], link_latency)
+        else:
+            flat, ev = controller_step_plain(cspec, dp, cfg, flat, clks[0],
+                                             link_latency)
+            h = torch.full((P * nch,), HORIZON_MAX, dtype=I32, device=device)
+        back = lambda a: a.reshape((P, nch) + a.shape[1:])
+        return _tree(back, flat), _tree(back, ev), back(h)
     parts = []
     for p, (t, on) in enumerate(zip(clks, acts)):
         cs_p = _tree(lambda a: a[p], cs)

@@ -1,5 +1,6 @@
 """Random simulator states for holding the port's kernels against their
-plain versions (``chip_smoke.py`` and ``tests/test_torch_cuda.py``).
+plain versions (``chip_smoke.py``, ``tests/test_torch_cuda.py`` and
+``tests/test_torch_verify_cuda.py``).
 
 Everything is drawn with numpy from a seed, so the kernel and its plain
 version see the same inputs on any device.
@@ -162,7 +163,8 @@ def reads_every_field(cspec: CompiledSpec, ctx: C.PredCtx) -> torch.Tensor:
 
 def lane_case(cspec: CompiledSpec, dp: D.DynParams, device, seed: int,
               points: int, channels: int, reset: bool,
-              stagger: bool = True, depth: int = 32) -> tuple:
+              stagger: bool = True, depth: int = 32,
+              lockstep: bool = False) -> tuple:
     """A batch of ``points`` design points of ``channels`` channels each
     for the fused step at per-point clocks: ``(cs, clk (P,) int32, active
     (P,) bool)``, the state's leaves ``(P, C, ...)``.
@@ -174,7 +176,9 @@ def lane_case(cspec: CompiledSpec, dp: D.DynParams, device, seed: int,
       clocks ``clk + 0..3``.
 
     Every third point (from the second) is inactive: a finished point
-    whose clock is already past the run's end."""
+    whose clock is already past the run's end.  With ``lockstep`` every
+    point is active at the first point's clock instead (the batch that
+    ``step_lanes_plain`` steps as one of ``P * C`` channels)."""
     rng = np.random.default_rng(seed + 104729)
     shape = (points, channels)
     if reset:
@@ -197,6 +201,8 @@ def lane_case(cspec: CompiledSpec, dp: D.DynParams, device, seed: int,
         cs = C._tree(lambda a: a.view(shape + a.shape[1:]), cs)
         clks = [clk + int(d) for d in rng.integers(0, 4, points)]
     active = [p % 3 != 1 for p in range(points)]
+    if lockstep:
+        clks, active = [clks[0]] * points, [True] * points
     return (cs, torch.tensor(clks, dtype=torch.int32, device=device),
             torch.tensor(active, device=device))
 
@@ -267,3 +273,45 @@ def events_diff(a: C.StepEvents, b: C.StepEvents) -> dict:
         if d:
             out[k] = d
     return out
+
+
+def explore_walk(cspec: CompiledSpec, ccfg, device, seed: int,
+                 lanes: int = 64, steps: int = 24):
+    """The exploration transition (``verify.explore._Step``: queue
+    insert, controller step, earliest-ready table) on ``device`` against
+    the same transition on the CPU, on the same states and injections: a
+    random walk of ``steps`` transitions of ``lanes`` lanes from the reset
+    state, each from a random mix of the last children.  Yields per
+    transition ``(depth, launches, diff)``: ``launches`` the fused,
+    table and plain-step counts that the ``device`` transition added, and
+    ``diff`` the max |difference| of each next-state leaf, event field
+    and the table that differs (empty when all are equal)."""
+    import importlib
+    from repro_torch.kernels import controller_step as KS
+    from repro_torch.kernels import readiness as R
+    X = importlib.import_module("repro_torch.verify.explore")
+    want, wr, sub, row = X._encode_alphabet(cspec,
+                                            X.default_alphabet(cspec))
+    kern, plain = X._Step(cspec, ccfg, device), X._Step(cspec, ccfg, "cpu")
+    rng = np.random.default_rng(seed)
+    cs = X._tree_stack([X._init_state(cspec, ccfg)] * lanes)
+    counts = lambda: (KS.launch_count, R.launch_count, C.plain_calls)
+
+    def big(a, b):
+        if a.shape != b.shape:
+            raise AssertionError(f"shapes {a.shape} != {b.shape}")
+        return int(np.abs(a.astype(np.int64) - b).max(initial=0))
+    for d in range(steps):
+        ch = rng.integers(0, len(want), lanes)
+        args = (want[ch], wr[ch], sub[ch], row[ch], d)
+        before = counts()
+        k = kern(cs, *args)
+        launches = tuple(a - b for a, b in zip(counts(), before))
+        p = plain(cs, *args)
+        diff = {f"state leaf {i}": big(a, b) for i, (a, b) in enumerate(
+            zip(X._leaves(k[0]), X._leaves(p[0])))}
+        diff.update({f"event {f}": big(k[1][f], p[1][f]) for f in k[1]})
+        diff["table"] = big(k[2], p[2])
+        yield d, launches, {w: v for w, v in diff.items() if v}
+        cs = X._tree_stack([X._tree_index(k[0], int(i))
+                            for i in rng.integers(0, lanes, lanes)])

@@ -11,8 +11,9 @@
   readiness keys; and the plan's and events' layouts against the enums of
   ``csrc/controller_step.cu``.
 * The plain step over ``P x C`` lanes at per-point clocks with inactive
-  points (``step_lanes_plain``, the batched kernel's yardstick) against
-  per-point scalar ``step_and_horizon_plain``.
+  points (``step_lanes_plain``, the batched kernel's yardstick), and with
+  every point active at one clock (one step of all lanes as channels),
+  against per-point scalar ``step_and_horizon_plain``.
 * The wrapper raises for what the kernel does not take, before any build
   or launch; the user predicates' device mask equals what the plain pass's
   predicates see, and on the card it rides the kernel (one launch per
@@ -112,6 +113,34 @@ def test_lane_step_equals_per_point_steps(std, org, tim, points, channels,
             assert not T.events_diff(TC._tree(lambda t: lanes(t, p), got_ev),
                                      want_ev), (p, step)
             assert torch.equal(lanes(got_h, p), want_h), (p, step)
+        cs, clk = got_cs, clk + 1
+
+
+@pytest.mark.parametrize("std,org,tim", LANE_SYSTEMS)
+@pytest.mark.parametrize("points,channels", [(3, 2), (4, 1)])
+def test_lockstep_lane_step_equals_per_point_steps(std, org, tim, points,
+                                                   channels):
+    """With every point active at one clock, the lanes take one plain step
+    as ``points * channels`` channels; each point's lanes equal its own
+    scalar step, 3 cycles in a row."""
+    cspec = compile_spec(std, org, tim, channels=channels)
+    dp = TD.dyn_params(cspec, "cpu", channels)
+    cfg = TC.ControllerConfig()
+    cs, clk, active = T.lane_case(cspec, dp, "cpu", 6, points, channels,
+                                  False, lockstep=True)
+    assert bool(active.all()) and len(set(clk.tolist())) == 1
+    for step in range(3):
+        plain = TC.plain_calls
+        got_cs, got_ev, got_h = TC.step_and_horizon(
+            cspec, dp, cfg, T.clone_ctrl(cs), clk, active)
+        assert TC.plain_calls == plain + 1
+        for p in range(points):
+            at = lambda t: t[p]
+            want_cs, want_ev, want_h = TC.step_and_horizon_plain(
+                cspec, dp, cfg, TC._tree(at, cs), int(clk[p]))
+            assert not T.ctrl_diff(TC._tree(at, got_cs), want_cs), (p, step)
+            assert not T.events_diff(TC._tree(at, got_ev), want_ev), (p, step)
+            assert torch.equal(got_h[p], want_h), (p, step)
         cs, clk = got_cs, clk + 1
 
 

@@ -21,9 +21,10 @@ tolerances (fp32 2e-5, bf16 2e-2), each call counted on the route
 and ring-wrapping lengths, Tq != Tk, GQA rep 8 and fused qkv views),
 and the reduced GQA Llama of ``tests/torch_serve_fixture.npz`` served on
 ``cuda`` gives the JAX package's logits (atol 0.2, rtol 0.05) and greedy
-tokens.  The fused step over (point x channel) lanes at per-point clocks
-is held against ``step_lanes_plain`` (1, 5 and 32 points of 1, 2 and 4
-channels, DDR4, LPDDR5, HBM3); ``run_batch`` on ``cuda`` equals the CPU
+tokens.  The fused step over (point x channel) lanes at per-point clocks,
+and with every point active at one clock, is held against
+``step_lanes_plain`` (1, 5 and 32 points of 1, 2 and 4 channels, DDR4,
+LPDDR5, HBM3); ``run_batch`` on ``cuda`` equals the CPU
 run point by point, and the ``DDR4@2ch`` golden stream reproduces.  With
 BlockHammer, PRAC and a link latency (DDR4, LPDDR5, HBM3, GDDR7; around
 the sketch's decay cycles) and with a user predicate (its mask computed
@@ -254,13 +255,17 @@ def test_fused_step_over_lanes_equals_plain_version(cuda, std, org, tim,
                                                     points, channels):
     """One launch over points x channels lanes at per-point clocks (every
     third point inactive), from reset states at clock 0 with refresh
-    stagger on and off and from random states, 3 cycles in a row."""
+    stagger on and off and from random states, then from random states
+    with every point active at one clock (the plain version's one-step
+    branch), 3 cycles in a row."""
     cspec = compile_spec(std, org, tim, channels=channels)
     dp = D.dyn_params(cspec, cuda, channels)
     cfg = ControllerConfig()
-    for i, case in enumerate(("stagger", "in phase", "random")):
-        cs, clk, active = T.lane_case(cspec, dp, cuda, i, points, channels,
-                                      case != "random", case == "stagger")
+    for i, case in enumerate(("stagger", "in phase", "random", "lockstep")):
+        cs, clk, active = T.lane_case(
+            cspec, dp, cuda, i, points, channels,
+            case in ("stagger", "in phase"), case == "stagger",
+            lockstep=case == "lockstep")
         for step in range(3):
             kcs = T.clone_ctrl(cs)
             before = KS.launch_count

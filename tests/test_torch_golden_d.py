@@ -2,7 +2,9 @@
 
 The port reproduces the single-spec golden sha256 hashes of
 ``tests/trace/golden_hashes.json`` (3000 cycles, interval 2.0, read ratio
-0.7, FR-FCFS, fast-forward on) bit for bit.  The 11 default systems are
+0.7, FR-FCFS, fast-forward on) bit for bit; the same run's trace is
+audited and mutated as the reference's (``trace.audit``, ``trace.viz``,
+``verify.mutation``).  The 11 default systems are
 split over four files so that each stays well under a minute."""
 import functools
 
@@ -10,7 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_parity import check_golden, jax_stats_dict  # noqa: E402
+from torch_parity import (check_golden, check_golden_audit,  # noqa: E402
+                          jax_stats_dict)
 
 STANDARDS = ['HBM4', 'LPDDR5', 'LPDDR6']
 
@@ -24,6 +27,17 @@ def _port_stats(std):
 def test_golden_command_stream_fast_forward(std):
     stats = _port_stats(std).to_dict()
     assert stats["scan_steps"] + stats["skipped_cycles"] == 3000
+
+
+@pytest.mark.parametrize("std", STANDARDS)
+def test_golden_audit_and_mutation_row_equal_the_references(std):
+    """The same run's trace (with its controller and frontend metadata)
+    through ``repro_torch.trace.audit``: the report, the visualizer page
+    (digest), each mutation class's injected trace (row, mode, digest),
+    its audit and the mutation matrix's row equal the reference's in
+    ``tests/torch_verify_stats.json`` exactly, at 100% detection."""
+    row = check_golden_audit(std)
+    assert set(row.values()) == {"detected"}
 
 
 def test_stats_equal_reference_fast_forward():

@@ -105,6 +105,15 @@ def _port_files():
 def test_port_sources_import_no_jax_and_no_reference():
     files = list(_port_files())
     assert len(files) > 15
+    rel = {os.path.relpath(p, PORT) for p in files}
+    for mod in ("verify/__init__.py", "verify/__main__.py",
+                "verify/explore.py", "verify/differential.py",
+                "verify/properties.py", "verify/mutation.py",
+                "verify/spec_mutation.py", "trace/audit.py", "trace/viz.py",
+                "trace/__main__.py", "telemetry/viz.py",
+                "telemetry/__main__.py", "analysis/__main__.py",
+                "core/dut.py"):
+        assert mod in rel, mod
     bad = []
     for path in files:
         for mod in _imports(path):
@@ -122,6 +131,11 @@ def test_fresh_import_leaves_jax_and_reference_unloaded():
         "import repro_torch.kernels.build, repro_torch.analysis\n"
         "import repro_torch.dse, repro_torch.dse.sweep\n"
         "import repro_torch.core.proxy, repro_torch.telemetry\n"
+        "import repro_torch.verify, repro_torch.trace.audit\n"
+        "import repro_torch.trace.viz, repro_torch.telemetry.viz\n"
+        "import repro_torch.verify.__main__, repro_torch.trace.__main__\n"
+        "import repro_torch.telemetry.__main__\n"
+        "import repro_torch.analysis.__main__, repro_torch.core.dut\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"

@@ -13,10 +13,11 @@ rewrites ``tests/torch_serve_fixture.npz`` from the JAX package, and
 
 rewrites ``tests/torch_batch_stats.json``,
 ``tests/torch_multichannel_stats.json``, ``tests/torch_hetero_stats.json``,
-``tests/torch_telemetry_stats.json``, ``tests/torch_replay_stats.json``
-and ``tests/torch_dse_stats.json``."""
+``tests/torch_telemetry_stats.json``, ``tests/torch_replay_stats.json``,
+``tests/torch_dse_stats.json`` and ``tests/torch_verify_stats.json``."""
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import os
@@ -181,16 +182,32 @@ def trace_sha256(tr) -> str:
     return h.hexdigest()
 
 
-def port_golden(std, fast_forward=True):
-    """Run the port on the CPU at the golden configuration; returns
-    ``(stats, CommandTrace)``."""
+def port_golden_run(std, fast_forward=True):
+    """Run the port on the CPU at the golden configuration, once per
+    process; returns ``(stats, cspec, CommandTrace)``, the trace captured
+    with the controller and frontend metadata (which the golden hash's
+    columns do not read)."""
+    return _port_golden_run(std, bool(fast_forward))
+
+
+@functools.lru_cache(maxsize=None)
+def _port_golden_run(std, fast_forward):
     from repro_torch.core import ControllerConfig, Simulator
     from repro_torch.trace import capture
     org, tim = default_systems()[std]
     sim = Simulator(std, org, tim, device="cpu", fast_forward=fast_forward,
                     controller=ControllerConfig(scheduler="FRFCFS"))
     stats, dense = sim.run(3000, interval=2.0, read_ratio=0.7, trace=True)
-    return stats, capture(sim.cspec, dense)
+    return stats, sim.cspec, capture(sim.cspec, dense,
+                                     controller=sim.controller,
+                                     frontend=sim.frontend)
+
+
+def port_golden(std, fast_forward=True):
+    """Run the port on the CPU at the golden configuration; returns
+    ``(stats, CommandTrace)``."""
+    stats, _, tr = port_golden_run(std, fast_forward)
+    return stats, tr
 
 
 def check_golden(std, fast_forward=True):
@@ -688,13 +705,393 @@ def dse_fixture() -> dict:
                                      for t in cap.traces]))
 
 
+# ---------------------------------------------------------------------------
+# The validation workflow (``repro.verify``, ``trace.audit``, the
+# visualizers and the CLIs): its runs, JSON docs of its results (either
+# package's objects) and the reference's side in ``VERIFY_FIXTURE``
+# ---------------------------------------------------------------------------
+
+VERIFY_FIXTURE = os.path.join(HERE, "torch_verify_stats.json")
+#: the smoke matrix's standards (``explore.smoke``'s default)
+VERIFY_STANDARDS = ("DDR4", "DDR5", "HBM3")
+#: the miscompiled spec of ``tests/verify/test_explore.py``: ACT->RD
+#: loosened by one cycle on a fast 2-bank DDR4, explored without the table
+#: check (an illegal issue) and with it (a table mismatch one layer
+#: earlier)
+LOOSEN = dict(standard="DDR4", banks=2, fast=True, prev="ACT",
+              following="RD", queue_depth=2)
+LOOSEN_CASES = {"counterexample": dict(depth=12, check_tables=False),
+                "table_divergence": dict(depth=6, check_tables=True)}
+#: the refresh-pressure exploration of ``tests/verify/test_explore.py``
+REFRESH_PRESSURE = dict(standard="DDR4", banks=2, fast=True, nrefi=24,
+                        depth=30, queue_depth=2, max_frontier=64)
+_DDR4 = dict(standard="DDR4", org_preset="DDR4_8Gb_x8",
+             timing_preset="DDR4_2400R")
+#: the property runs of ``tests/verify/test_properties.py``: (system
+#: arguments, stream, ``verify_properties`` keywords, controller keywords)
+PROPERTY_CASES = {
+    f"DDR4/{k}": (_DDR4, k, dict(n_cycles=4000, seed=7, nrefi=400), None)
+    for k in ("bursty", "refresh_starving", "row_conflict")}
+PROPERTY_CASES.update({
+    "HBM3x2/row_conflict": (
+        dict(standard="HBM3", org_preset="HBM3_16Gb",
+             timing_preset="HBM3_5200", channels=2), "row_conflict",
+        dict(n_cycles=4000, seed=3, nrefi=400), None),
+    "hetero/bursty": (
+        dict(system=[dict(standard="DDR5", org_preset="DDR5_16Gb_x8",
+                          timing_preset="DDR5_4800B", channels=1),
+                     dict(standard="DDR4", org_preset="DDR4_8Gb_x8",
+                          timing_preset="DDR4_2400R", channels=1,
+                          link_latency=40)]),
+        "bursty", dict(n_cycles=6000, seed=11), None),
+    "DDR4/refresh_disabled": (
+        _DDR4, "refresh_starving", dict(n_cycles=4000, seed=7, nrefi=400),
+        dict(queue_depth=8, refresh_enabled=False))})
+#: the golden trace of ``tests/trace/test_mutation_matrix.py`` (and of the
+#: golden hashes): 3000 cycles, interval 2.0, read ratio 0.7, FR-FCFS
+MUTATION_RUN = dict(n_cycles=3000, interval=2.0, read_ratio=0.7)
+#: the CLI runs held to the reference's artifacts (``{dir}`` is a temporary
+#: directory); the port's runs add ``--device cpu`` (``analysis`` runs no
+#: simulation)
+CLI_RUNS = {
+    "trace": ("trace", ["--standard", "DDR4", "--cycles", "2000",
+                        "--out", "{dir}/t.npz", "--html", "{dir}/t.html",
+                        "--jsonl", "{dir}/t.jsonl", "--fail-on-violations"]),
+    "trace_hetero": ("trace", ["--group", "DDR5:1", "--group", "DDR4:1:80",
+                               "--cycles", "1000", "--out", "{dir}/h.npz",
+                               "--html", "{dir}/h.html",
+                               "--fail-on-violations"]),
+    "telemetry": ("telemetry", ["--standard", "DDR4", "--cycles", "2000",
+                                "--window", "256", "--out", "{dir}/w.npz",
+                                "--html", "{dir}/w.html",
+                                "--jsonl", "{dir}/w.jsonl", "--check"]),
+    "analysis_spec": ("analysis", ["spec", "--standard", "DDR5",
+                                   "--channels", "4", "--override",
+                                   "nRCD=50", "--out", "{dir}/lint.json"]),
+    "analysis_diff": ("analysis", ["diff", "DDR4", "DDR5"]),
+    "verify_diff": ("verify", ["diff", "--fixtures",
+                               os.path.join(HERE, "verify", "fixtures")]),
+    "verify_loosen": ("verify", ["explore", "--standard", "DDR4", "--loosen",
+                                 "ACT:RD", "--expect-counterexample",
+                                 "--artifact-dir", "{dir}"]),
+}
+
+
+def sha(text) -> str:
+    if isinstance(text, str):
+        text = text.encode()
+    return hashlib.sha256(text).hexdigest()
+
+
+def explore_doc(res) -> dict:
+    """An ``ExploreResult``'s counts, flag and divergences."""
+    return dict(states_explored=res.states_explored, edges=res.edges,
+                commands_checked=res.commands_checked,
+                tables_checked=res.tables_checked, truncated=res.truncated,
+                divergences=[str(d) for d in res.divergences],
+                text=str(res))
+
+
+def trace_doc(tr) -> dict:
+    """A ``CommandTrace``'s columns (with ``group``), length, names and
+    metadata."""
+    cols = {f: np.asarray(getattr(tr, f)).tolist()
+            for f in ("clk", "cmd", "bank", "row", "bus", "arrive",
+                      "hit_ready", "chan", "group")}
+    return dict(cols, n_cycles=int(tr.n_cycles),
+                cmd_names=list(tr.cmd_names), meta=tr.meta)
+
+
+def trace_digest(tr) -> dict:
+    """:func:`trace_doc` with its columns digested (artifacts of long
+    runs)."""
+    doc = trace_doc(tr)
+    cols = ("clk", "cmd", "bank", "row", "bus", "arrive", "hit_ready",
+            "chan", "group")
+    h = hashlib.sha256()
+    for f in cols:
+        h.update(np.asarray(doc.pop(f), np.int32).tobytes())
+    return dict(doc, n=len(tr), sha256=h.hexdigest())
+
+
+def cex_doc(res, row: int) -> dict:
+    """A miscompiled-spec exploration: its result, the loosened row, and
+    the minimized counterexample (path, divergence, trace)."""
+    cex = res.counterexample
+    return dict(explore_doc(res), row=int(row), path=list(cex.path),
+                divergence=str(cex.divergence), trace=trace_doc(cex.trace))
+
+
+def loosened_run(verify, ControllerConfig, case: str, **kw):
+    """``(row, ExploreResult)`` of :data:`LOOSEN_CASES` ``[case]`` in one
+    package (``verify`` its ``verify`` module); ``kw`` goes to
+    ``explore`` (``device=``, ``artifact_dir=``)."""
+    c = LOOSEN
+    oracle = verify.tiny_spec(c["standard"], banks=c["banks"],
+                              fast=c["fast"])
+    bad, row = verify.loosen_constraint(oracle, c["prev"], c["following"],
+                                        amount=1)
+    res = verify.explore(
+        bad, oracle=oracle, ccfg=ControllerConfig(
+            queue_depth=c["queue_depth"]), standard=c["standard"],
+        config_doc=dict(standard=c["standard"], banks=c["banks"], rows=8,
+                        columns=8, fast=c["fast"]),
+        **LOOSEN_CASES[case], **kw)
+    return row, res
+
+
+def refresh_pressure_run(verify, ControllerConfig, **kw):
+    c = REFRESH_PRESSURE
+    cspec = verify.tiny_spec(c["standard"], banks=c["banks"], fast=c["fast"],
+                             nrefi=c["nrefi"])
+    return verify.explore(cspec, depth=c["depth"],
+                          ccfg=ControllerConfig(queue_depth=c["queue_depth"]),
+                          alphabet=(None, (0, 0, False)),
+                          max_frontier=c["max_frontier"],
+                          standard=c["standard"], **kw)
+
+
+def explore_walk_specs(X, ControllerConfig) -> list:
+    """The specs on which the exploration transition is held, kernel
+    against plain version (``testing.explore_walk``): ``(key, cspec,
+    ccfg)`` for the 9 smoke specs and DDR4's loosened ACT->RD spec
+    (``X`` the port's ``verify.explore`` module)."""
+    out = []
+    for std in VERIFY_STANDARDS:
+        for name, tkw, ckw, _ in X.SMOKE_CONFIGS:
+            out.append((f"{std}/{name}", X.tiny_spec(std, **tkw),
+                        ControllerConfig(**ckw)))
+    loose, _ = X.loosen_constraint(X.tiny_spec("DDR4", banks=2, fast=True))
+    out.append(("DDR4/loosened", loose, ControllerConfig(queue_depth=2)))
+    return out
+
+
+def property_run(verify, ControllerConfig, key: str, **kw):
+    args, stream, vkw, ckw = PROPERTY_CASES[key]
+    ccfg = ControllerConfig(**ckw) if ckw else None
+    return verify.verify_properties(args, stream, ccfg=ccfg, **vkw, **kw)
+
+
+def property_doc(rep) -> dict:
+    import dataclasses
+    return dataclasses.asdict(rep)
+
+
+def diff_doc(rep) -> dict:
+    import dataclasses
+    doc = dataclasses.asdict(rep)
+    doc["per_cmd"] = {k: list(v) for k, v in rep.per_cmd.items()}
+    return dict(doc, text=str(rep))
+
+
+def audit_doc(rep) -> dict:
+    """An ``AuditReport`` in full (its violations as text)."""
+    return dict(summary=rep.summary(), n_commands=rep.n_commands,
+                n_pairs_checked=rep.n_pairs_checked, checks=rep.checks,
+                truncated=rep.truncated, ok=rep.ok,
+                by_channel={str(k): v for k, v in rep.by_channel.items()},
+                by_group={str(k): v for k, v in rep.by_group.items()},
+                group_labels={str(k): v
+                              for k, v in rep.group_labels.items()},
+                violations=[str(v) for v in rep.violations])
+
+
+def golden_systems() -> dict:
+    """The default system of every standard (the port's copy of
+    ``repro.dse.spec.DEFAULT_SYSTEMS``: no JAX needed)."""
+    from repro_torch.core.standards import DEFAULT_SYSTEMS
+    return dict(DEFAULT_SYSTEMS)
+
+
+def all_standard_names() -> list:
+    """Every registered standard (the spec-mutation matrix's rows)."""
+    from repro_torch.core.spec import all_standards
+    return sorted(all_standards())
+
+
+def golden_trace(core, trace, std: str, **sim_kw):
+    """``(cspec, CommandTrace)`` of :data:`MUTATION_RUN` for ``std`` in
+    one package (``core`` and ``trace`` its modules), captured with the
+    controller and frontend metadata."""
+    org, tim = golden_systems()[std]
+    sim = core.Simulator(std, org, tim, controller=core.ControllerConfig(),
+                         **sim_kw)
+    r = MUTATION_RUN
+    _, dense = sim.run(r["n_cycles"], interval=r["interval"],
+                       read_ratio=r["read_ratio"], trace=True)
+    return sim.cspec, trace.capture(sim.cspec, dense,
+                                    controller=sim.controller,
+                                    frontend=sim.frontend)
+
+
+def golden_audit_doc(trace, verify, cspec, tr) -> dict:
+    """What the tests hold per golden trace: its audit, its visualizer
+    page (digest), and per mutation class the injection (row, mode,
+    mutated trace digest), its audit and the matrix verdict."""
+    rep = trace.audit(cspec, tr)
+    doc = dict(audit=audit_doc(rep),
+               html=sha(trace.render_html(tr, cspec, rep, title="golden")),
+               inject={})
+    for klass in verify.CLASSES:
+        inj = verify.inject(cspec, tr, klass)
+        if inj is None:
+            doc["inject"][klass] = None
+            continue
+        mrep = trace.audit(cspec, inj.trace, check_fingerprint=False)
+        doc["inject"][klass] = dict(
+            row=inj.row, prev=inj.prev, next=inj.next, lat=inj.lat,
+            win=inj.win, mode=inj.mode, trace=trace_digest(inj.trace),
+            audit=audit_doc(mrep),
+            detected=verify.detected(cspec, inj, mrep))
+    return doc
+
+
+def check_golden_audit(std: str) -> dict:
+    """The port on the CPU at :data:`MUTATION_RUN` for ``std`` (the golden
+    hash's run, :func:`port_golden_run`): its audit, page digest,
+    injections, their audits and the mutation-matrix row equal
+    :data:`VERIFY_FIXTURE`'s (the reference's).  Returns the row."""
+    from repro_torch import trace, verify
+    want = json.load(open(VERIFY_FIXTURE))
+    _, cspec, tr = port_golden_run(std)
+    assert len(tr) == GOLDEN[std]["n"]
+    assert golden_audit_doc(trace, verify, cspec, tr) == want["golden"][std]
+    row = verify.mutation_matrix({std: (cspec, tr)})
+    cells = want["mutation_matrix"]["cells"]
+    assert {"/".join(k): v for k, v in row.items()} == {
+        k: v for k, v in cells.items() if k.split("/")[0] == std}
+    return row
+
+
+def matrix_doc(verify, matrix: dict) -> dict:
+    return dict(cells={"/".join(k): v for k, v in sorted(matrix.items())},
+                table=verify.matrix_table(matrix))
+
+
+def telemetry_digest(telem) -> dict:
+    return dict(window=telem.window, n_cycles=telem.n_cycles,
+                meta=telem.meta, **telemetry_doc(telem))
+
+
+def cli_artifacts(out: str, d: str, trace_load, telemetry_load) -> dict:
+    """A CLI run's stdout (the temporary directory ``d`` replaced) and its
+    artifacts in ``d``: traces (:func:`trace_digest`, a counterexample's
+    :func:`trace_doc`) and telemetry (:func:`telemetry_digest`) through
+    the given loaders, lint reports as JSON, pages and JSON Lines by
+    digest."""
+    doc = dict(stdout=out.replace(d, "{dir}"))
+    for f in sorted(os.listdir(d)):
+        p = os.path.join(d, f)
+        if f.endswith(".npz"):
+            with np.load(p) as z:
+                is_trace = "cmd_names" in z
+            if not is_trace:
+                doc[f] = telemetry_digest(telemetry_load(p))
+            elif f.startswith("counterexample_"):
+                doc[f] = trace_doc(trace_load(p))
+            else:
+                doc[f] = trace_digest(trace_load(p))
+        elif f.endswith(".json"):
+            doc[f] = json.load(open(p))
+        else:
+            doc[f] = sha(open(p, "rb").read())
+    return doc
+
+
+def cli_argv(name: str, d: str, device: str | None = None) -> list:
+    """:data:`CLI_RUNS` ``[name]``'s arguments in the temporary directory
+    ``d``, with ``--device`` where the command simulates."""
+    pkg, argv = CLI_RUNS[name]
+    argv = [a.replace("{dir}", d) for a in argv]
+    if device is not None and pkg != "analysis":
+        argv += ["--device", device]
+    return argv
+
+
+def reference_cli(name: str) -> dict:
+    """Run :data:`CLI_RUNS` ``[name]`` through the reference's ``main``
+    in this process; its exit code and :func:`cli_artifacts`."""
+    import contextlib
+    import importlib
+    import io
+    import tempfile
+    from repro import telemetry, trace
+    main = importlib.import_module(f"repro.{CLI_RUNS[name][0]}.__main__").main
+    with tempfile.TemporaryDirectory() as d:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(cli_argv(name, d))
+        return dict(rc=rc, **cli_artifacts(buf.getvalue(), d, trace.load,
+                                           telemetry.load))
+
+
+def port_cli(name: str, d: str) -> dict:
+    """Run :data:`CLI_RUNS` ``[name]`` as ``python -m repro_torch.<cli>
+    ... --device cpu`` in a subprocess in the temporary directory ``d``; its
+    exit code and :func:`cli_artifacts`."""
+    import subprocess
+    import sys
+    from repro_torch import telemetry, trace
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(HERE),
+                                                   "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", f"repro_torch.{CLI_RUNS[name][0]}"]
+        + cli_argv(name, d, device="cpu"), env=env, capture_output=True,
+        text=True, timeout=600)
+    assert not out.stderr.strip() or out.returncode == 0, out.stderr
+    return dict(rc=out.returncode, **cli_artifacts(out.stdout, d,
+                                                   trace.load,
+                                                   telemetry.load))
+
+
+def verify_fixture() -> dict:
+    """The reference's side of the validation workflow on the CPU."""
+    from repro import trace as JTR
+    from repro import verify
+    from repro.core import ControllerConfig
+    import repro.core as core
+    doc = dict(loosen=LOOSEN, loosen_cases=LOOSEN_CASES,
+               refresh_pressure_run=REFRESH_PRESSURE,
+               mutation_run=MUTATION_RUN)
+    doc["smoke"] = {"/".join(k): explore_doc(r)
+                    for k, r in verify.smoke(VERIFY_STANDARDS).items()}
+    doc["refresh_pressure"] = explore_doc(
+        refresh_pressure_run(verify, ControllerConfig))
+    for case in LOOSEN_CASES:
+        doc[case] = cex_doc(*reversed(loosened_run(verify, ControllerConfig,
+                                                   case)))
+    fx = os.path.join(HERE, "verify", "fixtures")
+    reports = {std: verify.diff_against_fixture(
+        std, os.path.join(fx, f"{std}.cmdstream"))
+        for std in VERIFY_STANDARDS}
+    doc["differential"] = dict(
+        reports={s: diff_doc(r) for s, r in reports.items()},
+        dumps={s: sha(verify.dump_cmd_stream(*verify.golden_run(s)))
+               for s in VERIFY_STANDARDS},
+        table=verify.accuracy_table(list(reports.values())))
+    doc["properties"] = {k: property_doc(property_run(
+        verify, ControllerConfig, k)) for k in PROPERTY_CASES}
+    traces = {std: golden_trace(core, JTR, std) for std in golden_systems()}
+    doc["golden"] = {std: golden_audit_doc(JTR, verify, *traces[std])
+                     for std in traces}
+    doc["mutation_matrix"] = matrix_doc(verify,
+                                        verify.mutation_matrix(traces))
+    from repro.verify import spec_mutation as SM
+    doc["spec_mutation_matrix"] = {
+        "/".join(k): v for k, v in sorted(SM.spec_mutation_matrix(
+            all_standard_names()).items())}
+    doc["cli"] = {name: reference_cli(name) for name in CLI_RUNS}
+    return doc
+
+
 def write_sim_fixtures():
     for path, doc in ((BATCH_FIXTURE, batch_fixture()),
                       (MULTI_FIXTURE, multichannel_fixture()),
                       (HETERO_FIXTURE, hetero_fixture()),
                       (TELEMETRY_FIXTURE, telemetry_fixture()),
                       (REPLAY_FIXTURE, replay_fixture()),
-                      (DSE_FIXTURE, dse_fixture())):
+                      (DSE_FIXTURE, dse_fixture()),
+                      (VERIFY_FIXTURE, verify_fixture())):
         with open(path, "w") as f:
             json.dump(doc, f, indent=1)
             f.write("\n")
