@@ -49,7 +49,8 @@ Phases, each fatal on any mismatch or exception:
    step never; the runs share the card from worker processes, one per
    spare CPU core, since each is bound by its host loop;
 6. run the README's session — DDR5_16Gb_x8 / DDR5_4800B, 20,000 cycles,
-   interval 2.0, read ratio 0.8 — with every launch count set to 0 just
+   interval 2.0, read ratio 0.8 — through ``examples/torch/quickstart.py``
+   (phase 18's first example) with every launch count set to 0 just
    before and read just after, and require its ``Stats`` to equal the
    reference fixture ``tests/torch_main_path_stats.json`` exactly, one
    fused launch per executed step and no call of the plain step; print
@@ -91,9 +92,9 @@ Phases, each fatal on any mismatch or exception:
     and launches per iteration; then 100 cycles of it under
     ``torch.profiler`` (one device-to-host copy per iteration);
 12. (in a worker process beside phase 5's runs) multi-channel: reproduce
-    ``GOLDEN["DDR4@2ch"]`` on ``cuda``, and the 4-channel HBM3 session of
-    ``examples/multichannel.py`` against
-    ``tests/torch_multichannel_stats.json``;
+    ``GOLDEN["DDR4@2ch"]`` on ``cuda``, and run
+    ``examples/torch/multichannel.py`` (phase 18's example): its 4-channel
+    HBM3 session against ``tests/torch_multichannel_stats.json``;
 13. (run right after phase 10) the modern-controller features: the fused
     kernel vs ``step_and_horizon_plain`` on the same CUDA tensors, bit for
     bit in next state (the BlockHammer sketch and PRAC counters included),
@@ -109,15 +110,17 @@ Phases, each fatal on any mismatch or exception:
     (the sketch's decay cycles); then the kernel at one DDR4 lane with
     BlockHammer off and on, timed back to back (CUDA events) and on the
     device (``torch.profiler``);
-14. (run before phase 5) memory systems and predicates: the session of
-    ``examples/hetero_system.py`` (DDR5x2 + CXL-DDR4x2@80, 20,000 cycles,
-    interval 1.0, read ratio 0.7) with every launch count set to 0 just
-    before and read just after: its ``Stats`` and ``per_group`` leaves
-    equal ``tests/torch_hetero_stats.json``, with two fused launches (one
-    per spec group) and one host sync per loop iteration and no plain
-    step; then 100 cycles of it under ``torch.profiler`` (operator calls,
-    kernel launches and device-to-host copies per iteration, busy share);
-    in worker processes beside phase 5's golden runs: the hetero golden
+14. memory systems and predicates: (run before phase 5) 100 cycles of
+    the session of ``examples/hetero_system.py`` (DDR5x2 + CXL-DDR4x2@80,
+    interval 1.0, read ratio 0.7) under ``torch.profiler`` (operator
+    calls, kernel launches and device-to-host copies per iteration, busy
+    share); in worker processes beside phase 5's golden runs: the whole
+    session, 20,000 cycles, through ``examples/torch/hetero_system.py``
+    (phase 18's example) with every launch count set to 0 just before and
+    read just after: its ``Stats`` and ``per_group`` leaves equal
+    ``tests/torch_hetero_stats.json``, with two fused launches (one per
+    spec group) and one host sync per loop iteration and no plain step;
+    the hetero golden
     hash ``GOLDEN["DDR5x2+DDR4x2@80"]`` (over ``FIELDS + ("group",)``),
     ``run_batch`` over the system and the fixture's predicate sessions
     (BlockHammer on a 2-row hammer and on benign traffic, PRAC on 4 rows
@@ -179,12 +182,34 @@ Phases, each fatal on any mismatch or exception:
     transitions of 64 lanes of each of the 9 smoke specs and the loosened
     spec; then the readiness table at 64 lanes of each smoke spec against
     its plain version, timed at HBM3's 4-bank spec.
+18. the seven examples of ``examples/torch/`` at their own sizes (the
+    reference examples' sessions, ``EXAMPLE_RUNS`` of
+    ``tests/torch_parity.py``), each through its ``main`` on ``cuda`` with
+    every launch count set to 0 just before and read just after, its
+    output in ``build/examples/<name>.log``: ``quickstart`` (phase 6),
+    ``multichannel`` (phase 12) and ``hetero_system`` (phase 14) where the
+    earlier phase runs their session, ``extend_standard``, ``dse_sweep``,
+    ``visualize_trace`` and ``serve_lm`` in worker processes beside phase
+    5's runs.  Each one's results (every ``Stats`` and ``per_group`` leaf,
+    sweep column and table, curve, audit, command-stream digest, replay
+    fingerprint, probe and table value) equal
+    ``tests/torch_examples_stats.json`` (the reference examples' own,
+    tolerance 0), ``serve_lm``'s greedy tokens those of
+    ``tests/torch_examples_serve.npz`` (the reference's weights; a token
+    may differ only at a near tie, as in phase 7); one fused launch per
+    spec group and loop iteration, no plain step; the VRR table through
+    the readiness kernel, the reduced model's attention through the
+    CUDA-core flash kernel.  Then ``python -m repro_torch.analysis trace``
+    on the shipped tree (the host-sync lint): clean.  Each example's
+    seconds and launches are printed.
 
 The line before the last is a JSON object with one entry per kernel (its
 times, bound and launches; the fused controller step's launches are those
-of the batched session, of phases 14, 15 and 17's runs and of phase 16's
-two Fig. 1 sweeps, its times those of one 128-lane launch; the readiness
-table's launches are phase 17's, its times those of 64 exploration lanes;
+of the batched session, of the seven examples, of phases 14, 15 and 17's
+worker runs and of phase 16's two Fig. 1 sweeps, its times those of one
+128-lane launch; the readiness table's launches are phase 17's and the
+VRR example's, its times those of 64 exploration lanes; the CUDA-core
+flash kernel's those of phase 8 and of ``serve_lm``;
 the general (max,+) product, off every path, reports the main path's 0
 launches and its 2048^3 int32 times); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
@@ -625,12 +650,13 @@ def golden_run(std: str, org: str, tim: str, device: str) -> dict:
 
 
 def golden_phase(device: str, meanwhile=None) -> tuple:
-    """The golden runs and the sessions of phases 12, 14, 15 and 17, spread
-    over worker processes (the longest first): each run is bound by its
-    host loop, so processes on separate cores share the one card.  The
+    """The golden runs and the sessions of phases 12, 14, 15, 17 and 18,
+    spread over worker processes (the longest first): each run is bound by
+    its host loop, so processes on separate cores share the one card.  The
     main process runs ``meanwhile()`` while they do.  Returns the fused
-    launches of phase 14's sessions and of phase 15's, phase 17's fused
-    and table launches, and what ``meanwhile`` returned."""
+    launches of phase 14's system sessions and of phase 15's, phase 17's
+    fused and table launches, the examples' results (checked) and what
+    ``meanwhile`` returned."""
     import multiprocessing
     import os
     from concurrent.futures import ProcessPoolExecutor
@@ -642,6 +668,12 @@ def golden_phase(device: str, meanwhile=None) -> tuple:
     t0 = time.perf_counter()
     with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context(
             "spawn")) as pool:
+        # phases 14 and 18: the examples in worker processes, the longest
+        # first
+        examples = [pool.submit(example_run, name, device)
+                    for name in ("hetero_system", "dse_sweep",
+                                 "visualize_trace", "serve_lm",
+                                 "extend_standard")]
         p17 = pool.submit(verify_explore_run, device)
         props = [(key, pool.submit(verify_props_run, key, device))
                  for key in parity().PROPERTY_CASES]
@@ -657,16 +689,21 @@ def golden_phase(device: str, meanwhile=None) -> tuple:
         results = [(std, f.result()) for std, f in futures]
         system_results = [(job, f.result()) for job, f in jobs]
         p15_results = [(job, f.result()) for job, f in p15]
-        multi_lines = multi.result()
+        multi_result = multi.result()
+        example_results = [f.result() for f in examples]
         p17_results = (p17.result(), diff.result(),
                        {k: f.result() for k, f in props})
     print(f"multi-channel on {device} (phase 12, in a worker process):")
-    for line in multi_lines:
+    for line in multi_result["lines"]:
         print("  " + line)
         if line.startswith("FAILED"):
             fail(line[len("FAILED "):])
+    example_results.append(multi_result["example"])
+    for r in example_results:
+        check_example(r)
     print(f"memory systems and predicates on {device} (phase 14, in worker "
           "processes):")
+    hetero_example_line(example_results[0])
     doc = hetero_fixture()
     launches = sum(check_system_run(job, r, doc)
                    for job, r in system_results)
@@ -691,7 +728,7 @@ def golden_phase(device: str, meanwhile=None) -> tuple:
     print(f"validation workflow on {device} (phase 17, in worker "
           "processes):")
     p17_launches = check_verify(*p17_results, results)
-    return launches, p15_launches, p17_launches, extra
+    return launches, p15_launches, p17_launches, example_results, extra
 
 
 def telemetry_doc(telem) -> dict:
@@ -1428,13 +1465,13 @@ def lanes_phase(device):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def multichannel_run(device: str) -> list:
+def multichannel_run(device: str) -> dict:
     """Phase 12 (run in a worker process): ``GOLDEN["DDR4@2ch"]`` on
-    ``cuda`` (fast-forward on), and the 4-channel HBM3 session of
-    ``examples/multichannel.py`` against
-    ``tests/torch_multichannel_stats.json``, each with one fused launch per
-    executed step and no plain step.  Returns the report lines; a line
-    that starts with "FAILED" names a mismatch."""
+    ``cuda`` (fast-forward on), with one fused launch per executed step
+    and no plain step, then ``examples/torch/multichannel.py`` (its
+    4-channel HBM3 session against ``tests/torch_multichannel_stats.json``;
+    phase 18's example).  Returns the report ``lines`` (a line that starts
+    with "FAILED" names a mismatch) and the ``example``'s result."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     from repro_torch.core import ControllerConfig, Simulator
@@ -1464,35 +1501,20 @@ def multichannel_run(device: str) -> list:
                  f"steps {stats.scan_steps}, fused launches "
                  f"{KS.launch_count}, plain steps 0, {wall:.2f} s: match")
 
-    doc = json.loads((ROOT / "tests" /
-                      "torch_multichannel_stats.json").read_text())
-    r = doc["run"]
-    sim = Simulator(r["standard"], r["org_preset"], r["timing_preset"],
-                    channels=r["channels"], mapper=r["mapper"], device=device)
-    KS.launch_count = C.plain_calls = 0
-    t0 = time.perf_counter()
-    stats = sim.run(r["n_cycles"], interval=r["interval"],
-                    read_ratio=r["read_ratio"], seed=r["seed"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    got = stats.to_dict()
-    if got != doc["stats"]:
-        diff = {k: (got[k], doc["stats"].get(k)) for k in got
-                if got[k] != doc["stats"].get(k)}
-        lines.append(f"FAILED 4-channel HBM3 Stats differ from the reference "
-                     f"fixture: {diff}")
-    if KS.launch_count != stats.scan_steps or C.plain_calls:
-        lines.append(f"FAILED 4-channel HBM3 run launched the fused kernel "
-                     f"{KS.launch_count} times in {stats.scan_steps} steps, "
-                     f"plain steps {C.plain_calls}")
-    lines.append(f"4-channel {r['standard']} {r['n_cycles']} cycles on "
-                 f"{device}: Stats == reference fixture; wall {wall:.2f} s "
-                 f"(in a worker process), executed steps {stats.scan_steps}, "
-                 f"{stats.scan_steps / wall:.1f} steps/s, "
-                 f"{r['n_cycles'] * r['channels'] / wall:.1f} "
-                 f"channel-cycles/s, fused launches {KS.launch_count}, plain "
-                 "steps 0")
-    return lines
+    r = json.loads((ROOT / "tests" /
+                    "torch_multichannel_stats.json").read_text())["run"]
+    ex = example_run("multichannel", device)
+    st = ex["doc"]["stats"]
+    lines.append(f"4-channel {r['standard']} {r['n_cycles']} cycles and the "
+                 f"2-channel DDR4 replay (examples/torch/multichannel.py) "
+                 f"on {device}: 4-channel Stats "
+                 f"{'==' if not ex['diff'] else '!='} reference fixture; "
+                 f"wall {ex['wall']:.2f} s (in a worker process, both runs, "
+                 f"capture and audit), executed steps {st['scan_steps']} + "
+                 f"{ex['doc']['replay_stats']['scan_steps']}, fused launches "
+                 f"{ex['counts']['fused']}, plain steps "
+                 f"{ex['counts']['plain']}")
+    return dict(lines=lines, example=ex)
 
 
 def predicate_kernel_phase(device):
@@ -1710,15 +1732,13 @@ def check_system_run(job: str, r: dict, doc: dict) -> int:
 
 
 def hetero_session_phase(device):
-    """Phase 14 in the main process: ``examples/hetero_system.py``'s
-    session against the fixture, with two fused launches (one per spec
-    group) and one host sync per loop iteration and no plain step; then
-    100 cycles of it under ``torch.profiler``."""
+    """Phase 14 in the main process: 100 cycles of
+    ``examples/hetero_system.py``'s session under ``torch.profiler`` (the
+    whole session runs through the example in a worker process)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import (Simulator, avg_probe_latency_ns,
-                                  compile_system, peak_gbps, throughput_gbps)
+    from repro_torch.core import Simulator, compile_system
     from repro_torch.core import controller as C
     from repro_torch.kernels import controller_step as KS
     doc = hetero_fixture()
@@ -1727,30 +1747,12 @@ def hetero_session_phase(device):
     sim = Simulator(system=msys, device=device)
     sim.run(50, interval=r["interval"], read_ratio=r["read_ratio"])
     torch.cuda.synchronize()
-    sim.host_syncs = 0
-    KS.launch_count = C.plain_calls = 0
-    t0 = time.perf_counter()
-    stats = sim.run(r["n_cycles"], interval=r["interval"],
-                    read_ratio=r["read_ratio"], seed=r["seed"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, plain, iters = KS.launch_count, C.plain_calls, sim.host_syncs
-    got = stats_doc(stats)
-    if got != doc["session"]["stats"]:
-        diff = {k: (got[k], doc["session"]["stats"].get(k)) for k in got
-                if got[k] != doc["session"]["stats"].get(k)}
-        fail(f"hetero session Stats differ from the reference fixture: "
-             f"{diff}")
-    if iters != stats.scan_steps or launches != 2 * iters or plain:
-        fail(f"hetero session: {iters} host syncs and {launches} fused "
-             f"launches for {stats.scan_steps} loop iterations, plain steps "
-             f"{plain}")
 
     window = 100
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         sim.host_syncs = 0
-        KS.launch_count = 0
+        KS.launch_count = C.plain_calls = 0
         t1 = time.perf_counter()
         sim.run(window, interval=r["interval"], read_ratio=r["read_ratio"])
         torch.cuda.synchronize()
@@ -1770,16 +1772,12 @@ def hetero_session_phase(device):
     if dtoh != win_iters:
         fail(f"hetero session: {dtoh} device-to-host copies in {win_iters} "
              "loop iterations, want one each")
+    if win_fused != 2 * win_iters or C.plain_calls:
+        fail(f"hetero session: {win_fused} fused launches and "
+             f"{C.plain_calls} plain steps in {win_iters} iterations")
     print(f"hetero session {msys.label} ({msys.n_channels} channels, "
-          f"{msys.n_groups} spec groups), {r['n_cycles']} cycles on "
-          f"{device}: Stats and per-group leaves == reference fixture; wall "
-          f"{wall:.2f} s, loop iterations {iters}, {wall / iters * 1e3:.3f} "
-          f"ms per iteration, {r['n_cycles'] / wall:.1f} cycles/s, fused "
-          f"launches per iteration {launches / iters:.3f}, plain steps 0; "
-          f"throughput {throughput_gbps(msys, stats):.3f} GB/s of "
-          f"{peak_gbps(msys):.3f}, probe latency "
-          f"{avg_probe_latency_ns(msys, stats):.2f} ns")
-    print(f"  profile of {window} cycles ({win_iters} iterations, "
+          f"{msys.n_groups} spec groups) on {device}, profile of {window} "
+          f"cycles ({win_iters} iterations, "
           f"{win_wall:.3f} s): operator calls per iteration "
           f"{n_ops / win_iters:.1f}, device kernel launches per iteration "
           f"{kernels / win_iters:.1f} (fused {win_fused / win_iters:.3f}), "
@@ -1787,7 +1785,23 @@ def hetero_session_phase(device):
           f"(torch.profiler), device ms per iteration "
           f"{dev_ms / win_iters:.4f}, busy share "
           f"{dev_ms / 1e3 / win_wall:.1%}")
-    return launches
+
+
+def hetero_example_line(ex: dict):
+    """Phase 14's report of the whole session, run through
+    ``examples/torch/hetero_system.py`` in a worker process (checked with
+    phase 18's examples)."""
+    doc = ex["doc"]
+    st = doc["session"]["stats"]
+    sweep = doc["sweep"]["columns"]["scan_steps"]
+    print(f"  hetero session {doc['session']['run']['n_cycles']} cycles "
+          f"through examples/torch/hetero_system.py: Stats and per-group "
+          f"leaves {'==' if not ex['diff'] else '!='} reference fixture; "
+          f"loop iterations {st['scan_steps']} (+ the link sweep's "
+          f"{ex['iterations'] - st['scan_steps']} over {len(sweep)} "
+          f"points), fused launches {ex['counts']['fused']}, plain steps "
+          f"{ex['counts']['plain']}; {ex['wall']:.2f} s with the audit and "
+          f"the sweep (in a worker process)")
 
 
 def batched_phase(device, lane_device_us):
@@ -1875,43 +1889,153 @@ def batched_phase(device, lane_device_us):
 
 
 def main_path_phase(device):
-    import torch
-    from repro_torch.core import (Simulator, avg_probe_latency_ns,
-                                  throughput_gbps)
-    from repro_torch.core import controller as C
-    from repro_torch.kernels import controller_step as KS
-    from repro_torch.kernels import readiness as R
+    """Phase 6: the README's session through ``examples/torch/
+    quickstart.py``; returns its example result (phase 18's first)."""
     want = json.loads((ROOT / "tests" /
                        "torch_main_path_stats.json").read_text())
-    sim = Simulator(MAIN["standard"], MAIN["org"], MAIN["timing"],
-                    device=device)
+    if (want["run"]["n_cycles"], want["run"]["interval"],
+            want["run"]["read_ratio"]) != (MAIN["n_cycles"],
+                                           MAIN["interval"],
+                                           MAIN["read_ratio"]):
+        fail("tests/torch_main_path_stats.json holds another session")
+    r = example_run("quickstart", str(device))
+    check_example(r)
+    wall, steps = r["wall"], r["iterations"]
+    c = r["counts"]
+    print(f"main path {MAIN['standard']} {MAIN['n_cycles']} cycles "
+          f"(examples/torch/quickstart.py): Stats == reference fixture; "
+          f"wall {wall:.2f} s, executed steps {steps}, "
+          f"{steps / wall:.1f} steps/s, {MAIN['n_cycles'] / wall:.1f} "
+          f"cycles/s, {wall / steps * 1e3:.3f} ms per step, host syncs "
+          f"{steps}, fused controller-step launches {c['fused']}, plain "
+          f"steps {c['plain']}, readiness-table launches {c['tables']}")
+    print("  " + " | ".join(line.strip() for line in r["doc"]["summary"]
+                             .splitlines() if "GB/s" in line
+                             or "latency" in line))
+    return r
+
+
+#: phase 18: each example of ``examples/torch/`` and the phase that runs it
+EXAMPLE_PHASES = {"quickstart": "6", "extend_standard": "18",
+                  "hetero_system": "14", "multichannel": "12",
+                  "dse_sweep": "18", "visualize_trace": "18",
+                  "serve_lm": "18"}
+#: spec groups per loop iteration of each example's runs (fused launches
+#: per host sync); the examples that run no simulation launch none
+EXAMPLE_GROUPS = {"hetero_system": 2, "extend_standard": 0, "serve_lm": 0}
+
+
+def example_iterations(name: str, res: dict) -> int:
+    """Loop iterations (host syncs) of every simulation an example ran."""
+    sims = dict(quickstart=("sim",), hetero_system=("sim",),
+                multichannel=("quad", "ddr_replay"), dse_sweep=("sim",),
+                visualize_trace=("sim",)).get(name, ())
+    sweeps = dict(hetero_system="sweep", dse_sweep="result").get(name)
+    n = sum(res[k].host_syncs for k in sims)
+    return n + (res[sweeps].meta["host_syncs"] if sweeps else 0)
+
+
+def example_run(name: str, device: str) -> dict:
+    """Phase 18 for one example (in a worker process or the main one):
+    ``examples/torch/<name>.py`` at its own size (``EXAMPLE_RUNS``) with
+    every launch count set to 0 just before and read just after, its
+    output in ``build/examples/<name>.log``; returns its doc, the
+    fixture's keys it differs in, its counts and seconds."""
+    import contextlib
+    import io
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.core import controller as C
+    from repro_torch.kernels import controller_step as KS
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import readiness as R
+    tp = parity()
+    out = ROOT / "build" / "examples"
+    out.mkdir(parents=True, exist_ok=True)
+    mod = tp.load_example(name)
+    argv = tp.example_argv(name, tp.EXAMPLE_RUNS[name], device,
+                           str(out / name))
+    log = io.StringIO()
     KS.launch_count = R.launch_count = C.plain_calls = 0
-    sim.host_syncs = 0
+    FA.launch_count = FA.sm90_launch_count = 0
     t0 = time.perf_counter()
-    stats = sim.run(MAIN["n_cycles"], interval=MAIN["interval"],
-                    read_ratio=MAIN["read_ratio"], seed=MAIN["seed"])
+    with contextlib.redirect_stdout(log):
+        res = mod.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, plain, dense = KS.launch_count, C.plain_calls, R.launch_count
-    got = stats.to_dict()
-    if got != want["stats"]:
-        diff = {k: (got[k], want["stats"].get(k)) for k in got
-                if got[k] != want["stats"].get(k)}
-        fail(f"main-path Stats differ from the reference fixture: {diff}")
-    steps = stats.scan_steps
-    if launches != steps or plain or dense:
-        fail(f"main path launched the fused kernel {launches} times in "
-             f"{steps} steps, the readiness kernels {dense} times and "
-             f"called the plain step {plain} times")
-    print(f"main path {MAIN['standard']} {MAIN['n_cycles']} cycles: Stats "
-          f"== reference fixture; wall {wall:.2f} s, executed steps {steps},"
-          f" {steps / wall:.1f} steps/s, {MAIN['n_cycles'] / wall:.1f} "
-          f"cycles/s, {wall / steps * 1e3:.3f} ms per step, host syncs "
-          f"{sim.host_syncs}, fused controller-step launches {launches}, "
-          f"plain steps {plain}, readiness-table launches {dense}, "
-          f"throughput {throughput_gbps(sim.cspec, stats):.3f} GB/s, probe "
-          f"latency {avg_probe_latency_ns(sim.cspec, stats):.2f} ns")
-    return launches, dense
+    counts = dict(fused=KS.launch_count, tables=R.launch_count,
+                  plain=C.plain_calls, flash=FA.launch_count,
+                  sm90=FA.sm90_launch_count)
+    (out / f"{name}.log").write_text(log.getvalue())
+    doc = tp.port_example_doc(name, res)
+    want = tp.example_reference_doc(name)
+    diff = sorted(k for k in want if doc.get(k) != want[k])
+    tie = None
+    if name == "serve_lm" and diff and set(diff) <= {"first", "tokens"}:
+        # greedy tokens may part at a near tie of the reference's logits
+        import numpy as np
+        z = np.load(tp.EXAMPLES_SERVE)
+        from repro_torch.launch.serve import load_params
+        tie = greedy_check(res["cfg"], load_params(tp.EXAMPLES_SERVE,
+                                                   res["cfg"], device),
+                           res["prompts"], res["first"], res["tokens"], z,
+                           device)
+        diff = []
+    return dict(name=name, wall=wall, counts=counts, doc=doc, diff=diff,
+                tie=tie, iterations=example_iterations(name, res),
+                layers=getattr(res.get("cfg"), "n_layers", 0))
+
+
+def check_example(r: dict):
+    """Hold one example's result to ``tests/torch_examples_stats.json``
+    and to its launch counts."""
+    name, c = r["name"], r["counts"]
+    if r["diff"]:
+        fail(f"example {name}: {r['diff']} differ from "
+             "tests/torch_examples_stats.json")
+    groups = EXAMPLE_GROUPS.get(name, 1)
+    want = dict(fused=groups * r["iterations"], plain=0,
+                tables=int(name == "extend_standard"),
+                flash=r["layers"] if name == "serve_lm" else 0, sm90=0)
+    if c != want or (groups and not r["iterations"]):
+        fail(f"example {name}: launches {c} for {r['iterations']} loop "
+             f"iterations, want {want}")
+
+
+def examples_phase(results: list):
+    """Phase 18's report: every example's seconds, launches and verdict
+    (each checked where it ran), then the host-sync lint of the shipped
+    tree."""
+    import contextlib
+    import io
+    from repro_torch.analysis.__main__ import main as analysis
+    by = {r["name"]: r for r in results}
+    tp = parity()
+    if sorted(by) != sorted(tp.EXAMPLES):
+        fail(f"phase 18 ran {sorted(by)}, want {sorted(tp.EXAMPLES)}")
+    print("examples/torch at their own sizes (phase 18; == "
+          "tests/torch_examples_stats.json):")
+    for name in tp.EXAMPLES:
+        r = by[name]
+        c = r["counts"]
+        extra = ""
+        if r["tie"] is not None:
+            extra = (f"; tokens: {r['tie']['compared']} compared, "
+                     f"{r['tie']['flips']} near-tie flips")
+        print(f"  {name:<16} phase {EXAMPLE_PHASES[name]:>2}  "
+              f"{r['wall']:7.2f} s  loop iterations {r['iterations']:>6}  "
+              f"fused launches {c['fused']:>6}  table {c['tables']}  "
+              f"flash {c['flash']}  plain {c['plain']}  match{extra}")
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = analysis(["trace"])
+    lines = log.getvalue().splitlines()
+    print(f"  analysis trace (host-sync lint, {time.perf_counter() - t0:.1f}"
+          f" s): {lines[-2].strip()} -> {lines[-1].strip()}")
+    if rc != 0:
+        fail("python -m repro_torch.analysis trace: " + log.getvalue())
+    return results
 
 
 def flash_call(FA, q, k, v, causal: bool, head_axis: int, want):
@@ -2149,6 +2273,55 @@ def margins(logits):
     return top2[..., 0] - top2[..., 1]
 
 
+def near_tie_tokens(got, want, first, toks, want_seq) -> tuple:
+    """Free-running greedy tokens against the reference's: while a
+    request's tokens agree, its inputs are the teacher-forced ones, so a
+    token may differ only where the reference's top-two margin is within
+    twice that position's max |diff| of the logits ``got`` and ``want``
+    ``(B, n+1, V)``; after such a near-tie flip the request's later
+    tokens are not compared.  Returns ``(compared, flips, equal)``."""
+    import numpy as np
+    import torch
+    got_seq = np.concatenate([first.cpu().numpy()[:, None],
+                              toks.cpu().numpy()], 1)
+    tie = margins(torch.as_tensor(want)).numpy() \
+        <= 2 * np.abs(got - want).max(-1)
+    compared = flips = 0
+    for b in range(got_seq.shape[0]):
+        for i in range(got_seq.shape[1]):
+            compared += 1
+            if got_seq[b, i] == want_seq[b, i]:
+                continue
+            if not tie[b, i]:
+                fail(f"greedy token differs at request {b}, position {i}: "
+                     f"{got_seq[b, i]} != {want_seq[b, i]}")
+            flips += 1
+            break
+    return compared, flips, bool((got_seq == want_seq).all())
+
+
+def greedy_check(cfg, params, prompts, first, toks, z, device) -> dict:
+    """A serving run's greedy tokens against a serve fixture ``z`` (the
+    reference's prompts, tokens and logits): the teacher-forced logits
+    within ``FIXTURE_TOL`` of the fixture's, then :func:`near_tie_tokens`."""
+    import numpy as np
+    import torch
+    n = z["tokens"].shape[1]
+    want_seq = np.concatenate([z["first"][:, None], z["tokens"]], 1)
+    got = teacher_forced(cfg, params, prompts,
+                         torch.as_tensor(want_seq[:, :n], device=device),
+                         device)
+    got = torch.stack(got, 1).float().cpu().numpy()
+    want = np.concatenate([z["prefill_logits"][:, None], z["decode_logits"]],
+                          1)
+    if not np.allclose(got, want, **FIXTURE_TOL):
+        fail(f"serving logits differ from the reference's beyond "
+             f"{FIXTURE_TOL}: max |diff| {float(np.abs(got - want).max())}")
+    compared, flips, equal = near_tie_tokens(got, want, first, toks,
+                                             want_seq)
+    return dict(compared=compared, flips=flips, equal=equal)
+
+
 def fixture_phase(device):
     """The reduced GQA Llama against the JAX package's fixture."""
     import numpy as np
@@ -2182,30 +2355,12 @@ def fixture_phase(device):
     if not np.allclose(got, want, **FIXTURE_TOL):
         fail(f"fixture logits differ from the JAX package's beyond "
              f"{FIXTURE_TOL}: max |diff| {diff}")
-    # free-running greedy tokens: while a request's tokens agree, its inputs
-    # are the teacher-forced ones, so a token may differ only where the JAX
-    # top-two margin is within twice that position's max |diff|; after such
-    # a near-tie flip the request's later tokens are not compared
-    got_seq = np.concatenate([first.cpu().numpy()[:, None],
-                              toks.cpu().numpy()], 1)
-    tie = margins(torch.as_tensor(want)).numpy() \
-        <= 2 * np.abs(got - want).max(-1)
-    compared = flips = 0
-    for b in range(got_seq.shape[0]):
-        for i in range(got_seq.shape[1]):
-            compared += 1
-            if got_seq[b, i] == want_seq[b, i]:
-                continue
-            if not tie[b, i]:
-                fail(f"fixture greedy token differs at request {b}, "
-                     f"position {i}: {got_seq[b, i]} != {want_seq[b, i]}")
-            flips += 1
-            break
-    equal = bool((got_seq == want_seq).all())
+    compared, flips, equal = near_tie_tokens(got, want, first, toks,
+                                             want_seq)
     print(f"fixture (reduced GQA {cfg.name}, {cfg.n_heads} q heads / {cfg.n_kv_heads} kv heads, head_dim {cfg.head_dim}) on "
           f"{device}: prefill + teacher-forced decode logits within "
           f"{FIXTURE_TOL} of the JAX package's (max |diff| {diff:.3e}); "
-          f"greedy tokens: {compared} of {got_seq.size} compared, "
+          f"greedy tokens: {compared} of {want_seq.size} compared, "
           f"{flips} near-tie flips; whole sequences equal: {equal}")
 
 
@@ -2409,16 +2564,20 @@ def main() -> int:
     # profiler's device time: they run before the golden phase's workers
     batch_launches = timed("11 batched", batched_phase, device,
                            lanes["device_us"])
-    hetero_launches = timed("14 hetero session", hetero_session_phase,
-                            device)
+    timed("14 hetero profile", hetero_session_phase, device)
     # phase 16's cold half runs in this process beside the workers, its
     # warm half alone after them
-    system_launches, p15_launches, p17, dse_cold = timed(
-        "5, 12, 14, 15, 17 in workers; 16 cold", golden_phase, "cuda",
+    system_launches, p15_launches, p17, examples, dse_cold = timed(
+        "5, 12, 14, 15, 17, 18 in workers; 16 cold", golden_phase, "cuda",
         lambda: dse_phase(device))
     dse_launches = timed("16 warm", dse_warm_phase, device, dse_cold)
     xtab = timed("17 table", explore_table_phase, device)
-    _, launches = timed("6 main path", main_path_phase, device)
+    main_path = timed("6 main path", main_path_phase, device)
+    # the main path's readiness-table and (max,+) launches (0: checked)
+    launches = main_path["counts"]["tables"]
+    examples = timed("18 examples", examples_phase, examples + [main_path])
+    ex = {k: sum(r["counts"][k] for r in examples)
+          for k in ("fused", "tables", "flash", "sm90")}
     timed("7 fixture", fixture_phase, device)
     core_launches = timed("8 reduced", reduced_phase, device)
     sm90_launches = timed("9 serving", lm_phase, device)
@@ -2438,7 +2597,7 @@ def main() -> int:
         "name": "readiness_table", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/readiness.cu",
         "replaces": "src/repro/kernels/timing_check.py:51",
-        "launches": launches + p17["tables"],
+        "launches": launches + p17["tables"] + ex["tables"],
         "max_abs_err": max(max_err, xtab["max_err"], xtab["step_err"]),
         "ms": xtab["kernel_ms"], "plain_ms": xtab["plain_ms"],
         "bound_ms": xtab["bound_ms"], "bound_by": xtab["bound_by"],
@@ -2453,17 +2612,17 @@ def main() -> int:
         "name": "controller_step", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/controller_step.cu",
         "replaces": "src/repro/kernels/timing_check.py:51",
-        "launches": (batch_launches + hetero_launches + system_launches
+        "launches": (batch_launches + ex["fused"] + system_launches
                      + p15_launches + dse_launches + p17["fused"]),
         "max_abs_err": max(fused["max_err"], lanes["max_err"],
                            preds["max_err"], xtab["step_err"]),
         "ms": lanes["ms"], "plain_ms": lanes["plain_ms"],
         "bound_ms": lanes["bound_ms"], "bound_by": lanes["bound_by"],
         "library_ms": None},
-        flash_row("flash_attention", "flash_attention.cu", core_launches,
-                  core, flash_err["cuda_core"]),
+        flash_row("flash_attention", "flash_attention.cu",
+                  core_launches + ex["flash"], core, flash_err["cuda_core"]),
         flash_row("flash_attention_sm90", "flash_attention_sm90.cu",
-                  sm90_launches, sm90, flash_err["sm90"])]}))
+                  sm90_launches + ex["sm90"], sm90, flash_err["sm90"])]}))
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s; phases "
           f"{json.dumps(seconds)}", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {

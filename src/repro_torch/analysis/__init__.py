@@ -1,5 +1,7 @@
-"""``repro_torch.analysis`` — the spec linter of the port (the reference's
-``repro.analysis`` less its JAX source linter).
+"""``repro_torch.analysis`` — the spec linter and the host-sync linter of
+the port (the reference's ``repro.analysis``; its JAX trace-safety lint
+becomes a lint of the port's cycle loop for hidden device-to-host syncs,
+:mod:`~repro_torch.analysis.tracecheck`).
 
 Semantic analysis of DRAM standards and compiled constraint tables:
 derived-timing inequalities with their JEDEC rationale,
@@ -19,10 +21,11 @@ from repro_torch.analysis.rules import RULES, Rule, RuleCtx, rule
 from repro_torch.analysis.speclint import (SpecLintError, default_presets,
                                            lint_all, lint_compiled,
                                            lint_spec, lint_system)
+from repro_torch.analysis.tracecheck import lint_package, lint_paths
 
 __all__ = [
     "ERROR", "WARN", "INFO", "Finding", "LintReport", "diff", "merge",
     "render_diff", "RULES", "Rule", "RuleCtx", "rule", "default_presets",
     "SpecLintError", "lint_all", "lint_compiled", "lint_spec",
-    "lint_system",
+    "lint_system", "lint_package", "lint_paths",
 ]

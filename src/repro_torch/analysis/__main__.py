@@ -1,5 +1,5 @@
 """Static-analysis CLI of the port: ``python -m repro_torch.analysis`` —
-lint specs, save artifacts, diff reports.
+lint specs and source, save artifacts, diff reports.
 
     # lint every registered standard + the hetero composition (CI gate)
     PYTHONPATH=src python -m repro_torch.analysis spec --all
@@ -12,9 +12,9 @@ lint specs, save artifacts, diff reports.
     PYTHONPATH=src python -m repro_torch.analysis spec --group DDR5:2 \\
         --group DDR4:2:80
 
-    # the reference's JAX trace-safety lint has no counterpart here yet:
-    # ``trace`` exits non-zero naming the ROADMAP item of its successor
-    # (a host-sync lint of the port's hot loop)
+    # host-sync lint of the port's cycle loop (default: the installed
+    # repro_torch tree)
+    PYTHONPATH=src python -m repro_torch.analysis trace --out hs.json
 
     # structural diff: saved reports or standards linted on the fly
     PYTHONPATH=src python -m repro_torch.analysis diff DDR4 DDR5
@@ -33,7 +33,8 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
-        description="Static DRAM-spec linter of the port.")
+        description="Static DRAM-spec linter + host-sync linter of the "
+                    "port.")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     sp = sub.add_parser("spec", help="lint DRAM standards / systems")
@@ -57,13 +58,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="warnings also fail the lint")
     sp.add_argument("--show-info", action="store_true")
 
-    tp = sub.add_parser("trace", help="not ported: the reference's JAX "
-                                      "trace-safety lint")
-    tp.add_argument("paths", nargs="*", default=None)
+    tp = sub.add_parser("trace", help="host-sync lint of the cycle loop")
+    tp.add_argument("paths", nargs="*", default=None,
+                    help="files/directories (default: the installed "
+                         "repro_torch package tree)")
     tp.add_argument("--out", default=None, metavar="JSON")
     tp.add_argument("--npz", default=None, metavar="NPZ")
-    tp.add_argument("--strict", action="store_true")
-    tp.add_argument("--show-contexts", action="store_true")
+    tp.add_argument("--strict", action="store_true",
+                    help="warnings also fail the lint")
+    tp.add_argument("--show-contexts", action="store_true",
+                    help="print every discovered hot context")
 
     dp = sub.add_parser("diff", help="structural diff of two lint runs")
     dp.add_argument("a", help="report path (.json/.npz) or standard name")
@@ -139,12 +143,21 @@ def cmd_spec(args) -> int:
 
 
 def cmd_trace(args) -> int:
-    print("analysis trace: the reference's JAX trace-safety lint "
-          "(repro.analysis.tracecheck) is specific to JAX; its counterpart "
-          "in the port, a host-sync lint of the hot loop, is not written "
-          "yet (ROADMAP.md queue 1, item 17: the host-sync lint)",
-          file=sys.stderr)
-    return 2
+    from repro_torch.analysis.tracecheck import lint_paths, package_dir
+    report = lint_paths(args.paths or [package_dir()])
+    if args.show_contexts:
+        for c in report.meta["traced_contexts"]:
+            print("context:", c)
+    print(report.summary(show_info=True))
+    for s in report.meta["suppressions"]:
+        print("suppressed:", s)
+    print(f"({report.meta['modules']} modules, "
+          f"{len(report.meta['traced_contexts'])} hot contexts, "
+          f"{len(report.meta['suppressions'])} suppressions)")
+    _save(report, args.out, args.npz)
+    ok = report.ok(strict=args.strict)
+    print("host-sync lint:", "clean" if ok else "FAILED")
+    return 0 if ok else 1
 
 
 def _load_or_lint(ref: str):

@@ -243,7 +243,7 @@ def _bh_hashes(bank, row):
     return h0, h1
 
 
-def _opener(cspec) -> int:
+def _opener(cspec: CompiledSpec) -> int:
     return cspec.id_ACT1 if cspec.split_activation else cspec.id_ACT
 
 
@@ -341,7 +341,7 @@ class StepEvents(NamedTuple):
 # --------------------------------------------------------------------------
 
 
-def _candidates(cspec, dp, cs, clk, bank):
+def _candidates(cspec: CompiledSpec, dp: D.DynParams, cs, clk: int, bank):
     q = cs.queue
     cand_cmd, cand_row, open_hit = D.prereq(cspec, dp, cs.dev, q.is_write,
                                             q.sub, q.row, clk)
@@ -351,7 +351,8 @@ def _candidates(cspec, dp, cs, clk, bank):
     return cand_cmd, cand_row, open_hit, timing_ready, table
 
 
-def _refresh_plan(cspec, dp, cs, clk, cfg: ControllerConfig):
+def _refresh_plan(cspec: CompiledSpec, dp: D.DynParams, cs, clk,
+                  cfg: ControllerConfig):
     """Per-refresh-unit refresh state ``(C, U)``: due / urgent /
     candidate command."""
     dev = cs.dev
@@ -380,8 +381,8 @@ def _ru_addr(cspec, dp, ru):
     return ru[:, None] * dp.tables.sub_e0
 
 
-def _try_issue_refresh(cspec, dp, cs, clk, due, urgent, ref_cmd, cmd_ok,
-                       table):
+def _try_issue_refresh(cspec: CompiledSpec, dp: D.DynParams, cs, clk: int,
+                       due, urgent, ref_cmd, cmd_ok, table):
     """Plan the refresh-engine command of the most-overdue due unit.
 
     Refresh is *opportunistic* until urgent: a merely-due refresh yields
@@ -414,7 +415,8 @@ def _try_issue_refresh(cspec, dp, cs, clk, due, urgent, ref_cmd, cmd_ok,
             ref_bank)
 
 
-def _select_and_issue(cspec, dp, cs, clk, cfg, preds, cmd_ok, sched_fn,
+def _select_and_issue(cspec: CompiledSpec, dp: D.DynParams, cs, clk: int,
+                      cfg: ControllerConfig, preds, cmd_ok, sched_fn,
                       link_latency: int = 0):
     """One pass of the base pipeline restricted to commands with
     ``cmd_ok[cmd]`` (``None``: every command; dual C/A runs this twice).
@@ -522,7 +524,7 @@ HORIZON_MAX = 1 << 30
 
 
 def channel_horizon_plain(cspec: CompiledSpec, dp: D.DynParams,
-                          cfg: ControllerConfig, cs: CtrlState, clk,
+                          cfg: ControllerConfig, cs: CtrlState, clk: int,
                           link_latency: int = 0):
     """Earliest cycle ``>= clk`` at which each channel could issue any
     command — queue candidate or refresh engine — on the current state,
@@ -603,7 +605,7 @@ plain_calls = 0
 
 def controller_step_plain(cspec: CompiledSpec, dp: D.DynParams,
                           cfg: ControllerConfig, cs: CtrlState,
-                          clk, link_latency: int = 0) -> tuple:
+                          clk: int, link_latency: int = 0) -> tuple:
     """One controller cycle of every channel in plain PyTorch at host
     clock ``clk``.  Dual-C/A standards run the selection pipeline twice —
     a column pass and a row pass; others run it once.  ``link_latency``
@@ -626,7 +628,7 @@ def controller_step_plain(cspec: CompiledSpec, dp: D.DynParams,
 
 def step_and_horizon_plain(cspec: CompiledSpec, dp: D.DynParams,
                            cfg: ControllerConfig, cs: CtrlState,
-                           clk, link_latency: int = 0) -> tuple:
+                           clk: int, link_latency: int = 0) -> tuple:
     """The fused kernel's plain version: :func:`controller_step_plain` at
     ``clk``, then :func:`channel_horizon_plain` at ``clk + 1`` on the new
     state.  Returns ``(cs', events, horizon (C,))``."""
@@ -664,7 +666,8 @@ def step_lanes_plain(cspec: CompiledSpec, dp: D.DynParams,
     whose points run in lockstep): then all ``P * C`` lanes take one step
     as channels.  It is the kernel's yardstick and the engine's step on
     the CPU."""
-    host = lambda x: x.tolist() if isinstance(x, torch.Tensor) else list(x)
+    host = lambda x: (x.tolist()  # lint: ignore[ts102] CPU path only
+                      if isinstance(x, torch.Tensor) else list(x))
     clks, acts = host(clk), host(active)
     P, nch = cs.queue.valid.shape[:2]
     device = cs.queue.valid.device
@@ -790,8 +793,9 @@ def user_mask(cspec: CompiledSpec, dp: D.DynParams, cfg: ControllerConfig,
     return mask.reshape(shape).contiguous()
 
 
-def _dispatch(cspec, dp, cfg, cs, clk, active, horizon: bool,
-              link_latency: int, plans: dict | None) -> tuple:
+def _dispatch(cspec: CompiledSpec, dp: D.DynParams, cfg: ControllerConfig,
+              cs, clk, active, horizon: bool, link_latency: int,
+              plans: dict | None) -> tuple:
     if _device_kind(cs) == "cpu":
         return step_lanes_plain(cspec, dp, cfg, cs, clk, active, horizon,
                                 link_latency)

@@ -69,6 +69,10 @@ class SpecTables(NamedTuple):
     ct_lvl_off: torch.Tensor
     ch_idx: torch.Tensor        # (channels, 1) int64 channel index column
     ready: R.ReadinessTables    # the readiness kernel's key tables + A
+    #: numpy copies of what the fused kernel's plan packs ("Keys" (4, K),
+    #: "A", "ColCmds", "RowCmds", "BankStride", "NodeMul", "NodeOff"), so
+    #: a plan is built without reading the device back
+    host: dict
 
 
 class DynParams(NamedTuple):
@@ -98,6 +102,9 @@ def spec_tables(cspec: CompiledSpec, ct_lat, device,
             mul[i - 1, lvl] = m
             m *= int(counts[i])
     bpr = cspec.n_banks // cspec.n_refresh_units
+    keys, A = R.key_tables(cspec, ct_lat)
+    col = np.isin(cspec.cmd_kind, (S.KIND_COL, S.KIND_SYNC))
+    row = np.isin(cspec.cmd_kind, (S.KIND_ROW, S.KIND_REF))
     return SpecTables(
         cmd_kind=i32(cspec.cmd_kind), cmd_scope=i32(cspec.cmd_scope),
         cmd_fx=i32(cspec.cmd_fx), lvl_idx=i32(np.arange(L)),
@@ -109,12 +116,8 @@ def spec_tables(cspec: CompiledSpec, ct_lat, device,
         node_mul=i32(mul), node_off=i32(cspec.level_offsets),
         bank_stride=i32(cspec.addr_strides()),
         sub_e0=i32(np.eye(L - 1)[0]),
-        col_cmds=torch.as_tensor(np.isin(cspec.cmd_kind, (S.KIND_COL,
-                                                          S.KIND_SYNC)),
-                                 device=device),
-        row_cmds=torch.as_tensor(np.isin(cspec.cmd_kind, (S.KIND_ROW,
-                                                          S.KIND_REF)),
-                                 device=device),
+        col_cmds=torch.as_tensor(col, device=device),
+        row_cmds=torch.as_tensor(row, device=device),
         ring_cmd=i32(cspec.ring_cmd), ring_level=torch.as_tensor(np.asarray(cspec.ring_level, np.int64),
                                     device=device),
         ring_node=i32(cspec.ring_node),
@@ -123,7 +126,11 @@ def spec_tables(cspec: CompiledSpec, ct_lat, device,
         ct_win=i32(cspec.ct_win),
         ct_lvl_off=i32(np.asarray(cspec.level_offsets)[cspec.ct_level]),
         ch_idx=torch.arange(channels, device=device)[:, None],
-        ready=R.build_tables(cspec, ct_lat, device))
+        ready=R.build_tables(cspec, ct_lat, device),
+        host=dict(Keys=keys.T, A=A, ColCmds=col, RowCmds=row,
+                  BankStride=np.asarray(cspec.addr_strides(), np.int64),
+                  NodeMul=mul, NodeOff=np.asarray(cspec.level_offsets,
+                                                  np.int64)))
 
 
 def dyn_params(cspec: CompiledSpec, device, channels: int = 1,
@@ -302,7 +309,7 @@ def prereq(cspec: CompiledSpec, dp: DynParams, state: DeviceState,
 
 def issue(cspec: CompiledSpec, dp: DynParams, state: DeviceState,
           cmd: torch.Tensor, addr_sub: torch.Tensor, row: torch.Tensor,
-          clk, enable: torch.Tensor) -> DeviceState:
+          clk: int, enable: torch.Tensor) -> DeviceState:
     """Issue ``cmd[c]`` at ``addr_sub[c]`` on cycle ``clk`` in every
     channel whose ``enable[c]`` is set (``cmd``/``row``/``enable`` are
     ``(C,)``).  Every mutation is a dense masked select, as in the

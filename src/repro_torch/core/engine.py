@@ -558,7 +558,8 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
                 h = torch.minimum(F.arrival_horizon(
                     fcfg, fp, fs, at[0] + 1 if one else up.nxt, rt), hc)
                 # the iteration's one host sync: busy verdicts + horizons
-                is_busy, h = torch.stack([busy.to(I32), h]).tolist()
+                both = torch.stack([busy.to(I32), h])
+                is_busy, h = both.tolist()  # lint: ignore[ts102] the one sync
                 syncs += 1
                 for p in range(P):
                     dists[p] = 0

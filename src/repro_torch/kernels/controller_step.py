@@ -47,9 +47,15 @@ gates.
 from __future__ import annotations
 
 import ctypes
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
+
+if TYPE_CHECKING:           # annotations only: controller imports this module
+    from repro_torch.core.compile import CompiledSpec
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.core.device import DynParams
 
 #: kernel launches since import (or the last reset by the caller)
 launch_count = 0
@@ -148,19 +154,19 @@ class StepPlan:
         return self.host[off:off + int(np.prod(shape))].reshape(shape)
 
 
-def build_plan(cspec, dp, cfg, depth: int, channels: int, device,
-               points: int, link_latency: int = 0) -> StepPlan:
+def build_plan(cspec: CompiledSpec, dp: DynParams, cfg: ControllerConfig,
+               depth: int, channels: int, device, points: int,
+               link_latency: int = 0) -> StepPlan:
     """Pack the constant tables of ``cspec`` (latencies and scalar timings
     of ``dp``) and the options of ``cfg`` (BlockHammer and PRAC thresholds
     included) for a queue of ``depth`` slots in each of ``channels``
     channels of ``points`` design points behind a link of
     ``link_latency`` cycles; raises ``ValueError`` for what the kernel
     does not take."""
-    tab = dp.tables
+    tab = dp.tables.host        # numpy: a plan reads nothing back
     L1 = len(cspec.levels) - 1
     F, B, U = int(cspec.n_cmds), int(cspec.n_banks), int(cspec.n_refresh_units)
-    keys = tab.ready.keys.cpu().numpy()
-    A = tab.ready.A.cpu().numpy()
+    keys, A = tab["Keys"], tab["A"]
     K = A.shape[0]
     ring_rows = max(int(cspec.n_ring), 1)
     lim = LIMITS
@@ -188,8 +194,8 @@ def build_plan(cspec, dp, cfg, depth: int, channels: int, device,
     split = bool(cspec.split_activation)
     dual = bool(cspec.dual_command_bus)
     if dual:        # bit 0: the column pass's commands, bit 1: the row's
-        col = tab.col_cmds.cpu().numpy().astype(np.int64)
-        pass_bits = col | (tab.row_cmds.cpu().numpy().astype(np.int64) << 1)
+        pass_bits = (tab["ColCmds"].astype(np.int64)
+                     | (tab["RowCmds"].astype(np.int64) << 1))
     else:
         pass_bits = np.ones(F, np.int64)
     sync_rd = cspec.id_CAS_RD if cspec.id_CAS_RD >= 0 else cspec.id_RCKSTRT
@@ -197,9 +203,8 @@ def build_plan(cspec, dp, cfg, depth: int, channels: int, device,
     tables = dict(
         Keys=keys, A=A, Scope=np.asarray(cspec.cmd_scope),
         Fx=np.asarray(cspec.cmd_fx), Pass=pass_bits,
-        BankStride=tab.bank_stride.cpu().numpy(),
-        NodeMul=tab.node_mul.cpu().numpy(),
-        NodeOff=tab.node_off.cpu().numpy(),
+        BankStride=tab["BankStride"], NodeMul=tab["NodeMul"],
+        NodeOff=tab["NodeOff"],
         RingCmd=np.asarray(cspec.ring_cmd), RingLevel=np.asarray(
             cspec.ring_level), RingNode=np.asarray(cspec.ring_node))
     head = dict(

@@ -65,9 +65,11 @@ class ReadinessTables(NamedTuple):
     n_banks: int
 
 
-def build_tables(cspec, ct_lat, device) -> ReadinessTables:
-    """Key tables of ``cspec`` and the constraint matrix of the run's
-    resolved latencies ``ct_lat`` (one per constraint row)."""
+def key_tables(cspec, ct_lat) -> tuple:
+    """The host side of :func:`build_tables`: the timing keys ``(K, 4)``
+    (rows ``[is_ring, base, col, div]``) and the constraint matrix ``A``
+    ``(K, n_cmds)`` of ``cspec`` at the resolved latencies ``ct_lat``,
+    int64 numpy arrays."""
     ct_lat = np.asarray(ct_lat.cpu() if isinstance(ct_lat, torch.Tensor)
                         else ct_lat, np.int64)
     n_banks, n_cmds = int(cspec.n_banks), int(cspec.n_cmds)
@@ -95,9 +97,15 @@ def build_tables(cspec, ct_lat, device) -> ReadinessTables:
                 rows.append([0, int(offs[level]), p, div])
             A.append([ABSENT] * n_cmds)
         A[k][f] = max(A[k][f], int(ct_lat[i]))
-    keys = np.asarray(rows, np.int64).reshape(-1, 4)
-    A = np.asarray(A, np.int64).reshape(-1, n_cmds)
+    return (np.asarray(rows, np.int64).reshape(-1, 4),
+            np.asarray(A, np.int64).reshape(-1, n_cmds))
 
+
+def build_tables(cspec, ct_lat, device) -> ReadinessTables:
+    """Key tables of ``cspec`` and the constraint matrix of the run's
+    resolved latencies ``ct_lat`` (one per constraint row)."""
+    keys, A = key_tables(cspec, ct_lat)
+    n_banks, n_cmds = int(cspec.n_banks), int(cspec.n_cmds)
     ring_rows, depth = max(cspec.n_ring, 1), int(cspec.ring_depth)
     dense_size = int(cspec.num_nodes) * n_cmds
     node = keys[:, 1:2] + np.arange(n_banks)[None, :] // keys[:, 3:4]

@@ -4,9 +4,13 @@
         --batch 4 --prompt-len 1000 --max-new 32
 
 The flags of ``repro.launch.serve`` plus ``--device`` (default: the card;
-``--device cpu`` runs on the CPU, e.g. with ``--reduced``).  Weights are
-random bf16, drawn from ``--seed``; prompts are uniform random tokens
-from the same seed.
+``--device cpu`` runs on the CPU, e.g. with ``--reduced``) and
+``--params``.  Weights are random bf16, drawn from ``--seed``, or read
+from ``--params``: an ``.npz`` of the reference's parameter tree as bf16
+bit patterns under ``param.<path>`` (the layout of
+``tests/torch_serve_fixture.npz``).  Prompts are uniform random tokens
+from numpy's generator seeded with ``--seed``, as the reference draws
+them.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from repro_torch.models import init_params
 from repro_torch.serve.step import serve_batch
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -31,13 +35,33 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--params", default=None, metavar="NPZ",
+                    help="bf16 weights (param.<path> bit patterns) instead "
+                         "of seed-made ones")
+    return ap
 
+
+def load_params(path: str, cfg, device):
+    """The weights of an ``.npz`` holding the reference's parameter tree
+    as bf16 bit patterns under ``param.<path>``."""
+    from repro_torch import convert
+    z = np.load(path)
+    return convert.lm_params(convert.nest(
+        {k[len("param."):]: z[k] for k in z.files if k.startswith("param.")}),
+        cfg, device)
+
+
+def run(argv=None) -> dict:
+    """Parse ``argv``, serve and print the report; returns the config,
+    prompts, ``tokens`` ``(B, max_new)``, ``first`` ``(B,)`` and
+    timings."""
+    args = build_parser().parse_args(argv)
     dev = _device.resolve(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    params = init_params(cfg, args.seed, dev)
+    params = (init_params(cfg, args.seed, dev) if args.params is None
+              else load_params(args.params, cfg, dev))
     rng = np.random.default_rng(args.seed)
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)),
@@ -56,7 +80,13 @@ def main(argv=None):
           f"({dec * 1e3 / max(args.max_new, 1):.2f} ms/step, "
           f"{n_tok / dec if dec else 0.0:.1f} tok/s; first call, eager)")
     print("sample:", [int(first[0])] + toks[0, :10].tolist())
-    return toks
+    return dict(cfg=cfg, prompts=prompts, tokens=toks, first=first,
+                timings=timings)
+
+
+def main(argv=None):
+    """The CLI: serve and print; returns the decoded tokens."""
+    return run(argv)["tokens"]
 
 
 if __name__ == "__main__":

@@ -100,6 +100,10 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    examples = os.path.join(ROOT, "examples", "torch")
+    for f in sorted(os.listdir(examples)):
+        if f.endswith(".py"):
+            yield os.path.join(examples, f)
 
 
 def test_port_sources_import_no_jax_and_no_reference():
@@ -112,13 +116,16 @@ def test_port_sources_import_no_jax_and_no_reference():
                 "verify/spec_mutation.py", "trace/audit.py", "trace/viz.py",
                 "trace/__main__.py", "telemetry/viz.py",
                 "telemetry/__main__.py", "analysis/__main__.py",
-                "core/dut.py"):
+                "core/dut.py", "analysis/tracecheck.py"):
         assert mod in rel, mod
+    for ex in ("quickstart", "extend_standard", "hetero_system",
+               "multichannel", "dse_sweep", "visualize_trace", "serve_lm"):
+        assert f"../../examples/torch/{ex}.py" in rel, ex
     bad = []
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
-            if top in ("jax", "jaxlib", "repro"):
+            if top in ("jax", "jaxlib", "ml_dtypes", "repro"):
                 bad.append((os.path.relpath(path, ROOT), mod))
     assert not bad, bad
 

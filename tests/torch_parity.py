@@ -14,7 +14,13 @@ rewrites ``tests/torch_serve_fixture.npz`` from the JAX package, and
 rewrites ``tests/torch_batch_stats.json``,
 ``tests/torch_multichannel_stats.json``, ``tests/torch_hetero_stats.json``,
 ``tests/torch_telemetry_stats.json``, ``tests/torch_replay_stats.json``,
-``tests/torch_dse_stats.json`` and ``tests/torch_verify_stats.json``."""
+``tests/torch_dse_stats.json`` and ``tests/torch_verify_stats.json``, and
+
+    PYTHONPATH=src python tests/torch_parity.py --write-example-fixtures
+
+rewrites ``tests/torch_examples_stats.json`` and
+``tests/torch_examples_serve.npz`` (the reference examples' sessions at
+their own sizes: a few minutes of JAX on the CPU)."""
 from __future__ import annotations
 
 import functools
@@ -1164,7 +1170,7 @@ def flatten(tree, prefix=""):
     return out
 
 
-def serve_fixture_arrays() -> dict:
+def serve_fixture_arrays(run: dict = SERVE_RUN) -> dict:
     """The fixture's content, computed with the JAX package: the config
     (JSON), parameters (uint16 bf16 bits under ``param.<path>``), the
     prompts, ``serve_batch``'s ``tokens`` and ``first``, the prefill's
@@ -1174,7 +1180,6 @@ def serve_fixture_arrays() -> dict:
     import jax.numpy as jnp
     from repro.models import Batch, decode_step
     from repro.serve.step import make_prefill_step, serve_batch
-    run = SERVE_RUN
     jc, jp, _, _ = lm_pair(run["variant"], run["seed"])
     B, T, N = run["batch"], run["prompt_len"], run["max_new"]
     pr = prompts(jc, B, T, run["seed"])
@@ -1204,6 +1209,344 @@ def write_serve_fixture():
     np.savez_compressed(SERVE_FIXTURE, **serve_fixture_arrays())
 
 
+# ---------------------------------------------------------------------------
+# The examples: ``examples/torch/<name>.py`` against the reference's
+# ``examples/<name>.py``.  One recipe per example (:func:`session_doc`)
+# runs the reference example's statements in either package; the fixture
+# holds the reference's docs at the examples' own sizes, and the tests run
+# the port's examples small against the same recipe on the port.
+# ---------------------------------------------------------------------------
+
+EXAMPLES_FIXTURE = os.path.join(HERE, "torch_examples_stats.json")
+EXAMPLES_SERVE = os.path.join(HERE, "torch_examples_serve.npz")
+EXAMPLES_DIR = os.path.join(os.path.dirname(HERE), "examples", "torch")
+#: the port's examples, in the order ``chip_smoke.py`` reports them
+EXAMPLES = ("quickstart", "extend_standard", "hetero_system", "multichannel",
+            "dse_sweep", "visualize_trace", "serve_lm")
+#: each reference example's session at its own size (the port example's
+#: defaults; ``serve_lm``'s weights are the reference's ``PRNGKey(seed)``
+#: parameters, handed to the port through ``EXAMPLES_SERVE``)
+EXAMPLE_RUNS = dict(
+    quickstart=dict(cycles=20_000),
+    extend_standard=dict(),
+    hetero_system=dict(cycles=20_000, sweep_cycles=4_000,
+                       links=[40, 80, 160, 320]),
+    multichannel=dict(cycles=10_000, requests=8_000),
+    dse_sweep=dict(cycles=10_000, intervals=[32.0, 8.0, 4.0, 2.0, 1.0],
+                   read_ratios=[1.0, 0.5], trace_cycles=2_000),
+    visualize_trace=dict(standard="LPDDR5", cycles=3_000),
+    serve_lm=dict(variant="reduced", seed=0, batch=4, prompt_len=32,
+                  max_new=16),
+)
+#: sessions a fixture of an earlier slice already holds: (file, key) of
+#: the reference's stats doc
+EXAMPLE_REUSE = dict(quickstart=(MAIN_FIXTURE, "stats"),
+                     hetero_system=(HETERO_FIXTURE, "session"),
+                     multichannel=(MULTI_FIXTURE, "stats"))
+
+
+def load_example(name: str):
+    """Import ``examples/torch/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_example_{name}", os.path.join(EXAMPLES_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_argv(name: str, run: dict, device: str, out: str) -> list:
+    """The port example's command line for ``run`` (an
+    :data:`EXAMPLE_RUNS`-shaped dict)."""
+    argv = ["--device", device, "--out", out]
+    if name == "serve_lm":
+        return argv + ["--prompt-len", str(run["prompt_len"]),
+                       "--params", EXAMPLES_SERVE]
+    if name == "visualize_trace":
+        argv = [run["standard"]] + argv
+    join = lambda xs: ",".join(str(x) for x in xs)
+    for k in ("cycles", "sweep_cycles", "requests", "trace_cycles"):
+        if k in run:
+            argv += ["--" + k.replace("_", "-"), str(run[k])]
+    for k in ("links", "intervals", "read_ratios"):
+        if k in run:
+            argv += ["--" + k.replace("_", "-"), join(run[k])]
+    return argv
+
+
+def example_packages(top: str):
+    """The modules an example uses, of ``repro`` or ``repro_torch``."""
+    import importlib
+    import types
+    mod = lambda m: importlib.import_module(f"{top}.{m}")
+    return types.SimpleNamespace(
+        top=top, core=mod("core"), dse=mod("dse"), trace=mod("trace"),
+        proxy=mod("core.proxy"), spec=mod("core.spec"),
+        ddr5=mod("core.standards.ddr5"))
+
+
+def probe_doc(p) -> dict:
+    return dict(preq=p.preq, timing_OK=bool(p.timing_OK),
+                ready=bool(p.ready), row_hit=bool(p.row_hit),
+                row_open=bool(p.row_open), earliest=int(p.earliest))
+
+
+def curves_doc(result) -> list:
+    return [dict(system=cv.system, read_ratio=float(cv.read_ratio),
+                 peak_fraction=float(cv.peak_fraction),
+                 knee_interval=float(cv.intervals[cv.knee]))
+            for cv in result.curves()]
+
+
+def vrr_class(pkg):
+    """The reference example's ``DDR5_VRR_Example`` (paper Listing 1) on
+    ``pkg``'s spec layer, registered there."""
+    import math
+    S, DDR5 = pkg.spec, pkg.ddr5.DDR5
+
+    class DDR5_VRR_Example(DDR5):
+        name = "DDR5_VRR_Example"
+        command_meta = dict(DDR5.command_meta,
+                            VRR=S.Command("VRR", "bank", S.KIND_ROW))
+        commands = DDR5.commands + ["VRR"]
+        timing_params = DDR5.timing_params + ["nVRR"]
+        timing_constraints = DDR5.timing_constraints + [
+            S.TimingConstraint(level="bank", preceding=["VRR"],
+                               following=["ACT"], latency="nVRR"),
+            S.TimingConstraint(level="bank", preceding=["ACT"],
+                               following=["VRR"], latency="nRC"),
+            S.TimingConstraint(level="rank", preceding=["PRE", "PREab"],
+                               following=["VRR"], latency="nRP"),
+        ]
+        org_presets = DDR5.org_presets
+        timing_presets = {}
+
+    for name, timings in DDR5.timing_presets.items():
+        vrr = dict(timings)
+        vrr["nVRR"] = math.ceil(280_000 / timings["tCK_ps"])
+        DDR5_VRR_Example.timing_presets[name] = vrr
+    return S.register(DDR5_VRR_Example)
+
+
+def session_doc(name: str, run: dict, top: str = "repro",
+                device: str = "cpu") -> dict:
+    """The reference example ``name``'s statements at ``run`` in package
+    ``top`` (the port on ``device``) as a JSON doc; ``serve_lm`` (the
+    port's only) serves ``EXAMPLES_SERVE``'s weights."""
+    pkg = example_packages(top)
+    core, tr = pkg.core, pkg.trace
+    dev = {} if top == "repro" else dict(device=device)
+    devs = {} if top == "repro" else dict(devices=[device])
+    if name == "quickstart":
+        P = pkg.proxy.PROXIES
+        system = pkg.proxy.System(
+            "DDR5", "DDR5_16Gb_x8", "DDR5_4800B",
+            controller=P["Controller"](scheduler="FRFCFS", queue_depth=32),
+            frontend=P["Frontend"](interval=2.0, read_ratio=0.8),
+            n_cycles=run["cycles"])
+        sim = system.build(**dev)
+        stats = sim.run(system.n_cycles)
+        dut = core.DeviceUnderTest("DDR5", org_preset="DDR5_16Gb_x8",
+                                   timing_preset="DDR5_4800B")
+        addr = dut.addr_vec(Rank=0, BankGroup=0, Bank=0, Row=12, Column=0)
+        probes = {"closed": probe_doc(dut.probe("RD", addr, clk=0))}
+        dut.issue("ACT", addr, clk=0)
+        probes["before_nRCD"] = probe_doc(dut.probe(
+            "RD", addr, clk=dut.timings["nRCD"] - 1))
+        probes["at_nRCD"] = probe_doc(dut.probe("RD", addr,
+                                                clk=dut.timings["nRCD"]))
+        return dict(yaml=system.to_yaml(), stats=stats.to_dict(),
+                    summary=stats.summary(sim.cspec), probes=probes)
+    if name == "extend_standard":
+        vrr_class(pkg)
+        dut = core.DeviceUnderTest("DDR5_VRR_Example", "DDR5_16Gb_x8",
+                                   "DDR5_4800B")
+        addr = dut.addr_vec(Rank=0, BankGroup=0, Bank=0, Row=5, Column=0)
+        dut.issue("VRR", addr, clk=0)
+        n = dut.timings["nVRR"]
+        return dict(nVRR=int(n),
+                    blocked=probe_doc(dut.probe("ACT", addr, clk=n - 1)),
+                    legal=probe_doc(dut.probe("ACT", addr, clk=n)),
+                    earliest=int(dut.earliest("ACT", addr)))
+    if name == "hetero_system":
+        msys = core.compile_system([
+            dict(standard="DDR5", org_preset="DDR5_16Gb_x8",
+                 timing_preset="DDR5_4800B", channels=2),
+            dict(standard="DDR4", org_preset="DDR4_8Gb_x8",
+                 timing_preset="DDR4_2400R", channels=2, link_latency=80)])
+        sim = core.Simulator(system=msys, **dev)
+        stats, dense = sim.run(run["cycles"], interval=1.0, read_ratio=0.7,
+                               trace=True)
+        t = tr.capture(msys, dense, controller=sim.controller,
+                       frontend=sim.frontend)
+        spec = pkg.dse.SweepSpec(
+            systems=tuple(pkg.dse.Composition((("DDR5", 2),
+                                               ("DDR4", 2, link)))
+                          for link in run["links"]),
+            intervals=(8.0, 2.0), read_ratios=(1.0,),
+            n_cycles=run["sweep_cycles"])
+        res = pkg.dse.execute(spec, **devs)
+        return dict(session=dict(run=HETERO_RUN | dict(
+            n_cycles=run["cycles"]), stats=stats_doc(stats)),
+            summary=stats.summary(msys), trace=trace_digest(t),
+            audit=audit_doc(tr.audit(msys, t)), sweep=sweep_doc(res),
+            table=res.to_table())
+    if name == "multichannel":
+        quad = core.Simulator("HBM3", "HBM3_16Gb", "HBM3_5200", channels=4,
+                              mapper="RoBaRaCoCh", **dev)
+        stats, dense = quad.run(run["cycles"], interval=0.5,
+                                read_ratio=0.9, trace=True)
+        t = tr.capture(quad.cspec, dense, controller=quad.controller,
+                       frontend=quad.frontend)
+        same = tr.to_replay(t, quad.cspec)
+        ddr = core.Simulator("DDR4", "DDR4_8Gb_x8", "DDR4_2400R",
+                             channels=2, **dev)
+        rng = np.random.default_rng(0)
+        n = run["requests"]
+        addrs = rng.integers(0, 1 << 28, n).astype(np.int64) \
+            * ddr.cspec.access_bytes
+        rs = core.ReplayStream.from_addresses(ddr.cspec, addrs,
+                                              is_write=rng.random(n) < 0.3)
+        st = core.Simulator("DDR4", "DDR4_8Gb_x8", "DDR4_2400R", channels=2,
+                            frontend=core.FrontendConfig(pattern="trace",
+                                                         probes=False),
+                            replay=rs, **dev).run(run["cycles"],
+                                                  interval=1.0)
+        return dict(stats=stats.to_dict(), trace=trace_digest(t),
+                    audit=audit_doc(tr.audit(quad.cspec, t)),
+                    replay=dict(n=len(same), fingerprint=same.fingerprint),
+                    replay_stats=stats_doc(st))
+    if name == "dse_sweep":
+        spec = pkg.dse.SweepSpec(
+            systems=(("DDR5", "DDR5_16Gb_x8", "DDR5_4800B"),
+                     ("HBM3", "HBM3_16Gb", "HBM3_5200")),
+            intervals=tuple(run["intervals"]),
+            read_ratios=tuple(run["read_ratios"]), n_cycles=run["cycles"])
+        result = pkg.dse.execute(spec, **devs)
+        sim = core.Simulator("HBM3", "HBM3_16Gb", "HBM3_5200", **dev)
+        stats, dense = sim.run(run["trace_cycles"], interval=1.0,
+                               read_ratio=0.7, trace=True)
+        t = tr.capture(sim.cspec, dense, controller=sim.controller,
+                       frontend=sim.frontend)
+        return dict(sweep=sweep_doc(result), table=result.to_table(),
+                    curves=curves_doc(result), trace_stats=stats_doc(stats),
+                    trace=trace_digest(t))
+    if name == "visualize_trace":
+        std, org, tim = dict(
+            DDR5=("DDR5", "DDR5_16Gb_x8", "DDR5_4800B"),
+            HBM3=("HBM3", "HBM3_16Gb", "HBM3_5200"),
+            LPDDR5=("LPDDR5", "LPDDR5_8Gb_x16", "LPDDR5_6400"),
+            GDDR7=("GDDR7", "GDDR7_16Gb_x32", "GDDR7_32"))[run["standard"]]
+        sim = core.Simulator(std, org, tim, **dev)
+        stats, dense = sim.run(run["cycles"], interval=2.0, read_ratio=0.75,
+                               trace=True)
+        t = tr.capture(sim.cspec, dense, controller=sim.controller,
+                       frontend=sim.frontend)
+        return dict(stats=stats_doc(stats), trace=trace_digest(t),
+                    audit=audit_doc(tr.audit(sim.cspec, t)))
+    if name == "serve_lm":
+        import torch
+        from repro_torch.configs import get_arch
+        from repro_torch.launch.serve import load_params
+        from repro_torch.serve.step import serve_batch
+        cfg = get_arch("llama3.2-1b").reduced()
+        pr = prompts(cfg, run["batch"], run["prompt_len"], run["seed"])
+        toks, first = serve_batch(
+            cfg, load_params(EXAMPLES_SERVE, cfg, device),
+            torch.as_tensor(pr, device=device), run["max_new"],
+            device=device)
+        return dict(tokens=toks.tolist(), first=first.tolist())
+    raise KeyError(name)
+
+
+def port_example_doc(name: str, res: dict) -> dict:
+    """The doc of a port example's ``main`` result (the keys of
+    :func:`session_doc`)."""
+    if name == "quickstart":
+        return dict(yaml=res["system"].to_yaml(),
+                    stats=res["stats"].to_dict(),
+                    summary=res["stats"].summary(res["sim"].cspec),
+                    probes={k: probe_doc(v)
+                            for k, v in res["probes"].items()})
+    if name == "extend_standard":
+        return dict(nVRR=res["nVRR"], blocked=probe_doc(res["blocked"]),
+                    legal=probe_doc(res["legal"]), earliest=res["table"])
+    if name == "hetero_system":
+        return dict(session=dict(run=HETERO_RUN | dict(
+            n_cycles=int(res["stats"].cycles)),
+            stats=stats_doc(res["stats"])),
+            summary=res["stats"].summary(res["msys"]),
+            trace=trace_digest(res["trace"]), audit=audit_doc(res["audit"]),
+            sweep=sweep_doc(res["sweep"]), table=res["sweep"].to_table())
+    if name == "multichannel":
+        return dict(stats=res["stats"].to_dict(),
+                    trace=trace_digest(res["trace"]),
+                    audit=audit_doc(res["audit"]),
+                    replay=dict(n=len(res["replay"]),
+                                fingerprint=res["replay"].fingerprint),
+                    replay_stats=stats_doc(res["replay_stats"]))
+    if name == "dse_sweep":
+        return dict(sweep=sweep_doc(res["result"]),
+                    table=res["result"].to_table(),
+                    curves=curves_doc(res["result"]),
+                    trace_stats=stats_doc(res["stats"]),
+                    trace=trace_digest(res["trace"]))
+    if name == "visualize_trace":
+        return dict(stats=stats_doc(res["stats"]),
+                    trace=trace_digest(res["trace"]),
+                    audit=audit_doc(res["audit"]))
+    if name == "serve_lm":
+        return dict(tokens=res["tokens"].tolist(),
+                    first=res["first"].tolist())
+    raise KeyError(name)
+
+
+def example_reference_doc(name: str) -> dict:
+    """The fixture's doc of example ``name`` (its reused session filled in
+    from the earlier slice's fixture), without ``run``."""
+    doc = dict(json.load(open(EXAMPLES_FIXTURE))[name])
+    doc.pop("run")
+    reuse = doc.pop("reused", None)
+    if reuse is not None:
+        path, key = EXAMPLE_REUSE[name]
+        doc[reuse] = json.load(open(path))[key]
+    return doc
+
+
+def examples_fixture() -> dict:
+    """The reference examples' docs at :data:`EXAMPLE_RUNS` (JAX on the
+    CPU); a session an earlier fixture holds is checked equal to it and
+    stored as a reference to it."""
+    doc = {}
+    for name in EXAMPLES:
+        run = EXAMPLE_RUNS[name]
+        if name == "serve_lm":
+            z = np.load(EXAMPLES_SERVE)
+            d = dict(tokens=z["tokens"].tolist(), first=z["first"].tolist())
+        else:
+            d = session_doc(name, run)
+        if name in EXAMPLE_REUSE:
+            path, key = EXAMPLE_REUSE[name]
+            field = "session" if name == "hetero_system" else "stats"
+            want = json.load(open(path))[key]
+            assert d[field] == want, (name, "differs from", path)
+            d.pop(field)
+            d["reused"] = field
+        doc[name] = dict(run=run, **d)
+    return doc
+
+
+def write_example_fixtures():
+    run = EXAMPLE_RUNS["serve_lm"]
+    np.savez_compressed(EXAMPLES_SERVE, **serve_fixture_arrays(run))
+    print("wrote", EXAMPLES_SERVE)
+    doc = examples_fixture()
+    with open(EXAMPLES_FIXTURE, "w") as f:
+        json.dump(doc, f, indent=1)
+        f.write("\n")
+    print("wrote", EXAMPLES_FIXTURE)
+
+
 if __name__ == "__main__":
     import sys
     if sys.argv[1:] == ["--write-serve-fixture"]:
@@ -1211,3 +1554,5 @@ if __name__ == "__main__":
         print("wrote", SERVE_FIXTURE)
     elif sys.argv[1:] == ["--write-sim-fixtures"]:
         write_sim_fixtures()
+    elif sys.argv[1:] == ["--write-example-fixtures"]:
+        write_example_fixtures()
