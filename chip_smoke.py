@@ -31,17 +31,25 @@ Phases, each fatal on any mismatch or exception:
    launch; 4 cycles in a row, the last without the horizon), and time it
    at the DDR5 main path's shapes: back to back (CUDA events), device
    only (``torch.profiler``) and the plain version per call;
-4. hold both flash-attention kernels against their plain version, fp32
+4. hold the flash-attention kernels against their plain version, fp32
    at 2e-5 and bf16 at 2e-2 (the reference's tolerances), every call
    counted on the route ``flash_attention.route`` picks: causal and full,
    D 16/32/64/128, T 100 and 300, GQA rep 1 and 4, both layouts; for the
    tensor-core (sm90) kernel also T 1000 (ragged) and 4096 (the k/v ring
    wraps), rep 8, Tq != Tk (40, 100) and head slices of a fused qkv
-   tensor; then time kernel, plain version and
-   ``scaled_dot_product_attention`` (the library call, never on a path)
-   at the serving path's prefill shape (B 4, T 1000, Hq 32, Hkv 8, D 64,
-   bf16, causal), at D 128, and the CUDA-core kernel at phase 8's shape
-   in bf16 and fp32 and at the serving shape in fp32, each against SDPA;
+   tensor; bf16 D 256 (the d256 kernel) with rep 10 on one kv head at T
+   1 to 1000; and local attention on every route (windows 1, 64, 100 and
+   2048; T 300 causal and full, T 4096 causal; D 32/64/128/256 in bf16,
+   D 32/64/128 in fp32; rep 1, 4, 10 and 16); then time kernel, plain
+   version and ``scaled_dot_product_attention`` (the library call, never
+   on a path; under a window with the band as a boolean mask) at the
+   serving path's prefill shape (B 4, T 1000, Hq 32, Hkv 8, D 64, bf16,
+   causal), at D 128, the CUDA-core kernel at phase 8's shape in bf16 and
+   fp32 and at the serving shape in fp32, the d256 kernel at
+   recurrentgemma-2b's prefill (B 4, T 4096, Hq 10, Hkv 1, D 256, window
+   2048), the sm90 kernel at (4, 4096, 32, 8, 128) with and without that
+   window, and the CUDA-core kernel at the reduced recurrentgemma's
+   (2, 80, 2, 1, 32, window 64), each against SDPA;
 5. reproduce the 11 single-spec golden command-stream hashes of
    ``tests/trace/golden_hashes.json`` on ``cuda`` (3000 cycles, interval
    2.0, read ratio 0.7, FR-FCFS, fast-forward on), each run launching the
@@ -202,6 +210,18 @@ Phases, each fatal on any mismatch or exception:
     CUDA-core flash kernel.  Then ``python -m repro_torch.analysis trace``
     on the shipped tree (the host-sync lint): clean.  Each example's
     seconds and launches are printed.
+19. local attention, qk-norm and RG-LRU: the reduced qwen3-4b,
+    qwen3-14b, glm4-9b and recurrentgemma-2b of
+    ``tests/torch_lm_families.npz`` (the JAX package's weights, prompts,
+    tokens and logits; recurrentgemma's 80-token prompt wraps its 64-slot
+    ring) within atol 0.2 / rtol 0.05 and greedy tokens as in phase 7;
+    then ``PHASE19``'s sessions at full width on seed-made weights, each
+    with every launch count set to 0 just before and read just after:
+    qwen3-4b (36 sm90 launches), recurrentgemma-2b with 4096-token prompts
+    (8 d256 launches: the 2048-slot ring wraps in prefill and decode),
+    glm4-9b and qwen3-14b cut to 4 layers (4 sm90 launches each), none on
+    another route; prefill logits kernel vs plain version within 2e-2,
+    greedy tokens as in phase 9.
 
 The line before the last is a JSON object with one entry per kernel (its
 times, bound and launches; the fused controller step's launches are those
@@ -209,7 +229,9 @@ of the batched session, of the seven examples, of phases 14, 15 and 17's
 worker runs and of phase 16's two Fig. 1 sweeps, its times those of one
 128-lane launch; the readiness table's launches are phase 17's and the
 VRR example's, its times those of 64 exploration lanes; the CUDA-core
-flash kernel's those of phase 8 and of ``serve_lm``;
+flash kernel's those of phase 8, of ``serve_lm`` and of phase 19's
+fixture; the sm90 kernel's those of phases 9 and 19; the d256 kernel's
+phase 19's, its times those of recurrentgemma-2b's prefill;
 the general (max,+) product, off every path, reports the main path's 0
 launches and its 2048^3 int32 times); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
@@ -245,6 +267,9 @@ BF16_TENSOR_OPS_PER_S = 989e12
 LM = dict(arch="llama3.2-1b", params=1_235_814_400, batch=4,
           prompt_len=1000, max_new=32, seed=0)
 SERVE_SHAPE = (4, 1000, 32, 8, 64)
+#: recurrentgemma-2b's prefill attention in phase 19 (B, T, Hq, Hkv, D)
+#: and its window: the d256 kernel's shape
+RG_SHAPE, RG_WINDOW = (4, 4096, 10, 1, 256), 2048
 #: the reduced serving session (the CUDA-core flash kernel's path)
 REDUCED = dict(batch=4, prompt_len=256, max_new=8)
 #: flash kernel vs plain version: the reference's tolerances
@@ -2038,20 +2063,33 @@ def examples_phase(results: list):
     return results
 
 
-def flash_call(FA, q, k, v, causal: bool, head_axis: int, want):
+FLASH_ROUTES = ("cuda_core", "sm90", "d256")
+
+
+def flash_counts(FA) -> tuple:
+    """The flash kernels' launch counts, in ``FLASH_ROUTES`` order."""
+    return (FA.launch_count, FA.sm90_launch_count, FA.d256_launch_count)
+
+
+def reset_flash_counts(FA):
+    FA.launch_count = FA.sm90_launch_count = FA.d256_launch_count = 0
+
+
+def flash_call(FA, q, k, v, causal: bool, head_axis: int, want,
+               window=None):
     """One call of a flash entry point on the card: the route's counter
-    goes up by one and the other's not at all; returns ``(route, max
+    goes up by one and the others' not at all; returns ``(route, max
     |diff|)`` against ``want`` (the plain version in ``q``'s layout)."""
     import torch
     kind = FA.route(q.dtype, q.shape[-1])
-    before = (FA.launch_count, FA.sm90_launch_count)
+    before = flash_counts(FA)
     if head_axis == 1:
-        got = FA.gqa_flash_attention(q, k, v, causal=causal)
+        got = FA.gqa_flash_attention(q, k, v, causal=causal, window=window)
     else:
-        got = FA.flash_attention_bthd(q, k, v, causal=causal)
+        got = FA.flash_attention_bthd(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    step = (0, 1) if kind == "sm90" else (1, 0)
-    after = (FA.launch_count, FA.sm90_launch_count)
+    step = tuple(int(r == kind) for r in FLASH_ROUTES)
+    after = flash_counts(FA)
     if tuple(x - y for x, y in zip(after, before)) != step:
         fail(f"flash {kind} call counted launches {before} -> {after}")
     if got.shape != want.shape or got.dtype != q.dtype:
@@ -2070,19 +2108,21 @@ def flash_phase(device):
     worst = {}                   # (route, dtype, D) -> max |diff|
     cases = 0
 
-    def check(q, k, v, causal, head_axis, label):
+    def check(q, k, v, causal, head_axis, label, window=None):
         nonlocal cases
         qp, kp, vp = (q, k, v) if head_axis == 1 else (t(q), t(k), t(v))
         want = FA.attention_plain(qp, kp, vp, causal=causal,
-                                  sm_scale=q.shape[-1] ** -0.5)
+                                  sm_scale=q.shape[-1] ** -0.5,
+                                  window=window)
         if head_axis == 2:
             want = t(want)
-        kind, err = flash_call(FA, q, k, v, causal, head_axis, want)
+        kind, err = flash_call(FA, q, k, v, causal, head_axis, want, window)
         dt = str(q.dtype).split(".")[-1]
-        if err > FLASH_TOL[dt]:
+        if not err <= FLASH_TOL[dt]:
             fail(f"flash {kind} kernel != plain version ({label}, {dt}, "
-                 f"causal={causal}, D={q.shape[-1]}): max |diff| {err}")
-        key = (kind, dt, q.shape[-1])
+                 f"causal={causal}, D={q.shape[-1]}, window={window}): max "
+                 f"|diff| {err}")
+        key = (kind, dt, q.shape[-1], window is not None)
         worst[key] = max(worst.get(key, 0.0), err)
         cases += 1
 
@@ -2112,13 +2152,38 @@ def flash_phase(device):
               causal, 1, "Tq=40, Tk=100, (B, H, T, D)")
         qkv = rand(2, 300, 8 + 2 * 2, D)
         check(*qkv.split([8, 2, 2], dim=2), causal, 2, "fused qkv view")
+    # head dim 256 (the d256 kernel): recurrentgemma-2b's MQA (rep 10 on
+    # one kv head), ragged T, both layouts
+    for causal, T in itertools.product((True, False), (1, 100, 300, 1000)):
+        q, k, v = (rand(2, T, h, 256, scale=1.0) for h in (10, 1, 1))
+        check(q, k, v, causal, 2, f"T={T}, MQA rep 10")
+        check(t(q).contiguous(), t(k).contiguous(), t(v).contiguous(),
+              causal, 1, f"T={T}, MQA rep 10, (B, H, T, D)")
+    # local attention on every route: windows 1, 64, 100, 2048 at T 300
+    # (causal and full) and 4096 (causal: the windowed tiles at the lower
+    # edge, plain tiles, the diagonal; the k/v ring wraps), rep 1, 4, 10
+    # and 16; fp32 at T 300 (and one 4096 case)
+    for (dt, D), window, rep in itertools.product(
+            [("bfloat16", D) for D in (32, 64, 128, 256)]
+            + [("float32", D) for D in (32, 64, 128)],
+            (1, 64, 100, 2048), (1, 4, 10, 16)):
+        dtype = getattr(torch, dt)
+        q, k, v = (rand(2, 300, h, D, dtype=dtype, scale=1.0)
+                   for h in (2 * rep, 2, 2))
+        for causal in (True, False):
+            check(q, k, v, causal, 2, f"T=300, rep={rep}", window)
+        if dt == "bfloat16" or (D, rep) == (64, 1):
+            q, k, v = (rand(1, 4096, h, D, dtype=dtype, scale=1.0)
+                       for h in (2 * rep, 2, 2))
+            check(q, k, v, True, 2, f"T=4096, rep={rep}", window)
     print(f"flash kernels vs plain version, {cases} calls, each counted "
-          "on its route; max |diff| by route, dtype and head dim:")
-    for (kind, dt, D), e in sorted(worst.items()):
-        print(f"  {kind:<9} {dt:<9} D {D:>3}: {e:.3e} (tolerance "
-              f"{FLASH_TOL[dt]:g})")
-    max_err = {kind: max(e for (r, _, _), e in worst.items() if r == kind)
-               for kind in ("cuda_core", "sm90")}
+          "on its route; max |diff| by route, dtype, head dim and window:")
+    for (kind, dt, D, win), e in sorted(worst.items()):
+        label = "window" if win else "no window"
+        print(f"  {kind:<9} {dt:<9} D {D:>3} {label:<9}: {e:.3e} "
+              f"(tolerance {FLASH_TOL[dt]:g})")
+    max_err = {kind: max(e for (r, *_), e in worst.items() if r == kind)
+               for kind in FLASH_ROUTES}
 
     # per dtype and D: times at (B 2, Hq 8, Hkv 2, T 300), causal; the
     # bound counts 2 B Hq T^2 D operations at the type's peak rate (fp32
@@ -2127,8 +2192,8 @@ def flash_phase(device):
           "back to back:")
     print(f"  {'dtype':<9} {'D':>3} {'route':<9} {'kernel_us':>10} "
           f"{'plain_us':>9} {'bound_us':>9}")
-    for dt, D in itertools.product(("bfloat16", "float32"), (16, 32, 64,
-                                                             128)):
+    for dt, D in [("bfloat16", D) for D in (16, 32, 64, 128, 256)] + \
+            [("float32", D) for D in (16, 32, 64, 128)]:
         dtype = getattr(torch, dt)
         q, k, v = (rand(2, h, 300, D, dtype=dtype) for h in (8, 2, 2))
         kern_us = cuda_ms(lambda: FA.gqa_flash_attention(q, k, v), 50) * 1e3
@@ -2144,17 +2209,29 @@ def flash_phase(device):
     return max_err
 
 
+def visible_pairs(Tq: int, Tk: int, causal: bool, window=None) -> int:
+    """The (q, k) pairs one (batch, head) attends to under the top-left
+    causal mask and the window: row ``r`` sees cols ``max(0, r - window +
+    1) .. min(r, Tk - 1)``."""
+    import numpy as np
+    r = np.arange(Tq, dtype=np.int64)
+    hi = np.minimum(r, Tk - 1) if causal else np.full(Tq, Tk - 1)
+    lo = np.maximum(0, r - window + 1) if window else np.zeros(Tq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
 def flash_timing(device, B, T, Hq, Hkv, D, kernel: str,
-                 dtype: str = "bfloat16"):
-    """One flash kernel at a path's shape, causal in the model's layout:
-    back-to-back times, device time per call (``queued_ms``) and per
-    launch (``torch.profiler``, the kernel whose name contains
-    ``kernel``: one launch a call), the plain version's and
+                 dtype: str = "bfloat16", window=None):
+    """One flash kernel at a path's shape, causal in the model's layout
+    (with ``window``, local): back-to-back times, device time per call
+    (``queued_ms``) and per launch (``torch.profiler``, the kernel whose
+    name contains ``kernel``: one launch a call), the plain version's and
     ``scaled_dot_product_attention``'s (the library call, never on the
-    path), and the bound: ``2 B Hq T^2 D`` operations (multiply-adds of
-    both products over the causal half) at 989 TFLOP/s in bf16 or 67
-    TFLOP/s in fp32 (CUDA cores), against q, k, v and o bytes once at 3.35
-    TB/s."""
+    path; under a window with the band as a boolean ``attn_mask``), and
+    the bound: ``4 D`` operations (multiply-adds of both products) for
+    every visible (q, k) pair of every (batch, q head) at 989 TFLOP/s in
+    bf16 or 67 TFLOP/s in fp32 (CUDA cores), against q, k, v and o bytes
+    once at 3.35 TB/s."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
@@ -2162,24 +2239,34 @@ def flash_timing(device, B, T, Hq, Hkv, D, kernel: str,
     q, k, v = (torch.randn(B, T, h, D, generator=gen, device=device)
                .to(getattr(torch, dtype)) for h in (Hq, Hkv, Hkv))
     t = lambda x: x.transpose(1, 2)
-    kern = lambda: FA.flash_attention_bthd(q, k, v, causal=True)
+    kern = lambda: FA.flash_attention_bthd(q, k, v, causal=True,
+                                           window=window)
     plain = lambda: FA.attention_plain(t(q), t(k), t(v), causal=True,
-                                       sm_scale=D ** -0.5)
+                                       sm_scale=D ** -0.5, window=window)
     err = (kern().float() - t(plain()).float()).abs().max().item()
-    if err > FLASH_TOL[dtype]:
+    if not err <= FLASH_TOL[dtype]:
         fail(f"flash {kernel} != plain version at "
-             f"{(B, T, Hq, Hkv, D)} {dtype}: max |diff| {err}")
+             f"{(B, T, Hq, Hkv, D)} {dtype} window {window}: max |diff| "
+             f"{err}")
     qh, kh, vh = (t(x).contiguous() for x in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
-                                                  enable_gqa=True)
+    if window is None:
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=True)
+    else:
+        rows = torch.arange(T, device=device)[:, None]
+        cols = torch.arange(T, device=device)[None, :]
+        band = (rows >= cols) & (rows - cols < window)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=band, enable_gqa=True)
     sdpa_err = (t(kern()).float() - sdpa().float()).abs().max().item()
     kern_ms = cuda_ms(kern, 50)
     dev_us = device_us(kern, kernel, reps=20)
-    plain_ms = cuda_ms(plain, 10)
+    plain_ms = cuda_ms(plain, 10 if T * Hq <= 32_000 else 3)
     sdpa_ms = cuda_ms(sdpa, 50)
     kern_ms2 = cuda_ms(kern, 50)
     kern_q, sdpa_q = queued_ms(kern), queued_ms(sdpa)
-    flops = 2 * B * Hq * T * T * D
+    pairs = visible_pairs(T, T, True, window)
+    flops = 4 * D * B * Hq * pairs
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     rate = BF16_TENSOR_OPS_PER_S if dtype == "bfloat16" else \
         CUDA_CORE_OPS_PER_S
@@ -2188,13 +2275,14 @@ def flash_timing(device, B, T, Hq, Hkv, D, kernel: str,
     fmt = lambda x, scale=1: ("not measured" if x is None
                               else f"{x * scale:.4f} ms")
     print(f"{kernel} at (B, T, Hq, Hkv, D) = {(B, T, Hq, Hkv, D)} {dtype} "
-          f"causal: max |diff| vs plain {err:.3e}, vs SDPA {sdpa_err:.3e}; "
-          f"kernel {kern_ms:.4f} / {kern_ms2:.4f} ms back to back (CUDA "
-          f"events, before / after SDPA), device {fmt(kern_q)} queued, "
-          f"{fmt(dev_us, 1e-3)} torch.profiler; plain {plain_ms:.4f} ms; "
-          f"scaled_dot_product_attention {sdpa_ms:.4f} ms back to back, "
-          f"device {fmt(sdpa_q)} queued; bound "
-          f"{max(ops_ms, bytes_ms):.6f} ms ({flops / 1e9:.4f} GFLOP at "
+          f"causal, window {window}: max |diff| vs plain {err:.3e}, vs SDPA "
+          f"{sdpa_err:.3e}; kernel {kern_ms:.4f} / {kern_ms2:.4f} ms back "
+          f"to back (CUDA events, before / after SDPA), device "
+          f"{fmt(kern_q)} queued, {fmt(dev_us, 1e-3)} torch.profiler; plain "
+          f"{plain_ms:.4f} ms; scaled_dot_product_attention "
+          f"{'(band mask) ' if window else ''}{sdpa_ms:.4f} ms back to back, "
+          f"device {fmt(sdpa_q)} queued; bound {max(ops_ms, bytes_ms):.6f} "
+          f"ms ({pairs:,} (q, k) pairs per head: {flops / 1e9:.4f} GFLOP at "
           f"{rate / 1e12:.0f} TFLOP/s: {ops_ms:.6f} ms; {nbytes / 1e6:.2f} "
           f"MB at 3.35 TB/s: {bytes_ms:.6f} ms)")
     return dict(max_err=err, ms=kern_ms, device_us=dev_us,
@@ -2234,12 +2322,39 @@ def plain_attention():
     from repro_torch.kernels import flash_attention as FA
     kernel = FA.flash_attention_bthd
 
-    def plain(q, k, v, *, causal=True, sm_scale=None):
+    def plain(q, k, v, *, causal=True, sm_scale=None, window=None):
         t = lambda x: x.transpose(1, 2)
         return t(FA.attention_plain(t(q), t(k), t(v), causal=causal,
-                                    sm_scale=sm_scale))
+                                    sm_scale=sm_scale, window=window))
 
     FA.flash_attention_bthd = plain
+    try:
+        yield
+    finally:
+        FA.flash_attention_bthd = kernel
+
+
+@contextlib.contextmanager
+def each_call_against_plain(record: list):
+    """Inside: every prefill attention call of the model runs the kernel
+    and also the kernel's plain version on the same inputs (not counted:
+    the plain version launches nothing); ``record`` gets ``(max |diff|,
+    within LM_TOL)`` of each call."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    kernel = FA.flash_attention_bthd
+
+    def both(q, k, v, *, causal=True, sm_scale=None, window=None):
+        out = kernel(q, k, v, causal=causal, sm_scale=sm_scale,
+                     window=window)
+        t = lambda x: x.transpose(1, 2)
+        want = t(FA.attention_plain(t(q), t(k), t(v), causal=causal,
+                                    sm_scale=sm_scale, window=window))
+        record.append(((out.float() - want.float()).abs().max().item(),
+                       torch.allclose(out.float(), want.float(), **LM_TOL)))
+        return out
+
+    FA.flash_attention_bthd = both
     try:
         yield
     finally:
@@ -2389,12 +2504,13 @@ def lm_phase(device):
 
     torch.cuda.reset_peak_memory_stats(device)
     timings: dict = {}
-    FA.launch_count = FA.sm90_launch_count = 0
+    reset_flash_counts(FA)
     R.launch_count = 0
     toks, first = serve_batch(cfg, params, prompts, N, device=device,
                               timings=timings)
     launches = FA.sm90_launch_count
-    if launches != cfg.n_layers or FA.launch_count or R.launch_count:
+    if launches != cfg.n_layers or FA.launch_count or R.launch_count \
+            or FA.d256_launch_count:
         fail(f"serving session launched the sm90 flash kernel {launches} "
              f"times, the CUDA-core one {FA.launch_count} times and the "
              f"readiness kernels {R.launch_count} times, want "
@@ -2467,10 +2583,11 @@ def reduced_phase(device):
     B, T, N = REDUCED["batch"], REDUCED["prompt_len"], REDUCED["max_new"]
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (B, T)),
                               dtype=torch.int32, device=device)
-    FA.launch_count = FA.sm90_launch_count = 0
+    reset_flash_counts(FA)
     toks, first = serve_batch(cfg, params, prompts, N, device=device)
     launches = FA.launch_count
-    if launches != cfg.n_layers or FA.sm90_launch_count:
+    if launches != cfg.n_layers or FA.sm90_launch_count \
+            or FA.d256_launch_count:
         fail(f"reduced session launched the CUDA-core flash kernel "
              f"{launches} times and the sm90 one {FA.sm90_launch_count} "
              f"times, want {cfg.n_layers} and 0")
@@ -2488,6 +2605,172 @@ def reduced_phase(device):
           f"each; flash launches: CUDA-core {launches}, sm90 0; prefill "
           f"logits kernel vs plain max |diff| {diff:.3e}")
     return launches
+
+
+#: phase 19: the configurations of local attention, qk-norm and RG-LRU
+#: at full width, served on seed-made bf16 weights with every launch
+#: count set to 0 just before and read just after; glm4-9b and qwen3-14b
+#: cut to 4 of their 40 layers (``n_layers``), the rest at full depth.
+#: recurrentgemma-2b's prompt (4096) is longer than its window (2048): the
+#: 2048-slot ring wraps in prefill and in decode.
+PHASE19 = (
+    dict(arch="qwen3-4b", batch=4, prompt_len=1000, max_new=32, seed=0,
+         params=4_411_424_256),
+    dict(arch="recurrentgemma-2b", batch=4, prompt_len=4096, max_new=32,
+         seed=0, params=2_894_435_840),
+    dict(arch="glm4-9b", batch=4, prompt_len=1000, max_new=32, seed=0,
+         n_layers=4),
+    dict(arch="qwen3-14b", batch=4, prompt_len=1000, max_new=32, seed=0,
+         n_layers=4),
+)
+
+
+def family_session(run: dict, device) -> dict:
+    """One phase-19 session: ``serve_batch`` at full width with every
+    flash launch count set to 0 just before and read just after (one
+    launch per attention layer on the route of the config's head dim, no
+    other); then the teacher-forced run again with every prefill
+    attention call held against the kernel's plain version on the same
+    inputs within ``LM_TOL``, and the whole model's prefill and decode
+    logits, kernel vs plain version, within ``FIXTURE_TOL``: a bf16
+    rounding step apart in each attention layer (the kernel rounds P to
+    bf16), amplified through 26-40 random-weight layers, moves logits of
+    magnitude ~5 (qwen3's untied unembedding) by up to 0.1, beyond an
+    absolute 2e-2 (PERF.md §6); the greedy tokens equal the plain
+    run's argmax except at a near tie (a top-two margin within twice that
+    position's logit difference)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import init_params
+    from repro_torch.serve.step import serve_batch
+    cfg = get_arch(run["arch"])
+    if run.get("n_layers"):
+        cfg = dataclasses.replace(cfg, n_layers=run["n_layers"])
+    t0 = time.perf_counter()
+    params = init_params(cfg, run["seed"], device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    want_params = run.get("params", cfg.param_count())
+    if n_params != want_params or cfg.param_count() != want_params:
+        fail(f"{cfg.name}: {n_params} parameters, want {want_params}")
+    rng = np.random.default_rng(run["seed"])
+    B, T, N = run["batch"], run["prompt_len"], run["max_new"]
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (B, T)),
+                              dtype=torch.int32, device=device)
+    serve_batch(cfg, params, prompts[:, :64], 2, device=device)   # warm-up
+
+    torch.cuda.reset_peak_memory_stats(device)
+    timings: dict = {}
+    reset_flash_counts(FA)
+    toks, first = serve_batch(cfg, params, prompts, N, device=device,
+                              timings=timings)
+    counts = dict(zip(FLASH_ROUTES, flash_counts(FA)))
+    route = FA.route(torch.bfloat16, cfg.head_dim)
+    n_attn = sum(kind != "rglru" for kind in cfg.pattern_layers())
+    want = {r: n_attn if r == route else 0 for r in FLASH_ROUTES}
+    if counts != want:
+        fail(f"{cfg.name} session launched the flash kernels {counts}, "
+             f"want {want}")
+    peak = torch.cuda.max_memory_allocated(device)
+    seq = torch.cat([first[:, None], toks], 1)
+    if seq.shape != (B, N + 1) or int(seq.min()) < 0 \
+            or int(seq.max()) >= cfg.vocab:
+        fail(f"{cfg.name} session tokens out of range: {tuple(seq.shape)}")
+    calls = []
+    with each_call_against_plain(calls):
+        kern = teacher_forced(cfg, params, prompts, seq[:, :N], device)
+    if not all(bool(torch.isfinite(x).all()) for x in kern):
+        fail(f"{cfg.name} session: non-finite logits")
+    if len(calls) != n_attn or not all(ok for _, ok in calls):
+        fail(f"{cfg.name}: prefill attention calls, kernel vs plain "
+             f"version on the same inputs: {calls}, want {n_attn} within "
+             f"{LM_TOL}")
+    with plain_attention():
+        plain = teacher_forced(cfg, params, prompts, seq[:, :N], device)
+    if flash_counts(FA) != tuple(2 * want[r] for r in FLASH_ROUTES):
+        fail(f"{cfg.name}: the plain-version prefill launched a kernel")
+    pre_diff = (kern[0] - plain[0]).abs().max().item()
+    kl, pl = torch.stack(kern, 1), torch.stack(plain, 1)    # (B, N+1, V)
+    if not torch.allclose(kl, pl, **FIXTURE_TOL):
+        fail(f"{cfg.name} logits, kernel vs plain version: max |diff| "
+             f"{(kl - pl).abs().max().item()} beyond {FIXTURE_TOL}")
+    dec_diff = (kl[:, 1:] - pl[:, 1:]).abs().max().item()
+    checked = margins(pl) > 2 * (kl - pl).abs().amax(-1)
+    same = pl.argmax(-1) == seq
+    if not bool(same[checked].all()):
+        fail(f"{cfg.name} greedy tokens differ between kernel and plain "
+             "version away from a near tie")
+    pre, dec = timings["prefill_s"], timings["decode_s"]
+    cut = (f", cut to {cfg.n_layers} of {get_arch(run['arch']).n_layers} "
+           "layers" if run.get("n_layers") else "")
+    print(f"phase 19 {cfg.name}{cut} on {device}: {n_params:,} bf16 "
+          f"parameters (init {init_s:.2f} s), {B} requests x {T} prompt "
+          f"tokens, {N} new tokens each; prefill {pre * 1e3:.2f} ms "
+          f"({B * T / pre:.0f} prompt tokens/s); decode {dec * 1e3:.2f} ms = "
+          f"{dec * 1e3 / N:.3f} ms per step ({B * N / dec:.1f} tokens/s); "
+          f"peak memory {peak / 2**30:.2f} GiB; flash launches {counts}")
+    print(f"  kernel vs plain version: {n_attn} prefill attention calls on "
+          f"the same inputs within {LM_TOL} (max |diff| "
+          f"{max(d for d, _ in calls):.3e}); through the model: prefill "
+          f"logits max |diff| {pre_diff:.3e} (max |logit| "
+          f"{pl[:, 0].abs().max().item():.3f}; within {LM_TOL}: "
+          f"{torch.allclose(kl[:, 0], pl[:, 0], **LM_TOL)}), teacher-forced "
+          f"decode logits max |diff| {dec_diff:.3e}; greedy tokens equal at "
+          f"{int(checked.sum())} of {checked.numel()} positions away from a "
+          f"near tie ({int(same.sum())} equal in all)")
+    del params, kern, plain, kl, pl
+    torch.cuda.empty_cache()
+    return dict(counts=counts, prefill_ms=pre * 1e3, decode_ms=dec * 1e3 / N)
+
+
+def families_fixture_run(device) -> dict:
+    """The reduced qwen3-4b, qwen3-14b, glm4-9b and recurrentgemma-2b of
+    ``tests/torch_lm_families.npz`` (the JAX package's weights, prompts,
+    tokens and logits) served on the card: logits within ``FIXTURE_TOL``
+    and greedy tokens as phase 7 checks them; returns the flash launch
+    counts of their ``serve_batch`` runs (reset just before each)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.serve.step import serve_batch
+    tp = parity()
+    z = np.load(tp.LM_FAMILIES_FIXTURE)
+    total = dict.fromkeys(FLASH_ROUTES, 0)
+    for name in tp.LM_FAMILIES:
+        cfg, params, arrs = tp.load_lm_family(z, name, device)
+        prompts = torch.as_tensor(arrs["prompts"], device=device)
+        n = arrs["tokens"].shape[1]
+        reset_flash_counts(FA)
+        toks, first = serve_batch(cfg, params, prompts, n, device=device)
+        counts = dict(zip(FLASH_ROUTES, flash_counts(FA)))
+        n_attn = sum(kind != "rglru" for kind in cfg.pattern_layers())
+        route = FA.route(torch.bfloat16, cfg.head_dim)
+        if counts != {r: n_attn if r == route else 0 for r in FLASH_ROUTES}:
+            fail(f"fixture {name}: flash launches {counts}, want {n_attn} "
+                 f"on {route}")
+        r = greedy_check(cfg, params, prompts, first, toks, arrs, device)
+        print(f"phase 19 fixture {cfg.name} on {device}: prefill + "
+              f"teacher-forced decode logits within {FIXTURE_TOL} of the JAX "
+              f"package's; greedy tokens {r['compared']} compared, "
+              f"{r['flips']} near-tie flips, whole sequences equal: "
+              f"{r['equal']}; flash launches {counts}")
+        for k, c in counts.items():
+            total[k] += c
+    return total
+
+
+def families_phase(device) -> dict:
+    """Phase 19: the reduced families against the JAX package's fixture,
+    then each full-width session; returns the launches by route."""
+    total = families_fixture_run(device)
+    for run in PHASE19:
+        for k, c in family_session(run, device)["counts"].items():
+            total[k] += c
+    return total
 
 
 def main() -> int:
@@ -2560,6 +2843,15 @@ def main() -> int:
     flash_timing(device, *reduced_shape(), kernel="flash_core_",
                  dtype="float32")
     flash_timing(device, *SERVE_SHAPE, kernel="flash_core_", dtype="float32")
+    # local attention: recurrentgemma-2b's prefill (the d256 kernel, on
+    # phase 19's path), the sm90 kernel at a qwen3-4b-like shape and the
+    # CUDA-core one at the reduced recurrentgemma's (phase 19's fixture)
+    d256 = flash_timing(device, *RG_SHAPE, kernel="flash_d256_kernel",
+                        window=RG_WINDOW)
+    flash_timing(device, 4, 4096, 32, 8, 128, kernel="flash_fwd_sm90_kernel",
+                 window=RG_WINDOW)
+    flash_timing(device, 4, 4096, 32, 8, 128, kernel="flash_fwd_sm90_kernel")
+    flash_timing(device, 2, 80, 2, 1, 32, kernel="flash_core_", window=64)
     # the batched and hetero sessions' profile windows also need the
     # profiler's device time: they run before the golden phase's workers
     batch_launches = timed("11 batched", batched_phase, device,
@@ -2581,6 +2873,7 @@ def main() -> int:
     timed("7 fixture", fixture_phase, device)
     core_launches = timed("8 reduced", reduced_phase, device)
     sm90_launches = timed("9 serving", lm_phase, device)
+    fam = timed("19 families", families_phase, device)
 
     big = mp[(*MAXPLUS_TIMED[-1], "int32")]
 
@@ -2620,9 +2913,13 @@ def main() -> int:
         "bound_ms": lanes["bound_ms"], "bound_by": lanes["bound_by"],
         "library_ms": None},
         flash_row("flash_attention", "flash_attention.cu",
-                  core_launches + ex["flash"], core, flash_err["cuda_core"]),
+                  core_launches + ex["flash"] + fam["cuda_core"], core,
+                  flash_err["cuda_core"]),
         flash_row("flash_attention_sm90", "flash_attention_sm90.cu",
-                  sm90_launches + ex["sm90"], sm90, flash_err["sm90"])]}))
+                  sm90_launches + ex["sm90"] + fam["sm90"], sm90,
+                  flash_err["sm90"]),
+        flash_row("flash_attention_d256", "flash_attention.cu",
+                  fam["d256"], d256, flash_err["d256"])]}))
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s; phases "
           f"{json.dumps(seconds)}", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 
 The port's own copy of ``repro/configs/base.py`` (it imports nothing of
 the JAX package).  Only the configurations whose block kinds the port
-runs are registered: ``llama3.2-1b`` so far (ROADMAP.md queue 1 item 13
-lists the other nine).
+runs are registered: ``llama3.2-1b``, ``qwen3-4b``, ``qwen3-14b``,
+``glm4-9b`` and ``recurrentgemma-2b`` (ROADMAP.md queue 1 item 13 lists
+the other five).
 """
 from __future__ import annotations
 
@@ -117,6 +118,7 @@ def get_arch(name: str) -> ModelConfig:
     import repro_torch.configs  # noqa: F401 — ensure registry is populated
     if name not in _ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCHS)} "
-                       "(the port's other configurations: ROADMAP.md "
+                       "(the reference's MoE, xLSTM, vision and audio "
+                       "configurations are not ported yet: ROADMAP.md "
                        "queue 1 item 13)")
     return _ARCHS[name]

@@ -1,6 +1,7 @@
 // Flash attention forward on Hopper's tensor cores: bf16 q, k, v with head
 // dim 64 or 128, online softmax over kv tiles, causal (top-left, rows >=
-// cols) or full, fp32 accumulation, bf16 output.
+// cols) or full, optionally local (row r sees cols c with r - c < window,
+// flash_attention_xla's mask), fp32 accumulation, bf16 output.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention (_flash_kernel) for bf16 at D 64 and 128, the head dims of
@@ -54,8 +55,15 @@
 // * a consumer issues S_i and P_{i-1} V_{i-1} together and runs the
 //   softmax of S_i while P V is on the tensor cores; the two consumers
 //   overlap each other's softmax with their products;
-// * kv tiles wholly past a q tile's last row are never loaded; the mask
-//   runs only on the diagonal tile and the ragged kv tail;
+// * kv tiles wholly past a q tile's last row, or (under a window) wholly
+//   below its first row's window, are never loaded; the mask runs only on
+//   the tiles at the window's lower edge, the diagonal tile and the ragged
+//   kv tail: the loop is masked tiles, plain tiles, masked tiles.  No row
+//   is fully masked under causal plus window (the diagonal is visible), so
+//   the -1e30 of a row's masked first tile is rescaled away once its
+//   visible columns come.  A q tile's work under a window grows with its
+//   row up to about window + 128 columns and then stays there, so the
+//   latest-first order is still heaviest-first;
 // * the output goes through shared memory and a TMA store, which skips
 //   the rows past Tq.
 //
@@ -332,7 +340,7 @@ struct Softmax {
   template <bool kMask>
   __device__ __forceinline__ void tile(float (&sc)[kBlockK / 2], int r0,
                                        int c0, int n0, int Tk, int causal,
-                                       float scale_log2) {
+                                       int window, float scale_log2) {
     float mx[4] = {kNegInf, kNegInf, kNegInf, kNegInf};  // 2 per row: ILP
 #pragma unroll
     for (int j = 0; j < kBlockK / 8; ++j) {
@@ -342,8 +350,8 @@ struct Softmax {
         if (kMask) {
           const int col = n0 + 8 * j + c0 + (e & 1);
           const int row = e < 2 ? r0 : r0 + 8;
-          x = (col >= Tk || (causal && row < col)) ? kNegInf
-                                                   : x * scale_log2;
+          x = (col >= Tk || (causal && row < col) || row - col >= window)
+                  ? kNegInf : x * scale_log2;
           sc[4 * j + e] = x;
         }
         mx[(e & 2) | (j & 1)] = fmaxf(mx[(e & 2) | (j & 1)], x);
@@ -412,7 +420,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
                       const __grid_constant__ CUtensorMap tmap_v,
                       const __grid_constant__ CUtensorMap tmap_o, int B,
                       int Hq, int Hkv, int Tq, int Tk, int causal,
-                      float scale_log2) {
+                      int window, float scale_log2) {
   using L = Smem<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -434,7 +442,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
   // uses ring stage j % kStages in round j / kStages.
   const int n_qt = (Tq + kBlockQ - 1) / kBlockQ;
   const int n_work = n_qt * Hq * B;
-  auto work = [&](int w, int& m0, int& h, int& b, int& n_tiles) {
+  // A work tile walks kv tiles [lo, n_tiles).
+  auto work = [&](int w, int& m0, int& h, int& b, int& lo, int& n_tiles) {
     const int hb = w % (Hq * B);
     h = hb % Hq;
     b = hb / Hq;
@@ -442,6 +451,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
     // causal: kv tiles starting after the q tile's last row are skipped
     n_tiles = ((causal ? min(Tk, m0 + kBlockQ) : Tk) + kBlockK - 1)
               / kBlockK;
+    // the window: kv tiles ending before the first row's window too (at
+    // least one tile is walked: the consumers' prologue needs one, even
+    // for a q tile whose rows all lie past Tk + window)
+    lo = min(max(0, m0 - (window - 1)) / kBlockK, n_tiles - 1);
   };
 
   if (threadIdx.x == 0) {
@@ -467,8 +480,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
     if (threadIdx.x == 256) {
       int j = 0;                           // kv tiles loaded so far
       for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
-        int m0, h, b, n_tiles;
-        work(w, m0, h, b, n_tiles);
+        int m0, h, b, lo, n_tiles;
+        work(w, m0, h, b, lo, n_tiles);
         const int hk = h / (Hq / Hkv);
         mbar_wait(empty_q, (n & 1) ^ 1);
         mbar_expect_tx(full_q, L::kQBytes);
@@ -476,7 +489,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
         for (int x = 0; x < L::kBoxes; ++x)
           tma_load(sq + x * kBlockQ * 128, &tmap_q, full_q, x * kBoxCols, m0,
                    h, b);
-        for (int i = 0; i < n_tiles; ++i, ++j) {
+        for (int i = lo; i < n_tiles; ++i, ++j) {
           const int s = j % kStages;
           const uint32_t phase = ((j / kStages) & 1) ^ 1;
           mbar_wait(empty_k + 8 * s, phase);
@@ -506,24 +519,29 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
     float sc[kBlockK / 2];
     uint32_t p[kBlockK / 16][4];
 
-    int j0 = 0;                            // ring position of the tile's kv 0
+    int j0 = 0;                            // ring position of the tile's kv lo
     for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
-      int m0, h, b, n_tiles;
-      work(w, m0, h, b, n_tiles);
+      int m0, h, b, lo, n_tiles;
+      work(w, m0, h, b, lo, n_tiles);
       const int r0 = m0 + row;
 #pragma unroll
       for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
       Softmax sm;
-      // kv tiles below n_plain need no mask; the mask, when needed, is on
-      // the last one or two (the diagonal tile, the ragged kv tail)
+      // kv tiles in [lo_plain, n_plain) need no mask; the mask, when
+      // needed, is on the first ones (the window's lower edge: a tile is
+      // plain once every row sees its first col, n0 >= m0 + 128 - window)
+      // and on the last one or two (the diagonal tile, the ragged kv tail)
       const int n_plain = min(min(n_tiles, Tk / kBlockK),
                               causal ? m0 / kBlockK : n_tiles);
+      const int lo_plain =
+          (max(0, m0 + kBlockQ - window) + kBlockK - 1) / kBlockK;
+      auto plain = [&](int i) { return i >= lo_plain && i < n_plain; };
       // One step of the main loop: S_i and P_{i-1} V_{i-1} issued
       // together, the softmax of S_i while P V is on the tensor cores.  No
       // branch holds a wgmma, a commit or a wait, so ptxas keeps the
       // products asynchronous.
       auto step = [&](int i, auto mask) {
-        const int j = j0 + i;
+        const int j = j0 + i - lo;
         const int s = j % kStages, sp = (j - 1) % kStages;
         mbar_wait(full_k + 8 * s, (j / kStages) & 1);
         mbar_wait(full_v + 8 * sp, ((j - 1) / kStages) & 1);
@@ -537,7 +555,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
         fence_regs(sc);
         mbar_arrive(empty_k + 8 * s);
         sm.tile<decltype(mask)::value>(sc, r0, c0, i * kBlockK, Tk, causal,
-                                       scale_log2);
+                                       window, scale_log2);
         wgmma_wait<0>();
         fence_regs(acc);
         mbar_arrive(empty_v + 8 * sp);
@@ -545,7 +563,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
         pack_p(sc, p);
       };
 
-      // prologue: S_0 alone
+      // prologue: S_lo alone
       mbar_wait(full_q, n & 1);
       const int s0 = j0 % kStages;
       mbar_wait(full_k + 8 * s0, (j0 / kStages) & 1);
@@ -556,20 +574,25 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
       wgmma_wait<0>();
       fence_regs(sc);
       mbar_arrive(empty_k + 8 * s0);
-      if (n_plain > 0)
-        sm.tile<false>(sc, r0, c0, 0, Tk, causal, scale_log2);
+      if (plain(lo))
+        sm.tile<false>(sc, r0, c0, lo * kBlockK, Tk, causal, window,
+                       scale_log2);
       else
-        sm.tile<true>(sc, r0, c0, 0, Tk, causal, scale_log2);
+        sm.tile<true>(sc, r0, c0, lo * kBlockK, Tk, causal, window,
+                      scale_log2);
       pack_p(sc, p);
-      // main loop, unmasked kv tiles then masked ones
-      int i = 1;
+      // main loop: masked tiles at the window's edge, plain tiles, masked
+      // tiles at the diagonal and the kv tail
+      int i = lo + 1;
+      for (const int e = min(lo_plain, n_tiles); i < e; ++i)
+        step(i, std::true_type{});
       for (; i < n_plain; ++i) step(i, std::false_type{});
       for (; i < n_tiles; ++i) step(i, std::true_type{});
       // every S is done: the producer may load the next q tile
       mbar_arrive(empty_q);
       // the last P V alone
       {
-        const int j = j0 + n_tiles - 1;
+        const int j = j0 + n_tiles - lo - 1;
         const int sp = j % kStages;
         mbar_wait(full_v + 8 * sp, (j / kStages) & 1);
         fence_regs(acc);
@@ -580,7 +603,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
         fence_regs(acc);
         mbar_arrive(empty_v + 8 * sp);
       }
-      j0 += n_tiles;
+      j0 += n_tiles - lo;
 
       // Divide by the clamped row sums, round to bf16 and stage the rows in
       // shared memory in the 128-byte swizzle of the output map; one thread
@@ -666,7 +689,7 @@ int encode(CUtensorMap* map, const void* ptr, const unsigned long long* geom) {
 template <int D>
 int launch(const CUtensorMap& mq, const CUtensorMap& mk,
            const CUtensorMap& mv, const CUtensorMap& mo, int B, int Hq,
-           int Hkv, int Tq, int Tk, int causal, float sm_scale,
+           int Hkv, int Tq, int Tk, int causal, int window, float sm_scale,
            cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -684,20 +707,21 @@ int launch(const CUtensorMap& mq, const CUtensorMap& mk,
   if (n_work > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = static_cast<int>(n_work < n_sm ? n_work : n_sm);
   flash_fwd_sm90_kernel<D><<<grid, kThreads, Smem<D>::kAlloc, stream>>>(
-      mq, mk, mv, mo, B, Hq, Hkv, Tq, Tk, causal, sm_scale * kLog2e);
+      mq, mk, mv, mo, B, Hq, Hkv, Tq, Tk, causal, window, sm_scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // bf16 q, k, v, o; head_dim 64 or 128.  geom: 8 values (see encode) for
-// each of q, k, v and o in turn.  Returns 0, a cudaError_t, 1000 + a
+// each of q, k, v and o in turn.  window: row r sees cols c with r - c <
+// window (a value above every r - c for none).  Returns 0, a cudaError_t, 1000 + a
 // CUresult of the map encoding, or -1 when libcuda has no
 // cuTensorMapEncodeTiled.
 extern "C" int flash_sm90_launch(
     int head_dim, const void* q, const void* k, const void* v, void* o,
     int B, int Hq, int Hkv, int Tq, int Tk, const unsigned long long* geom,
-    int causal, float sm_scale, void* stream) {
+    int causal, int window, float sm_scale, void* stream) {
   CUtensorMap mq, mk, mv, mo;
   int rc;
   if ((rc = encode(&mq, q, geom)) || (rc = encode(&mk, k, geom + 8))
@@ -707,9 +731,9 @@ extern "C" int flash_sm90_launch(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64: return launch<64>(mq, mk, mv, mo, B, Hq, Hkv, Tq, Tk, causal,
-                               sm_scale, st);
+                               window, sm_scale, st);
     case 128: return launch<128>(mq, mk, mv, mo, B, Hq, Hkv, Tq, Tk, causal,
-                                 sm_scale, st);
+                                 window, sm_scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

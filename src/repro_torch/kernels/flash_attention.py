@@ -1,8 +1,11 @@
 """Flash attention forward: CUDA kernel wrappers and their plain version.
 
 Attention with an online softmax, causal (top-left: query row ``r`` sees
-keys ``c <= r``) or full, fp32 accumulation and the output in the input
-dtype (fp32 or bf16).  Three entry points, two kernels:
+keys ``c <= r``) or full, optionally local (``window``: row ``r`` sees
+only keys ``c > r - window``, on top of the causal mask, as
+``repro/models/layers.py::flash_attention_xla`` masks), fp32 accumulation
+and the output in the input dtype (fp32 or bf16).  Three entry points,
+two kernel sources:
 
 * :func:`flash_attention` — ``q, k, v: (B, H, T, D)`` with equal head
   counts, the layout of the TPU kernel ``repro/kernels/flash_attention.py::
@@ -24,9 +27,12 @@ the dtype and head dim alone:
   a 16-byte aligned base and 16-byte multiples for every stride:
   :func:`sm90_plan` checks them and raises on anything else;
 * ``"cuda_core"`` — ``csrc/flash_attention.cu`` for bf16 at D 16 and 32
-  (on the tensor cores, ``mma.sync``) and fp32 at any D (on the CUDA
+  (on the tensor cores, ``mma.sync``) and fp32 at D 16-128 (on the CUDA
   cores: tensor-core TF32 would miss fp32's 2e-5), one block per 64-row
-  q tile.
+  q tile;
+* ``"d256"`` — the same source's ``mma.sync`` kernel for bf16 at D 256
+  (recurrentgemma-2b's head dim): q staged in shared memory, 32-row kv
+  tiles, about 99 KB of dynamic shared memory a block.
 
 A case a kernel takes always goes to it: a failed build or launch raises
 and never falls back to the other kernel or to the plain version.  On CPU
@@ -35,9 +41,9 @@ in plain PyTorch (ported from ``repro/kernels/ref.py::flash_attention``
 with the top-left causal mask of the kernels).  That is the only place the
 plain version stands in for a kernel.
 
-``launch_count`` (the CUDA-core kernel) and ``sm90_launch_count`` count
-kernel launches (never plain-version calls), so a run can show which
-kernel served its main path.
+``launch_count`` (the CUDA-core kernel), ``sm90_launch_count`` and
+``d256_launch_count`` count kernel launches (never plain-version calls),
+so a run can show which kernel served its main path.
 """
 from __future__ import annotations
 
@@ -47,7 +53,12 @@ from typing import NamedTuple
 
 import torch
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+#: head dims of the fp32 (CUDA-core) kernel; bf16 takes all of HEAD_DIMS
+FP32_HEAD_DIMS = (16, 32, 64, 128)
+#: the window the kernels are given for "no window": every row - col of a
+#: launch is below it (the launchers take the window as a C int)
+NO_WINDOW = 1 << 30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: what the tensor-core kernel takes: bf16 at these head dims
 SM90_HEAD_DIMS = (64, 128)
@@ -63,22 +74,31 @@ SM90_BOX_COLS = 64
 launch_count = 0
 #: tensor-core (sm90) kernel launches, counted the same way
 sm90_launch_count = 0
+#: bf16 head-dim-256 kernel launches, counted the same way
+d256_launch_count = 0
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, sm_scale: float) -> torch.Tensor:
+                    causal: bool, sm_scale: float,
+                    window: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel in ``(B, H, T, D)`` layout:
     ``q (B, Hq, Tq, D)``, ``k, v (B, Hkv, Tk, D)``, ``Hq % Hkv == 0``.
-    Scores in fp32 times ``sm_scale``, the top-left causal mask, softmax,
-    and the product with ``v`` in fp32, cast back to ``q.dtype``."""
+    Scores in fp32 times ``sm_scale``, the top-left causal mask and the
+    window mask ``(row - col) < window``, softmax, and the product with
+    ``v`` in fp32, cast back to ``q.dtype``."""
     B, Hq, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     qf = q.float().reshape(B, Hkv, Hq // Hkv, Tq, D)
     s = torch.einsum("bgrqd,bgkd->bgrqk", qf, k.float()) * sm_scale
-    if causal:
+    if causal or window is not None:
         rows = torch.arange(Tq, device=q.device)[:, None]
         cols = torch.arange(Tk, device=q.device)[None, :]
-        s = s.masked_fill(rows < cols, float("-inf"))
+        masked = torch.zeros((Tq, Tk), dtype=torch.bool, device=q.device)
+        if causal:
+            masked |= rows < cols
+        if window is not None:
+            masked |= rows - cols >= window
+        s = s.masked_fill(masked, float("-inf"))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float())
     return o.reshape(B, Hq, Tq, D).to(q.dtype)
@@ -86,11 +106,14 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that serves ``dtype`` at ``head_dim`` on the card:
-    ``"sm90"`` for bf16 at D 64 or 128, else ``"cuda_core"``.  The layout
-    does not enter: both layouts and strided views go to the same kernel
-    (or raise, if TMA cannot take their alignment)."""
+    ``"sm90"`` for bf16 at D 64 or 128, ``"d256"`` for bf16 at D 256,
+    else ``"cuda_core"``.  The layout and the window do not enter: both
+    layouts and strided views go to the same kernel (or raise, if TMA
+    cannot take their alignment)."""
     if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
         return "sm90"
+    if dtype == torch.bfloat16 and head_dim == 256:
+        return "d256"
     return "cuda_core"
 
 
@@ -166,11 +189,11 @@ def _lib(name: str):
             fn = lib.flash_attention_launch
             err = lib.flash_attention_error_string
             fn.argtypes = ([ci, ci, vp, vp, vp, vp] + [ci] * 5 + [ll] * 12
-                           + [ci, ctypes.c_float, ci, vp])
+                           + [ci, ci, ctypes.c_float, ci, vp])
         else:
             fn, err = lib.flash_sm90_launch, lib.flash_sm90_error_string
             fn.argtypes = ([ci, vp, vp, vp, vp] + [ci] * 5
-                           + [ctypes.POINTER(ctypes.c_ulonglong), ci,
+                           + [ctypes.POINTER(ctypes.c_ulonglong), ci, ci,
                               ctypes.c_float, vp])
         fn.restype = ci
         err.argtypes = [ci]
@@ -179,9 +202,13 @@ def _lib(name: str):
     return lib
 
 
-def _check(q, k, v, head_axis: int):
+def _check(q, k, v, head_axis: int, window: int | None = None):
     """Shapes ``(B, Hq, Tq, D)`` / ``(B, Hkv, Tk, D)`` with the head axis
-    at ``head_axis`` (1 or 2); returns ``(B, Hq, Hkv, Tq, Tk, D)``."""
+    at ``head_axis`` (1 or 2) and a window of at least 1 (or None);
+    returns ``(B, Hq, Hkv, Tq, Tk, D)``."""
+    if window is not None and window < 1:
+        raise ValueError(f"flash attention: window {window} (takes None or "
+                         "a window of at least 1)")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}: want 4-d "
@@ -199,12 +226,13 @@ def _check(q, k, v, head_axis: int):
 
 
 def attention_cuda(q, k, v, *, causal: bool, sm_scale: float,
-                   head_axis: int) -> torch.Tensor:
+                   head_axis: int, window: int | None = None) -> torch.Tensor:
     """Launch the kernel :func:`route` picks on the current stream (no
     synchronise).  ``head_axis`` 1: ``(B, H, T, D)`` tensors; 2: ``(B, T,
     H, D)``.  The output is contiguous in the same layout as ``q``."""
-    global launch_count, sm90_launch_count
-    B, Hq, Hkv, Tq, Tk, D = _check(q, k, v, head_axis)
+    global launch_count, sm90_launch_count, d256_launch_count
+    B, Hq, Hkv, Tq, Tk, D = _check(q, k, v, head_axis, window)
+    win = NO_WINDOW if window is None else min(int(window), NO_WINDOW)
     dev = q.device
     strides = [t.stride() for t in (q, k, v)]
     for name, t, st in zip("qkv", (q, k, v), strides):
@@ -216,9 +244,10 @@ def attention_cuda(q, k, v, *, causal: bool, sm_scale: float,
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash attention kernel: dtype {q.dtype} (takes "
                          "float32 or bfloat16)")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernel: head_dim {D} (takes "
-                         f"{HEAD_DIMS})")
+    dims = HEAD_DIMS if q.dtype == torch.bfloat16 else FP32_HEAD_DIMS
+    if D not in dims:
+        raise ValueError(f"flash attention kernel: head_dim {D} in "
+                         f"{q.dtype} (takes {dims})")
     kernel = route(q.dtype, D)
     out = torch.empty(q.shape, dtype=q.dtype, device=dev)
     if B * Hq * Tq == 0:
@@ -231,69 +260,78 @@ def attention_cuda(q, k, v, *, causal: bool, sm_scale: float,
                                            for x in g.packed()))
         rc = lib.flash_sm90_launch(
             D, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-            Hq, Hkv, Tq, Tk, geom, int(causal), float(sm_scale), stream)
+            Hq, Hkv, Tq, Tk, geom, int(causal), win, float(sm_scale),
+            stream)
         err = lib.flash_sm90_error_string
     else:
         lib = _lib("flash_attention")
         t_axis = 3 - head_axis
         bth = [(st[0], st[t_axis], st[head_axis])
                for st in (*strides, out.stride())]
-        # cp.async stages k/v rows in 16-byte pieces
+        # cp.async stages k/v rows (and, at D 256, q rows) in 16-byte
+        # pieces
         es = q.element_size()
-        aligned = (k.data_ptr() | v.data_ptr()) % 16 == 0 and all(
-            x * es % 16 == 0 for x in bth[1] + bth[2])
+        aligned = (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 == 0 \
+            and all(x * es % 16 == 0 for x in bth[0] + bth[1] + bth[2])
         rc = lib.flash_attention_launch(
             _DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), B, Hq, Hkv, Tq, Tk, *bth[0], *bth[1], *bth[2],
-            *bth[3], int(causal), float(sm_scale), int(aligned), stream)
+            *bth[3], int(causal), win, float(sm_scale), int(aligned), stream)
         err = lib.flash_attention_error_string
     if rc != 0:
         raise RuntimeError(f"flash attention {kernel} kernel launch failed: "
                            + err(rc).decode())
     if kernel == "sm90":
         sm90_launch_count += 1
+    elif kernel == "d256":
+        d256_launch_count += 1
     else:
         launch_count += 1
     return out
 
 
-def _attend(q, k, v, causal, sm_scale, head_axis):
+def _attend(q, k, v, causal, sm_scale, head_axis, window):
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     kind = q.device.type
     if kind == "cuda":
         return attention_cuda(q, k, v, causal=causal, sm_scale=sm_scale,
-                              head_axis=head_axis)
+                              head_axis=head_axis, window=window)
     if kind != "cpu":
         raise NotImplementedError(f"flash attention on {kind!r} tensors")
-    _check(q, k, v, head_axis)
+    _check(q, k, v, head_axis, window)
     if head_axis == 1:
-        return attention_plain(q, k, v, causal=causal, sm_scale=sm_scale)
+        return attention_plain(q, k, v, causal=causal, sm_scale=sm_scale,
+                               window=window)
     t = lambda x: x.transpose(1, 2)
     return t(attention_plain(t(q), t(k), t(v), causal=causal,
-                             sm_scale=sm_scale))
+                             sm_scale=sm_scale, window=window))
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    sm_scale: float | None = None) -> torch.Tensor:
+                    sm_scale: float | None = None,
+                    window: int | None = None) -> torch.Tensor:
     """``q, k, v: (B, H, T, D)`` with equal head counts -> ``(B, H, Tq,
-    D)``.  ``sm_scale`` defaults to ``1/sqrt(D)``."""
+    D)``.  ``sm_scale`` defaults to ``1/sqrt(D)``; ``window`` (None: no
+    window) masks keys ``c <= r - window`` of query row ``r``."""
     if q.shape[1] != k.shape[1]:
         raise ValueError(f"flash_attention takes equal head counts, got "
                          f"{q.shape[1]} and {k.shape[1]}; use "
                          "gqa_flash_attention")
-    return _attend(q, k, v, causal, sm_scale, head_axis=1)
+    return _attend(q, k, v, causal, sm_scale, 1, window)
 
 
 def gqa_flash_attention(q, k, v, *, causal: bool = True,
-                        sm_scale: float | None = None) -> torch.Tensor:
+                        sm_scale: float | None = None,
+                        window: int | None = None) -> torch.Tensor:
     """``q: (B, Hq, T, D)``; ``k, v: (B, Hkv, T, D)`` with
     ``Hq % Hkv == 0``; kv heads are shared, not repeated."""
-    return _attend(q, k, v, causal, sm_scale, head_axis=1)
+    return _attend(q, k, v, causal, sm_scale, 1, window)
 
 
 def flash_attention_bthd(q, k, v, *, causal: bool = True,
-                         sm_scale: float | None = None) -> torch.Tensor:
+                         sm_scale: float | None = None,
+                         window: int | None = None) -> torch.Tensor:
     """The model's layout: ``q: (B, Tq, Hq, D)``; ``k, v: (B, Tk, Hkv,
     D)`` -> ``(B, Tq, Hq, D)``."""
-    return _attend(q, k, v, causal, sm_scale, head_axis=2)
+    return _attend(q, k, v, causal, sm_scale, 2, window)

@@ -20,7 +20,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import flash_attention as FA
@@ -33,7 +32,7 @@ NEG_INF = -1e30
 class ParamDef:
     shape: tuple
     logical_axes: tuple
-    init: str = "normal"        # normal | zeros
+    init: str = "normal"        # normal | zeros | ones
     fan_in_dims: tuple = (-2,)  # dims whose product scales normal init
 
 
@@ -65,13 +64,15 @@ class ParamTree(nn.Module):
 
 
 def init_param(gen: torch.Generator, d: ParamDef, out: torch.Tensor):
-    """Fill ``out`` as the JAX package's ``init_param`` draws (zeros, or a
-    unit normal in fp32 times ``1/sqrt(prod(shape[fan_in]))``, cast to
-    bf16), from the torch generator ``gen``: the same rule, not the same
-    numbers."""
+    """Fill ``out`` as the JAX package's ``init_param`` draws (zeros, ones,
+    or a unit normal in fp32 times ``1/sqrt(prod(shape[fan_in]))``, cast
+    to bf16), from the torch generator ``gen``: the same rule, not the
+    same numbers."""
     with torch.no_grad():
         if d.init == "zeros":
             out.zero_()
+        elif d.init == "ones":
+            out.fill_(1.0)
         else:
             fan_in = int(np.prod([d.shape[i] for i in d.fan_in_dims])) or 1
             z = torch.randn(d.shape, generator=gen, dtype=torch.float32,
@@ -145,22 +146,22 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None):
     """Prefill attention in the model's layout: q (B, Tq, H, Dh); k, v
     (B, Tk, Hkv, Dh) with GQA read in place -> (B, Tq, H, Dh) in q's
-    dtype.  Takes ``flash_attention_xla``'s place; the scale is
+    dtype.  Takes ``flash_attention_xla``'s place (``window``: query row
+    ``r`` sees keys ``c`` with ``r - c < window``); the scale is
     ``1/sqrt(Dh)``."""
-    if window is not None:
-        raise NotImplementedError(
-            "local attention (window) is not ported yet: ROADMAP.md queue 1 "
-            "item 13")
-    return FA.flash_attention_bthd(q, k, v, causal=causal,
+    return FA.flash_attention_bthd(q, k, v, causal=causal, window=window,
                                    sm_scale=1.0 / math.sqrt(q.shape[-1]))
 
 
-def decode_attention(q, k_cache, v_cache, cache_len: int):
+def decode_attention(q, k_cache, v_cache, cache_len: int, *,
+                     window: Optional[int] = None):
     """Single-token attention against a cache, in plain PyTorch (the JAX
     package computes it outside any kernel too).
 
     q: (B, 1, H, Dh); k_cache/v_cache: (B, S, Hkv, Dh); entries at
-    positions >= cache_len are masked with -1e30."""
+    positions >= cache_len are masked with -1e30.  For local attention
+    the cache is a ring buffer of ``window`` slots and is fully attended,
+    so ``window`` masks nothing here (as in the JAX package)."""
     B, _, H, Dh = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     rep = H // Hkv
@@ -186,6 +187,13 @@ def ffn_defs(d_model: int, d_ff: int) -> dict:
     }
 
 
+def silu(x):
+    """``jax.nn.silu`` op for op: ``x * (1 / (1 + exp(-x)))``, each op
+    rounded to ``x``'s dtype as the reference's graph rounds it (``F.silu``
+    rounds a bf16 result once)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
 def ffn_apply(p, x):
-    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    h = silu(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]

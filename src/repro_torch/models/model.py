@@ -99,10 +99,13 @@ def forward(cfg, params, batch: Batch, *, return_states: bool = False,
     x = embed_input(cfg, params, batch)
     ctx = B.Ctx(positions=batch.positions, cache_index=0, cache_len=0)
     aux = torch.zeros((), device=x.device)
-    states = []
-    for kind, p in zip(cfg.pattern_layers(), params["layers"]):
-        x, a, st = _apply_with_state(cfg, kind, p, x, ctx, return_states,
-                                     cache_len)
+    states, resid = [], None
+    for i, (kind, p) in enumerate(zip(cfg.pattern_layers(),
+                                      params["layers"])):
+        fused, resid = _group_step(cfg, i, resid)
+        x, a, st, resid = _apply_with_state(cfg, kind, p, x, ctx,
+                                            return_states, cache_len,
+                                            resid, fused)
         aux = aux + a
         states.append(st)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -111,28 +114,55 @@ def forward(cfg, params, batch: Batch, *, return_states: bool = False,
     return x, aux
 
 
-def _apply_with_state(cfg, kind, p, x, ctx, return_states, cache_len):
-    xin = x
-    x, aux, st = B.block_apply(cfg, kind, p, x, ctx)
-    if return_states:
-        # attention caches are recomputed k/v of the prefix
-        st = _prefill_attn_state(cfg, p, ctx, xin, cache_len)
-    return x, aux, st
+def _group_step(cfg, i: int, resid):
+    """Layer ``i``'s rounding (``blocks`` module notes): ``(fused, the
+    residual sum it reads)``.  Layers of the reference's scanned groups
+    (the first ``n_groups * len(block_pattern)``) are fused, and read the
+    previous block's fp32 sum unless they start a group (the scan's carry
+    is rounded); the remainder layers run op by op."""
+    P = len(cfg.block_pattern)
+    fused = i < cfg.n_groups() * P
+    return fused, resid if fused and i % P else None
 
 
-def _prefill_attn_state(cfg, p, ctx, x, cache_len):
+def _apply_with_state(cfg, kind, p, x, ctx, return_states, cache_len,
+                      resid=None, fused=False):
+    """One block; with ``return_states`` also its decode state by kind:
+    an attention cache is recomputed k/v of the prefix (ring-aligned for
+    a local layer), RG-LRU returns its own ``(h, conv)``."""
+    xin, rin = x, resid
+    x, aux, st, resid = B.block_apply(cfg, kind, p, x, ctx,
+                                      with_state=return_states, resid=resid,
+                                      fused=fused)
+    if return_states and kind in ("attn", "local_attn"):
+        st = _prefill_attn_state(cfg, p, ctx, xin, cache_len,
+                                 local=kind == "local_attn", resid=rin)
+    return x, aux, st, resid
+
+
+def _prefill_attn_state(cfg, p, ctx, x, cache_len, local: bool = False,
+                        resid=None):
     """Recompute k/v for the prefix and lay them into a bf16 decode cache
-    of ``cache_len`` positions (the last ``cache_len`` if the prefix is
-    longer)."""
+    of ``S`` slots (``B.attn_init_state``).  A prefix of ``T >= S`` tokens
+    keeps its last ``S``: in slots ``0..S-1`` for a global cache, at slots
+    ``arange(T - S, T) % S`` of a local ring (where decode's ``index %
+    S`` will find them)."""
     if cache_len is None:
         raise ValueError("return_states needs cache_len")
-    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    h = B._norm_in(cfg, p, x, resid)
     _, k, v = B._qkv(cfg, p, h, ctx)
     T = x.shape[1]
-    st = B.attn_init_state(cfg, x.shape[0], cache_len, device=x.device)
-    n = min(T, cache_len)
-    st.k[:, :n] = k[:, T - n:].to(st.k.dtype)
-    st.v[:, :n] = v[:, T - n:].to(st.v.dtype)
+    st = B.attn_init_state(cfg, x.shape[0], cache_len, local=local,
+                           device=x.device)
+    S = st.k.shape[1]
+    if T >= S:
+        # position T - S + i goes to slot (T - S + i) % S: a roll by T % S
+        shift = T % S if local else 0
+        st.k.copy_(torch.roll(k[:, T - S:], shift, dims=1))
+        st.v.copy_(torch.roll(v[:, T - S:], shift, dims=1))
+    else:
+        st.k[:, :T] = k.to(st.k.dtype)
+        st.v[:, :T] = v.to(st.v.dtype)
     return st
 
 
@@ -168,9 +198,12 @@ def decode_step(cfg, params, cache: list, batch: Batch):
     x = embed_input(cfg, params, batch)
     ctx = B.Ctx(positions=batch.positions, cache_index=int(batch.cache_index),
                 cache_len=int(batch.cache_len))
-    new_cache = []
-    for kind, p, st in zip(cfg.pattern_layers(), params["layers"], cache):
-        x, st = B.block_decode(cfg, kind, p, x, st, ctx)
+    new_cache, resid = [], None
+    for i, (kind, p, st) in enumerate(zip(cfg.pattern_layers(),
+                                          params["layers"], cache)):
+        fused, resid = _group_step(cfg, i, resid)
+        x, st, resid = B.block_decode(cfg, kind, p, x, st, ctx, resid=resid,
+                                      fused=fused)
         new_cache.append(st)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return last_logits(cfg, params, x), new_cache

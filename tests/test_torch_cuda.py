@@ -546,7 +546,8 @@ def test_core_kernel_unaligned_kv(cuda, dtype, tol):
 
 
 def _counts():
-    return {"cuda_core": FA.launch_count, "sm90": FA.sm90_launch_count}
+    return {"cuda_core": FA.launch_count, "sm90": FA.sm90_launch_count,
+            "d256": FA.d256_launch_count}
 
 
 def _stepped(before, route, n):
@@ -623,6 +624,93 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         FA.gqa_flash_attention(z(1, 2, 8, 64), z(1, 2, 8, 64).float(),
                                z(1, 2, 8, 64))
+
+
+@pytest.mark.parametrize("D,dtype", [(32, torch.bfloat16), (64, torch.bfloat16),
+                                     (128, torch.bfloat16),
+                                     (256, torch.bfloat16),
+                                     (64, torch.float32)])
+@pytest.mark.parametrize("window", [1, 64, 100, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_window_equals_plain_version(cuda, D, dtype, window, causal):
+    """Local attention on every route: T 300 (the window cuts through kv
+    tiles, and skips whole ones) and 1000 (ragged), GQA rep 4, one counted
+    launch a call."""
+    gen = torch.Generator(device=cuda).manual_seed(D + window)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    t = lambda x: x.transpose(1, 2)
+    for T in (300, 1000):
+        q, k, v = (torch.randn(2, T, h, D, generator=gen, device=cuda)
+                   .to(dtype) for h in (8, 2, 2))
+        before = _counts()
+        got = FA.flash_attention_bthd(q, k, v, causal=causal, window=window)
+        assert _counts() == _stepped(before, FA.route(dtype, D), 1)
+        want = t(FA.attention_plain(t(q), t(k), t(v), causal=causal,
+                                    sm_scale=D ** -0.5, window=window))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("T", [1, 100, 300, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_d256_kernel_mqa(cuda, T, causal):
+    """Head dim 256 with recurrentgemma-2b's MQA (10 q heads read one kv
+    head in place), both layouts, no window."""
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    q, k, v = (torch.randn(3, T, h, 256, generator=gen, device=cuda)
+               .to(torch.bfloat16) for h in (10, 1, 1))
+    t = lambda x: x.transpose(1, 2)
+    before = _counts()
+    got = FA.flash_attention_bthd(q, k, v, causal=causal)
+    got2 = FA.gqa_flash_attention(t(q).contiguous(), t(k).contiguous(),
+                                  t(v).contiguous(), causal=causal)
+    assert _counts() == _stepped(before, "d256", 2)
+    want = t(FA.attention_plain(t(q), t(k), t(v), causal=causal,
+                                sm_scale=1 / 16))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(t(got2), want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("name", ["qwen3-4b", "qwen3-14b", "glm4-9b",
+                                  "recurrentgemma-2b"])
+def test_lm_families_fixture_on_cuda(cuda, name):
+    """The reduced families of ``tests/torch_lm_families.npz`` (the JAX
+    package's weights, prompts and logits) served on the card: prefill
+    and teacher-forced decode logits within atol 0.2 / rtol 0.05."""
+    z = np.load(os.path.join(HERE, "torch_lm_families.npz"))
+    pre = f"{name}@"
+    arrs = {k[len(pre):]: z[k] for k in z.files if k.startswith(pre)}
+    fields = json.loads(str(arrs["config"]))
+    fields["block_pattern"] = tuple(fields["block_pattern"])
+    cfg = ModelConfig(**fields)
+    params = convert.lm_params(convert.nest(
+        {k[len("param."):]: v for k, v in arrs.items()
+         if k.startswith("param.")}), cfg, cuda)
+    pr = torch.as_tensor(arrs["prompts"], device=cuda)
+    B, T = pr.shape
+    n = arrs["tokens"].shape[1]
+    seq = torch.as_tensor(np.concatenate([arrs["first"][:, None],
+                                          arrs["tokens"]], 1), device=cuda)
+    before = _counts()
+    pos = torch.arange(T, dtype=torch.int32, device=cuda)[None].repeat(B, 1)
+    lg, cache = make_prefill_step(cfg, T + n)(
+        params, M.Batch(tokens=pr, positions=pos))
+    n_attn = sum(k != "rglru" for k in cfg.pattern_layers())
+    assert _counts() == _stepped(before, FA.route(torch.bfloat16,
+                                                  cfg.head_dim), n_attn)
+    got = [lg[:, -1]]
+    for i in range(n):
+        lg, cache = M.decode_step(cfg, params, cache, M.Batch(
+            tokens=seq[:, i:i + 1],
+            positions=torch.full((B, 1), T + i, dtype=torch.int32,
+                                 device=cuda),
+            cache_index=T + i, cache_len=T + i + 1))
+        got.append(lg[:, -1])
+    got = torch.stack(got, 1).cpu().numpy()
+    want = np.concatenate([arrs["prefill_logits"][:, None],
+                           arrs["decode_logits"]], 1)
+    np.testing.assert_allclose(got, want, atol=0.2, rtol=0.05)
 
 
 def test_serve_fixture_on_cuda(cuda):

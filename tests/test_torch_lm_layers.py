@@ -87,9 +87,12 @@ def test_decode_attention(cache_len):
 
 
 def test_local_window_raises():
+    """Local attention is ported (tests/test_torch_flash_window.py); a
+    window below 1 raises."""
     q = torch.zeros(1, 4, 2, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PL.flash_attention(q, q, q, window=8)
+    for window in (0, -3):
+        with pytest.raises(ValueError, match="window"):
+            PL.flash_attention(q, q, q, window=window)
 
 
 @pytest.fixture(scope="module")
@@ -140,10 +143,9 @@ def test_attn_decode(gqa_block):
 
 def test_unported_options_raise():
     _, pc = lm_configs("reduced")
-    for change in (dict(qk_norm=True), dict(kv_quant=True),
-                   dict(rope="mrope")):
+    for change in (dict(kv_quant=True), dict(rope="mrope")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PB.attn_defs(dataclasses.replace(pc, **change))
-    for kind in ("local_attn", "moe", "rglru", "mlstm", "slstm"):
+    for kind in ("moe", "mlstm", "slstm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PB.block_defs(pc, kind)

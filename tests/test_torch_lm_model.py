@@ -227,6 +227,11 @@ def test_fresh_import_of_serving_path_leaves_jax_unloaded():
             "import repro_torch.configs, repro_torch.models, repro_torch.serve\n"
             "import repro_torch.launch.serve, repro_torch.convert\n"
             "import repro_torch.kernels.flash_attention\n"
+            "from repro_torch.configs import (qwen3_4b, qwen3_14b, glm4_9b,\n"
+            "                                 recurrentgemma_2b)\n"
+            "from repro_torch.models import blocks, layers, model\n"
+            "assert set(repro_torch.configs.base._ARCHS) == {'llama3.2-1b', "
+            "'qwen3-4b', 'qwen3-14b', 'glm4-9b', 'recurrentgemma-2b'}\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'ml_dtypes')]\n"
             "assert not bad, bad\n"

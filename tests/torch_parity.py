@@ -20,7 +20,12 @@ rewrites ``tests/torch_batch_stats.json``,
 
 rewrites ``tests/torch_examples_stats.json`` and
 ``tests/torch_examples_serve.npz`` (the reference examples' sessions at
-their own sizes: a few minutes of JAX on the CPU)."""
+their own sizes: a few minutes of JAX on the CPU), and
+
+    PYTHONPATH=src python tests/torch_parity.py --write-lm-families-fixture
+
+rewrites ``tests/torch_lm_families.npz`` (the reduced qwen3-4b,
+qwen3-14b, glm4-9b and recurrentgemma-2b served by the JAX package)."""
 from __future__ import annotations
 
 import functools
@@ -1176,11 +1181,18 @@ def serve_fixture_arrays(run: dict = SERVE_RUN) -> dict:
     prompts, ``serve_batch``'s ``tokens`` and ``first``, the prefill's
     last-position ``prefill_logits`` and the teacher-forced
     ``decode_logits`` of each decoded position."""
+    jc, jp, _, _ = lm_pair(run["variant"], run["seed"])
+    return lm_run_arrays(jc, jp, run)
+
+
+def lm_run_arrays(jc, jp, run: dict) -> dict:
+    """A serve fixture's arrays (see :func:`serve_fixture_arrays`) for the
+    JAX package's config ``jc`` and parameters ``jp``: ``run`` gives
+    ``batch``, ``prompt_len``, ``max_new`` and the prompts' ``seed``."""
     import dataclasses
     import jax.numpy as jnp
     from repro.models import Batch, decode_step
     from repro.serve.step import make_prefill_step, serve_batch
-    jc, jp, _, _ = lm_pair(run["variant"], run["seed"])
     B, T, N = run["batch"], run["prompt_len"], run["max_new"]
     pr = prompts(jc, B, T, run["seed"])
     toks, first = serve_batch(jc, jp, jnp.asarray(pr), N)
@@ -1207,6 +1219,115 @@ def serve_fixture_arrays(run: dict = SERVE_RUN) -> dict:
 
 def write_serve_fixture():
     np.savez_compressed(SERVE_FIXTURE, **serve_fixture_arrays())
+
+
+# ---------------------------------------------------------------------------
+# The qk-norm dense family and the hybrid recurrentgemma-2b (reduced)
+# ---------------------------------------------------------------------------
+
+LM_FAMILIES_FIXTURE = os.path.join(HERE, "torch_lm_families.npz")
+#: the configurations ported with local attention, qk-norm and RG-LRU
+LM_FAMILIES = ("qwen3-4b", "qwen3-14b", "glm4-9b", "recurrentgemma-2b")
+#: the fixture's run of each (reduced, parameters from PRNGKey(seed),
+#: prompts from numpy's default_rng(seed)): recurrentgemma's prompt is
+#: longer than its reduced window (64), so the ring wraps in prefill and
+#: decode
+LM_FAMILY_RUNS = {name: dict(seed=0, batch=2, prompt_len=24, max_new=4)
+                  for name in LM_FAMILIES}
+LM_FAMILY_RUNS["recurrentgemma-2b"] = dict(seed=0, batch=2, prompt_len=80,
+                                           max_new=4)
+#: the full-width parameter counts (the reference's ``count_params``)
+FAMILY_PARAMS = {"qwen3-4b": 4_411_424_256, "glm4-9b": 9_399_767_040,
+                 "qwen3-14b": 14_768_307_200,
+                 "recurrentgemma-2b": 2_894_435_840}
+
+
+def unstacked_shapes(defs: dict, cfg) -> dict:
+    """The reference's ParamDef tree as the port's per-layer names and
+    shapes: ``groups.b{j}`` stacked over the groups is layer ``g * P + j``,
+    ``rem.r{j}`` layer ``G * P + j``."""
+    P, G = len(cfg.block_pattern), cfg.n_groups()
+    out = {}
+    for path, d in flatten(defs).items():
+        top, *rest = path.split(".")
+        if top == "groups":
+            j = int(rest[0][1:])
+            for g in range(d.shape[0]):
+                out[".".join(["layers", str(g * P + j)] + rest[1:])] = \
+                    d.shape[1:]
+        elif top == "rem":
+            out[".".join(["layers", str(G * P + int(rest[0][1:]))]
+                         + rest[1:])] = d.shape
+        else:
+            out[path] = d.shape
+    return out
+
+
+def family_configs(name: str, n_layers=None, full: bool = False):
+    """``(jax cfg, port cfg)`` of arch ``name``, ``reduced(n_layers)``
+    unless ``full``."""
+    from repro.configs import get_arch as jax_arch
+    from repro_torch.configs import get_arch
+    cfgs = (jax_arch(name), get_arch(name))
+    return cfgs if full else tuple(c.reduced(n_layers) for c in cfgs)
+
+
+def family_pair(name: str, seed=0, n_layers=None):
+    """``(jax cfg, jax params, port cfg, port params on the CPU)`` of the
+    reduced arch ``name``, the reference's ``PRNGKey(seed)`` parameters
+    handed over through ``repro_torch.convert.lm_params``."""
+    import jax
+    from repro.models import init_params
+    from repro_torch import convert
+    jc, pc = family_configs(name, n_layers)
+    jp = init_params(jc, jax.random.PRNGKey(seed))
+    return jc, jp, pc, convert.lm_params(tree_np(jp), pc, "cpu")
+
+
+def lm_family_arrays(name: str) -> dict:
+    """One arch's part of the fixture (keys ``<arch>@<key>``).  The JAX
+    package's run is cached per process by the config without its name
+    and notes, and the run: the reduced qwen3-4b and qwen3-14b have the
+    same shapes, so the same seed gives them the same weights and run."""
+    import dataclasses
+    run = LM_FAMILY_RUNS[name]
+    jc, _ = family_configs(name)
+    key = (json.dumps(dataclasses.asdict(dataclasses.replace(
+        jc, name="", notes="")), sort_keys=True), json.dumps(run,
+                                                            sort_keys=True))
+    if key not in _FAMILY_RUNS:
+        jc, jp, _, _ = family_pair(name, run["seed"])
+        _FAMILY_RUNS[key] = lm_run_arrays(jc, jp, run)
+    arrs = dict(_FAMILY_RUNS[key],
+                config=np.asarray(json.dumps(dataclasses.asdict(jc))))
+    return {f"{name}@{k}": v for k, v in arrs.items()}
+
+
+_FAMILY_RUNS: dict = {}
+
+
+def load_lm_family(z, name: str, device):
+    """``(port cfg, port params on device, {key: array})`` of one arch
+    from the fixture ``z`` (an ``np.load`` of it): what ``chip_smoke.py``
+    serves on the card."""
+    from repro_torch import convert
+    from repro_torch.configs import ModelConfig
+    pre = f"{name}@"
+    arrs = {k[len(pre):]: z[k] for k in z.files if k.startswith(pre)}
+    fields = json.loads(str(arrs["config"]))
+    fields["block_pattern"] = tuple(fields["block_pattern"])
+    cfg = ModelConfig(**fields)
+    params = convert.lm_params(convert.nest(
+        {k[len("param."):]: v for k, v in arrs.items()
+         if k.startswith("param.")}), cfg, device)
+    return cfg, params, arrs
+
+
+def write_lm_families_fixture():
+    out = {}
+    for name in LM_FAMILIES:
+        out.update(lm_family_arrays(name))
+    np.savez_compressed(LM_FAMILIES_FIXTURE, **out)
 
 
 # ---------------------------------------------------------------------------
@@ -1556,3 +1677,6 @@ if __name__ == "__main__":
         write_sim_fixtures()
     elif sys.argv[1:] == ["--write-example-fixtures"]:
         write_example_fixtures()
+    elif sys.argv[1:] == ["--write-lm-families-fixture"]:
+        write_lm_families_fixture()
+        print("wrote", LM_FAMILIES_FIXTURE)
