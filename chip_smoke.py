@@ -7,7 +7,9 @@ Phases, each fatal on any mismatch or exception:
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of the main paths with ``nvcc`` into
-   ``build/kernels/`` (all sources compiled in parallel) and count the
+   ``build/kernels/`` (all sources compiled in parallel), print
+   ``ptxas``'s registers, spills and wgmma serialisation for the
+   tensor-core flash kernel at each head dim, and count the
    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in the
    tensor-core flash kernel's SASS, ``HMMA`` (mma.sync) in the CUDA-core
    one's, and the (max,+) kernels' DPX add-max (``cuobjdump``);
@@ -33,21 +35,24 @@ Phases, each fatal on any mismatch or exception:
    only (``torch.profiler``) and the plain version per call;
 4. hold the flash-attention kernels against their plain version, fp32
    at 2e-5 and bf16 at 2e-2 (the reference's tolerances), every call
-   counted on the route ``flash_attention.route`` picks: causal and full,
+   counted on the route ``flash_attention.route`` picks (the sm90
+   kernel's D-256 launches in their own count): causal and full,
    D 16/32/64/128, T 100 and 300, GQA rep 1 and 4, both layouts; for the
    tensor-core (sm90) kernel also T 1000 (ragged) and 4096 (the k/v ring
    wraps), rep 8, Tq != Tk (40, 100) and head slices of a fused qkv
-   tensor; bf16 D 256 (the d256 kernel) with rep 10 on one kv head at T
-   1 to 1000; and local attention on every route (windows 1, 64, 100 and
+   tensor; bf16 D 256 (the sm90 kernel's 64-row kv tiles) with rep 10 on
+   one kv head at T 1 to 4096, Tq != Tk and a fused qkv view; and local
+   attention on every route (windows 1, 64, 100 and
    2048; T 300 causal and full, T 4096 causal; D 32/64/128/256 in bf16,
    D 32/64/128 in fp32; rep 1, 4, 10 and 16); then time kernel, plain
    version and ``scaled_dot_product_attention`` (the library call, never
-   on a path; under a window with the band as a boolean mask) at the
+   on a path; under a window with the band as a boolean mask, and causal
+   without a mask beside it) at the
    serving path's prefill shape (B 4, T 1000, Hq 32, Hkv 8, D 64, bf16,
    causal), at D 128, the CUDA-core kernel at phase 8's shape in bf16 and
-   fp32 and at the serving shape in fp32, the d256 kernel at
+   fp32 and at the serving shape in fp32, the sm90 kernel at
    recurrentgemma-2b's prefill (B 4, T 4096, Hq 10, Hkv 1, D 256, window
-   2048), the sm90 kernel at (4, 4096, 32, 8, 128) with and without that
+   2048) and at (4, 4096, 32, 8, 128) with and without that
    window, and the CUDA-core kernel at the reduced recurrentgemma's
    (2, 80, 2, 1, 32, window 64), each against SDPA;
 5. reproduce the 11 single-spec golden command-stream hashes of
@@ -218,7 +223,8 @@ Phases, each fatal on any mismatch or exception:
     then ``PHASE19``'s sessions at full width on seed-made weights, each
     with every launch count set to 0 just before and read just after:
     qwen3-4b (36 sm90 launches), recurrentgemma-2b with 4096-token prompts
-    (8 d256 launches: the 2048-slot ring wraps in prefill and decode),
+    (8 sm90 launches at D 256: the 2048-slot ring wraps in prefill and
+    decode),
     glm4-9b and qwen3-14b cut to 4 layers (4 sm90 launches each), none on
     another route; prefill logits kernel vs plain version within 2e-2,
     greedy tokens as in phase 9.
@@ -230,8 +236,8 @@ worker runs and of phase 16's two Fig. 1 sweeps, its times those of one
 128-lane launch; the readiness table's launches are phase 17's and the
 VRR example's, its times those of 64 exploration lanes; the CUDA-core
 flash kernel's those of phase 8, of ``serve_lm`` and of phase 19's
-fixture; the sm90 kernel's those of phases 9 and 19; the d256 kernel's
-phase 19's, its times those of recurrentgemma-2b's prefill;
+fixture; the sm90 kernel's those of phases 9 and 19 at D 64/128; its
+D-256 entry phase 19's, its times those of recurrentgemma-2b's prefill;
 the general (max,+) product, off every path, reports the main path's 0
 launches and its 2048^3 int32 times); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
@@ -268,7 +274,7 @@ LM = dict(arch="llama3.2-1b", params=1_235_814_400, batch=4,
           prompt_len=1000, max_new=32, seed=0)
 SERVE_SHAPE = (4, 1000, 32, 8, 64)
 #: recurrentgemma-2b's prefill attention in phase 19 (B, T, Hq, Hkv, D)
-#: and its window: the d256 kernel's shape
+#: and its window: the sm90 kernel's D-256 shape
 RG_SHAPE, RG_WINDOW = (4, 4096, 10, 1, 256), 2048
 #: the reduced serving session (the CUDA-core flash kernel's path)
 REDUCED = dict(batch=4, prompt_len=256, max_new=8)
@@ -2063,6 +2069,8 @@ def examples_phase(results: list):
     return results
 
 
+#: the flash launch counts: the CUDA-core kernel's, the sm90 kernel's at D
+#: 64/128 and at D 256
 FLASH_ROUTES = ("cuda_core", "sm90", "d256")
 
 
@@ -2081,7 +2089,7 @@ def flash_call(FA, q, k, v, causal: bool, head_axis: int, want,
     goes up by one and the others' not at all; returns ``(route, max
     |diff|)`` against ``want`` (the plain version in ``q``'s layout)."""
     import torch
-    kind = FA.route(q.dtype, q.shape[-1])
+    kind = FA.counter(q.dtype, q.shape[-1])
     before = flash_counts(FA)
     if head_axis == 1:
         got = FA.gqa_flash_attention(q, k, v, causal=causal, window=window)
@@ -2152,13 +2160,22 @@ def flash_phase(device):
               causal, 1, "Tq=40, Tk=100, (B, H, T, D)")
         qkv = rand(2, 300, 8 + 2 * 2, D)
         check(*qkv.split([8, 2, 2], dim=2), causal, 2, "fused qkv view")
-    # head dim 256 (the d256 kernel): recurrentgemma-2b's MQA (rep 10 on
-    # one kv head), ragged T, both layouts
-    for causal, T in itertools.product((True, False), (1, 100, 300, 1000)):
+    # head dim 256 (the sm90 kernel's 64-row kv tiles): recurrentgemma-2b's
+    # MQA (rep 10 on one kv head), ragged T, T 4096 (the ring wraps 32
+    # times), both layouts, Tq != Tk and a fused qkv view
+    for causal, T in itertools.product((True, False),
+                                       (1, 100, 300, 1000, 4096)):
         q, k, v = (rand(2, T, h, 256, scale=1.0) for h in (10, 1, 1))
         check(q, k, v, causal, 2, f"T={T}, MQA rep 10")
         check(t(q).contiguous(), t(k).contiguous(), t(v).contiguous(),
               causal, 1, f"T={T}, MQA rep 10, (B, H, T, D)")
+    for causal in (True, False):
+        q, k, v = rand(2, 40, 10, 256), rand(2, 100, 1, 256), \
+            rand(2, 100, 1, 256)
+        check(q, k, v, causal, 2, "Tq=40, Tk=100, MQA rep 10")
+        qkv = rand(2, 300, 10 + 2, 256)
+        check(*qkv.split([10, 1, 1], dim=2), causal, 2,
+              "fused qkv view, MQA rep 10")
     # local attention on every route: windows 1, 64, 100, 2048 at T 300
     # (causal and full) and 4096 (causal: the windowed tiles at the lower
     # edge, plain tiles, the diagonal; the k/v ring wraps), rep 1, 4, 10
@@ -2227,8 +2244,9 @@ def flash_timing(device, B, T, Hq, Hkv, D, kernel: str,
     (``queued_ms``) and per launch (``torch.profiler``, the kernel whose
     name contains ``kernel``: one launch a call), the plain version's and
     ``scaled_dot_product_attention``'s (the library call, never on the
-    path; under a window with the band as a boolean ``attn_mask``), and
-    the bound: ``4 D`` operations (multiply-adds of both products) for
+    path; under a window with the band as a boolean ``attn_mask``, and
+    also causal without a mask, the most a band could save), and the
+    bound: ``4 D`` operations (multiply-adds of both products) for
     every visible (q, k) pair of every (batch, q head) at 989 TFLOP/s in
     bf16 or 67 TFLOP/s in fp32 (CUDA cores), against q, k, v and o bytes
     once at 3.35 TB/s."""
@@ -2259,6 +2277,15 @@ def flash_timing(device, B, T, Hq, Hkv, D, kernel: str,
         sdpa = lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=band, enable_gqa=True)
     sdpa_err = (t(kern()).float() - sdpa().float()).abs().max().item()
+    fmt = lambda x, scale=1: ("not measured" if x is None
+                              else f"{x * scale:.4f} ms")
+    causal_note = ""
+    if window is not None:
+        causal = lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=True)
+        causal_note = (f"; scaled_dot_product_attention causal, no mask "
+                       f"{cuda_ms(causal, 50):.4f} ms back to back, device "
+                       f"{fmt(queued_ms(causal))} queued")
     kern_ms = cuda_ms(kern, 50)
     dev_us = device_us(kern, kernel, reps=20)
     plain_ms = cuda_ms(plain, 10 if T * Hq <= 32_000 else 3)
@@ -2272,8 +2299,6 @@ def flash_timing(device, B, T, Hq, Hkv, D, kernel: str,
         CUDA_CORE_OPS_PER_S
     ops_ms = flops / rate * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    fmt = lambda x, scale=1: ("not measured" if x is None
-                              else f"{x * scale:.4f} ms")
     print(f"{kernel} at (B, T, Hq, Hkv, D) = {(B, T, Hq, Hkv, D)} {dtype} "
           f"causal, window {window}: max |diff| vs plain {err:.3e}, vs SDPA "
           f"{sdpa_err:.3e}; kernel {kern_ms:.4f} / {kern_ms2:.4f} ms back "
@@ -2281,7 +2306,8 @@ def flash_timing(device, B, T, Hq, Hkv, D, kernel: str,
           f"{fmt(kern_q)} queued, {fmt(dev_us, 1e-3)} torch.profiler; plain "
           f"{plain_ms:.4f} ms; scaled_dot_product_attention "
           f"{'(band mask) ' if window else ''}{sdpa_ms:.4f} ms back to back, "
-          f"device {fmt(sdpa_q)} queued; bound {max(ops_ms, bytes_ms):.6f} "
+          f"device {fmt(sdpa_q)} queued{causal_note}; bound "
+          f"{max(ops_ms, bytes_ms):.6f} "
           f"ms ({pairs:,} (q, k) pairs per head: {flops / 1e9:.4f} GFLOP at "
           f"{rate / 1e12:.0f} TFLOP/s: {ops_ms:.6f} ms; {nbytes / 1e6:.2f} "
           f"MB at 3.35 TB/s: {bytes_ms:.6f} ms)")
@@ -2289,6 +2315,25 @@ def flash_timing(device, B, T, Hq, Hkv, D, kernel: str,
                 plain_ms=plain_ms, library_ms=sdpa_ms,
                 bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def ptxas_report(log: str, entry: str) -> str:
+    """``-Xptxas -v``'s registers and spills for the entry function whose
+    mangled name contains ``entry``, and whether ptxas serialised its
+    ``wgmma`` (warning C7512: each product then waits for the last)."""
+    for chunk in log.split("Compiling entry function '")[1:]:
+        if entry not in chunk.split("'", 1)[0]:
+            continue
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", chunk)
+        serial = any("C7512" in ln and entry in ln
+                     for ln in log.splitlines())
+        return (f"{regs.group(1) if regs else '?'} registers, "
+                f"{spill.group(1) if spill else '?'} bytes spill stores, "
+                f"{spill.group(2) if spill else '?'} bytes spill loads, "
+                f"wgmma serialised (C7512): {'yes' if serial else 'no'}")
+    return "not in the log"
 
 
 def sass_counts(lib_path, required, shown=(), what="kernel") -> str:
@@ -2669,7 +2714,7 @@ def family_session(run: dict, device) -> dict:
     toks, first = serve_batch(cfg, params, prompts, N, device=device,
                               timings=timings)
     counts = dict(zip(FLASH_ROUTES, flash_counts(FA)))
-    route = FA.route(torch.bfloat16, cfg.head_dim)
+    route = FA.counter(torch.bfloat16, cfg.head_dim)
     n_attn = sum(kind != "rglru" for kind in cfg.pattern_layers())
     want = {r: n_attn if r == route else 0 for r in FLASH_ROUTES}
     if counts != want:
@@ -2748,7 +2793,7 @@ def families_fixture_run(device) -> dict:
         toks, first = serve_batch(cfg, params, prompts, n, device=device)
         counts = dict(zip(FLASH_ROUTES, flash_counts(FA)))
         n_attn = sum(kind != "rglru" for kind in cfg.pattern_layers())
-        route = FA.route(torch.bfloat16, cfg.head_dim)
+        route = FA.counter(torch.bfloat16, cfg.head_dim)
         if counts != {r: n_attn if r == route else 0 for r in FLASH_ROUTES}:
             fail(f"fixture {name}: flash launches {counts}, want {n_attn} "
                  f"on {route}")
@@ -2817,6 +2862,12 @@ def main() -> int:
               f"{min(map(int, regs), default=0)}-"
               f"{max(map(int, regs), default=0)}, spills "
               f"{spills or 'none'} (log: {path.relative_to(ROOT)})")
+    sm90_log = build.library_path("flash_attention_sm90").with_suffix(
+        ".nvcc.log")
+    if sm90_log.exists():
+        for D in (64, 128, 256):
+            print(f"ptxas flash_fwd_sm90_kernel<{D}>: " + ptxas_report(
+                sm90_log.read_text(), f"flash_fwd_sm90_kernelILi{D}E"))
     print("sm90 flash kernel SASS: " + sass_counts(
         build.library_path("flash_attention_sm90"), ("HGMMA", "UTMALDG"),
         what="sm90 flash kernel"))
@@ -2843,10 +2894,11 @@ def main() -> int:
     flash_timing(device, *reduced_shape(), kernel="flash_core_",
                  dtype="float32")
     flash_timing(device, *SERVE_SHAPE, kernel="flash_core_", dtype="float32")
-    # local attention: recurrentgemma-2b's prefill (the d256 kernel, on
-    # phase 19's path), the sm90 kernel at a qwen3-4b-like shape and the
-    # CUDA-core one at the reduced recurrentgemma's (phase 19's fixture)
-    d256 = flash_timing(device, *RG_SHAPE, kernel="flash_d256_kernel",
+    # local attention: recurrentgemma-2b's prefill (the sm90 kernel at D
+    # 256, on phase 19's path), the sm90 kernel at a qwen3-4b-like shape
+    # and the CUDA-core one at the reduced recurrentgemma's (phase 19's
+    # fixture)
+    d256 = flash_timing(device, *RG_SHAPE, kernel="flash_fwd_sm90_kernel",
                         window=RG_WINDOW)
     flash_timing(device, 4, 4096, 32, 8, 128, kernel="flash_fwd_sm90_kernel",
                  window=RG_WINDOW)
@@ -2918,7 +2970,7 @@ def main() -> int:
         flash_row("flash_attention_sm90", "flash_attention_sm90.cu",
                   sm90_launches + ex["sm90"] + fam["sm90"], sm90,
                   flash_err["sm90"]),
-        flash_row("flash_attention_d256", "flash_attention.cu",
+        flash_row("flash_attention_d256", "flash_attention_sm90.cu",
                   fam["d256"], d256, flash_err["d256"])]}))
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s; phases "
           f"{json.dumps(seconds)}", file=sys.stderr)

@@ -1,6 +1,6 @@
 // Flash attention forward for the shapes the tensor-core (sm90) kernel does
-// not take: bf16 at head dim 16, 32 and 256 on the tensor cores (mma.sync),
-// and fp32 at head dim 16-128 on the CUDA cores.  Online softmax over kv
+// not take: bf16 at head dim 16 and 32 on the tensor cores (mma.sync), and
+// fp32 at head dim 16-128 on the CUDA cores.  Online softmax over kv
 // tiles, causal (top-left, rows >= cols) or full, optionally local (row r
 // sees cols c with r - c < window, flash_attention_xla's mask), fp32
 // accumulation, output in the input dtype.
@@ -49,16 +49,6 @@
 //   tiles of 64 rows are staged with cp.async into a double buffer (rows
 //   padded by 16 bytes, so ldmatrix reads them without bank conflicts), the
 //   B operands come from ldmatrix (.trans for v).
-// * bf16, D 256 (recurrentgemma-2b's local attention, MQA: 10 q heads on
-//   one kv head, read in place): the same mma.sync tiles, but the fp32
-//   output accumulator of a warp's 16 rows is 128 registers a thread, so q
-//   stays in shared memory (its A fragments come from ldmatrix at each
-//   k-step) and kv tiles are 32 rows (the scores 16 registers).  q (64 x
-//   256), k and v (32 x 256, double-buffered), rows padded by 16 bytes, are
-//   99 KB of dynamic shared memory: two blocks per SM.  At (B 4, T 4096,
-//   Hq 10, D 256, window 2048) the work is 2.6e11 FLOP against 0.19 GB:
-//   the tensor cores bound it (0.26 ms); mma.sync reaches a fraction of
-//   the wgmma rate, so this is the simple, right kernel, not the fast one.
 // * fp32, D 16-128: tensor-core TF32 would miss fp32's 2e-5, so the CUDA
 //   cores: D/16 threads per q row, each with 16 interleaved dims of q and
 //   acc in registers, k/v tiles staged with cp.async (every load of a tile
@@ -379,185 +369,6 @@ flash_core_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, D 256: mma.sync with q in shared memory
-// ---------------------------------------------------------------------------
-
-struct D256 {
-  static constexpr int kD = 256;
-  static constexpr int kBlockK = 32;          // kv rows per tile
-  static constexpr int kLd = kD + 8;          // smem row, bf16: 16-byte padded
-  static constexpr int kChunks = kD / 8;      // 16-byte chunks per row
-  // element offsets: the q tile, then 2 k tiles, then 2 v tiles
-  static constexpr int kK = kBlockQ * kLd;
-  static constexpr int kV = kK + 2 * kBlockK * kLd;
-  static constexpr int kSmemBytes = (kV + 2 * kBlockK * kLd) * 2;  // 101,376
-};
-
-// Queue rows [r0, r0 + n) of a (time, 256) slab with row stride `st`
-// elements into shared-memory rows of D256::kLd: cp.async when every row
-// is 16-byte aligned, else through registers; rows at or past `limit` are
-// zeros.  The caller commits the group.
-__device__ __forceinline__ void stage_rows_d256(bf16* dst, const bf16* src,
-                                                long long st, int r0, int n,
-                                                int limit, int aligned) {
-  constexpr int CH = D256::kChunks, LD = D256::kLd;
-  for (int e = threadIdx.x; e < n * CH; e += blockDim.x) {
-    const int j = e / CH, c = (e - j * CH) * 8;
-    const int r = r0 + j;
-    bf16* d = dst + j * LD + c;
-    if (r >= limit) {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
-    } else if (aligned) {
-      cp_async16(d, src + r * st + c);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) d[i] = src[r * st + c + i];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kBlockQ / kWarpRows * 32)
-flash_d256_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, int Hq,
-                  int Hkv, int Tq, int Tk, Strides sq, Strides sk, Strides sv,
-                  Strides so, int causal, int window, float sm_scale,
-                  int aligned) {
-  constexpr int D = D256::kD, BK = D256::kBlockK, LD = D256::kLd;
-  constexpr int NT = BK / 8;          // n8 tiles of s per kv tile: 4
-  constexpr int DT = D / 8;           // n8 tiles of the output: 32
-  extern __shared__ __align__(16) unsigned char smem_d256[];
-  bf16* const qs = reinterpret_cast<bf16*>(smem_d256);
-  bf16* const ks = qs + D256::kK;     // [2][BK][LD]
-  bf16* const vs = qs + D256::kV;
-
-  const Work w = block_work(BK, Hq, Hkv, Tq, Tk, causal, window);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int mi = lane >> 3, rr = lane & 7;      // ldmatrix: matrix, row
-  const int wrow = w.row0 + warp * kWarpRows;   // this warp's first row
-  const int rows[2] = {wrow + g, wrow + g + 8};
-
-  const bf16* kb = k + w.b * sk.b + w.hk * sk.h;
-  const bf16* vb = v + w.b * sv.b + w.hk * sv.h;
-  auto stage = [&](int buf, int t) {
-    stage_rows_d256(ks + buf * BK * LD, kb, sk.t, t * BK, BK, Tk, aligned);
-    stage_rows_d256(vs + buf * BK * LD, vb, sv.t, t * BK, BK, Tk, aligned);
-  };
-  // the q tile and the first kv tile in one group
-  stage_rows_d256(qs, q + w.b * sq.b + w.h * sq.h, sq.t, w.row0, kBlockQ, Tq,
-                  aligned);
-  if (w.n_kv > w.kv_begin) stage(0, w.kv_begin);
-  asm volatile("cp.async.commit_group;\n" ::);
-
-  float acc[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // l: this thread's
-  // this lane's ldmatrix row of the warp's q rows (A fragments)
-  const bf16* qrow = qs + (warp * kWarpRows + (mi & 1) * 8 + rr) * LD
-                     + (mi >> 1) * 8;
-
-  for (int t = w.kv_begin; t < w.n_kv; ++t) {
-    const int buf = (t - w.kv_begin) & 1;
-    if (t + 1 < w.n_kv) stage(buf ^ 1, t + 1);
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 1;\n" ::);
-    __syncthreads();
-    const bf16* kt = ks + buf * BK * LD;
-    const bf16* vt = vs + buf * BK * LD;
-
-    // s = q . k^T: 16 x 32 per warp, 16 k-steps of 16 dims
-    float s[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      ldmatrix_x4(smem_u32(qrow + kk * 16), a[0], a[1], a[2], a[3]);
-#pragma unroll
-      for (int n = 0; n < NT; n += 2) {
-        uint32_t b0, b1, b2, b3;
-        ldmatrix_x4(smem_u32(kt + ((n + (mi >> 1)) * 8 + rr) * LD + kk * 16
-                             + (mi & 1) * 8),
-                    b0, b1, b2, b3);
-        mma_bf16(s[n], a, b0, b1);
-        mma_bf16(s[n + 1], a, b2, b3);
-      }
-    }
-    // scale, mask, the rows' maxima (over the quad: shuffles 1 and 2)
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = t * BK + n * 8 + 2 * t4 + (e & 1);
-        const bool ok = visible(rows[e >> 1], col, Tk, causal, window);
-        s[n][e] = ok ? s[n][e] * sm_scale : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      alpha[i] = exp2f(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int j = 0; j < DT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2f(s[n][e] - m[e >> 1]);
-        l[e >> 1] += s[n][e];
-      }
-    // acc += p . v, p rounded to bf16
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < DT; j += 2) {
-        uint32_t b0, b1, b2, b3;
-        ldmatrix_x4_trans(smem_u32(vt + (kk * 16 + (mi & 1) * 8 + rr) * LD
-                                   + (j + (mi >> 1)) * 8),
-                          b0, b1, b2, b3);
-        mma_bf16(acc[j], a, b0, b1);
-        mma_bf16(acc[j + 1], a, b2, b3);
-      }
-    }
-    __syncthreads();                  // this buffer may be refilled
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::);
-
-  // out = acc / max(l, 1e-30), two adjacent columns per 4-byte store
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    if (rows[i] >= Tq) continue;
-    const float inv = 1.f / fmaxf(l[i], kDenomMin);
-    bf16* orow = o + w.b * so.b + (long long)rows[i] * so.t + w.h * so.h
-                 + 2 * t4;
-#pragma unroll
-    for (int j = 0; j < DT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
-          __floats2bfloat162_rn(acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // fp32, any D: the CUDA cores
 // ---------------------------------------------------------------------------
 
@@ -708,28 +519,13 @@ cudaError_t launch_fp32(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-cudaError_t launch_d256(const Args& a, cudaStream_t st) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_d256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      D256::kSmemBytes);
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid((a.Tq + kBlockQ - 1) / kBlockQ, a.Hq, a.B);
-  flash_d256_kernel<<<grid, kBlockQ / kWarpRows * 32, D256::kSmemBytes,
-                      st>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.Hq, a.Hkv,
-      a.Tq, a.Tk, a.sq, a.sk, a.sv, a.so, a.causal, a.window, a.sm_scale,
-      a.aligned);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores, D 16/32/64/128), 1 = bfloat16 (tensor
-// cores, D 16/32/256).  Strides in elements, (batch, time, head) for each
-// of q, k, v, o.  window: row r sees cols c with r - c < window (a value
-// above every r - c for none).  aligned: every q/k/v row starts on 16
-// bytes (16-byte cp.async).
+// cores, D 16/32).  Strides in elements, (batch, time, head) for each of
+// q, k, v, o.  window: row r sees cols c with r - c < window (a value
+// above every r - c for none).  aligned: every k/v row starts on 16 bytes
+// (16-byte cp.async).
 // Returns the launch's cudaError_t.
 extern "C" int flash_attention_launch(
     int dtype, int head_dim, const void* q, const void* k, const void* v,
@@ -750,8 +546,6 @@ extern "C" int flash_attention_launch(
     err = launch_mma<16>(a, st);
   else if (dtype == 1 && head_dim == 32)
     err = launch_mma<32>(a, st);
-  else if (dtype == 1 && head_dim == 256)
-    err = launch_d256(a, st);
   else if (dtype == 0 && head_dim == 16)
     err = launch_fp32<16>(a, st);
   else if (dtype == 0 && head_dim == 32)

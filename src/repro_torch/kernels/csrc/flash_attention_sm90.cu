@@ -1,12 +1,13 @@
 // Flash attention forward on Hopper's tensor cores: bf16 q, k, v with head
-// dim 64 or 128, online softmax over kv tiles, causal (top-left, rows >=
-// cols) or full, optionally local (row r sees cols c with r - c < window,
-// flash_attention_xla's mask), fp32 accumulation, bf16 output.
+// dim 64, 128 or 256, online softmax over kv tiles, causal (top-left, rows
+// >= cols) or full, optionally local (row r sees cols c with r - c <
+// window, flash_attention_xla's mask), fp32 accumulation, bf16 output.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
-// flash_attention (_flash_kernel) for bf16 at D 64 and 128, the head dims of
-// the repo's configs; csrc/flash_attention.cu (CUDA cores) keeps fp32 and
-// D 16/32.  It computes what _flash_kernel computes: per kv tile
+// flash_attention (_flash_kernel) for bf16 at D 64, 128 and 256, the head
+// dims of the repo's full-width configs (256: recurrentgemma-2b's local
+// attention); csrc/flash_attention.cu keeps fp32 and D 16/32.  It computes
+// what _flash_kernel computes: per kv tile
 //
 //   s  = q . k^T * sm_scale, masked to -1e30 (causal, padded kv tail)
 //   m' = max(m, max_j s);  a = exp(m - m');  l = l a + sum_j exp(s - m')
@@ -67,6 +68,23 @@
 // * the output goes through shared memory and a TMA store, which skips
 //   the rows past Tq.
 //
+// D 256 (recurrentgemma-2b: B 4, T 4096, Hq 10 on one kv head, window
+// 2048) is the same design with what the head dim forces.  Its work there
+// is 2.6e11 FLOP against 0.19 GB: the tensor cores bound it (0.26 ms).
+// * kv tiles of 64 rows: q (64 KB) and a 2-stage ring of 64-row k and v
+//   tiles (4 x 32 KB) fill 192 KB of the 227 KB a block may take, so no
+//   output buffer fits; each consumer stages its 64 output rows in its own
+//   half of the q tile once its last product is done, and the q tile is
+//   released to the producer only after the store has read them.
+// * S is 64 x 64 per consumer (m64n64k16, 16 k-steps over the 4 boxes of
+//   D); O += P V is m64n256k16 with a 128-register fp32 accumulator, V's
+//   four boxes 64 rows apart (the descriptor's leading offset).  The
+//   accumulator (128), S (32) and packed P (16) registers a thread leave
+//   room under setmaxnreg's 240 for the same S / P V overlap as at D 128.
+// * MQA: the 10 q heads of one (q tile, batch) are consecutive work
+//   tiles, so they read one kv head's tiles from L2 at about the same
+//   time.
+//
 // C interface, bound with ctypes from repro_torch/kernels/flash_attention.py,
 // which computes each tensor's TMA geometry (and checks its alignment);
 // the maps themselves are encoded here per call with libcuda's
@@ -86,25 +104,30 @@ constexpr float kNegInf = -1e30f;     // _flash_kernel's NEG_INF
 constexpr float kDenomMin = 1e-30f;   // _flash_kernel's denominator clamp
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBlockQ = 128;          // q rows per block: 2 consumers x 64
-constexpr int kBlockK = 128;          // kv rows per tile
 constexpr int kStages = 2;            // k/v ring depth
 constexpr int kBoxCols = 64;          // bf16 columns per 128-byte TMA box
 constexpr int kThreads = 384;         // 2 consumer + 1 producer warpgroups
 constexpr int kConsumerThreads = 256;
+constexpr int kMaxSmem = 232448;      // dynamic shared memory a block may take
 
 template <int D>
 struct Smem {
-  static constexpr int kBoxes = D / kBoxCols;          // 1 or 2
+  static constexpr int kBoxes = D / kBoxCols;          // 1, 2 or 4
+  static constexpr int kBlockK = D == 256 ? 64 : 128;  // kv rows per tile
   static constexpr int kQBytes = kBlockQ * D * 2;
   static constexpr int kKVBytes = kBlockK * D * 2;    // one k or v tile
+  // D 256: no room for an output buffer; the consumers stage their rows in
+  // their own halves of the q tile
+  static constexpr bool kOutInQ = D == 256;
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kQBytes;
   static constexpr int kV = kK + kStages * kKVBytes;
-  static constexpr int kO = kV + kStages * kKVBytes;  // output staging
-  static constexpr int kBars = kO + kQBytes;
+  static constexpr int kO = kOutInQ ? kQ : kV + kStages * kKVBytes;
+  static constexpr int kBars = kV + kStages * kKVBytes + (kOutInQ ? 0 : kQBytes);
   // barriers: full and empty for q, then for k and for v, kStages each
   static constexpr int kBytes = kBars + 8 * (2 + 4 * kStages);
   static constexpr int kAlloc = kBytes + 1024;         // room to align
+  static_assert(kAlloc <= kMaxSmem, "shared memory of one block");
 };
 
 // ---------------------------------------------------------------------------
@@ -218,6 +241,23 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D[64 x 64] (+)= A[64 x 16] (shared, K-major) . B[16 x 64] (shared, K-major)
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D[64 x 64] += A[64 x 16] (registers) . B[16 x 64] (shared, MN-major)
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
                                                   const uint32_t (&a)[4],
@@ -260,6 +300,41 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 256] += A[64 x 16] (registers) . B[16 x 256] (shared, MN-major)
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 // Keep the accumulator in place across an asynchronous wgmma: the compiler
 // may not move reads or writes of `x` over this point.
@@ -296,35 +371,42 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // S = Q K^T for one consumer: D/16 k-steps, each 32 bytes further along
-// the 128-byte rows of a box; D 128 steps into the second box after 4.
+// the 128-byte rows of a box, into the next box after 4 (D 128: 2 boxes,
+// D 256: 4); S is 64 x kBlockK (m64n128k16, or m64n64k16 at D 256).
 template <int D>
-__device__ __forceinline__ void issue_s(float (&sc)[kBlockK / 2],
+__device__ __forceinline__ void issue_s(float (&sc)[Smem<D>::kBlockK / 2],
                                         uint32_t q_rows, uint32_t k_tile) {
+  constexpr int BK = Smem<D>::kBlockK;
   const uint64_t da = smem_desc(q_rows, 16, 1024);
   const uint64_t db = smem_desc(k_tile, 16, 1024);
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
-    wgmma_m64n128k16_ss(sc, da + (((kk / 4) * kBlockQ * 128 + off) >> 4),
-                        db + (((kk / 4) * kBlockK * 128 + off) >> 4), kk > 0);
+    const uint64_t a = da + (((kk / 4) * kBlockQ * 128 + off) >> 4);
+    const uint64_t b = db + (((kk / 4) * BK * 128 + off) >> 4);
+    if constexpr (BK == 64) wgmma_m64n64k16_ss(sc, a, b, kk > 0);
+    else wgmma_m64n128k16_ss(sc, a, b, kk > 0);
   }
 }
 
-// O += P V: kBlockK/16 k-steps of 16 kv rows (2048 bytes) each
+// O += P V: kBlockK/16 k-steps of 16 kv rows (2048 bytes) each; V's boxes
+// of 64 columns are kBlockK rows apart
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
-                                         const uint32_t (&p)[kBlockK / 16][4],
-                                         uint32_t v_tile) {
-  const uint64_t db = smem_desc(v_tile, kBlockK * 128, 1024);
+__device__ __forceinline__ void issue_pv(
+    float (&acc)[D / 2], const uint32_t (&p)[Smem<D>::kBlockK / 16][4],
+    uint32_t v_tile) {
+  constexpr int BK = Smem<D>::kBlockK;
+  const uint64_t db = smem_desc(v_tile, BK * 128, 1024);
 #pragma unroll
-  for (int t = 0; t < kBlockK / 16; ++t) {
+  for (int t = 0; t < BK / 16; ++t) {
     if constexpr (D == 64) wgmma_m64n64k16_rs(acc, p[t], db + t * 128);
-    else wgmma_m64n128k16_rs(acc, p[t], db + t * 128);
+    else if constexpr (D == 128) wgmma_m64n128k16_rs(acc, p[t], db + t * 128);
+    else wgmma_m64n256k16_rs(acc, p[t], db + t * 128);
   }
 }
 
 // The online softmax of one consumer thread: rows r0 and r0 + 8, its two
-// columns in each group of 8 of the 128-column tile.
+// columns in each group of 8 of the kv tile (N = kBlockK / 2 scores).
 struct Softmax {
   float m_a = kNegInf, m_b = kNegInf;   // running max (log2 units)
   float l_a = 0.f, l_b = 0.f;           // this thread's share of the sums
@@ -337,13 +419,13 @@ struct Softmax {
   // taken on the raw scores (the scale is positive, and rounding is
   // monotonic, so scale * max(s) is max(scale * s) exactly) and the scale
   // folds into one fma with the max: exp2(s * scale - m).
-  template <bool kMask>
-  __device__ __forceinline__ void tile(float (&sc)[kBlockK / 2], int r0,
+  template <bool kMask, int N>
+  __device__ __forceinline__ void tile(float (&sc)[N], int r0,
                                        int c0, int n0, int Tk, int causal,
                                        int window, float scale_log2) {
     float mx[4] = {kNegInf, kNegInf, kNegInf, kNegInf};  // 2 per row: ILP
 #pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
+    for (int j = 0; j < N / 4; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = sc[4 * j + e];
@@ -372,7 +454,7 @@ struct Softmax {
     const float scale = kMask ? 1.f : scale_log2;
     float sum[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
+    for (int j = 0; j < N / 4; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float x = ex2(fmaf(sc[4 * j + e], scale,
@@ -398,12 +480,13 @@ struct Softmax {
 };
 
 // P as bf16 A fragments: slice t holds columns 16t..16t+15, registers
-// (r0, c), (r0+8, c), (r0, c+8), (r0+8, c+8) -- the m64n128 accumulator's
+// (r0, c), (r0+8, c), (r0, c+8), (r0+8, c+8) -- the S accumulator's
 // elements 8t..8t+7 in order.
-__device__ __forceinline__ void pack_p(const float (&sc)[kBlockK / 2],
-                                       uint32_t (&p)[kBlockK / 16][4]) {
+template <int N>
+__device__ __forceinline__ void pack_p(const float (&sc)[N],
+                                       uint32_t (&p)[N / 8][4]) {
 #pragma unroll
-  for (int t = 0; t < kBlockK / 16; ++t)
+  for (int t = 0; t < N / 8; ++t)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       p[t][r] = pack_bf16(sc[8 * t + 2 * r], sc[8 * t + 2 * r + 1]);
@@ -422,6 +505,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
                       int Hq, int Hkv, int Tq, int Tk, int causal,
                       int window, float scale_log2) {
   using L = Smem<D>;
+  constexpr int kBlockK = L::kBlockK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + 1023u) & ~1023u;  // 128-byte swizzle atoms
@@ -588,8 +672,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
         step(i, std::true_type{});
       for (; i < n_plain; ++i) step(i, std::false_type{});
       for (; i < n_tiles; ++i) step(i, std::true_type{});
-      // every S is done: the producer may load the next q tile
-      mbar_arrive(empty_q);
+      // every S is done: the producer may load the next q tile (at D 256
+      // only once the output staged in it is stored, below)
+      if constexpr (!L::kOutInQ) mbar_arrive(empty_q);
       // the last P V alone
       {
         const int j = j0 + n_tiles - lo - 1;
@@ -606,9 +691,11 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
       j0 += n_tiles - lo;
 
       // Divide by the clamped row sums, round to bf16 and stage the rows in
-      // shared memory in the 128-byte swizzle of the output map; one thread
-      // stores them with TMA, which skips rows past Tq.  The buffer is
-      // rewritten only once the previous tile's store has read it.
+      // shared memory in the 128-byte swizzle of the output map (at D 256
+      // in this consumer's half of the q tile, which its last S has read);
+      // one thread stores them with TMA, which skips rows past Tq.  The
+      // buffer is rewritten only once the previous tile's store has read
+      // it.
       const float inv_a = 1.f / fmaxf(quad_sum(sm.l_a), kDenomMin);
       const float inv_b = 1.f / fmaxf(quad_sum(sm.l_b), kDenomMin);
       const bool leader = threadIdx.x % 128 == 0;
@@ -638,6 +725,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
           tma_store(&tmap_o, so + x * kBlockQ * 128 + wg * 64 * 128,
                     x * kBoxCols, m0 + wg * 64, h, b);
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+      if constexpr (L::kOutInQ) {
+        // the rows were staged in this consumer's half of the q tile: it
+        // is free for the next q tile once the store has read them
+        if (leader)
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        wg_sync(wg);
+        mbar_arrive(empty_q);
       }
     }
     if (threadIdx.x % 128 == 0)
@@ -713,8 +808,9 @@ int launch(const CUtensorMap& mq, const CUtensorMap& mk,
 
 }  // namespace
 
-// bf16 q, k, v, o; head_dim 64 or 128.  geom: 8 values (see encode) for
-// each of q, k, v and o in turn.  window: row r sees cols c with r - c <
+// bf16 q, k, v, o; head_dim 64, 128 or 256.  geom: 8 values (see encode)
+// for each of q, k, v and o in turn (k and v boxes of Smem<D>::kBlockK
+// rows).  window: row r sees cols c with r - c <
 // window (a value above every r - c for none).  Returns 0, a cudaError_t, 1000 + a
 // CUresult of the map encoding, or -1 when libcuda has no
 // cuTensorMapEncodeTiled.
@@ -722,6 +818,13 @@ extern "C" int flash_sm90_launch(
     int head_dim, const void* q, const void* k, const void* v, void* o,
     int B, int Hq, int Hkv, int Tq, int Tk, const unsigned long long* geom,
     int causal, int window, float sm_scale, void* stream) {
+  // the box heights the kernel's barriers expect (a TMA load of another
+  // size would never complete them)
+  const unsigned long long kv_rows =
+      head_dim == 256 ? Smem<256>::kBlockK : Smem<128>::kBlockK;
+  if (geom[7] != kBlockQ || geom[15] != kv_rows || geom[23] != kv_rows
+      || geom[31] != 64)
+    return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv, mo;
   int rc;
   if ((rc = encode(&mq, q, geom)) || (rc = encode(&mk, k, geom + 8))
@@ -733,6 +836,8 @@ extern "C" int flash_sm90_launch(
     case 64: return launch<64>(mq, mk, mv, mo, B, Hq, Hkv, Tq, Tk, causal,
                                window, sm_scale, st);
     case 128: return launch<128>(mq, mk, mv, mo, B, Hq, Hkv, Tq, Tk, causal,
+                                 window, sm_scale, st);
+    case 256: return launch<256>(mq, mk, mv, mo, B, Hq, Hkv, Tq, Tk, causal,
                                  window, sm_scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -23,16 +23,14 @@ source notes say what bounds each.  :func:`route` picks the kernel from
 the dtype and head dim alone:
 
 * ``"sm90"`` — ``csrc/flash_attention_sm90.cu``, the tensor-core kernel
-  (``wgmma``, TMA, ``mbarrier`` ring) for bf16 at D 64 and 128.  TMA needs
-  a 16-byte aligned base and 16-byte multiples for every stride:
+  (``wgmma``, TMA, ``mbarrier`` ring) for bf16 at D 64, 128 and 256
+  (recurrentgemma-2b's head dim; 64-row kv tiles there).  TMA needs a
+  16-byte aligned base and 16-byte multiples for every stride:
   :func:`sm90_plan` checks them and raises on anything else;
 * ``"cuda_core"`` — ``csrc/flash_attention.cu`` for bf16 at D 16 and 32
   (on the tensor cores, ``mma.sync``) and fp32 at D 16-128 (on the CUDA
   cores: tensor-core TF32 would miss fp32's 2e-5), one block per 64-row
-  q tile;
-* ``"d256"`` — the same source's ``mma.sync`` kernel for bf16 at D 256
-  (recurrentgemma-2b's head dim): q staged in shared memory, 32-row kv
-  tiles, about 99 KB of dynamic shared memory a block.
+  q tile.
 
 A case a kernel takes always goes to it: a failed build or launch raises
 and never falls back to the other kernel or to the plain version.  On CPU
@@ -41,9 +39,10 @@ in plain PyTorch (ported from ``repro/kernels/ref.py::flash_attention``
 with the top-left causal mask of the kernels).  That is the only place the
 plain version stands in for a kernel.
 
-``launch_count`` (the CUDA-core kernel), ``sm90_launch_count`` and
-``d256_launch_count`` count kernel launches (never plain-version calls),
-so a run can show which kernel served its main path.
+``launch_count`` (the CUDA-core kernel), ``sm90_launch_count`` (the
+sm90 kernel at D 64 and 128) and ``d256_launch_count`` (the sm90 kernel
+at D 256) count kernel launches (never plain-version calls), so a run can
+show which kernel served its main path.
 """
 from __future__ import annotations
 
@@ -61,20 +60,21 @@ FP32_HEAD_DIMS = (16, 32, 64, 128)
 NO_WINDOW = 1 << 30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: what the tensor-core kernel takes: bf16 at these head dims
-SM90_HEAD_DIMS = (64, 128)
-#: its q tile and kv tile rows, the rows of output one consumer
-#: warpgroup stores (the TMA box heights), and the box width
+SM90_HEAD_DIMS = (64, 128, 256)
+#: its q tile rows, kv tile rows by head dim, the rows of output one
+#: consumer warpgroup stores (the TMA box heights), and the box width
 SM90_BLOCK_Q = 128
-SM90_BLOCK_K = 128
+SM90_BLOCK_K = {64: 128, 128: 128, 256: 64}
 SM90_STORE_ROWS = 64
 SM90_BOX_COLS = 64
 
 #: "cuda_core" kernel launches since import (or the last reset by the
 #: caller)
 launch_count = 0
-#: tensor-core (sm90) kernel launches, counted the same way
+#: tensor-core (sm90) kernel launches at D 64 and 128, counted the same
+#: way
 sm90_launch_count = 0
-#: bf16 head-dim-256 kernel launches, counted the same way
+#: its launches at D 256 (recurrentgemma-2b's), counted the same way
 d256_launch_count = 0
 
 
@@ -106,15 +106,20 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that serves ``dtype`` at ``head_dim`` on the card:
-    ``"sm90"`` for bf16 at D 64 or 128, ``"d256"`` for bf16 at D 256,
-    else ``"cuda_core"``.  The layout and the window do not enter: both
-    layouts and strided views go to the same kernel (or raise, if TMA
-    cannot take their alignment)."""
+    ``"sm90"`` for bf16 at D 64, 128 or 256, else ``"cuda_core"``.  The
+    layout and the window do not enter: both layouts and strided views go
+    to the same kernel (or raise, if TMA cannot take their alignment)."""
     if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
         return "sm90"
-    if dtype == torch.bfloat16 and head_dim == 256:
-        return "d256"
     return "cuda_core"
+
+
+def counter(dtype: torch.dtype, head_dim: int) -> str:
+    """The launch count a call at ``dtype`` and ``head_dim`` adds one to:
+    ``"cuda_core"`` (``launch_count``), ``"sm90"`` or, for the sm90
+    kernel's D-256 launches, ``"d256"``."""
+    kind = route(dtype, head_dim)
+    return "d256" if kind == "sm90" and head_dim == 256 else kind
 
 
 class TmaGeometry(NamedTuple):
@@ -168,11 +173,12 @@ def tma_geometry(t: torch.Tensor, head_axis: int, box_rows: int,
 
 def sm90_plan(q, k, v, out, head_axis: int):
     """The TMA geometries ``(q, k, v, out)`` the sm90 kernel is launched
-    with: q in boxes of ``SM90_BLOCK_Q`` rows, k and v of
+    with: q in boxes of ``SM90_BLOCK_Q`` rows, k and v of the head dim's
     ``SM90_BLOCK_K``, the output stored in boxes of ``SM90_STORE_ROWS``."""
+    kv_rows = SM90_BLOCK_K.get(q.shape[3], SM90_BLOCK_K[64])
     return (tma_geometry(q, head_axis, SM90_BLOCK_Q, "q"),
-            tma_geometry(k, head_axis, SM90_BLOCK_K, "k"),
-            tma_geometry(v, head_axis, SM90_BLOCK_K, "v"),
+            tma_geometry(k, head_axis, kv_rows, "k"),
+            tma_geometry(v, head_axis, kv_rows, "v"),
             tma_geometry(out, head_axis, SM90_STORE_ROWS, "out"))
 
 
@@ -268,11 +274,10 @@ def attention_cuda(q, k, v, *, causal: bool, sm_scale: float,
         t_axis = 3 - head_axis
         bth = [(st[0], st[t_axis], st[head_axis])
                for st in (*strides, out.stride())]
-        # cp.async stages k/v rows (and, at D 256, q rows) in 16-byte
-        # pieces
+        # cp.async stages k/v rows in 16-byte pieces
         es = q.element_size()
-        aligned = (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 == 0 \
-            and all(x * es % 16 == 0 for x in bth[0] + bth[1] + bth[2])
+        aligned = (k.data_ptr() | v.data_ptr()) % 16 == 0 \
+            and all(x * es % 16 == 0 for x in bth[1] + bth[2])
         rc = lib.flash_attention_launch(
             _DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), B, Hq, Hkv, Tq, Tk, *bth[0], *bth[1], *bth[2],
@@ -281,12 +286,13 @@ def attention_cuda(q, k, v, *, causal: bool, sm_scale: float,
     if rc != 0:
         raise RuntimeError(f"flash attention {kernel} kernel launch failed: "
                            + err(rc).decode())
-    if kernel == "sm90":
-        sm90_launch_count += 1
-    elif kernel == "d256":
+    name = counter(q.dtype, D)
+    if name == "cuda_core":
+        launch_count += 1
+    elif name == "d256":
         d256_launch_count += 1
     else:
-        launch_count += 1
+        sm90_launch_count += 1
     return out
 
 

@@ -644,32 +644,56 @@ def test_flash_window_equals_plain_version(cuda, D, dtype, window, causal):
                    .to(dtype) for h in (8, 2, 2))
         before = _counts()
         got = FA.flash_attention_bthd(q, k, v, causal=causal, window=window)
-        assert _counts() == _stepped(before, FA.route(dtype, D), 1)
+        assert _counts() == _stepped(before, FA.counter(dtype, D), 1)
         want = t(FA.attention_plain(t(q), t(k), t(v), causal=causal,
                                     sm_scale=D ** -0.5, window=window))
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("T", [1, 100, 300, 1000])
-@pytest.mark.parametrize("causal", [True, False])
-def test_d256_kernel_mqa(cuda, T, causal):
-    """Head dim 256 with recurrentgemma-2b's MQA (10 q heads read one kv
-    head in place), both layouts, no window."""
-    gen = torch.Generator(device=cuda).manual_seed(T)
-    q, k, v = (torch.randn(3, T, h, 256, generator=gen, device=cuda)
-               .to(torch.bfloat16) for h in (10, 1, 1))
+def _d256_check(q, k, v, causal, window=None):
+    """Both layouts of one D-256 case: two launches of the sm90 kernel,
+    counted in ``d256_launch_count`` alone, each within the bf16 tolerance
+    of the plain version."""
     t = lambda x: x.transpose(1, 2)
     before = _counts()
-    got = FA.flash_attention_bthd(q, k, v, causal=causal)
+    got = FA.flash_attention_bthd(q, k, v, causal=causal, window=window)
     got2 = FA.gqa_flash_attention(t(q).contiguous(), t(k).contiguous(),
-                                  t(v).contiguous(), causal=causal)
+                                  t(v).contiguous(), causal=causal,
+                                  window=window)
     assert _counts() == _stepped(before, "d256", 2)
     want = t(FA.attention_plain(t(q), t(k), t(v), causal=causal,
-                                sm_scale=1 / 16))
+                                sm_scale=1 / 16, window=window))
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(t(got2), want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("T,window", [(1, None), (100, None), (300, None),
+                                      (1000, None), (4096, None),
+                                      (4096, 64), (4096, 2048)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_d256_kernel_mqa(cuda, T, window, causal):
+    """Head dim 256 with recurrentgemma-2b's MQA (10 q heads read one kv
+    head in place) on the sm90 route's 64-row kv tiles: ragged T, and at
+    T 4096 the 2-stage ring wraps 32 times, with and without a window."""
+    gen = torch.Generator(device=cuda).manual_seed(T + (window or 0))
+    q, k, v = (torch.randn(2 if T == 4096 else 3, T, h, 256, generator=gen,
+                           device=cuda).to(torch.bfloat16)
+               for h in (10, 1, 1))
+    _d256_check(q, k, v, causal, window)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_d256_tq_ne_tk_and_fused_qkv_view(cuda, causal):
+    """Tq 40 against Tk 100 (the top-left mask), and q, k, v as head
+    slices of one fused (B, T, 10 + 1 + 1, 256) tensor."""
+    gen = torch.Generator(device=cuda).manual_seed(256)
+    r = lambda *s: torch.randn(*s, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    _d256_check(r(2, 40, 10, 256), r(2, 100, 1, 256), r(2, 100, 1, 256),
+                causal)
+    _d256_check(*r(2, 300, 12, 256).split([10, 1, 1], dim=2), causal)
 
 
 @pytest.mark.parametrize("name", ["qwen3-4b", "qwen3-14b", "glm4-9b",

@@ -120,7 +120,7 @@ def test_head_dim_256_matches_ref(dtype, causal):
 
 def test_route_takes_bf16_head_dim_256():
     assert 256 in FA.HEAD_DIMS and 256 not in FA.FP32_HEAD_DIMS
-    assert FA.route(torch.bfloat16, 256) == "d256"
+    assert FA.route(torch.bfloat16, 256) == "sm90"
     assert FA.route(torch.bfloat16, 128) == "sm90"
     assert FA.route(torch.bfloat16, 64) == "sm90"
     assert FA.route(torch.bfloat16, 32) == "cuda_core"
