@@ -40,7 +40,8 @@ Phases, each fatal on any mismatch or exception:
    D 16/32/64/128, T 100 and 300, GQA rep 1 and 4, both layouts; for the
    tensor-core (sm90) kernel also T 1000 (ragged) and 4096 (the k/v ring
    wraps), rep 8, Tq != Tk (40, 100) and head slices of a fused qkv
-   tensor; bf16 D 256 (the sm90 kernel's 64-row kv tiles) with rep 10 on
+   tensor, and llama4-maverick's rep 5 (Hq 10, Hkv 2) at D 128 and T
+   1000; bf16 D 256 (the sm90 kernel's 64-row kv tiles) with rep 10 on
    one kv head at T 1 to 4096, Tq != Tk and a fused qkv view; and local
    attention on every route (windows 1, 64, 100 and
    2048; T 300 causal and full, T 4096 causal; D 32/64/128/256 in bf16,
@@ -228,6 +229,22 @@ Phases, each fatal on any mismatch or exception:
     glm4-9b and qwen3-14b cut to 4 layers (4 sm90 launches each), none on
     another route; prefill logits kernel vs plain version within 2e-2,
     greedy tokens as in phase 9.
+20. MoE, xLSTM, M-RoPE with the vision and audio stubs and the int8 KV
+    cache: the reduced entries of ``tests/torch_lm_families_b.npz``
+    (phi3.5-moe, at capacity 1.0 too, llama4-maverick, qwen2-vl-72b with
+    a ``vis_embeds`` forward, musicgen-medium, xlstm-350m and llama3.2-1b
+    with the int8 cache: the JAX package's weights, prompts, tokens and
+    logits) within atol 0.2 / rtol 0.05 and greedy tokens as in phase 7;
+    then ``PHASE20``'s sessions at full width on seed-made weights, each
+    with every launch count set to 0 just before and read just after
+    and checked as phase 19's (flash launches one per attention or moe
+    layer: phi3.5-moe and qwen2-vl-72b cut to 4 layers, llama4-maverick
+    to 2 (GQA rep 5), 4 sm90 launches at D 128 each and 2; musicgen-medium
+    with 4 x 1500 frames of 4 codebooks, 48 at D 64; xlstm-350m none;
+    llama3.2-1b with the int8 cache, 16 at D 64), the MoE sessions'
+    dropped (token, choice) pairs per layer printed, the int8 cache under
+    0.6 of the bf16 cache's bytes and its decode logits' distance from a
+    bf16-cache run printed.
 
 The line before the last is a JSON object with one entry per kernel (its
 times, bound and launches; the fused controller step's launches are those
@@ -235,9 +252,10 @@ of the batched session, of the seven examples, of phases 14, 15 and 17's
 worker runs and of phase 16's two Fig. 1 sweeps, its times those of one
 128-lane launch; the readiness table's launches are phase 17's and the
 VRR example's, its times those of 64 exploration lanes; the CUDA-core
-flash kernel's those of phase 8, of ``serve_lm`` and of phase 19's
-fixture; the sm90 kernel's those of phases 9 and 19 at D 64/128; its
-D-256 entry phase 19's, its times those of recurrentgemma-2b's prefill;
+flash kernel's those of phase 8, of ``serve_lm`` and of phases 19 and
+20's fixtures; the sm90 kernel's those of phases 9, 19 and 20 at D
+64/128; its D-256 entry phase 19's, its times those of
+recurrentgemma-2b's prefill;
 the general (max,+) product, off every path, reports the main path's 0
 launches and its 2048^3 int32 times); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
@@ -2160,6 +2178,10 @@ def flash_phase(device):
               causal, 1, "Tq=40, Tk=100, (B, H, T, D)")
         qkv = rand(2, 300, 8 + 2 * 2, D)
         check(*qkv.split([8, 2, 2], dim=2), causal, 2, "fused qkv view")
+    # llama4-maverick's GQA rep 5 (40 q heads on 8 kv heads) at D 128
+    for causal in (True, False):
+        q, k, v = (rand(2, 1000, h, 128, scale=1.0) for h in (10, 2, 2))
+        check(q, k, v, causal, 2, "T=1000, rep=5")
     # head dim 256 (the sm90 kernel's 64-row kv tiles): recurrentgemma-2b's
     # MQA (rep 10 on one kv head), ragged T, T 4096 (the ring wraps 32
     # times), both layouts, Tq != Tk and a fused qkv view
@@ -2406,23 +2428,33 @@ def each_call_against_plain(record: list):
         FA.flash_attention_bthd = kernel
 
 
-def teacher_forced(cfg, params, prompts, seq, device):
-    """Prefill logits and the decode logits of feeding ``seq[:, i]`` at
-    position T + i, each ``(B, V)`` fp32."""
+def text_positions(cfg, B: int, L: int, start: int, device):
+    """Positions ``start..start+L-1`` per request, (B, L), or M-RoPE's
+    ``(p, p // 7, p % 7)`` (B, L, 3), as ``serve_batch`` makes them."""
     import torch
+    from repro_torch.serve.step import mrope_positions
+    pos = torch.arange(start, start + L, dtype=torch.int32,
+                       device=device)[None].repeat(B, 1)
+    return mrope_positions(pos) if cfg.rope == "mrope" else pos
+
+
+def teacher_forced(cfg, params, prompts, seq, device, cache_out=None):
+    """Prefill logits and the decode logits of feeding ``seq[:, i]`` at
+    position T + i, each ``(B, V)`` (audio ``(B, K, V)``) fp32; with a
+    ``cache_out`` list, the prefill's decode cache is appended to it."""
     from repro_torch.models import model as M
     from repro_torch.serve.step import make_prefill_step
-    B, T = prompts.shape
+    B, T = prompts.shape[:2]
     n = seq.shape[1]
-    pos = torch.arange(T, dtype=torch.int32, device=device)[None].repeat(B, 1)
-    lg, cache = make_prefill_step(cfg, T + n)(
-        params, M.Batch(tokens=prompts, positions=pos))
+    lg, cache = make_prefill_step(cfg, T + n)(params, M.Batch(
+        tokens=prompts, positions=text_positions(cfg, B, T, 0, device)))
+    if cache_out is not None:
+        cache_out.append(cache)
     out = [lg[:, -1]]
     for i in range(n):
         lg, cache = M.decode_step(cfg, params, cache, M.Batch(
             tokens=seq[:, i:i + 1],
-            positions=torch.full((B, 1), T + i, dtype=torch.int32,
-                                 device=device),
+            positions=text_positions(cfg, B, 1, T + i, device),
             cache_index=T + i, cache_len=T + i + 1))
         out.append(lg[:, -1])
     return out
@@ -2450,9 +2482,10 @@ def near_tie_tokens(got, want, first, toks, want_seq) -> tuple:
     for b in range(got_seq.shape[0]):
         for i in range(got_seq.shape[1]):
             compared += 1
-            if got_seq[b, i] == want_seq[b, i]:
+            differ = got_seq[b, i] != want_seq[b, i]    # audio: per codebook
+            if not differ.any():
                 continue
-            if not tie[b, i]:
+            if not tie[b, i][differ].all():
                 fail(f"greedy token differs at request {b}, position {i}: "
                      f"{got_seq[b, i]} != {want_seq[b, i]}")
             flips += 1
@@ -2479,7 +2512,8 @@ def greedy_check(cfg, params, prompts, first, toks, z, device) -> dict:
              f"{FIXTURE_TOL}: max |diff| {float(np.abs(got - want).max())}")
     compared, flips, equal = near_tie_tokens(got, want, first, toks,
                                              want_seq)
-    return dict(compared=compared, flips=flips, equal=equal)
+    return dict(compared=compared, flips=flips, equal=equal,
+                diff=float(np.abs(got - want).max()))
 
 
 def fixture_phase(device):
@@ -2670,20 +2704,93 @@ PHASE19 = (
 )
 
 
-def family_session(run: dict, device) -> dict:
-    """One phase-19 session: ``serve_batch`` at full width with every
-    flash launch count set to 0 just before and read just after (one
-    launch per attention layer on the route of the config's head dim, no
-    other); then the teacher-forced run again with every prefill
-    attention call held against the kernel's plain version on the same
-    inputs within ``LM_TOL``, and the whole model's prefill and decode
-    logits, kernel vs plain version, within ``FIXTURE_TOL``: a bf16
-    rounding step apart in each attention layer (the kernel rounds P to
-    bf16), amplified through 26-40 random-weight layers, moves logits of
-    magnitude ~5 (qwen3's untied unembedding) by up to 0.1, beyond an
-    absolute 2e-2 (PERF.md §6); the greedy tokens equal the plain
-    run's argmax except at a near tie (a top-two margin within twice that
-    position's logit difference)."""
+def n_attention(cfg) -> int:
+    """The config's attention layers (kinds ``attn``, ``local_attn`` and
+    ``moe``): one prefill flash call each."""
+    from repro_torch.models import blocks as PB
+    return sum(kind in PB.ATTN_KINDS for kind in cfg.pattern_layers())
+
+
+@contextlib.contextmanager
+def moe_kept(record: list):
+    """Inside: every GShard dispatch appends
+    ``(kept, placed)``: the (token, choice) pairs that found a slot (a
+    device tensor) and all of them (their difference is the pairs dropped
+    by capacity)."""
+    from repro_torch.models import blocks as PB
+    masks = PB.gshard_masks
+
+    def counted(expert_idx, gate_vals, E, C, dtype):
+        dispatch, combine = masks(expert_idx, gate_vals, E, C, dtype)
+        record.append((dispatch.float().sum(), expert_idx.numel()))
+        return dispatch, combine
+
+    PB.gshard_masks = counted
+    try:
+        yield
+    finally:
+        PB.gshard_masks = masks
+
+
+@contextlib.contextmanager
+def moe_routing(record: list, flips: list | None = None):
+    """Inside: the MoE router's top-k expert choices of every call are
+    appended to ``record`` or, with ``flips``, replayed from it: each call
+    takes the recorded choices, with gates from its own probabilities at
+    them, and appends to ``flips`` how many choices its own top-k would
+    have changed (a device count).  Routing is discrete: one rounding step
+    of attention upstream can flip a near-tied choice, so the plain run of
+    a kernel-vs-plain comparison replays the kernel run's routing."""
+    from repro_torch.models import blocks as PB
+    route = PB._route
+    calls = iter(record)
+
+    def pinned(cfg, p, x):
+        probs, gates, idx = route(cfg, p, x)
+        if flips is None:
+            record.append(idx)
+            return probs, gates, idx
+        want = next(calls)
+        flips.append((idx != want).sum())
+        g = probs.gather(-1, want)
+        return probs, g / g.sum(-1, keepdim=True), want
+
+    PB._route = pinned
+    try:
+        yield
+    finally:
+        PB._route = route
+
+
+def cache_bytes(cache) -> int:
+    """The bytes of a decode cache's tensors (every layer's state)."""
+    return sum(t.numel() * t.element_size() for st in cache for t in st)
+
+
+def family_session(run: dict, device, phase: str = "19") -> dict:
+    """One session of phase 19 or 20: ``serve_batch`` at full width with
+    every flash launch count set to 0 just before and read just after (one
+    launch per attention layer, kinds ``attn``/``local_attn``/``moe``, on
+    the route of the config's head dim, no other); then the
+    teacher-forced run again with every prefill attention call held
+    against the kernel's plain version on the same inputs within
+    ``LM_TOL``, and the whole model's prefill and decode logits, kernel vs
+    plain version, within ``FIXTURE_TOL``: a bf16 rounding step apart in
+    each attention layer (the kernel rounds P to bf16), amplified through
+    26-48 random-weight layers, moves logits of magnitude ~5 (qwen3's
+    untied unembedding) by up to 0.1, beyond an absolute 2e-2 (PERF.md
+    §6); the greedy tokens equal the plain run's argmax except at a near
+    tie (a top-two margin within twice that position's logit
+    difference).  A config without attention (xLSTM) has no plain
+    version to compare: its greedy tokens are held to its own
+    teacher-forced argmax.  An MoE session's plain run replays the
+    kernel run's expert choices (:func:`moe_routing`: a one-ulp change
+    upstream flips near-tied choices, and a flipped choice moves logits
+    by whole units) and prints how many its own routing would flip, and
+    the (token, choice) pairs dropped by capacity per layer in prefill;
+    an int8-cache session
+    (``kv_quant``) checks its cache's bytes under 0.6 of the bf16 cache's
+    and prints its decode logits' distance from a bf16-cache run."""
     import dataclasses
     import numpy as np
     import torch
@@ -2694,6 +2801,8 @@ def family_session(run: dict, device) -> dict:
     cfg = get_arch(run["arch"])
     if run.get("n_layers"):
         cfg = dataclasses.replace(cfg, n_layers=run["n_layers"])
+    if run.get("kv_quant"):
+        cfg = dataclasses.replace(cfg, kv_quant=True)
     t0 = time.perf_counter()
     params = init_params(cfg, run["seed"], device)
     torch.cuda.synchronize()
@@ -2704,42 +2813,53 @@ def family_session(run: dict, device) -> dict:
         fail(f"{cfg.name}: {n_params} parameters, want {want_params}")
     rng = np.random.default_rng(run["seed"])
     B, T, N = run["batch"], run["prompt_len"], run["max_new"]
-    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (B, T)),
+    K = (cfg.n_codebooks,) if cfg.frontend == "audio_stub" else ()
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (B, T) + K),
                               dtype=torch.int32, device=device)
     serve_batch(cfg, params, prompts[:, :64], 2, device=device)   # warm-up
 
     torch.cuda.reset_peak_memory_stats(device)
     timings: dict = {}
     reset_flash_counts(FA)
-    toks, first = serve_batch(cfg, params, prompts, N, device=device,
-                              timings=timings)
+    kept: list = []
+    with moe_kept(kept):
+        toks, first = serve_batch(cfg, params, prompts, N, device=device,
+                                  timings=timings)
     counts = dict(zip(FLASH_ROUTES, flash_counts(FA)))
     route = FA.counter(torch.bfloat16, cfg.head_dim)
-    n_attn = sum(kind != "rglru" for kind in cfg.pattern_layers())
+    n_attn = n_attention(cfg)
     want = {r: n_attn if r == route else 0 for r in FLASH_ROUTES}
     if counts != want:
         fail(f"{cfg.name} session launched the flash kernels {counts}, "
              f"want {want}")
     peak = torch.cuda.max_memory_allocated(device)
     seq = torch.cat([first[:, None], toks], 1)
-    if seq.shape != (B, N + 1) or int(seq.min()) < 0 \
+    if seq.shape != (B, N + 1) + K or int(seq.min()) < 0 \
             or int(seq.max()) >= cfg.vocab:
         fail(f"{cfg.name} session tokens out of range: {tuple(seq.shape)}")
-    calls = []
-    with each_call_against_plain(calls):
-        kern = teacher_forced(cfg, params, prompts, seq[:, :N], device)
+    n_moe = sum(kind == "moe" for kind in cfg.pattern_layers())
+    dropped = [int(placed - float(k)) for k, placed in kept[:n_moe]]
+    calls, caches, routes, flips = [], [], [], []
+    with each_call_against_plain(calls), moe_routing(routes):
+        kern = teacher_forced(cfg, params, prompts, seq[:, :N], device,
+                              cache_out=caches)
     if not all(bool(torch.isfinite(x).all()) for x in kern):
         fail(f"{cfg.name} session: non-finite logits")
     if len(calls) != n_attn or not all(ok for _, ok in calls):
         fail(f"{cfg.name}: prefill attention calls, kernel vs plain "
              f"version on the same inputs: {calls}, want {n_attn} within "
              f"{LM_TOL}")
-    with plain_attention():
-        plain = teacher_forced(cfg, params, prompts, seq[:, :N], device)
-    if flash_counts(FA) != tuple(2 * want[r] for r in FLASH_ROUTES):
-        fail(f"{cfg.name}: the plain-version prefill launched a kernel")
-    pre_diff = (kern[0] - plain[0]).abs().max().item()
-    kl, pl = torch.stack(kern, 1), torch.stack(plain, 1)    # (B, N+1, V)
+    kl = torch.stack(kern, 1)                        # (B, N+1[, K], V)
+    if n_attn:
+        with plain_attention(), moe_routing(routes, flips):
+            plain = teacher_forced(cfg, params, prompts, seq[:, :N], device)
+        if flash_counts(FA) != tuple(2 * want[r] for r in FLASH_ROUTES):
+            fail(f"{cfg.name}: the plain-version prefill launched a kernel")
+        pl = torch.stack(plain, 1)
+        del plain
+    else:
+        pl = kl
+    pre_diff = (kl[:, 0] - pl[:, 0]).abs().max().item()
     if not torch.allclose(kl, pl, **FIXTURE_TOL):
         fail(f"{cfg.name} logits, kernel vs plain version: max |diff| "
              f"{(kl - pl).abs().max().item()} beyond {FIXTURE_TOL}")
@@ -2749,60 +2869,115 @@ def family_session(run: dict, device) -> dict:
     if not bool(same[checked].all()):
         fail(f"{cfg.name} greedy tokens differ between kernel and plain "
              "version away from a near tie")
+    extra = ""
+    if cfg.kv_quant:
+        bf16 = dataclasses.replace(cfg, kv_quant=False)
+        bcache = []
+        ref = teacher_forced(bf16, params, prompts, seq[:, :N], device,
+                             cache_out=bcache)
+        ratio = cache_bytes(caches[0]) / cache_bytes(bcache[0])
+        if not ratio < 0.6:
+            fail(f"{cfg.name}: the int8 cache takes {ratio:.3f} of the "
+                 "bf16 cache's bytes, want < 0.6")
+        q_diff = max((a - b).abs().max().item()
+                     for a, b in zip(kern[1:], ref[1:]))
+        extra = (f"; int8 cache {cache_bytes(caches[0]) / 2**20:.2f} MiB = "
+                 f"{ratio:.4f} of the bf16 cache's; teacher-forced decode "
+                 f"logits int8 vs bf16 cache max |diff| {q_diff:.3e}")
+        del ref, bcache
+    if n_moe:
+        n_flips = [int(f) for f in flips]
+        pairs = sum(int(r.numel()) for r in routes)
+        extra += (f"; (token, choice) pairs dropped by capacity in prefill, "
+                  f"per moe layer: {dropped} of {kept[0][1]}; the plain "
+                  f"run's own routing would flip {sum(n_flips)} of {pairs} "
+                  f"choices ({sum(n_flips[:n_moe])} in prefill; replayed "
+                  "from the kernel run)")
     pre, dec = timings["prefill_s"], timings["decode_s"]
-    cut = (f", cut to {cfg.n_layers} of {get_arch(run['arch']).n_layers} "
-           "layers" if run.get("n_layers") else "")
-    print(f"phase 19 {cfg.name}{cut} on {device}: {n_params:,} bf16 "
+    full = get_arch(run["arch"])
+    cut = (f", cut to {cfg.n_layers} of {full.n_layers} layers"
+           if run.get("n_layers") else "")
+    cut += " with the int8 KV cache" if cfg.kv_quant else ""
+    tok = "frames" if K else "tokens"
+    print(f"phase {phase} {cfg.name}{cut} on {device}: {n_params:,} bf16 "
           f"parameters (init {init_s:.2f} s), {B} requests x {T} prompt "
-          f"tokens, {N} new tokens each; prefill {pre * 1e3:.2f} ms "
-          f"({B * T / pre:.0f} prompt tokens/s); decode {dec * 1e3:.2f} ms = "
-          f"{dec * 1e3 / N:.3f} ms per step ({B * N / dec:.1f} tokens/s); "
-          f"peak memory {peak / 2**30:.2f} GiB; flash launches {counts}")
-    print(f"  kernel vs plain version: {n_attn} prefill attention calls on "
-          f"the same inputs within {LM_TOL} (max |diff| "
-          f"{max(d for d, _ in calls):.3e}); through the model: prefill "
-          f"logits max |diff| {pre_diff:.3e} (max |logit| "
-          f"{pl[:, 0].abs().max().item():.3f}; within {LM_TOL}: "
-          f"{torch.allclose(kl[:, 0], pl[:, 0], **LM_TOL)}), teacher-forced "
-          f"decode logits max |diff| {dec_diff:.3e}; greedy tokens equal at "
-          f"{int(checked.sum())} of {checked.numel()} positions away from a "
-          f"near tie ({int(same.sum())} equal in all)")
-    del params, kern, plain, kl, pl
+          f"{tok}, {N} new each; prefill {pre * 1e3:.2f} ms "
+          f"({B * T / pre:.0f} prompt {tok}/s); decode {dec * 1e3:.2f} ms = "
+          f"{dec * 1e3 / N:.3f} ms per step ({B * N / dec:.1f} {tok}/s); "
+          f"peak memory {peak / 2**30:.2f} GiB; flash launches {counts}"
+          f"{extra}")
+    if n_attn:
+        print(f"  kernel vs plain version: {n_attn} prefill attention calls "
+              f"on the same inputs within {LM_TOL} (max |diff| "
+              f"{max(d for d, _ in calls):.3e}); through the model: prefill "
+              f"logits max |diff| {pre_diff:.3e} (max |logit| "
+              f"{pl[:, 0].abs().max().item():.3f}; within {LM_TOL}: "
+              f"{torch.allclose(kl[:, 0], pl[:, 0], **LM_TOL)}), "
+              f"teacher-forced decode logits max |diff| {dec_diff:.3e}; "
+              f"greedy tokens equal at {int(checked.sum())} of "
+              f"{checked.numel()} positions away from a near tie "
+              f"({int(same.sum())} equal in all)")
+    else:
+        print(f"  no attention layer: greedy tokens equal the "
+              f"teacher-forced argmax at {int(same.sum())} of "
+              f"{same.numel()} positions ({int(checked.sum())} away from a "
+              "tie)")
+    del params, kern, kl, pl, caches
     torch.cuda.empty_cache()
     return dict(counts=counts, prefill_ms=pre * 1e3, decode_ms=dec * 1e3 / N)
 
 
-def families_fixture_run(device) -> dict:
-    """The reduced qwen3-4b, qwen3-14b, glm4-9b and recurrentgemma-2b of
-    ``tests/torch_lm_families.npz`` (the JAX package's weights, prompts,
-    tokens and logits) served on the card: logits within ``FIXTURE_TOL``
-    and greedy tokens as phase 7 checks them; returns the flash launch
-    counts of their ``serve_batch`` runs (reset just before each)."""
+def families_fixture_run(device, fixture: str = "LM_FAMILIES_FIXTURE",
+                         entries: str = "LM_FAMILIES",
+                         phase: str = "19") -> dict:
+    """The reduced configs of a families fixture (``tests/torch_parity``'s
+    ``fixture`` and ``entries``: phase 19's qwen3-4b, qwen3-14b, glm4-9b
+    and recurrentgemma-2b, or phase 20's MoE, vision, audio, xLSTM and
+    int8-cache entries; the JAX package's weights, prompts, tokens and
+    logits) served on the card: logits within ``FIXTURE_TOL`` and greedy
+    tokens as phase 7 checks them, and a vision entry's ``vis_embeds``
+    forward within ``FIXTURE_TOL``; returns the flash launch counts of
+    their ``serve_batch`` runs (reset just before each)."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import model as M
     from repro_torch.serve.step import serve_batch
     tp = parity()
-    z = np.load(tp.LM_FAMILIES_FIXTURE)
+    z = np.load(getattr(tp, fixture))
     total = dict.fromkeys(FLASH_ROUTES, 0)
-    for name in tp.LM_FAMILIES:
+    for name in getattr(tp, entries):
         cfg, params, arrs = tp.load_lm_family(z, name, device)
         prompts = torch.as_tensor(arrs["prompts"], device=device)
         n = arrs["tokens"].shape[1]
         reset_flash_counts(FA)
         toks, first = serve_batch(cfg, params, prompts, n, device=device)
         counts = dict(zip(FLASH_ROUTES, flash_counts(FA)))
-        n_attn = sum(kind != "rglru" for kind in cfg.pattern_layers())
+        n_attn = n_attention(cfg)
         route = FA.counter(torch.bfloat16, cfg.head_dim)
         if counts != {r: n_attn if r == route else 0 for r in FLASH_ROUTES}:
             fail(f"fixture {name}: flash launches {counts}, want {n_attn} "
                  f"on {route}")
         r = greedy_check(cfg, params, prompts, first, toks, arrs, device)
-        print(f"phase 19 fixture {cfg.name} on {device}: prefill + "
+        vis = ""
+        if "vis_embeds" in arrs:
+            B, T = prompts.shape[:2]
+            x, _ = M.forward(cfg, params, M.Batch(
+                tokens=prompts, positions=text_positions(cfg, B, T, 0,
+                                                         device),
+                vis_embeds=torch.as_tensor(arrs["vis_embeds"],
+                                           device=device).bfloat16()))
+            lg = (x.float() @ M._unembed(cfg, params).float()).cpu().numpy()
+            d = float(np.abs(lg - arrs["vis_logits"]).max())
+            if not np.allclose(lg, arrs["vis_logits"], **FIXTURE_TOL):
+                fail(f"fixture {name}: the vis_embeds forward's logits "
+                     f"differ from the reference's by {d}")
+            vis = f"; vis_embeds forward max |diff| {d:.3e}"
+        print(f"phase {phase} fixture {name} on {device}: prefill + "
               f"teacher-forced decode logits within {FIXTURE_TOL} of the JAX "
-              f"package's; greedy tokens {r['compared']} compared, "
-              f"{r['flips']} near-tie flips, whole sequences equal: "
-              f"{r['equal']}; flash launches {counts}")
+              f"package's (max |diff| {r['diff']:.3e}){vis}; greedy tokens "
+              f"{r['compared']} compared, {r['flips']} near-tie flips, whole "
+              f"sequences equal: {r['equal']}; flash launches {counts}")
         for k, c in counts.items():
             total[k] += c
     return total
@@ -2814,6 +2989,46 @@ def families_phase(device) -> dict:
     total = families_fixture_run(device)
     for run in PHASE19:
         for k, c in family_session(run, device)["counts"].items():
+            total[k] += c
+    return total
+
+
+#: phase 20: MoE, M-RoPE with the vision stub, the audio stub, xLSTM and
+#: the int8 KV cache at full width, served on seed-made bf16 weights with
+#: every launch count set to 0 just before and read just after.
+#: phi3.5-moe cut to 4 of 32 layers and qwen2-vl-72b to 4 of 80 (each
+#: fits one card whole only beside no activations or not at all);
+#: llama4-maverick to 2 of 48 (one (attn, moe) group: 34.8 GiB of weights,
+#: and ``init_params`` draws a (128, 5120, 8192) expert leaf in fp32
+#: first, 20 GiB more); the rest at full depth.  The MoE prompts are 1024
+#: tokens so that the grouped dispatch routes in groups of 256
+#: (``MOE_GROUP_SIZE``); musicgen's are 1500 frames of 4 codebooks (30 s
+#: of EnCodec's 50-Hz frames); llama3.2-1b with the int8 KV cache serves
+#: phase 9's shape.
+PHASE20 = (
+    dict(arch="phi3.5-moe-42b-a6.6b", batch=4, prompt_len=1024, max_new=32,
+         seed=0, n_layers=4),
+    dict(arch="llama4-maverick-400b-a17b", batch=4, prompt_len=1024,
+         max_new=32, seed=0, n_layers=2),
+    dict(arch="qwen2-vl-72b", batch=4, prompt_len=1024, max_new=32, seed=0,
+         n_layers=4),
+    dict(arch="musicgen-medium", batch=4, prompt_len=1500, max_new=32,
+         seed=0, params=1_837_254_144),
+    dict(arch="xlstm-350m", batch=4, prompt_len=1024, max_new=32, seed=0,
+         params=241_558_528),
+    dict(arch="llama3.2-1b", batch=4, prompt_len=1000, max_new=32, seed=0,
+         kv_quant=True, params=1_235_814_400),
+)
+
+
+def new_families_phase(device) -> dict:
+    """Phase 20: the reduced MoE, vision, audio, xLSTM and int8-cache
+    entries against the JAX package's fixture, then each full-width
+    session; returns the launches by route."""
+    total = families_fixture_run(device, "LM_FAMILIES_B_FIXTURE",
+                                 "LM_FAMILIES_B", "20")
+    for run in PHASE20:
+        for k, c in family_session(run, device, "20")["counts"].items():
             total[k] += c
     return total
 
@@ -2926,6 +3141,7 @@ def main() -> int:
     core_launches = timed("8 reduced", reduced_phase, device)
     sm90_launches = timed("9 serving", lm_phase, device)
     fam = timed("19 families", families_phase, device)
+    fam_b = timed("20 new families", new_families_phase, device)
 
     big = mp[(*MAXPLUS_TIMED[-1], "int32")]
 
@@ -2965,13 +3181,13 @@ def main() -> int:
         "bound_ms": lanes["bound_ms"], "bound_by": lanes["bound_by"],
         "library_ms": None},
         flash_row("flash_attention", "flash_attention.cu",
-                  core_launches + ex["flash"] + fam["cuda_core"], core,
-                  flash_err["cuda_core"]),
+                  core_launches + ex["flash"] + fam["cuda_core"]
+                  + fam_b["cuda_core"], core, flash_err["cuda_core"]),
         flash_row("flash_attention_sm90", "flash_attention_sm90.cu",
-                  sm90_launches + ex["sm90"] + fam["sm90"], sm90,
-                  flash_err["sm90"]),
+                  sm90_launches + ex["sm90"] + fam["sm90"] + fam_b["sm90"],
+                  sm90, flash_err["sm90"]),
         flash_row("flash_attention_d256", "flash_attention_sm90.cu",
-                  fam["d256"], d256, flash_err["d256"])]}))
+                  fam["d256"] + fam_b["d256"], d256, flash_err["d256"])]}))
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s; phases "
           f"{json.dumps(seconds)}", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {

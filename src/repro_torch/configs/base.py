@@ -1,10 +1,7 @@
 """Model/run configuration schema + architecture registry.
 
 The port's own copy of ``repro/configs/base.py`` (it imports nothing of
-the JAX package).  Only the configurations whose block kinds the port
-runs are registered: ``llama3.2-1b``, ``qwen3-4b``, ``qwen3-14b``,
-``glm4-9b`` and ``recurrentgemma-2b`` (ROADMAP.md queue 1 item 13 lists
-the other five).
+the JAX package), with the same ten configurations registered.
 """
 from __future__ import annotations
 
@@ -72,6 +69,11 @@ class ModelConfig:
         from repro_torch.models.model import count_params
         return count_params(self)
 
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE: top_k + shared experts only)."""
+        from repro_torch.models.model import count_params
+        return count_params(self, active_only=True)
+
     def reduced(self, n_layers=None) -> "ModelConfig":
         """Tiny same-family variant for CPU smoke tests."""
         pat = len(self.block_pattern)
@@ -81,6 +83,8 @@ class ModelConfig:
         heads = max(heads, kv)
         moe = None
         if self.moe:
+            # capacity_factor 4.0: tiny smoke shapes must stay drop-free so
+            # decode-vs-forward parity is exact
             moe = dataclasses.replace(self.moe, num_experts=4,
                                       top_k=min(self.moe.top_k, 2),
                                       d_ff_expert=64, capacity_factor=4.0)
@@ -117,8 +121,21 @@ def register_arch(cfg: ModelConfig) -> ModelConfig:
 def get_arch(name: str) -> ModelConfig:
     import repro_torch.configs  # noqa: F401 — ensure registry is populated
     if name not in _ARCHS:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCHS)} "
-                       "(the reference's MoE, xLSTM, vision and audio "
-                       "configurations are not ported yet: ROADMAP.md "
-                       "queue 1 item 13)")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCHS)}")
     return _ARCHS[name]
+
+
+def all_archs() -> dict:
+    import repro_torch.configs  # noqa: F401
+    return dict(_ARCHS)
+
+
+def valid_cells() -> list:
+    """All (arch, shape) dry-run cells, honoring the long-context rule."""
+    cells = []
+    for name, cfg in sorted(all_archs().items()):
+        for sname, shape in SHAPES.items():
+            if sname == "long_500k" and not cfg.sub_quadratic:
+                continue   # only a sub-quadratic arch decodes 500k tokens
+            cells.append((name, sname))
+    return cells

@@ -10,7 +10,8 @@ from ``--params``: an ``.npz`` of the reference's parameter tree as bf16
 bit patterns under ``param.<path>`` (the layout of
 ``tests/torch_serve_fixture.npz``).  Prompts are uniform random tokens
 from numpy's generator seeded with ``--seed``, as the reference draws
-them.
+them: ``(batch, prompt_len)``, or ``(batch, prompt_len, n_codebooks)``
+for an audio config.
 """
 from __future__ import annotations
 
@@ -53,7 +54,7 @@ def load_params(path: str, cfg, device):
 
 def run(argv=None) -> dict:
     """Parse ``argv``, serve and print the report; returns the config,
-    prompts, ``tokens`` ``(B, max_new)``, ``first`` ``(B,)`` and
+    prompts, ``tokens`` ``(B, max_new[, K])``, ``first`` ``(B[, K])`` and
     timings."""
     args = build_parser().parse_args(argv)
     dev = _device.resolve(args.device)
@@ -63,9 +64,11 @@ def run(argv=None) -> dict:
     params = (init_params(cfg, args.seed, dev) if args.params is None
               else load_params(args.params, cfg, dev))
     rng = np.random.default_rng(args.seed)
-    prompts = torch.as_tensor(
-        rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)),
-        dtype=torch.int32, device=dev)
+    shape = (args.batch, args.prompt_len)
+    if cfg.frontend == "audio_stub":
+        shape = shape + (cfg.n_codebooks,)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, shape),
+                              dtype=torch.int32, device=dev)
 
     timings: dict = {}
     toks, first = serve_batch(cfg, params, prompts, args.max_new,
@@ -74,12 +77,13 @@ def run(argv=None) -> dict:
     pre, dec = timings["prefill_s"], timings["decode_s"]
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else str(dev))
-    print(f"arch={cfg.name} device={where} params={cfg.param_count():,} "
-          f"batch={args.batch} prompt={args.prompt_len}: prefill "
+    active = (f" active={cfg.active_param_count():,}" if cfg.moe else "")
+    print(f"arch={cfg.name} device={where} params={cfg.param_count():,}"
+          f"{active} batch={args.batch} prompt={args.prompt_len}: prefill "
           f"{pre * 1e3:.2f} ms, decode {n_tok} tokens in {dec * 1e3:.2f} ms "
           f"({dec * 1e3 / max(args.max_new, 1):.2f} ms/step, "
           f"{n_tok / dec if dec else 0.0:.1f} tok/s; first call, eager)")
-    print("sample:", [int(first[0])] + toks[0, :10].tolist())
+    print("sample:", [first[0].tolist()] + toks[0, :10].tolist())
     return dict(cfg=cfg, prompts=prompts, tokens=toks, first=first,
                 timings=timings)
 

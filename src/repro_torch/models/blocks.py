@@ -1,20 +1,33 @@
 """Residual blocks — the port of ``repro/models/blocks.py``: attention
-(global or local-window, with optional qk-norm and GQA) with its bf16 KV
-cache, and the RG-LRU block of recurrentgemma.  Each block kind provides
+(global or local-window, with optional qk-norm, GQA and M-RoPE) with its
+bf16 or int8 KV cache, MoE (GShard grouped or flat sort-based dispatch),
+the RG-LRU block of recurrentgemma, and xLSTM's mLSTM and sLSTM.  Each
+block kind provides
 
     <kind>_defs(cfg)                          -> ParamDef tree
     <kind>_apply(cfg, p, x, ctx)              -> x'           (prefill)
     <kind>_decode(cfg, p, x, state, ctx)      -> (x', state') (one token)
     <kind>_init_state(cfg, batch, cache_len)  -> state
 
-The other kinds (MoE, mLSTM, sLSTM), M-RoPE and the int8 KV cache raise
-``NotImplementedError`` naming ROADMAP.md (queue 1 item 13).
-
 Decode writes the attention cache **in place** (slice assignment into the
 state's tensors) where the JAX package builds a new array with
 ``dynamic_update_slice``; the returned state is the same object.  A local
 attention layer's cache is a ring of ``min(attn_window, cache_len)``
-slots.
+slots.  The int8 cache (``cfg.kv_quant``) holds per-(position, head)
+fp32 scales beside its codes and is dequantised to bf16 for each decode
+step, as the JAX package does.
+
+The JAX package computes MoE dispatch and the expert MLPs with einsums,
+and the xLSTM recurrences with ``lax.scan``, all outside any Pallas
+kernel, so the port computes them in plain PyTorch: the expert products
+are ``torch.einsum``, and the mLSTM/sLSTM prefill is a loop over T (the
+max-stabiliser ``m`` makes the step non-associative, so RG-LRU's
+log-depth scan does not apply).  Three of the reference's behaviours are
+kept on purpose: ``jax.lax.top_k`` breaks ties to the lower index
+(:func:`top_k`); the grouped dispatch's one-hot of a position past
+capacity is a zero row; and the flat dispatch's scatter lets the last of
+several writes to one slot win, which drops a kept token of expert
+``E - 1`` when that expert overflows (:func:`moe_ffn`).
 
 Where bf16 rounds.  The JAX package runs its repeated layer groups inside
 one compiled ``lax.scan`` body and its remainder layers op by op.  Op by
@@ -28,7 +41,9 @@ random-weight model amplifies such one-ulp differences layer by layer
 package's own two modes), so the port rounds where the reference does:
 :func:`block_apply` and :func:`block_decode` take ``fused`` (a layer of
 a scanned group) and hand the fp32 sum on (``resid``), and elementwise
-chains (GELU, SiLU) round op by op.
+chains (GELU, SiLU) round op by op.  The moe block's attention add and
+the MoE norm that reads it follow the same pattern as the MLP's, and so
+do the xLSTM blocks' adds and the next block's norm.
 """
 from __future__ import annotations
 
@@ -39,24 +54,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.models.layers import (ParamDef, apply_rope,
+from repro_torch.models.layers import (ParamDef, apply_mrope, apply_rope,
                                        decode_attention, ffn_apply,
-                                       ffn_defs, rmsnorm)
-
-_TODO = "is not ported yet: ROADMAP.md queue 1 item 13"
+                                       ffn_defs, rmsnorm, silu)
 
 
 class Ctx(NamedTuple):
-    positions: torch.Tensor           # (B, T)
+    positions: torch.Tensor           # (B, T) or (B, T, 3) for mrope
     cache_index: int                  # write position for decode
     cache_len: int                    # valid cache length (after write)
-
-
-def _unsupported(cfg):
-    if cfg.rope not in ("rope", "none"):
-        raise NotImplementedError(f"rope={cfg.rope!r} {_TODO}")
-    if cfg.kv_quant:
-        raise NotImplementedError(f"the int8 KV cache (kv_quant) {_TODO}")
 
 
 # ===========================================================================
@@ -64,7 +70,6 @@ def _unsupported(cfg):
 # ===========================================================================
 
 def attn_defs(cfg) -> dict:
-    _unsupported(cfg)
     d, dq, dkv = cfg.d_model, cfg.d_qkv, cfg.d_kv
     defs = {
         "norm": ParamDef((d,), (None,), init="zeros"),
@@ -84,7 +89,6 @@ def attn_defs(cfg) -> dict:
 
 
 def _qkv(cfg, p, x, ctx):
-    _unsupported(cfg)
     B, T, _ = x.shape
     q = (x @ p["wq"]).reshape(B, T, cfg.n_heads, cfg.head_dim)
     k = (x @ p["wk"]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
@@ -95,6 +99,9 @@ def _qkv(cfg, p, x, ctx):
     if cfg.rope == "rope":
         q = apply_rope(q, ctx.positions, cfg.rope_theta)
         k = apply_rope(k, ctx.positions, cfg.rope_theta)
+    elif cfg.rope == "mrope":
+        q = apply_mrope(q, ctx.positions, cfg.rope_theta)
+        k = apply_mrope(k, ctx.positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -114,30 +121,33 @@ def _attn_core(cfg, p, x, ctx, local: bool):
     return o.reshape(B, T, cfg.d_qkv) @ p["wo"]
 
 
-def _block(cfg, p, x, mixer_out, fused: bool = False):
-    """The residual adds and the MLP: -> ``(x', resid)``.  Unfused every
-    add rounds and ``resid`` is None; fused (see the module notes) the MLP
+def _block(cfg, p, x, mixer_out, fused: bool = False, ffn=None):
+    """The residual adds and the MLP: -> ``(x', resid)``.  ``ffn`` is
+    ``(norm scale, fn)`` of what takes the MLP's place (the moe block's
+    experts); by default ``p``'s MLP, if it has one.  Unfused every add
+    rounds and ``resid`` is None; fused (see the module notes) the MLP
     norm reads the first add's fp32 sum and ``resid`` is the second's, for
     the next block's norm.  ``x'`` is the same either way: a bf16 add
     rounds its fp32 sum."""
+    if ffn is None and "mlp" in p:
+        ffn = (p["mlp_norm"], lambda h: ffn_apply(p["mlp"], h))
     if not fused:
         x = x + mixer_out
-        if "mlp" in p:
-            x = x + ffn_apply(p["mlp"], rmsnorm(x, p["mlp_norm"],
-                                                cfg.norm_eps))
+        if ffn is not None:
+            x = x + ffn[1](rmsnorm(x, ffn[0], cfg.norm_eps))
         return x, None
     s = x.float() + mixer_out.float()
     x = s.to(x.dtype)
-    if "mlp" in p:
-        h = rmsnorm(s, p["mlp_norm"], cfg.norm_eps).to(x.dtype)
-        s = x.float() + ffn_apply(p["mlp"], h).float()
+    if ffn is not None:
+        h = rmsnorm(s, ffn[0], cfg.norm_eps).to(x.dtype)
+        s = x.float() + ffn[1](h).float()
         x = s.to(x.dtype)
     return x, s
 
 
-def _attn(cfg, p, x, ctx, local, resid=None, fused=False):
+def _attn(cfg, p, x, ctx, local, resid=None, fused=False, ffn=None):
     h = _norm_in(cfg, p, x, resid)
-    return _block(cfg, p, x, _attn_core(cfg, p, h, ctx, local), fused)
+    return _block(cfg, p, x, _attn_core(cfg, p, h, ctx, local), fused, ffn)
 
 
 def attn_apply(cfg, p, x, ctx, local: bool = False):
@@ -149,46 +159,291 @@ class AttnState(NamedTuple):
     v: torch.Tensor
 
 
+class QuantAttnState(NamedTuple):
+    """int8 KV cache + per-(pos, head) fp32 scales."""
+    k: torch.Tensor        # int8 (B, S, Hkv, Dh)
+    v: torch.Tensor
+    k_scale: torch.Tensor  # fp32 (B, S, Hkv)
+    v_scale: torch.Tensor
+
+
+def kv_quantize(x):
+    """Symmetric int8 codes per (position, head) over the head dim: ->
+    ``(codes, fp32 scales)``, scale ``max(max |x|, 1e-6) / 127`` and codes
+    ``round(x / scale)`` (half to even, as ``jnp.round``) clipped to
+    +-127; the divisions are tensor by tensor (CUDA turns a division by a
+    host scalar into a product with its reciprocal)."""
+    xf = x.float()
+    s = torch.clamp_min(xf.abs().amax(-1), 1e-6) / torch.full(
+        (), 127.0, device=x.device)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+def kv_dequantize(q, s):
+    return (q.float() * s[..., None]).to(torch.bfloat16)
+
+
 def attn_init_state(cfg, batch: int, cache_len: int, local: bool = False,
                     device=None):
-    """A zero bf16 cache of ``S`` slots: ``min(attn_window, cache_len)``
-    for a local layer (a ring), else ``cache_len``."""
-    _unsupported(cfg)
+    """A zero cache of ``S`` slots: ``min(attn_window, cache_len)`` for a
+    local layer (a ring), else ``cache_len``; bf16, or int8 codes and fp32
+    scales with ``cfg.kv_quant``."""
     S = min(cfg.attn_window, cache_len) if (local and cfg.attn_window) \
         else cache_len
     shape = (batch, S, cfg.n_kv_heads, cfg.head_dim)
-    return AttnState(k=torch.zeros(shape, dtype=torch.bfloat16, device=device),
-                     v=torch.zeros(shape, dtype=torch.bfloat16, device=device))
+    z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
+    if cfg.kv_quant:
+        return QuantAttnState(k=z(shape, torch.int8), v=z(shape, torch.int8),
+                              k_scale=z(shape[:3], torch.float32),
+                              v_scale=z(shape[:3], torch.float32))
+    return AttnState(k=z(shape, torch.bfloat16), v=z(shape, torch.bfloat16))
 
 
 def _cache_update_attend(cfg, q, k, v, state, ctx, local: bool):
     """Write this step's k/v at ``ctx.cache_index`` (``% S`` in a local
-    ring; in place) and attend over the first ``min(cache_len, S)``
-    entries."""
-    _unsupported(cfg)
+    ring; in place; quantised first with ``cfg.kv_quant``) and attend over
+    the first ``min(cache_len, S)`` entries."""
     S = state.k.shape[1]
     slot = ctx.cache_index % S if local else ctx.cache_index
     slot = min(max(slot, 0), S - k.shape[1])   # as the JAX clamp
-    state.k[:, slot:slot + k.shape[1]] = k.to(state.k.dtype)
-    state.v[:, slot:slot + v.shape[1]] = v.to(state.v.dtype)
+    new = (k, v)
+    if cfg.kv_quant:
+        (kq, ks), (vq, vs) = kv_quantize(k), kv_quantize(v)
+        new = (kq, vq, ks, vs)
+    for dst, src in zip(state, new):
+        dst[:, slot:slot + k.shape[1]] = src.to(dst.dtype)
+    if cfg.kv_quant:
+        k_cache = kv_dequantize(state.k, state.k_scale)
+        v_cache = kv_dequantize(state.v, state.v_scale)
+    else:
+        k_cache, v_cache = state.k, state.v
     clen = min(ctx.cache_len, S)
-    o = decode_attention(q, state.k, state.v, clen,
+    o = decode_attention(q, k_cache, v_cache, clen,
                          window=cfg.attn_window if local else None)
     return o, state
 
 
-def _attn_decode(cfg, p, x, state, ctx, local, resid=None, fused=False):
+def _attn_decode(cfg, p, x, state, ctx, local, resid=None, fused=False,
+                 ffn=None):
     h = _norm_in(cfg, p, x, resid)
     q, k, v = _qkv(cfg, p, h, ctx)
     o, state = _cache_update_attend(cfg, q, k, v, state, ctx, local)
     B = x.shape[0]
     out = o.reshape(B, 1, cfg.d_qkv) @ p["wo"]
-    x, resid = _block(cfg, p, x, out, fused)
+    x, resid = _block(cfg, p, x, out, fused, ffn)
     return x, state, resid
 
 
 def attn_decode(cfg, p, x, state, ctx, local: bool = False):
     return _attn_decode(cfg, p, x, state, ctx, local)[:2]
+
+
+# ===========================================================================
+# Mixture of Experts (token-choice top-k, capacity, sort-based dispatch)
+# ===========================================================================
+
+def moe_defs(cfg) -> dict:
+    m = cfg.moe
+    d, ff, E = cfg.d_model, m.d_ff_expert, m.num_experts
+    defs = {
+        "norm": ParamDef((cfg.d_model,), (None,), init="zeros"),
+        "router": ParamDef((d, E), ("embed_tp", None)),
+        "w_gate": ParamDef((E, d, ff), ("experts", None, "ffn"),
+                           fan_in_dims=(-2,)),
+        "w_up": ParamDef((E, d, ff), ("experts", None, "ffn"),
+                         fan_in_dims=(-2,)),
+        "w_down": ParamDef((E, ff, d), ("experts", "ffn", None),
+                           fan_in_dims=(-2,)),
+    }
+    if m.shared_expert:
+        defs["shared"] = ffn_defs(d, m.d_ff_expert)
+    return defs
+
+
+MOE_GROUP_SIZE = 256     # tokens per dispatch group (GShard "S")
+
+
+def top_k(x, k: int):
+    """``jax.lax.top_k`` along the last axis: the ``k`` largest values and
+    their indices, ties to the lower index (``torch.topk`` breaks them in
+    no stated order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(cfg, p, x):
+    """fp32 router logits of bf16 inputs -> ``(probs, gate_vals,
+    expert_idx)``, the top-k gates renormalised to sum to 1."""
+    probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+    gate_vals, expert_idx = top_k(probs, cfg.moe.top_k)
+    return probs, gate_vals / gate_vals.sum(-1, keepdim=True), expert_idx
+
+
+def _expert_mlps(p, buf, lead: str):
+    """The E SwiGLU experts on their dispatched rows ``buf`` (``lead``
+    names its axes before the model dim, the experts ``e`` among them)."""
+    up = lambda w: torch.einsum(f"{lead}d,edf->{lead}f", buf, w)
+    h = silu(up(p["w_gate"])) * up(p["w_up"])
+    return torch.einsum(f"{lead}f,efd->{lead}d", h, p["w_down"])
+
+
+def gshard_masks(expert_idx, gate_vals, E: int, C: int, dtype):
+    """GShard position assignment of top-k choices ``expert_idx`` (G, n,
+    k) to ``C`` slots per expert and group: choice slots j = 0..k-1 in
+    priority order, tokens in order within each.  -> ``(dispatch (G, n,
+    E, C) in dtype, combine (G, n, E, C) fp32 with the gates)``; a token
+    past capacity has a zero row in both."""
+    G, n, k = expert_idx.shape
+    slots = torch.arange(C, device=expert_idx.device)
+    dispatch = torch.zeros((G, n, E, C), dtype=dtype,
+                           device=expert_idx.device)
+    combine = torch.zeros((G, n, E, C), device=expert_idx.device)
+    count = torch.zeros((G, 1, E), device=expert_idx.device)  # placed
+    for j in range(k):
+        mask = F.one_hot(expert_idx[..., j], E).float()
+        pos = torch.cumsum(mask, dim=1) - mask + count         # (G, n, E)
+        keep = (pos < C) * mask
+        count = count + mask.sum(1, keepdim=True)
+        oh_c = (pos.long()[..., None] == slots).float()        # (G, n, E, C)
+        d_j = keep[..., None] * oh_c
+        dispatch = dispatch + d_j.to(dtype)
+        combine = combine + d_j * gate_vals[..., j][..., None, None]
+    return dispatch, combine
+
+
+def moe_ffn_grouped(cfg, p, x):
+    """GShard one-hot einsum dispatch over token groups.
+
+    x (B, T, d) is regrouped to (G, n, d) with n = MOE_GROUP_SIZE tokens
+    (halved until it divides T); each group routes independently with
+    per-group capacity ``C``.  Choice slot ``j`` of every token is placed
+    before slot ``j + 1`` of any; a token past capacity gets a zero row
+    (``jax.nn.one_hot`` of an out-of-range position).  -> ``(out (B, T,
+    d), probs (G * n, E))``."""
+    m = cfg.moe
+    Bs, T, d = x.shape
+    n = min(MOE_GROUP_SIZE, T)
+    while T % n:
+        n //= 2
+    G = Bs * (T // n)
+    xg = x.reshape(G, n, d)
+    E, k = m.num_experts, m.top_k
+    probs, gate_vals, expert_idx = _route(cfg, p, xg)        # (G, n, k)
+
+    C = int(m.capacity_factor * n * k / E + 0.999)
+    C = max(1, min(C, n * k))
+
+    dispatch, combine = gshard_masks(expert_idx, gate_vals, E, C, xg.dtype)
+    buf = torch.einsum("gnec,gnd->gecd", dispatch, xg)         # (G, E, C, d)
+    y = _expert_mlps(p, buf, "gec")                           # (G, E, C, d)
+    out = torch.einsum("gnec,gecd->gnd", combine.to(xg.dtype), y)
+
+    out = out.reshape(Bs, T, d)
+    if m.shared_expert:
+        out = out + ffn_apply(p["shared"], x)
+    return out, probs.reshape(G * n, E)
+
+
+def moe_ffn(cfg, p, x_flat):
+    """Flat sort-based dispatch (``grouped=False``): x_flat (N, d) -> (N,
+    d) via top-k routed experts + optional shared, capacity ``C`` per
+    expert over all N tokens.
+
+    The reference scatters every (token, choice) row into its expert's
+    slot, a dropped one as a zero row into slot ``(E - 1, C - 1)``, and
+    XLA applies the scatter in order, the last write winning.  When expert
+    ``E - 1`` overflows, its dropped rows come after its kept row at
+    ``C - 1`` and zero it.  The port reproduces that deterministically
+    (the index of the last writer of each slot, then one gather) where
+    ``index_put_`` with repeated indices has no defined order on the card.
+    The combine is the reference's bf16 scatter-add, each token's
+    contributions added in its sorted order (ascending expert), where
+    ``index_add_`` on the card adds in no fixed order."""
+    m = cfg.moe
+    N, d = x_flat.shape
+    E, k = m.num_experts, m.top_k
+    dev = x_flat.device
+    probs, gate_vals, expert_idx = _route(cfg, p, x_flat)     # (N, k)
+
+    C = int(m.capacity_factor * N * k / E + 0.5)
+    C = max(8, min(C, N))
+
+    flat_expert = expert_idx.reshape(-1)                   # (N*k,)
+    flat_tok = torch.arange(N, device=dev).repeat_interleave(k)
+    flat_gate = gate_vals.reshape(-1)
+
+    order = torch.argsort(flat_expert, stable=True)
+    e_sorted = flat_expert[order]
+    t_sorted = flat_tok[order]
+    g_sorted = flat_gate[order]
+    # position within expert segment (a scatter-add count: ``bincount``
+    # reads its input's max back to the host on the card)
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, e_sorted, torch.ones_like(e_sorted))
+    seg_start = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(N * k, device=dev)
+    pos = rank - seg_start[e_sorted]
+    keep = pos < C                                         # capacity drop
+    slot_e = torch.where(keep, e_sorted, E - 1)
+    slot_c = torch.where(keep, pos, C - 1)
+    slot = slot_e * C + slot_c
+
+    # the reference's in-order scatter: each slot holds its last writer's
+    # row (a dropped writer's row is zero); unwritten slots stay zero
+    last = torch.full((E * C,), -1, dtype=torch.long, device=dev)
+    last.scatter_reduce_(0, slot, rank, "amax")
+    src = torch.where(keep[:, None], x_flat[t_sorted], 0.0)
+    buf = torch.where((last >= 0)[:, None], src[last.clamp_min(0)], 0.0)
+    y = _expert_mlps(p, buf.reshape(E, C, d), "ec")       # (E, C, d)
+
+    gathered = y.reshape(E * C, d)[slot]                   # (N*k, d)
+    contrib = torch.where(keep[:, None], gathered * g_sorted[:, None], 0.0)
+    contrib = contrib.to(x_flat.dtype)
+    # each token's k rows in sorted order, added one by one in bf16
+    sorted_pos = torch.empty_like(order).scatter_(0, order, rank)
+    by_tok = sorted_pos.reshape(N, k).sort(dim=1).values
+    out = torch.zeros_like(x_flat)
+    for j in range(k):
+        out = out + contrib[by_tok[:, j]]
+    if m.shared_expert:
+        out = out + ffn_apply(p["shared"], x_flat)
+    return out, probs
+
+
+def moe_aux_loss(probs, cfg):
+    """Switch-style load-balancing loss over the last router probs."""
+    E = cfg.moe.num_experts
+    me = probs.mean(0)                                  # mean prob per expert
+    ce = F.one_hot(probs.argmax(-1), E).to(probs.dtype).mean(0)
+    return E * torch.sum(me * ce)
+
+
+def _moe_ffn(cfg, p, h):
+    """The grouped or flat dispatch of ``h`` (B, T, d) by ``cfg.moe`` ->
+    ``(out (B, T, d), router probs)``."""
+    Bs, T, d = h.shape
+    if cfg.moe.grouped:
+        return moe_ffn_grouped(cfg, p, h)
+    out, probs = moe_ffn(cfg, p, h.reshape(Bs * T, d))
+    return out.reshape(Bs, T, d), probs
+
+
+def moe_apply(cfg, p, x, ctx):
+    """The MoE half of the moe block (``p`` its ``"moe"`` tree), op by op:
+    ``x + experts(rmsnorm(x))``."""
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    return x + _moe_ffn(cfg, p, h)[0]
+
+
+def _moe_mlp(cfg, p, probs: list):
+    """The moe block's experts in the MLP's place, for :func:`_block`:
+    ``(norm scale, fn)``; fn appends its router probs to ``probs``."""
+    def fn(h):
+        out, pr = _moe_ffn(cfg, p["moe"], h)
+        probs.append(pr)
+        return out
+    return p["moe"]["norm"], fn
 
 
 # ===========================================================================
@@ -341,32 +596,221 @@ def rglru_decode(cfg, p, x, state: RGLRUState, ctx):
 
 
 # ===========================================================================
+# xLSTM: mLSTM (matrix memory) and sLSTM (scalar memory) blocks
+# ===========================================================================
+#
+# fp32 inside, as the JAX package.  Prefill steps the cell once per token
+# (the reference's ``lax.scan``); a fused recurrence kernel is ROADMAP.md
+# queue 1 work.
+
+def mlstm_defs(cfg) -> dict:
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    return {
+        "norm": ParamDef((d,), (None,), init="zeros"),
+        "wq": ParamDef((d, H * hd), ("embed_tp", "qkv")),
+        "wk": ParamDef((d, H * hd), ("embed_tp", "qkv")),
+        "wv": ParamDef((d, H * hd), ("embed_tp", "qkv")),
+        "w_if": ParamDef((d, 2 * H), ("embed_tp", None)),   # i/f gate logits
+        "w_o": ParamDef((d, H * hd), ("embed_tp", "qkv")),  # output gate
+        "w_out": ParamDef((H * hd, d), ("qkv", "embed_tp")),
+    }
+
+
+class MLSTMState(NamedTuple):
+    C: torch.Tensor    # (B, H, hd, hd)
+    n: torch.Tensor    # (B, H, hd)
+    m: torch.Tensor    # (B, H)
+
+
+def mlstm_init_state(cfg, batch: int, cache_len: int, device=None):
+    H, hd = cfg.n_heads, cfg.head_dim
+    z = lambda *shape: torch.zeros(shape, device=device)
+    return MLSTMState(C=z(batch, H, hd, hd), n=z(batch, H, hd),
+                      m=torch.full((batch, H), -30.0, device=device))
+
+
+def _mlstm_cell(state: MLSTMState, q, k, v, i_log, f_log):
+    """One stabilized mLSTM step.  q/k/v: (B, H, hd); gates: (B, H)."""
+    m_new = torch.maximum(f_log + state.m, i_log)
+    f_ = torch.exp(f_log + state.m - m_new)[..., None]
+    i_ = torch.exp(i_log - m_new)[..., None]
+    C = f_[..., None] * state.C + i_[..., None] * (v[..., :, None] *
+                                                   k[..., None, :])
+    n = f_ * state.n + i_ * k
+    denom = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", n, q)),
+                          torch.exp(-m_new))[..., None]
+    h = torch.einsum("bhij,bhj->bhi", C, q) / denom
+    return MLSTMState(C=C, n=n, m=m_new), h
+
+
+def _mlstm_qkvg(cfg, p, x):
+    B, T, _ = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    sc = math.sqrt(hd)
+    q = (x @ p["wq"]).reshape(B, T, H, hd).float() / sc
+    k = (x @ p["wk"]).reshape(B, T, H, hd).float() / sc
+    v = (x @ p["wv"]).reshape(B, T, H, hd).float()
+    if_log = (x @ p["w_if"]).reshape(B, T, 2, H).float()
+    i_log = if_log[:, :, 0]
+    f_log = F.logsigmoid(if_log[:, :, 1] + 1.0)
+    o = torch.sigmoid((x @ p["w_o"]).float()).reshape(B, T, H, hd)
+    return q, k, v, i_log, f_log, o
+
+
+def _mlstm(cfg, p, x, ctx, with_state, resid=None, fused=False):
+    h0 = _norm_in(cfg, p, x, resid)
+    q, k, v, i_log, f_log, o = _mlstm_qkvg(cfg, p, h0)
+    B, T = x.shape[:2]
+    state = mlstm_init_state(cfg, B, 0, device=x.device)
+    hs = []
+    for t in range(T):
+        state, h = _mlstm_cell(state, q[:, t], k[:, t], v[:, t],
+                               i_log[:, t], f_log[:, t])
+        hs.append(h)
+    h = torch.stack(hs, 1) * o                       # (B, T, H, hd)
+    out = h.reshape(B, T, cfg.d_qkv).to(x.dtype) @ p["w_out"]
+    xo, resid = _block(cfg, p, x, out, fused)
+    return xo, (state if with_state else None), resid
+
+
+def mlstm_apply(cfg, p, x, ctx, with_state: bool = False):
+    return _mlstm(cfg, p, x, ctx, with_state)[:2]
+
+
+def _mlstm_decode(cfg, p, x, state, ctx, resid=None, fused=False):
+    h0 = _norm_in(cfg, p, x, resid)
+    q, k, v, i_log, f_log, o = _mlstm_qkvg(cfg, p, h0)
+    state, h = _mlstm_cell(state, q[:, 0], k[:, 0], v[:, 0], i_log[:, 0],
+                           f_log[:, 0])
+    h = h[:, None] * o
+    out = h.reshape(x.shape[0], 1, cfg.d_qkv).to(x.dtype) @ p["w_out"]
+    x, resid = _block(cfg, p, x, out, fused)
+    return x, state, resid
+
+
+def mlstm_decode(cfg, p, x, state: MLSTMState, ctx):
+    return _mlstm_decode(cfg, p, x, state, ctx)[:2]
+
+
+def slstm_defs(cfg) -> dict:
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    return {
+        "norm": ParamDef((d,), (None,), init="zeros"),
+        "w_zifo": ParamDef((d, 4 * H * hd), ("embed_tp", "qkv")),
+        "r_zifo": ParamDef((H, hd, 4 * hd), (None, None, None)),
+        "w_out": ParamDef((H * hd, d), ("qkv", "embed_tp")),
+    }
+
+
+class SLSTMState(NamedTuple):
+    c: torch.Tensor    # (B, H, hd)
+    n: torch.Tensor
+    h: torch.Tensor
+    m: torch.Tensor
+
+
+def slstm_init_state(cfg, batch: int, cache_len: int, device=None):
+    H, hd = cfg.n_heads, cfg.head_dim
+    z = lambda: torch.zeros((batch, H, hd), device=device)
+    return SLSTMState(c=z(), n=z(), h=z(),
+                      m=torch.full((batch, H, hd), -30.0, device=device))
+
+
+def _slstm_cell(state: SLSTMState, zifo_x, r):
+    """zifo_x: (B, H, 4*hd) input contribution; r: (H, hd, 4*hd)."""
+    rec = torch.einsum("bhd,hdk->bhk", state.h, r.float())
+    z, i_log, f_log, o = (zifo_x.float() + rec).chunk(4, dim=-1)
+    f_log = F.logsigmoid(f_log + 1.0)
+    m_new = torch.maximum(f_log + state.m, i_log)
+    f_ = torch.exp(f_log + state.m - m_new)
+    i_ = torch.exp(i_log - m_new)
+    c = f_ * state.c + i_ * torch.tanh(z)
+    n = f_ * state.n + i_
+    h = torch.sigmoid(o) * c / torch.clamp_min(n, 1e-6)
+    return SLSTMState(c=c, n=n, h=h, m=m_new), h
+
+
+def _slstm(cfg, p, x, ctx, with_state, resid=None, fused=False):
+    h0 = _norm_in(cfg, p, x, resid)
+    B, T, _ = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    zifo = (h0 @ p["w_zifo"]).reshape(B, T, H, 4 * hd)
+    r = p["r_zifo"].float()
+    state = slstm_init_state(cfg, B, 0, device=x.device)
+    hs = []
+    for t in range(T):
+        state, h = _slstm_cell(state, zifo[:, t], r)
+        hs.append(h)
+    h = torch.stack(hs, 1)                           # (B, T, H, hd)
+    out = h.reshape(B, T, H * hd).to(x.dtype) @ p["w_out"]
+    xo, resid = _block(cfg, p, x, out, fused)
+    return xo, (state if with_state else None), resid
+
+
+def slstm_apply(cfg, p, x, ctx, with_state: bool = False):
+    return _slstm(cfg, p, x, ctx, with_state)[:2]
+
+
+def _slstm_decode(cfg, p, x, state, ctx, resid=None, fused=False):
+    h0 = _norm_in(cfg, p, x, resid)
+    B = x.shape[0]
+    H, hd = cfg.n_heads, cfg.head_dim
+    zifo = (h0 @ p["w_zifo"]).reshape(B, 1, H, 4 * hd)
+    state, h = _slstm_cell(state, zifo[:, 0], p["r_zifo"])
+    out = h.reshape(B, 1, H * hd).to(x.dtype) @ p["w_out"]
+    x, resid = _block(cfg, p, x, out, fused)
+    return x, state, resid
+
+
+def slstm_decode(cfg, p, x, state: SLSTMState, ctx):
+    return _slstm_decode(cfg, p, x, state, ctx)[:2]
+
+
+# ===========================================================================
 # Block registry
 # ===========================================================================
 
+KINDS = ("attn", "local_attn", "moe", "rglru", "mlstm", "slstm")
+#: the kinds with an attention layer (and a KV cache): one prefill flash
+#: attention call each
+ATTN_KINDS = ("attn", "local_attn", "moe")
+
+
 def _kind(kind: str):
-    if kind in ("moe", "mlstm", "slstm"):
-        raise NotImplementedError(f"block kind {kind!r} {_TODO}")
-    if kind not in ("attn", "local_attn", "rglru"):
+    if kind not in KINDS:
         raise KeyError(kind)
 
 
 def block_defs(cfg, kind: str) -> dict:
     _kind(kind)
-    return rglru_defs(cfg) if kind == "rglru" else attn_defs(cfg)
+    if kind == "moe":
+        d = attn_defs(cfg)
+        d.pop("mlp", None)
+        d.pop("mlp_norm", None)
+        d["moe"] = moe_defs(cfg)
+        return d
+    return {"rglru": rglru_defs, "mlstm": mlstm_defs,
+            "slstm": slstm_defs}.get(kind, attn_defs)(cfg)
 
 
 def block_apply(cfg, kind: str, p, x, ctx, with_state: bool = False, *,
                 resid=None, fused: bool = False):
-    """-> (x', aux_loss, state or None, resid'): attention returns no
-    state here (the model recomputes its cache, as the JAX package does);
-    RG-LRU returns its ``(h, conv)`` when ``with_state``.  ``fused`` and
-    ``resid``/``resid'`` (the fp32 residual sum handed to the next block
-    of a group, None unfused): see the module notes."""
+    """-> (x', aux_loss, state or None, resid'): attention and moe return
+    no state here (the model recomputes their cache, as the JAX package
+    does); RG-LRU, mLSTM and sLSTM return their final state when
+    ``with_state``; moe's aux loss is :func:`moe_aux_loss` of its router.
+    ``fused`` and ``resid``/``resid'`` (the fp32 residual sum handed to
+    the next block of a group, None unfused): see the module notes."""
     _kind(kind)
     zero = torch.zeros((), device=x.device)
-    if kind == "rglru":
-        xo, st, resid = _rglru(cfg, p, x, ctx, with_state, resid, fused)
+    if kind == "moe":
+        probs = []
+        xo, resid = _attn(cfg, p, x, ctx, False, resid, fused,
+                          _moe_mlp(cfg, p, probs))
+        return xo, moe_aux_loss(probs[0], cfg), None, resid
+    if kind in ("rglru", "mlstm", "slstm"):
+        run = {"rglru": _rglru, "mlstm": _mlstm, "slstm": _slstm}[kind]
+        xo, st, resid = run(cfg, p, x, ctx, with_state, resid, fused)
         return xo, zero, st, resid
     xo, resid = _attn(cfg, p, x, ctx, kind == "local_attn", resid, fused)
     return xo, zero, None, resid
@@ -375,8 +819,10 @@ def block_apply(cfg, kind: str, p, x, ctx, with_state: bool = False, *,
 def block_init_state(cfg, kind: str, batch: int, cache_len: int,
                      device=None):
     _kind(kind)
-    if kind == "rglru":
-        return rglru_init_state(cfg, batch, cache_len, device=device)
+    if kind in ("rglru", "mlstm", "slstm"):
+        init = {"rglru": rglru_init_state, "mlstm": mlstm_init_state,
+                "slstm": slstm_init_state}[kind]
+        return init(cfg, batch, cache_len, device=device)
     return attn_init_state(cfg, batch, cache_len,
                            local=kind == "local_attn", device=device)
 
@@ -384,9 +830,14 @@ def block_init_state(cfg, kind: str, batch: int, cache_len: int,
 def block_decode(cfg, kind: str, p, x, state, ctx, *, resid=None,
                  fused: bool = False):
     """-> (x', state', resid'), ``fused`` and ``resid`` as in
-    :func:`block_apply`."""
+    :func:`block_apply`.  The moe block runs its experts on the one token
+    (the grouped dispatch at ``n = 1``: every expert's product is still
+    computed, as in the JAX package)."""
     _kind(kind)
-    if kind == "rglru":
-        return _rglru_decode(cfg, p, x, state, ctx, resid, fused)
+    if kind in ("rglru", "mlstm", "slstm"):
+        step = {"rglru": _rglru_decode, "mlstm": _mlstm_decode,
+                "slstm": _slstm_decode}[kind]
+        return step(cfg, p, x, state, ctx, resid, fused)
+    ffn = _moe_mlp(cfg, p, []) if kind == "moe" else None
     return _attn_decode(cfg, p, x, state, ctx, kind == "local_attn", resid,
-                        fused)
+                        fused, ffn)

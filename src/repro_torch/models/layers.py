@@ -1,5 +1,5 @@
-"""Core NN layers: params-as-data, RMSNorm, RoPE, flash attention, decode
-attention, SwiGLU — the port of ``repro/models/layers.py``.
+"""Core NN layers: params-as-data, RMSNorm, RoPE/M-RoPE, flash attention,
+decode attention, SwiGLU — the port of ``repro/models/layers.py``.
 
 Layout conventions (as the JAX package):
   activations  (B, T, D)
@@ -131,6 +131,29 @@ def apply_rope(x, positions, theta: float = 10_000.0):
     half = x.shape[-1] // 2
     freqs = _rope_freqs(x.shape[-1], theta, x.device)        # (half,)
     ang = positions[..., None].float() * freqs               # (B, T, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, theta: float = 10_000.0,
+                sections=(16, 24, 24)):
+    """Qwen2-VL multimodal RoPE.  positions3: (B, T, 3) = (t, h, w) ids.
+    The half-dim rotary channels are partitioned into ``sections`` (scaled
+    to ``half``, the rounding left to the last), each rotated by its own
+    position stream."""
+    half = x.shape[-1] // 2
+    sec = [s * half // sum(sections) for s in sections]
+    sec[-1] += half - sum(sec)                    # absorb rounding
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)        # (half,)
+    # choose the position stream per frequency channel: channel c reads
+    # stream i where sum(sec[:i]) <= c < sum(sec[:i + 1]) (made on the
+    # device: no host-to-device copy)
+    c = torch.arange(half, device=x.device)
+    stream = sum((c >= sum(sec[:i])).long() for i in range(1, len(sec)))
+    ang = positions3[..., stream].float() * freqs            # (B, T, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()

@@ -1,5 +1,5 @@
-"""Model assembly: embeddings -> blocks -> head, the port of
-``repro/models/model.py`` for the text-only serving path.
+"""Model assembly: embeddings/frontend stubs -> blocks -> head, the port
+of ``repro/models/model.py`` for the serving path.
 
 The JAX package stacks the repeated block groups and runs them under
 ``lax.scan`` (with ``jax.checkpoint``); here the parameters hold one tree
@@ -18,7 +18,7 @@ Interfaces:
   decode_step(cfg, params, cache, batch) -> (logits, cache)
 
 ``logits_and_loss`` (training) is not ported yet: ROADMAP.md queue 1
-item 13.
+item 13.7.
 """
 from __future__ import annotations
 
@@ -33,18 +33,16 @@ from repro_torch.models import blocks as B
 from repro_torch.models.layers import ParamDef, ParamTree, init_tree, rmsnorm
 
 
+VIS_FRAC = 8      # vision stub: first T/VIS_FRAC positions are patch embeds
+
+
 class Batch(NamedTuple):
-    """Model inputs (text, no labels yet).  Unused fields are None."""
-    tokens: torch.Tensor                # (B, T) int
-    positions: torch.Tensor             # (B, T) int
+    """Model inputs (no labels yet).  Unused fields are None."""
+    tokens: torch.Tensor                # (B, T) int or (B, T, K) audio
+    positions: torch.Tensor             # (B, T) or (B, T, 3) for mrope
+    vis_embeds: Optional[torch.Tensor] = None   # (B, T//VIS_FRAC, D)
     cache_index: Optional[int] = None   # decode write slot
     cache_len: Optional[int] = None     # valid length after write
-
-
-def _text_only(cfg):
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"frontend {cfg.frontend!r} is not ported "
-                                  "yet: ROADMAP.md queue 1 item 13")
 
 
 # ---------------------------------------------------------------------------
@@ -52,11 +50,18 @@ def _text_only(cfg):
 # ---------------------------------------------------------------------------
 
 def param_defs(cfg) -> dict:
-    _text_only(cfg)
     d = cfg.d_model
-    defs: dict = {"embed": ParamDef((cfg.vocab, d), ("vocab", "embed_tp"))}
-    if not cfg.tie_embeddings:
-        defs["unembed"] = ParamDef((d, cfg.vocab), (None, "vocab"))
+    defs: dict = {}
+    if cfg.frontend == "audio_stub":
+        defs["embed"] = ParamDef((cfg.n_codebooks, cfg.vocab, d),
+                                 (None, "vocab", None))
+        if not cfg.tie_embeddings:
+            defs["unembed"] = ParamDef((cfg.n_codebooks, d, cfg.vocab),
+                                       (None, None, "vocab"))
+    else:
+        defs["embed"] = ParamDef((cfg.vocab, d), ("vocab", "embed_tp"))
+        if not cfg.tie_embeddings:
+            defs["unembed"] = ParamDef((d, cfg.vocab), (None, "vocab"))
     defs["final_norm"] = ParamDef((d,), (None,), init="zeros")
     defs["layers"] = [B.block_defs(cfg, kind)
                       for kind in cfg.pattern_layers()]
@@ -71,13 +76,24 @@ def init_params(cfg, seed: int = 0, device=None) -> ParamTree:
     return init_tree(gen, param_defs(cfg), dev)
 
 
-def count_params(cfg) -> int:
+def count_params(cfg, active_only: bool = False) -> int:
     """Parameter count from the shapes of :func:`param_defs` (nothing is
-    allocated)."""
-    def walk(defs):
-        items = defs if isinstance(defs, list) else defs.values()
-        return sum(walk(v) if isinstance(v, (dict, list))
-                   else int(np.prod(v.shape)) for v in items)
+    allocated).  ``active_only``: an expert leaf (``w_gate``, ``w_up``,
+    ``w_down`` under a ``moe`` tree, the shared expert's included, as the
+    JAX package counts) counts ``top_k / num_experts`` of its size."""
+    def walk(defs, path=()):
+        items = enumerate(defs) if isinstance(defs, list) else defs.items()
+        total = 0
+        for k, v in items:
+            if isinstance(v, (dict, list)):
+                total += walk(v, path + (k,))
+                continue
+            n = int(np.prod(v.shape))
+            if active_only and cfg.moe and "moe" in path and \
+                    k in ("w_gate", "w_up", "w_down"):
+                n = n * cfg.moe.top_k // cfg.moe.num_experts
+            total += n
+        return total
     return walk(param_defs(cfg))
 
 
@@ -86,8 +102,21 @@ def count_params(cfg) -> int:
 # ---------------------------------------------------------------------------
 
 def embed_input(cfg, params, batch: Batch):
-    _text_only(cfg)
-    return F.embedding(batch.tokens, params["embed"])      # (B, T, D)
+    """Token embeddings (B, T, D).  Audio: tokens (B, T, K), the K
+    codebook embeddings summed in codebook order, each add in bf16.
+    Vision: ``batch.vis_embeds`` (B, nv, D), if given, overwrite the first
+    nv positions."""
+    if cfg.frontend == "audio_stub":
+        embeds = params["embed"]                       # (K, V, D)
+        x = F.embedding(batch.tokens[..., 0], embeds[0])
+        for k in range(1, cfg.n_codebooks):
+            x = x + F.embedding(batch.tokens[..., k], embeds[k])
+    else:
+        x = F.embedding(batch.tokens, params["embed"])     # (B, T, D)
+    if cfg.frontend == "vision_stub" and batch.vis_embeds is not None:
+        nv = batch.vis_embeds.shape[1]
+        x = torch.cat([batch.vis_embeds.to(x.dtype), x[:, nv:]], dim=1)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -128,13 +157,14 @@ def _group_step(cfg, i: int, resid):
 def _apply_with_state(cfg, kind, p, x, ctx, return_states, cache_len,
                       resid=None, fused=False):
     """One block; with ``return_states`` also its decode state by kind:
-    an attention cache is recomputed k/v of the prefix (ring-aligned for
-    a local layer), RG-LRU returns its own ``(h, conv)``."""
+    an attention (or moe) cache is recomputed k/v of the prefix
+    (ring-aligned for a local layer), RG-LRU, mLSTM and sLSTM return their
+    own final state."""
     xin, rin = x, resid
     x, aux, st, resid = B.block_apply(cfg, kind, p, x, ctx,
                                       with_state=return_states, resid=resid,
                                       fused=fused)
-    if return_states and kind in ("attn", "local_attn"):
+    if return_states and kind in B.ATTN_KINDS:
         st = _prefill_attn_state(cfg, p, ctx, xin, cache_len,
                                  local=kind == "local_attn", resid=rin)
     return x, aux, st, resid
@@ -142,11 +172,12 @@ def _apply_with_state(cfg, kind, p, x, ctx, return_states, cache_len,
 
 def _prefill_attn_state(cfg, p, ctx, x, cache_len, local: bool = False,
                         resid=None):
-    """Recompute k/v for the prefix and lay them into a bf16 decode cache
-    of ``S`` slots (``B.attn_init_state``).  A prefix of ``T >= S`` tokens
-    keeps its last ``S``: in slots ``0..S-1`` for a global cache, at slots
-    ``arange(T - S, T) % S`` of a local ring (where decode's ``index %
-    S`` will find them)."""
+    """Recompute k/v for the prefix and lay them into a decode cache of
+    ``S`` slots (``B.attn_init_state``; quantised to int8 with
+    ``cfg.kv_quant``).  A prefix of ``T >= S`` tokens keeps its last
+    ``S``: in slots ``0..S-1`` for a global cache, at slots ``arange(T -
+    S, T) % S`` of a local ring (where decode's ``index % S`` will find
+    them)."""
     if cache_len is None:
         raise ValueError("return_states needs cache_len")
     h = B._norm_in(cfg, p, x, resid)
@@ -158,11 +189,13 @@ def _prefill_attn_state(cfg, p, ctx, x, cache_len, local: bool = False,
     if T >= S:
         # position T - S + i goes to slot (T - S + i) % S: a roll by T % S
         shift = T % S if local else 0
-        st.k.copy_(torch.roll(k[:, T - S:], shift, dims=1))
-        st.v.copy_(torch.roll(v[:, T - S:], shift, dims=1))
-    else:
-        st.k[:, :T] = k.to(st.k.dtype)
-        st.v[:, :T] = v.to(st.v.dtype)
+        k, v = (torch.roll(t[:, T - S:], shift, dims=1) for t in (k, v))
+    new = (k, v)
+    if cfg.kv_quant:
+        (kq, ks), (vq, vs) = B.kv_quantize(k), B.kv_quantize(v)
+        new = (kq, vq, ks, vs)
+    for dst, src in zip(st, new):
+        dst[:, :src.shape[1]] = src.to(dst.dtype)
     return st
 
 
@@ -172,14 +205,19 @@ def _prefill_attn_state(cfg, p, ctx, x, cache_len, local: bool = False,
 
 def _unembed(cfg, params):
     if cfg.tie_embeddings:
-        return params["embed"].t()          # (V, D) -> (D, V)
+        # (V, D) -> (D, V); audio (K, V, D) -> (K, D, V)
+        return params["embed"].transpose(-1, -2)
     return params["unembed"]
 
 
 def last_logits(cfg, params, x):
-    """fp32 logits of the final position, (B, 1, V): a full-fp32 product
-    (``torch.matmul``; TF32 must be off on the card)."""
-    return x[:, -1:].float() @ _unembed(cfg, params).float()
+    """fp32 logits of the final position, (B, 1, V), or (B, 1, K, V) for
+    audio (one head per codebook): a full-fp32 product (TF32 must be off
+    on the card)."""
+    xl, w = x[:, -1:].float(), _unembed(cfg, params).float()
+    if cfg.frontend == "audio_stub":
+        return torch.einsum("btd,kdv->btkv", xl, w)
+    return xl @ w
 
 
 # ---------------------------------------------------------------------------
@@ -193,8 +231,9 @@ def init_cache(cfg, batch: int, cache_len: int, device=None) -> list:
 
 
 def decode_step(cfg, params, cache: list, batch: Batch):
-    """One token for every sequence in the batch.  tokens: (B, 1).  The
-    cache is updated in place and returned."""
+    """One token for every sequence in the batch.  tokens: (B, 1), or (B,
+    1, K) for audio.  The attention caches are updated in place; the
+    recurrent states are new tensors.  -> ``(logits, cache)``."""
     x = embed_input(cfg, params, batch)
     ctx = B.Ctx(positions=batch.positions, cache_index=int(batch.cache_index),
                 cache_len=int(batch.cache_len))

@@ -50,16 +50,25 @@ def _sync(dev):
     return time.perf_counter()
 
 
+def mrope_positions(pos):
+    """Text positions ``pos`` (any shape) as M-RoPE's (t, h, w) triples
+    ``(p, p // 7, p % 7)``, stacked on a new last axis (the JAX package's
+    ``serve_batch``)."""
+    return torch.stack([pos, pos // 7, pos % 7], -1)
+
+
 def serve_batch(cfg, params, prompts, max_new: int, positions=None, *,
                 device=None, timings: dict | None = None):
     """Serving loop (prefill + greedy decode).
 
-    prompts: (B, T) int tokens.  Returns ``(tokens (B, max_new), first
-    (B,))``: ``first`` is the greedy token of the prefill logits, and
-    ``tokens`` the ``max_new`` decoded after it, as the JAX package's
-    ``serve_batch``.  Runs on ``device`` (default: the card; ``params``
-    must be there).  With a ``timings`` dict it records ``prefill_s`` and
-    ``decode_s`` (wall seconds, synchronised with the device)."""
+    prompts: (B, T) int tokens, or (B, T, K) for an audio config.  Returns
+    ``(tokens (B, max_new[, K]), first (B[, K]))``: ``first`` is the
+    greedy token of the prefill logits, and ``tokens`` the ``max_new``
+    decoded after it, as the JAX package's ``serve_batch``.  An M-RoPE
+    config gets the positions ``(p, p // 7, p % 7)``.  Runs on ``device``
+    (default: the card; ``params`` must be there).  With a ``timings``
+    dict it records ``prefill_s`` and ``decode_s`` (wall seconds,
+    synchronised with the device)."""
     dev = _device.resolve(device)
     pdev = next(params.parameters()).device
     if pdev.type != dev.type:
@@ -69,30 +78,32 @@ def serve_batch(cfg, params, prompts, max_new: int, positions=None, *,
     prompts = torch.as_tensor(prompts, dtype=torch.int32, device=pdev)
     B, T = prompts.shape[:2]
     S = T + max_new
+    mrope = cfg.rope == "mrope"
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32,
                                  device=pdev)[None].repeat(B, 1)
+        if mrope:
+            positions = mrope_positions(positions)
 
     t0 = _sync(pdev)
     prefill = make_prefill_step(cfg, cache_len=S)
     logits, cache = prefill(params, Batch(tokens=prompts,
                                           positions=positions))
-    first = greedy_sample(logits[:, -1])
+    first = greedy_sample(logits[:, -1])        # (B,) or (B, K) for audio
     t1 = _sync(pdev)
     step_fn = make_decode_step(cfg)
-    tok, toks = first.reshape(B, 1), []
+    tok, toks = first[:, None], []
     for i in range(max_new):
-        pos = T + i
+        pos = torch.full((B, 1), T + i, dtype=torch.int32, device=pdev)
         batch = Batch(tokens=tok,
-                      positions=torch.full((B, 1), pos, dtype=torch.int32,
-                                           device=pdev),
-                      cache_index=pos, cache_len=pos + 1)
+                      positions=mrope_positions(pos) if mrope else pos,
+                      cache_index=T + i, cache_len=T + i + 1)
         logits, cache = step_fn(params, cache, batch)
         nxt = greedy_sample(logits[:, -1])
         toks.append(nxt)
-        tok = nxt.reshape(B, 1)
+        tok = nxt[:, None]
     out = torch.stack(toks, 1) if toks else torch.zeros(
-        (B, 0), dtype=torch.int32, device=pdev)
+        (B, 0) + tuple(first.shape[1:]), dtype=torch.int32, device=pdev)
     if timings is not None:
         timings["prefill_s"] = t1 - t0
         timings["decode_s"] = _sync(pdev) - t1

@@ -62,6 +62,7 @@ from repro_torch.core.standards import DEFAULT_SYSTEMS      # noqa: E402
 from repro_torch.kernels import controller_step as KS      # noqa: E402
 from repro_torch.kernels import flash_attention as FA       # noqa: E402
 from repro_torch.kernels import readiness as R              # noqa: E402
+from repro_torch.models import blocks as PB                 # noqa: E402
 from repro_torch.models import model as M                   # noqa: E402
 from repro_torch.serve.step import make_prefill_step, serve_batch  # noqa: E402,E501
 from repro_torch.trace import capture, to_replay, trace_sha256  # noqa: E402
@@ -571,7 +572,7 @@ def _sm90_check(q, k, v, causal, head_axis=2):
     torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
 
 
-@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("rep", [1, 4, 5, 8])
 @pytest.mark.parametrize("Tq,Tk", [(100, 100), (300, 300), (1000, 1000),
                                    (4096, 4096), (40, 100)])
 @pytest.mark.parametrize("D", [64, 128])
@@ -579,7 +580,7 @@ def _sm90_check(q, k, v, causal, head_axis=2):
 def test_sm90_kernel_equals_plain_version(cuda, causal, D, Tq, Tk, rep):
     """The tensor-core kernel: T 1000 is ragged (7 x 128 + 104), at T 4096
     the 2-stage k/v ring wraps 16 times, Tq != Tk keeps the top-left
-    mask."""
+    mask; rep 5 is llama4-maverick's 40 q heads on 8 kv heads."""
     gen = torch.Generator(device=cuda).manual_seed(D + Tq + rep)
     q, k, v = (torch.randn(1 if Tq == 4096 else 2, T, h, D, generator=gen,
                            device=cuda).to(torch.bfloat16)
@@ -720,7 +721,7 @@ def test_lm_families_fixture_on_cuda(cuda, name):
     pos = torch.arange(T, dtype=torch.int32, device=cuda)[None].repeat(B, 1)
     lg, cache = make_prefill_step(cfg, T + n)(
         params, M.Batch(tokens=pr, positions=pos))
-    n_attn = sum(k != "rglru" for k in cfg.pattern_layers())
+    n_attn = sum(k in PB.ATTN_KINDS for k in cfg.pattern_layers())
     assert _counts() == _stepped(before, FA.route(torch.bfloat16,
                                                   cfg.head_dim), n_attn)
     got = [lg[:, -1]]
@@ -781,3 +782,71 @@ def test_serve_fixture_on_cuda(cuda):
             if got_seq[b, i] != want_seq[b, i]:
                 assert tie[b, i], (b, i)
                 break
+
+
+@pytest.mark.parametrize("entry", ["phi3.5-moe-42b-a6.6b",
+                                   "phi3.5-moe-42b-a6.6b+cf1",
+                                   "llama4-maverick-400b-a17b",
+                                   "qwen2-vl-72b", "musicgen-medium",
+                                   "xlstm-350m", "llama3.2-1b+kv_quant"])
+def test_lm_families_b_fixture_on_cuda(cuda, entry):
+    """The reduced MoE, vision, audio, xLSTM and int8-cache entries of
+    ``tests/torch_lm_families_b.npz`` served on the card: one flash
+    launch per attention (or moe) layer, prefill and teacher-forced decode
+    logits within atol 0.2 / rtol 0.05 of the JAX package's, and the
+    vision stub's forward too."""
+    import torch_parity as tp
+    z = np.load(tp.LM_FAMILIES_B_FIXTURE)
+    cfg, params, arrs = tp.load_lm_family(z, entry, cuda)
+    pr = torch.as_tensor(arrs["prompts"], device=cuda)
+    B, T = pr.shape[:2]
+    n = arrs["tokens"].shape[1]
+    seq = torch.as_tensor(np.concatenate([arrs["first"][:, None],
+                                          arrs["tokens"]], 1), device=cuda)
+    pos = lambda L, start=0: torch.as_tensor(tp.positions(cfg, B, L, start),
+                                             device=cuda)
+    before = _counts()
+    lg, cache = make_prefill_step(cfg, T + n)(
+        params, M.Batch(tokens=pr, positions=pos(T)))
+    n_attn = sum(k in PB.ATTN_KINDS for k in cfg.pattern_layers())
+    assert _counts() == _stepped(before, FA.route(torch.bfloat16,
+                                                  cfg.head_dim), n_attn)
+    got = [lg[:, -1]]
+    for i in range(n):
+        lg, cache = M.decode_step(cfg, params, cache, M.Batch(
+            tokens=seq[:, i:i + 1], positions=pos(1, T + i),
+            cache_index=T + i, cache_len=T + i + 1))
+        got.append(lg[:, -1])
+    got = torch.stack(got, 1).cpu().numpy()
+    want = np.concatenate([arrs["prefill_logits"][:, None],
+                           arrs["decode_logits"]], 1)
+    np.testing.assert_allclose(got, want, atol=0.2, rtol=0.05)
+    if "vis_embeds" in arrs:
+        x, _ = M.forward(cfg, params, M.Batch(
+            tokens=pr, positions=pos(T), vis_embeds=torch.as_tensor(
+                arrs["vis_embeds"], device=cuda).bfloat16()))
+        lg = x.float() @ M._unembed(cfg, params).float()
+        np.testing.assert_allclose(lg.cpu().numpy(), arrs["vis_logits"],
+                                   atol=0.2, rtol=0.05)
+
+
+@pytest.mark.parametrize("counts", [(8, 6, 7, 11), (12, 6, 6, 8)])
+def test_moe_flat_overflow_on_cuda_equals_cpu(cuda, counts):
+    """The flat MoE dispatch's overflow of expert E-1 (the reference's
+    in-order scatter zeroes the last kept row of that expert) on the card
+    equals the port's CPU result bit for bit in fp32: the inputs make
+    every product and sum exact, so only the dispatch's order could
+    differ."""
+    import dataclasses
+    import torch_parity as tp
+    from repro_torch.configs import get_arch
+    moe, params, x, kept_last = tp.moe_overflow_case(counts)
+    cfg = get_arch("phi3.5-moe-42b-a6.6b").reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
+    out = {}
+    for dev in ("cpu", cuda):
+        p = {k: torch.as_tensor(v, device=dev) for k, v in params.items()}
+        out[str(dev)], _ = PB.moe_ffn(cfg, p, torch.as_tensor(x, device=dev))
+    got, want = out["cuda"].cpu(), out["cpu"]
+    assert torch.equal(got, want)
+    assert (not got[kept_last].any()) == (counts[-1] > 8)

@@ -17,6 +17,7 @@ import torch
 
 from repro.models import blocks as JB
 from repro.models import layers as JL
+from repro_torch.configs import get_arch
 from repro_torch.models import blocks as PB
 from repro_torch.models import layers as PL
 from torch_parity import lm_configs, lm_pair, rand
@@ -142,10 +143,15 @@ def test_attn_decode(gqa_block):
 
 
 def test_unported_options_raise():
+    """Every option and block kind of the reference is ported now: the
+    int8 cache and M-RoPE build the attention tree, the moe, mLSTM and
+    sLSTM kinds build theirs, and only an unknown kind raises."""
     _, pc = lm_configs("reduced")
     for change in (dict(kv_quant=True), dict(rope="mrope")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PB.attn_defs(dataclasses.replace(pc, **change))
-    for kind in ("moe", "mlstm", "slstm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PB.block_defs(pc, kind)
+        assert set(PB.attn_defs(dataclasses.replace(pc, **change))) == \
+            set(PB.attn_defs(pc))
+    moe = get_arch("phi3.5-moe-42b-a6.6b").reduced()
+    for cfg, kind in ((moe, "moe"), (pc, "mlstm"), (pc, "slstm")):
+        assert PB.block_defs(cfg, kind)
+    with pytest.raises(KeyError):
+        PB.block_defs(pc, "mamba")

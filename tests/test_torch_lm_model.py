@@ -26,9 +26,10 @@ from repro_torch.configs import ModelConfig
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import model as M
 from repro_torch.models.layers import ParamTree
-from repro_torch.serve.step import make_prefill_step, serve_batch
+from repro_torch.serve.step import serve_batch
 from torch_parity import (LOGITS_TOL, SERVE_FIXTURE, flatten, lm_configs,
-                          lm_pair, prompts, serve_fixture_arrays, tree_np)
+                          lm_pair, port_teacher_forced, prompts,
+                          serve_fixture_arrays, tree_np)
 
 LLAMA_1B_PARAMS = 1_235_814_400
 VARIANTS = ["reduced", "gqa"]
@@ -102,19 +103,9 @@ def _jax_prefill_and_decode(jc, jp, pr, seq, n):
     return out
 
 
-def _port_prefill_and_decode(pc, pp, pr, seq, n):
-    B, T = pr.shape
-    pos = torch.arange(T, dtype=torch.int32)[None].repeat(B, 1)
-    lg, cache = make_prefill_step(pc, T + n)(
-        pp, M.Batch(tokens=torch.tensor(pr), positions=pos))
-    out = [lg[:, -1].numpy()]
-    for i in range(n):
-        lg, cache = M.decode_step(pc, pp, cache, M.Batch(
-            tokens=torch.tensor(seq[:, i:i + 1]),
-            positions=torch.full((B, 1), T + i, dtype=torch.int32),
-            cache_index=T + i, cache_len=T + i + 1))
-        out.append(lg[:, -1].numpy())
-    return out
+#: the port's prefill and teacher-forced decode logits (shared with the
+#: other LM test files)
+_port_prefill_and_decode = port_teacher_forced
 
 
 def test_prefill_and_decode_logits_match_jax(pair):
@@ -228,10 +219,13 @@ def test_fresh_import_of_serving_path_leaves_jax_unloaded():
             "import repro_torch.launch.serve, repro_torch.convert\n"
             "import repro_torch.kernels.flash_attention\n"
             "from repro_torch.configs import (qwen3_4b, qwen3_14b, glm4_9b,\n"
-            "                                 recurrentgemma_2b)\n"
+            "    recurrentgemma_2b, phi3_5_moe, llama4_maverick,\n"
+            "    qwen2_vl_72b, musicgen_medium, xlstm_350m)\n"
             "from repro_torch.models import blocks, layers, model\n"
             "assert set(repro_torch.configs.base._ARCHS) == {'llama3.2-1b', "
-            "'qwen3-4b', 'qwen3-14b', 'glm4-9b', 'recurrentgemma-2b'}\n"
+            "'qwen3-4b', 'qwen3-14b', 'glm4-9b', 'recurrentgemma-2b', "
+            "'phi3.5-moe-42b-a6.6b', 'llama4-maverick-400b-a17b', "
+            "'qwen2-vl-72b', 'musicgen-medium', 'xlstm-350m'}\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'ml_dtypes')]\n"
             "assert not bad, bad\n"

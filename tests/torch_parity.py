@@ -25,7 +25,12 @@ their own sizes: a few minutes of JAX on the CPU), and
     PYTHONPATH=src python tests/torch_parity.py --write-lm-families-fixture
 
 rewrites ``tests/torch_lm_families.npz`` (the reduced qwen3-4b,
-qwen3-14b, glm4-9b and recurrentgemma-2b served by the JAX package)."""
+qwen3-14b, glm4-9b and recurrentgemma-2b served by the JAX package), and
+
+    PYTHONPATH=src python tests/torch_parity.py --write-lm-families-b-fixture
+
+rewrites ``tests/torch_lm_families_b.npz`` (the reduced MoE, xLSTM,
+vision, audio and int8-cache configurations of ``LM_FAMILIES_B``)."""
 from __future__ import annotations
 
 import functools
@@ -1160,8 +1165,24 @@ def lm_pair(variant="reduced", seed=0):
 
 
 def prompts(cfg, batch, length, seed):
+    """Uniform tokens (batch, length), or (batch, length, K) for an audio
+    config, from numpy's ``default_rng(seed)``."""
     rng = np.random.default_rng(seed)
-    return rng.integers(0, cfg.vocab, (batch, length)).astype(np.int32)
+    shape = (batch, length)
+    if cfg.frontend == "audio_stub":
+        shape += (cfg.n_codebooks,)
+    return rng.integers(0, cfg.vocab, shape).astype(np.int32)
+
+
+def positions(cfg, batch, length, start=0):
+    """Text positions ``start..start+length-1`` per request, (batch,
+    length), or M-RoPE's ``(p, p // 7, p % 7)`` triples (batch, length, 3)
+    as the JAX package's ``serve_batch`` makes them."""
+    pos = np.arange(start, start + length, dtype=np.int32)[None].repeat(
+        batch, 0)
+    if cfg.rope == "mrope":
+        pos = np.stack([pos, pos // 7, pos % 7], -1)
+    return pos
 
 
 def flatten(tree, prefix=""):
@@ -1196,15 +1217,15 @@ def lm_run_arrays(jc, jp, run: dict) -> dict:
     B, T, N = run["batch"], run["prompt_len"], run["max_new"]
     pr = prompts(jc, B, T, run["seed"])
     toks, first = serve_batch(jc, jp, jnp.asarray(pr), N)
-    pos = jnp.arange(T, dtype=jnp.int32)[None].repeat(B, 0)
     logits, cache = make_prefill_step(jc, T + N)(
-        jp, Batch(tokens=jnp.asarray(pr), positions=pos))
+        jp, Batch(tokens=jnp.asarray(pr),
+                  positions=jnp.asarray(positions(jc, B, T))))
     seq = np.concatenate([np.asarray(first)[:, None], np.asarray(toks)], 1)
     dec = []
     for i in range(N):
         lg, cache = decode_step(jc, jp, cache, Batch(
             tokens=jnp.asarray(seq[:, i:i + 1]),
-            positions=jnp.full((B, 1), T + i, jnp.int32),
+            positions=jnp.asarray(positions(jc, B, 1, T + i)),
             cache_index=jnp.int32(T + i), cache_len=jnp.int32(T + i + 1)))
         dec.append(np.asarray(lg[:, -1]))
     out = {"param." + k: np.asarray(v).view(np.uint16)
@@ -1311,11 +1332,13 @@ def load_lm_family(z, name: str, device):
     from the fixture ``z`` (an ``np.load`` of it): what ``chip_smoke.py``
     serves on the card."""
     from repro_torch import convert
-    from repro_torch.configs import ModelConfig
+    from repro_torch.configs import ModelConfig, MoEConfig
     pre = f"{name}@"
     arrs = {k[len(pre):]: z[k] for k in z.files if k.startswith(pre)}
     fields = json.loads(str(arrs["config"]))
     fields["block_pattern"] = tuple(fields["block_pattern"])
+    if fields["moe"] is not None:
+        fields["moe"] = MoEConfig(**fields["moe"])
     cfg = ModelConfig(**fields)
     params = convert.lm_params(convert.nest(
         {k[len("param."):]: v for k, v in arrs.items()
@@ -1328,6 +1351,234 @@ def write_lm_families_fixture():
     for name in LM_FAMILIES:
         out.update(lm_family_arrays(name))
     np.savez_compressed(LM_FAMILIES_FIXTURE, **out)
+
+
+# ---------------------------------------------------------------------------
+# MoE, xLSTM, M-RoPE with the vision stub, the audio stub and the int8 KV
+# cache (reduced)
+# ---------------------------------------------------------------------------
+
+LM_FAMILIES_B_FIXTURE = os.path.join(HERE, "torch_lm_families_b.npz")
+#: fixture entry -> (arch, changes to its ``reduced()`` config):
+#: ``capacity_factor`` is the MoE's (1.0: tokens drop in prefill)
+LM_FAMILIES_B = {
+    "phi3.5-moe-42b-a6.6b": ("phi3.5-moe-42b-a6.6b", {}),
+    "phi3.5-moe-42b-a6.6b+cf1": ("phi3.5-moe-42b-a6.6b",
+                                 {"capacity_factor": 1.0}),
+    "llama4-maverick-400b-a17b": ("llama4-maverick-400b-a17b", {}),
+    "qwen2-vl-72b": ("qwen2-vl-72b", {}),
+    "musicgen-medium": ("musicgen-medium", {}),
+    "xlstm-350m": ("xlstm-350m", {}),
+    "llama3.2-1b+kv_quant": ("llama3.2-1b", {"kv_quant": True}),
+}
+#: every entry's run (parameters from PRNGKey(seed), prompts from numpy's
+#: default_rng(seed))
+LM_FAMILY_B_RUN = dict(seed=0, batch=2, prompt_len=24, max_new=4)
+#: the full-width (parameters, active parameters) of the new configs (the
+#: reference's ``count_params``)
+FAMILY_B_PARAMS = {
+    "phi3.5-moe-42b-a6.6b": (41_872_527_360, 6_640_373_760),
+    "llama4-maverick-400b-a17b": (400_711_848_960, 14_188_385_280),
+    "qwen2-vl-72b": (72_705_384_448, 72_705_384_448),
+    "musicgen-medium": (1_837_254_144, 1_837_254_144),
+    "xlstm-350m": (241_558_528, 241_558_528),
+}
+
+
+def family_b_configs(entry: str, n_layers=None):
+    """``(jax cfg, port cfg)`` of a fixture entry of ``LM_FAMILIES_B``."""
+    import dataclasses
+    arch, change = LM_FAMILIES_B[entry]
+    out = []
+    for cfg in family_configs(arch, n_layers):
+        ch = dict(change)
+        if "capacity_factor" in ch:
+            ch["moe"] = dataclasses.replace(
+                cfg.moe, capacity_factor=ch.pop("capacity_factor"))
+        out.append(dataclasses.replace(cfg, **ch))
+    return tuple(out)
+
+
+def family_b_pair(entry: str, seed=0, n_layers=None):
+    """As :func:`family_pair`, for a fixture entry of ``LM_FAMILIES_B``."""
+    import jax
+    from repro.models import init_params
+    from repro_torch import convert
+    jc, pc = family_b_configs(entry, n_layers)
+    jp = init_params(jc, jax.random.PRNGKey(seed))
+    return jc, jp, pc, convert.lm_params(tree_np(jp), pc, "cpu")
+
+
+def vis_embeds(cfg, batch, length, seed):
+    """The vision stub's patch embeddings (batch, length // VIS_FRAC,
+    d_model), bf16 values held in fp32."""
+    import torch
+    from repro_torch.models.model import VIS_FRAC
+    x = rand((batch, length // VIS_FRAC, cfg.d_model), seed, scale=1.0)
+    return torch.tensor(x).bfloat16().float().numpy()
+
+
+def lm_family_b_arrays(entry: str) -> dict:
+    """One entry's part of ``tests/torch_lm_families_b.npz`` (keys
+    ``<entry>@<key>``): :func:`lm_run_arrays`, and for the vision stub
+    ``vis_embeds`` and the fp32 ``vis_logits`` of every position of a
+    forward that takes them."""
+    import jax.numpy as jnp
+    from repro.models import Batch, forward
+    from repro.models.model import _unembed
+    run = LM_FAMILY_B_RUN
+    jc, jp, _, _ = family_b_pair(entry, run["seed"])
+    arrs = lm_run_arrays(jc, jp, run)
+    if jc.frontend == "vision_stub":
+        B, T = run["batch"], run["prompt_len"]
+        ve = vis_embeds(jc, B, T, run["seed"] + 1)
+        x, _ = forward(jc, jp, Batch(
+            tokens=jnp.asarray(arrs["prompts"]),
+            positions=jnp.asarray(positions(jc, B, T)),
+            vis_embeds=jnp.asarray(ve, jnp.bfloat16)))
+        arrs.update(vis_embeds=ve, vis_logits=np.asarray(
+            x.astype(jnp.float32) @ _unembed(jc, jp).astype(jnp.float32)))
+    return {f"{entry}@{k}": v for k, v in arrs.items()}
+
+
+def both_trees(tree: dict):
+    """A tree of fp32 numpy leaves as ``(the JAX package's, the port's)``
+    (``jnp`` arrays, ``torch`` tensors)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    return (jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), tree),
+            jax.tree.map(torch.tensor, tree))
+
+
+def defs_params(defs: dict, seed: int, scale=0.125) -> dict:
+    """fp32 numpy values of a ParamDef tree for the block tests: normal
+    times ``scale`` (the reference's ``1/sqrt(fan_in)`` at d 64), norm
+    scales (``zeros``/``ones`` init) normal times 0.1."""
+    out = {}
+    for i, (k, d) in enumerate(sorted(defs.items())):
+        if isinstance(d, dict):
+            out[k] = defs_params(d, seed * 100 + i, scale)
+        else:
+            out[k] = rand(d.shape, seed * 100 + i,
+                          0.1 if d.init != "normal" else scale)
+    return out
+
+
+def block_ctx(T, B=2, start=0, cache_index=0, cache_len=0):
+    """``(the JAX package's Ctx, the port's)`` of text positions
+    ``start..start+T-1``."""
+    import jax.numpy as jnp
+    import torch
+    from repro.models import blocks as JB
+    from repro_torch.models import blocks as PB
+    pos = np.arange(start, start + T, dtype=np.int32)[None].repeat(B, 0)
+    return (JB.Ctx(positions=jnp.asarray(pos),
+                   cache_index=jnp.int32(cache_index),
+                   cache_len=jnp.int32(cache_len)),
+            PB.Ctx(positions=torch.tensor(pos), cache_index=cache_index,
+                   cache_len=cache_len))
+
+
+def as_np(x):
+    """A ``jnp`` array or a CPU tensor as numpy (bf16 as fp32)."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    x = np.asarray(x)
+    return x.astype(np.float32) if x.dtype.name == "bfloat16" else x
+
+
+def moe_overflow_case(counts, d=64, ff=64, seed=0):
+    """Inputs of the flat MoE dispatch (``moe_ffn``, top-1 of
+    ``len(counts)`` experts, capacity factor 1.0, so ``C = 8`` for 32
+    tokens) where ``counts[e]`` tokens choose expert ``e``, in a shuffled
+    token order, and every product and sum is exact in fp32 (integers and
+    powers of two; every SwiGLU gate input is >= 48, so SiLU is the
+    identity in fp32), so the result has the same bits in any summation
+    order, on any device.  -> ``(moe config changes, fp32 params {name:
+    array}, x (N, d), the token in slot (E - 1, C - 1) or None)``."""
+    rng = np.random.default_rng(seed)
+    E, N = len(counts), sum(counts)
+    choice = rng.permutation(np.repeat(np.arange(E), counts))
+    x = np.ones((N, d), np.float32)
+    x[:, :E] = 0.0
+    x[np.arange(N), choice] = 4.0
+    x[:, E:E + 8] = rng.choice([-1.0, 1.0], (N, 8))
+    router = np.zeros((d, E), np.float32)
+    router[np.arange(E), np.arange(E)] = 1.0
+    params = dict(
+        router=router, w_gate=np.ones((E, d, ff), np.float32),
+        w_up=rng.choice([-1.0, 1.0], (E, d, ff)).astype(np.float32),
+        w_down=(rng.choice([-1.0, 1.0], (E, ff, d)) / 64).astype(
+            np.float32))
+    C = max(8, min(int(1.0 * N / E + 0.5), N))
+    last = np.flatnonzero(choice == E - 1)
+    kept_last = int(last[C - 1]) if len(last) >= C else None
+    moe = dict(num_experts=E, top_k=1, capacity_factor=1.0, grouped=False)
+    return moe, params, x, kept_last
+
+
+def write_lm_families_b_fixture():
+    out = {}
+    for entry in LM_FAMILIES_B:
+        out.update(lm_family_b_arrays(entry))
+    np.savez_compressed(LM_FAMILIES_B_FIXTURE, **out)
+
+
+def port_teacher_forced(pc, pp, pr, seq, n) -> list:
+    """The port's prefill logits of prompts ``pr`` and the decode logits
+    of feeding ``seq[:, i]`` at position T + i, on the CPU: ``n + 1``
+    arrays ``(B, V)`` (``(B, K, V)`` for audio)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serve.step import make_prefill_step
+    B, T = pr.shape[:2]
+    lg, cache = make_prefill_step(pc, T + n)(pp, M.Batch(
+        tokens=torch.tensor(pr), positions=torch.tensor(positions(pc, B, T))))
+    out = [lg[:, -1].numpy()]
+    for i in range(n):
+        lg, cache = M.decode_step(pc, pp, cache, M.Batch(
+            tokens=torch.tensor(seq[:, i:i + 1]),
+            positions=torch.tensor(positions(pc, B, 1, T + i)),
+            cache_index=T + i, cache_len=T + i + 1))
+        out.append(lg[:, -1].numpy())
+    return out
+
+
+def check_family_b(entry: str):
+    """The port on the CPU against its entry of the fixture: the config,
+    greedy ``serve_batch`` tokens equal, prefill and teacher-forced decode
+    logits (and the vision stub's forward) within ``LOGITS_TOL``; returns
+    the port's config and parameters."""
+    import dataclasses
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.model import _unembed
+    from repro_torch.serve.step import serve_batch
+    z = np.load(LM_FAMILIES_B_FIXTURE)
+    pc, pp, arrs = load_lm_family(z, entry, "cpu")
+    assert dataclasses.asdict(pc) == dataclasses.asdict(
+        family_b_configs(entry)[1])
+    pr, n = arrs["prompts"], arrs["tokens"].shape[1]
+    toks, first = serve_batch(pc, pp, pr, n, device="cpu")
+    np.testing.assert_array_equal(toks.numpy(), arrs["tokens"])
+    np.testing.assert_array_equal(first.numpy(), arrs["first"])
+    seq = np.concatenate([arrs["first"][:, None], arrs["tokens"]], 1)
+    got = port_teacher_forced(pc, pp, pr, seq, n)
+    np.testing.assert_allclose(got[0], arrs["prefill_logits"], **LOGITS_TOL)
+    np.testing.assert_allclose(np.stack(got[1:], 1), arrs["decode_logits"],
+                               **LOGITS_TOL)
+    if "vis_embeds" in arrs:
+        B, T = pr.shape
+        x, _ = M.forward(pc, pp, M.Batch(
+            tokens=torch.tensor(pr), positions=torch.tensor(
+                positions(pc, B, T)),
+            vis_embeds=torch.tensor(arrs["vis_embeds"]).bfloat16()))
+        lg = x.float() @ _unembed(pc, pp).float()
+        np.testing.assert_allclose(lg.numpy(), arrs["vis_logits"],
+                                   **LOGITS_TOL)
+    return pc, pp
 
 
 # ---------------------------------------------------------------------------
@@ -1680,3 +1931,6 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--write-lm-families-fixture"]:
         write_lm_families_fixture()
         print("wrote", LM_FAMILIES_FIXTURE)
+    elif sys.argv[1:] == ["--write-lm-families-b-fixture"]:
+        write_lm_families_b_fixture()
+        print("wrote", LM_FAMILIES_B_FIXTURE)
