@@ -9,7 +9,9 @@ Phases, each fatal on any mismatch or exception:
 2. build every CUDA kernel of the main paths with ``nvcc`` into
    ``build/kernels/`` (all sources compiled in parallel), print
    ``ptxas``'s registers, spills and wgmma serialisation for the
-   tensor-core flash kernel at each head dim, and count the
+   tensor-core flash kernel at each head dim and for the backward
+   kernel's two passes, count ``HMMA`` in the backward kernel's SASS, and
+   count the
    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in the
    tensor-core flash kernel's SASS, ``HMMA`` (mma.sync) in the CUDA-core
    one's, and the (max,+) kernels' DPX add-max (``cuobjdump``);
@@ -245,6 +247,29 @@ Phases, each fatal on any mismatch or exception:
     dropped (token, choice) pairs per layer printed, the int8 cache under
     0.6 of the bf16 cache's bytes and its decode logits' distance from a
     bf16-cache run printed.
+21. training: the flash backward kernel (``flash_attention_bwd.cu``)
+    against ``attention_backward_plain`` on the same CUDA tensors (bf16 D
+    16/32/64/128, causal and full, no window, window 64 and 2048, T 100
+    and 300, GQA rep 1, 4 and 5, both layouts; each of dQ, dK, dV within
+    2e-2 x max |plain| in max |diff| and 1e-2 in relative L2; every call
+    counted in ``bwd_launch_count``; two runs of each case bit-equal; D
+    256 and fp32 refused), timed at llama3.2-1b's training shape (4,
+    1024, 32, 8, 64) causal against the plain backward, SDPA's backward
+    and the 5-product bound; one training step of each reduced config of
+    ``tests/torch_lm_train.npz`` on the card, held to the same step with
+    the plain backward in the kernel's place (loss 1e-5, each gradient
+    leaf 5e-2 in relative L2, grad_norm 1%) and to the JAX package's loss,
+    gradient and step at the card's tolerances, flash launches as remat
+    makes them (forward twice per grouped attention layer, backward
+    once); llama3.2-1b at full width
+    (batch 4 x 1024, 3 AdamW steps, remat): 32 sm90 and 16 backward
+    launches per step, step 1 against a plain-attention step 1 (loss
+    within 2e-2, grad_norm 2%, every leaf's gradient cosine >= 0.99),
+    step ms, tokens/s, peak memory and losses printed; and
+    ``examples/torch/train_small_lm.py`` at its defaults (its loss
+    improves), resumed from its step-200 checkpoint with the resumed
+    losses equal to the uninterrupted run's bit for bit (output in
+    ``build/examples/train_small_lm.log``).
 
 The line before the last is a JSON object with one entry per kernel (its
 times, bound and launches; the fused controller step's launches are those
@@ -255,7 +280,8 @@ VRR example's, its times those of 64 exploration lanes; the CUDA-core
 flash kernel's those of phase 8, of ``serve_lm`` and of phases 19 and
 20's fixtures; the sm90 kernel's those of phases 9, 19 and 20 at D
 64/128; its D-256 entry phase 19's, its times those of
-recurrentgemma-2b's prefill;
+recurrentgemma-2b's prefill; the backward kernel's those of phase 21's
+training runs, its times those at llama3.2-1b's training shape;
 the general (max,+) product, off every path, reports the main path's 0
 launches and its 2048^3 int32 times); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
@@ -265,6 +291,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -3033,6 +3060,436 @@ def new_families_phase(device) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: training
+# ---------------------------------------------------------------------------
+
+#: llama3.2-1b's training shape in phase 21 (B, T, Hq, Hkv, D), causal:
+#: the backward kernel's timed shape
+TRAIN_SHAPE = (4, 1024, 32, 8, 64)
+#: phase 21's full-width run: llama3.2-1b on seed-0 weights, batch x seq,
+#: this many make_train_step steps with the default AdamWConfig
+TRAIN = dict(arch="llama3.2-1b", params=1_235_814_400, batch=4, seq=1024,
+             steps=3, seed=0)
+#: step 1 with the kernels against step 1 with plain attention (forward
+#: and autograd backward): loss atol, grad_norm relative, each leaf's
+#: gradient cosine at least
+TRAIN_TOL = dict(loss=2e-2, grad_norm=2e-2, cosine=0.99)
+#: the example's resume check: the run's checkpoint at this step is
+#: restored and the steps after it are run again
+EXAMPLE_RESUME_STEP = 200
+#: the backward kernel against ``attention_backward_plain`` on the same
+#: tensors, each of dQ, dK and dV: max |diff| within 2e-2 x max |plain|
+#: and the relative L2 error within 1e-2 (one bf16 rounding of each side
+#: is about 2e-3 in relative L2; a dQ off by half is 0.5)
+BWD_TOL = dict(max_rel=2e-2, l2=1e-2)
+
+
+def bwd_call(FA, q, k, v, o, do, causal: bool, head_axis: int,
+             window=None):
+    """One backward kernel call on the card, counted once in
+    ``bwd_launch_count`` and nowhere else."""
+    import torch
+    before = (*flash_counts(FA), FA.bwd_launch_count)
+    got = FA.attention_backward_cuda(q, k, v, o, do, causal=causal,
+                                     sm_scale=q.shape[-1] ** -0.5,
+                                     head_axis=head_axis, window=window)
+    torch.cuda.synchronize()
+    after = (*flash_counts(FA), FA.bwd_launch_count)
+    if tuple(b - a for a, b in zip(before, after)) != (0, 0, 0, 1):
+        fail(f"flash backward call counted launches {before} -> {after}")
+    return got
+
+
+def bwd_errors(got, want) -> tuple:
+    """One gradient tensor against its plain version: ``(max |got -
+    want|, that over max |want|, relative L2 error)``."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs().max().item()
+    return (d, d / max(w.abs().max().item(), 1e-30),
+            (g - w).norm().item() / max(w.norm().item(), 1e-30))
+
+
+def bwd_within(errs: tuple) -> bool:
+    return errs[1] <= BWD_TOL["max_rel"] and errs[2] <= BWD_TOL["l2"]
+
+
+def train_kernel_phase(device) -> float:
+    """Phase 21 (a): the backward kernel vs ``attention_backward_plain``
+    on the same CUDA tensors (bf16 D 16-128, causal and full, no window,
+    window 64 and 2048, T 100 and 300, GQA rep 1, 4 and 5, both layouts):
+    dQ, dK, dV within ``BWD_TOL``, each call counted; two runs of a case
+    bit-equal; D 256 and fp32 refused.  Returns the largest max |diff|."""
+    import itertools
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=device).manual_seed(21)
+    t = lambda x: x.transpose(1, 2)
+    worst, cases = {}, 0       # D -> per-tensor worst of bwd_errors
+    for D, causal, window, T, rep, layout in itertools.product(
+            (16, 32, 64, 128), (True, False), (None, 64, 2048), (100, 300),
+            (1, 4, 5), (1, 2)):
+        q, k, v, do = ((torch.randn(2, T, h, D, generator=gen,
+                                    device=device) * 0.5).bfloat16()
+                       for h in (2 * rep, 2, 2, 2 * rep))
+        if layout == 1:
+            q, k, v, do = (t(x).contiguous() for x in (q, k, v, do))
+        tl = (lambda x: x) if layout == 1 else t
+        o = tl(FA.attention_plain(tl(q), tl(k), tl(v), causal=causal,
+                                  sm_scale=D ** -0.5, window=window))
+        want = FA.attention_backward_plain(q, k, v, o, do, causal=causal,
+                                           sm_scale=D ** -0.5,
+                                           window=window, head_axis=layout)
+        got = bwd_call(FA, q, k, v, o, do, causal, layout, window)
+        again = bwd_call(FA, q, k, v, o, do, causal, layout, window)
+        for name, g, w, a in zip(("dq", "dk", "dv"), got, want, again):
+            errs = bwd_errors(g, w)
+            if not bwd_within(errs) or g.dtype != q.dtype:
+                fail(f"flash backward kernel != plain version ({name}, D "
+                     f"{D}, causal {causal}, window {window}, T {T}, rep "
+                     f"{rep}, layout {layout}): max |diff| {errs[0]}, over "
+                     f"max |plain| {errs[1]}, relative L2 {errs[2]}; "
+                     f"tolerance {BWD_TOL}")
+            if not torch.equal(g, a):
+                fail(f"flash backward kernel: two runs differ ({name}, D "
+                     f"{D}, causal {causal}, window {window}, T {T})")
+            worst[D] = tuple(map(max, worst.get(D, (0.0,) * 3), errs))
+        cases += 1
+    for D, dtype in ((256, torch.bfloat16), (64, torch.float32)):
+        x = torch.zeros(1, 64, 2, D, dtype=dtype, device=device)
+        try:
+            FA.attention_backward_cuda(x, x, x, x, x, causal=True,
+                                       sm_scale=0.1, head_axis=2)
+        except NotImplementedError:
+            continue
+        fail(f"flash backward on the card took {dtype} at D {D}")
+    print(f"flash backward kernel vs plain version, {cases} cases (each run "
+          "twice, bit-equal), each call counted; worst of dQ, dK, dV by "
+          "head dim (max |diff|, over max |plain|, relative L2): "
+          + ", ".join(f"D {D} ({e[0]:.3e}, {e[1]:.3e}, {e[2]:.3e})"
+                      for D, e in sorted(worst.items()))
+          + f" (tolerance {BWD_TOL}); D 256 and fp32 refused")
+    return max(e[0] for e in worst.values())
+
+
+def train_kernel_timing(device) -> dict:
+    """Phase 21 (b): the backward kernel at ``TRAIN_SHAPE``, causal in the
+    model's layout: back to back (CUDA events) and device only
+    (``queued_ms``), against the plain backward and the backward of
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on
+    the same tensors (the library call, never on a path; its backward
+    kernels' device time by ``queued_ms``), and the bound: 5 products
+    (``2 D`` operations per visible (q, k) pair each) of every (batch, q
+    head) at 989 TFLOP/s, against q, k, v, o, dO read and dq, dk, dv
+    written once at 3.35 TB/s."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    B, T, Hq, Hkv, D = TRAIN_SHAPE
+    gen = torch.Generator(device=device).manual_seed(22)
+    q, k, v, do = (torch.randn(B, T, h, D, generator=gen, device=device)
+                   .bfloat16() for h in (Hq, Hkv, Hkv, Hq))
+    o = FA.flash_attention_bthd(q, k, v, causal=True)
+    kern = lambda: FA.attention_backward_cuda(
+        q, k, v, o, do, causal=True, sm_scale=D ** -0.5, head_axis=2)
+    plain = lambda: FA.attention_backward_plain(
+        q, k, v, o, do, causal=True, sm_scale=D ** -0.5, head_axis=2)
+    got, want = kern(), plain()
+    errs = [bwd_errors(g, w) for g, w in zip(got, want)]
+    if not all(map(bwd_within, errs)):
+        fail(f"flash backward at {TRAIN_SHAPE}: (max |diff|, over max "
+             f"|plain|, relative L2) of dQ, dK, dV {errs} beyond {BWD_TOL}")
+    err = max(e[0] for e in errs)
+    t = lambda x: x.transpose(1, 2)
+    qh, kh, vh = (t(x).contiguous().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                         enable_gqa=True)
+    doh = t(do).contiguous()
+    sdpa = lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
+                                       retain_graph=True)
+    sdpa_errs = [bwd_errors(g, t(w)) for g, w in zip(sdpa(), want)]
+    kern_ms = cuda_ms(kern, 20)
+    kern_q = queued_ms(kern)
+    plain_ms = cuda_ms(plain, 3)
+    sdpa_ms = cuda_ms(sdpa, 20)
+    sdpa_q = queued_ms(sdpa)
+    kern_ms2 = cuda_ms(kern, 20)
+    pairs = visible_pairs(T, T, True)
+    flops = 5 * 2 * D * B * Hq * pairs
+    # q, o, dO read and dq written; k, v read and dk, dv written
+    nbytes = q.element_size() * (4 * q.numel() + 2 * k.numel()
+                                 + 2 * v.numel())
+    ops_ms = flops / BF16_TENSOR_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+    show = lambda es: ", ".join(f"({e[0]:.3e}, {e[1]:.3e}, {e[2]:.3e})"
+                                for e in es)
+    print(f"flash backward at (B, T, Hq, Hkv, D) = {TRAIN_SHAPE} bf16 "
+          f"causal: dQ, dK, dV (max |diff|, over max |plain|, relative L2) "
+          f"vs plain {show(errs)}, SDPA's backward vs plain "
+          f"{show(sdpa_errs)}; kernel {kern_ms:.4f} / {kern_ms2:.4f} "
+          f"ms back to back (CUDA events, before / after SDPA), device "
+          f"{fmt(kern_q)} queued; plain {plain_ms:.4f} ms; "
+          f"scaled_dot_product_attention's backward {sdpa_ms:.4f} ms back "
+          f"to back, device {fmt(sdpa_q)} queued; bound "
+          f"{max(ops_ms, bytes_ms):.6f} ms ({pairs:,} (q, k) pairs per head: "
+          f"{flops / 1e9:.2f} GFLOP at 989 TFLOP/s: {ops_ms:.6f} ms, with the "
+          f"lse recompute {ops_ms * 6 / 5:.6f} ms; {nbytes / 1e6:.2f} MB at "
+          f"3.35 TB/s: {bytes_ms:.6f} ms)")
+    return dict(max_err=err, ms=kern_ms, queued_ms=kern_q,
+                plain_ms=plain_ms, library_ms=sdpa_ms,
+                library_queued_ms=sdpa_q, bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def train_launches(cfg) -> tuple:
+    """The flash launches one training step of ``cfg`` makes: ``(forward
+    launches, backward launches)``; an attention layer of a repeated
+    group runs its forward twice (remat), a remainder layer once."""
+    from repro_torch.models import blocks as PB
+    n_grouped = cfg.n_groups() * len(cfg.block_pattern)
+    kinds = cfg.pattern_layers()
+    attn = [i for i, kind in enumerate(kinds) if kind in PB.ATTN_KINDS]
+    return sum(2 if i < n_grouped else 1 for i in attn), len(attn)
+
+
+@contextlib.contextmanager
+def plain_backward():
+    """Inside: the attention gradient on the card is
+    ``attention_backward_plain`` on the same CUDA tensors, the forward
+    kernels untouched (phase 21 (c)'s comparison only; counts nothing)."""
+    from repro_torch.kernels import flash_attention as FA
+    kernel = FA.attention_backward_cuda
+    FA.attention_backward_cuda = FA.attention_backward_plain
+    try:
+        yield
+    finally:
+        FA.attention_backward_cuda = kernel
+
+
+def train_fixture_run(device) -> int:
+    """Phase 21 (c): one training step of each reduced config of
+    ``tests/torch_lm_train.npz`` on the card with the kernels: the flash
+    launches of the step (counts reset just before) as
+    :func:`train_launches` says, on the CUDA-core route (head dim 32);
+    the step against the same step with ``attention_backward_plain`` in
+    the backward kernel's place at ``torch_parity.BWD_STEP_TOL`` (the
+    kernel's effect
+    on the model, apart from any other rounding); and the step against
+    the JAX package's (``torch_parity.check_lm_train``) at
+    ``LM_TRAIN_CARD_TOL``, the CPU tests' tolerances widened where the
+    card's other rounding moves the gradient.  Returns the backward
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    tp = parity()
+    z = np.load(tp.LM_TRAIN_FIXTURE)
+    total = 0
+    for arch in tp.LM_TRAIN_ARCHS:
+        reset_flash_counts(FA)
+        FA.bwd_launch_count = 0
+        res = tp.lm_train_step(z, arch, device)
+        torch.cuda.synchronize()
+        cfg = res[0]
+        fwd, bwd = train_launches(cfg)
+        route = FA.counter(torch.bfloat16, cfg.head_dim)
+        counts = dict(zip(FLASH_ROUTES, flash_counts(FA)))
+        if counts != {r: fwd if r == route else 0 for r in FLASH_ROUTES} \
+                or FA.bwd_launch_count != bwd:
+            fail(f"phase 21 fixture {arch}: flash launches {counts}, "
+                 f"backward {FA.bwd_launch_count}; want {fwd} on {route} "
+                 f"and {bwd}")
+        total += FA.bwd_launch_count
+        with plain_backward():
+            plain = tp.lm_train_step(z, arch, device)
+        torch.cuda.synchronize()
+        if FA.bwd_launch_count != bwd:
+            fail(f"phase 21 fixture {arch}: the plain-backward step "
+                 "launched the backward kernel")
+        vs_plain = tp.step_vs_plain_backward(res, plain)
+        if not all(vs_plain[k] <= tp.BWD_STEP_TOL[k]
+                   for k in tp.BWD_STEP_TOL):
+            fail(f"phase 21 fixture {arch}: the step with the backward "
+                 f"kernel against the step with the plain backward "
+                 f"{vs_plain}, beyond {tp.BWD_STEP_TOL}")
+        card_tol = tp.LM_TRAIN_CARD_TOL[arch]
+        try:
+            errs = tp.check_lm_train(arch, *res, tol=card_tol)
+        except AssertionError as e:
+            fail(f"phase 21 fixture {arch}: the card's step misses its "
+                 f"tolerance: {e}")
+        print(f"phase 21 fixture {arch} on {device}: vs the plain backward "
+              f"loss |diff| {vs_plain['loss']:.2e}, worst leaf rel L2 "
+              f"{vs_plain['grad']:.3e}, grad_norm {vs_plain['grad_norm']:.3e}"
+              f" (bounds {tp.BWD_STEP_TOL}); vs the JAX package loss |diff| "
+              f"{errs['loss']:.2e}, aux {errs['aux']:.2e}, grad_norm "
+              f"{errs['grad_norm']:.2%}, worst leaf rel L2 grad "
+              f"{errs['grad']:.3e} m {errs['m']:.3e} v {errs['v']:.3e}, new "
+              f"params > 1 ulp {errs['far']:.2%} (tolerances "
+              f"{tuple(x if x is None else round(x, 4) for x in card_tol)}); "
+              f"flash launches {counts}, backward {bwd}")
+    return total
+
+
+def train_full_width(device) -> int:
+    """Phase 21 (d): llama3.2-1b at full width on seed-0 weights, batch 4
+    x 1024 tokens, ``TRAIN['steps']`` steps of ``make_train_step`` with the
+    default AdamWConfig and remat; launch counts reset just before and
+    read just after (per step 2 x 16 sm90 forward launches, 16 backward,
+    none on another route); then step 1 with the kernels against step 1
+    with plain attention (forward and autograd backward) on the same
+    batch at ``TRAIN_TOL``.  Returns the backward launches."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step, train_init
+    cfg = get_arch(TRAIN["arch"])
+    oc = AdamWConfig()
+    params = init_params(cfg, TRAIN["seed"], device)
+    n_params = sum(p.numel() for p in params.parameters())
+    if n_params != TRAIN["params"]:
+        fail(f"{cfg.name}: {n_params} parameters, want {TRAIN['params']}")
+    state0 = train_init(cfg, params, oc)
+    dc = DataConfig(seq_len=TRAIN["seq"], global_batch=TRAIN["batch"],
+                    seed=TRAIN["seed"])
+    batches = [make_batch(cfg, dc, s, device=device)
+               for s in range(TRAIN["steps"])]
+    grads = {}
+    step = make_train_step(cfg, oc, grad_transform=lambda g: grads.update(
+        {n: x.detach().clone() for n, x in g.items()}) or g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_flash_counts(FA)
+    FA.bwd_launch_count = 0
+    state, log, first_grads = state0, [], None
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t0, float(m["loss"]),
+                    float(m["grad_norm"])))
+        if i == 0:
+            first_grads, first_m = dict(grads), m
+    n = TRAIN["steps"]
+    counts = dict(zip(FLASH_ROUTES, flash_counts(FA)))
+    bwd = FA.bwd_launch_count
+    fwd_want, bwd_want = (x * n for x in train_launches(cfg))
+    if counts != {"cuda_core": 0, "sm90": fwd_want, "d256": 0} \
+            or bwd != bwd_want:
+        fail(f"full-width training: flash launches {counts}, backward "
+             f"{bwd}; want {fwd_want} sm90 and {bwd_want}")
+    peak = torch.cuda.max_memory_allocated(device)
+    if not all(math.isfinite(r[1]) and math.isfinite(r[2]) for r in log):
+        fail(f"full-width training: non-finite loss or grad_norm {log}")
+    # step 1 again with the plain attention (nothing of the kernels)
+    grads.clear()
+    with plain_attention():
+        _, mp = step(state0, batches[0])
+    torch.cuda.synchronize()
+    if FA.bwd_launch_count != bwd or flash_counts(FA) != tuple(
+            counts.values()):
+        fail("the plain-attention step launched a flash kernel")
+    loss_d = abs(float(first_m["loss"]) - float(mp["loss"]))
+    gn_d = abs(float(first_m["grad_norm"]) / float(mp["grad_norm"]) - 1)
+    cos = min(float(torch.nn.functional.cosine_similarity(
+        first_grads[k].float().flatten(), grads[k].float().flatten(), dim=0))
+        for k in grads if float(grads[k].float().norm()) > 0)
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    steady = sorted(r[0] for r in log[1:]) or [log[0][0]]
+    print(f"phase 21 full width {cfg.name} on {device}: {n_params:,} bf16 "
+          f"parameters, batch {TRAIN['batch']} x {TRAIN['seq']} tokens, "
+          f"{n} steps (AdamW defaults, remat per layer): step ms "
+          + ", ".join(f"{r[0] * 1e3:.1f}" for r in log) + "; "
+          f"{tokens / steady[0]:.0f} tokens/s (fastest step after the "
+          f"first); loss per step " + ", ".join(f"{r[1]:.4f}" for r in log)
+          + f"; grad_norm " + ", ".join(f"{r[2]:.4f}" for r in log)
+          + f"; peak memory {peak / 2**30:.2f} GiB; flash launches {counts}, "
+          f"backward {bwd}")
+    print(f"  step 1 kernels vs plain attention: loss |diff| {loss_d:.3e} "
+          f"(bound {TRAIN_TOL['loss']}), grad_norm {gn_d:.3%} (bound "
+          f"{TRAIN_TOL['grad_norm']:.0%}), smallest leaf gradient cosine "
+          f"{cos:.5f} (bound {TRAIN_TOL['cosine']})")
+    if not (loss_d <= TRAIN_TOL["loss"] and gn_d <= TRAIN_TOL["grad_norm"]
+            and cos >= TRAIN_TOL["cosine"]):
+        fail(f"full-width step 1, kernels vs plain attention, beyond "
+             f"{TRAIN_TOL}: loss {loss_d}, grad_norm {gn_d}, cosine {cos}")
+    return bwd
+
+
+def train_example_run(device) -> int:
+    """Phase 21 (e): ``examples/torch/train_small_lm.py`` at its defaults
+    (300 steps, checkpoints every 100): its loss improves; then its
+    checkpoint at ``EXAMPLE_RESUME_STEP`` is restored (the later ones
+    removed) and the run resumes to the end: the resumed steps' losses
+    equal the first run's bit for bit.  Returns the backward launches of
+    both runs."""
+    import importlib.util
+    import shutil
+    from repro_torch.kernels import flash_attention as FA
+    path = ROOT / "examples" / "torch" / "train_small_lm.py"
+    spec = importlib.util.spec_from_file_location("train_small_lm", path)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    ckpt = ROOT / "build" / "train_small_lm_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--device", str(device), "--ckpt-dir", str(ckpt)]
+    log_path = ROOT / "build" / "examples" / "train_small_lm.log"
+    log_path.parent.mkdir(parents=True, exist_ok=True)
+    FA.bwd_launch_count = 0
+    with open(log_path, "w") as f, contextlib.redirect_stdout(f):
+        t0 = time.perf_counter()
+        first = ex.main(argv)
+        first_s = time.perf_counter() - t0
+    if not first["improved"]:
+        fail(f"train_small_lm: loss NOT improved ({first['first']:.4f} -> "
+             f"{first['last']:.4f})")
+    steps = sorted(int(p.name.split("_")[1]) for p in ckpt.iterdir())
+    for s in steps:
+        if s > EXAMPLE_RESUME_STEP:
+            shutil.rmtree(ckpt / f"ckpt_{s:010d}")
+    with open(log_path, "a") as f, contextlib.redirect_stdout(f):
+        t0 = time.perf_counter()
+        again = ex.main(argv)
+        again_s = time.perf_counter() - t0
+    want = [r["loss"] for r in first["log"][EXAMPLE_RESUME_STEP:]]
+    got = [r["loss"] for r in again["log"]]
+    if got != want:
+        fail(f"train_small_lm resumed at step {EXAMPLE_RESUME_STEP}: "
+             f"losses differ from the uninterrupted run's ({len(got)} vs "
+             f"{len(want)} steps; first {got[:3]} vs {want[:3]})")
+    n = len(first["log"])
+    dts = sorted(r["dt"] for r in first["log"])
+    print(f"phase 21 train_small_lm on {device}: {first['cfg'].param_count():,}"
+          f" parameters, {n} steps in {first_s:.1f} s (median step "
+          f"{dts[n // 2] * 1e3:.1f} ms, with the launcher's loss readback), "
+          f"loss first10 {first['first']:.4f} -> last10 {first['last']:.4f} "
+          f"(improved); checkpoints {steps}; resumed from "
+          f"{EXAMPLE_RESUME_STEP}: {len(got)} steps in {again_s:.1f} s, "
+          f"losses equal the uninterrupted run's bit for bit; backward "
+          f"launches {FA.bwd_launch_count} (log: "
+          f"{log_path.relative_to(ROOT)})")
+    return FA.bwd_launch_count
+
+
+def training_phase(device) -> dict:
+    """Phase 21: the backward kernel against its plain version and timed,
+    then the training path on the card: the fixture's ten reduced
+    configs, llama3.2-1b at full width, and ``train_small_lm`` with a
+    resume.  Returns the kernel's row values and the backward launches of
+    the training runs."""
+    err = train_kernel_phase(device)
+    timing = train_kernel_timing(device)
+    launches = train_fixture_run(device)
+    launches += train_full_width(device)
+    launches += train_example_run(device)
+    return dict(timing, max_err=max(err, timing["max_err"]),
+                launches=launches)
+
+
 def main() -> int:
     try:
         import torch
@@ -3063,7 +3520,7 @@ def main() -> int:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build("readiness", "controller_step", "flash_attention",
-                       "flash_attention_sm90")
+                       "flash_attention_sm90", "flash_attention_bwd")
     print(f"built kernels in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         # the full -Xptxas -v report goes beside the library; stdout gets
@@ -3083,6 +3540,16 @@ def main() -> int:
         for D in (64, 128, 256):
             print(f"ptxas flash_fwd_sm90_kernel<{D}>: " + ptxas_report(
                 sm90_log.read_text(), f"flash_fwd_sm90_kernelILi{D}E"))
+    bwd_log = build.library_path("flash_attention_bwd").with_suffix(
+        ".nvcc.log")
+    if bwd_log.exists():
+        for kind in ("dq", "dkdv"):
+            for D in (16, 32, 64, 128):
+                print(f"ptxas flash_bwd_{kind}_kernel<{D}>: " + ptxas_report(
+                    bwd_log.read_text(), f"flash_bwd_{kind}_kernelILi{D}E"))
+    print("flash backward kernel SASS: " + sass_counts(
+        build.library_path("flash_attention_bwd"), ("HMMA",),
+        ("LDSM", "LDGSTS"), what="flash backward kernel"))
     print("sm90 flash kernel SASS: " + sass_counts(
         build.library_path("flash_attention_sm90"), ("HGMMA", "UTMALDG"),
         what="sm90 flash kernel"))
@@ -3142,6 +3609,7 @@ def main() -> int:
     sm90_launches = timed("9 serving", lm_phase, device)
     fam = timed("19 families", families_phase, device)
     fam_b = timed("20 new families", new_families_phase, device)
+    train = timed("21 training", training_phase, device)
 
     big = mp[(*MAXPLUS_TIMED[-1], "int32")]
 
@@ -3187,7 +3655,10 @@ def main() -> int:
                   sm90_launches + ex["sm90"] + fam["sm90"] + fam_b["sm90"],
                   sm90, flash_err["sm90"]),
         flash_row("flash_attention_d256", "flash_attention_sm90.cu",
-                  fam["d256"] + fam_b["d256"], d256, flash_err["d256"])]}))
+                  fam["d256"] + fam_b["d256"], d256, flash_err["d256"]),
+        dict(flash_row("flash_attention_bwd", "flash_attention_bwd.cu",
+                       train["launches"], train, train["max_err"]),
+             replaces="jax.grad of src/repro/models/layers.py:130")]}))
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s; phases "
           f"{json.dumps(seconds)}", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {

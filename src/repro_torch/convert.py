@@ -8,8 +8,12 @@ are the way back.  A reference state of one channel (no channel axis)
 gains the port's leading channel axis of size 1; one that already has the
 axis keeps it.  :func:`lm_params` turns the reference's LM parameter
 tree into the port's per-layer :class:`ParamTree`, :func:`lm_params_to_numpy`
-is the way back.  This module reads plain dicts and arrays only: it
-imports nothing of the reference package (nor ``ml_dtypes``).
+is the way back; for training, :func:`opt_state` and :func:`batch` carry
+the reference's optimizer state and batches over, and
+:func:`named_to_numpy` turns the port's ``{name: tensor}`` gradients (or
+moments) into the reference's nested tree.  This module reads plain dicts
+and arrays only: it imports nothing of the reference package (nor
+``ml_dtypes``).
 """
 from __future__ import annotations
 
@@ -202,15 +206,24 @@ def lm_params_to_numpy(params, cfg) -> dict:
     """The port's parameters as the reference's nested tree (layers
     stacked into ``groups.b{j}`` / ``rem.r{j}``), leaves as ``uint16``
     bf16 bits."""
-    def tree_of(m) -> dict:
-        out = {k: bf16_bits(v) for k, v in m._parameters.items()}
-        out.update({k: tree_of(c) for k, c in m._modules.items()
-                    if k != "layers"})
-        return out
+    return named_to_numpy({n: bf16_bits(p)
+                           for n, p in params.named_parameters()}, cfg)
 
-    out = tree_of(params)
+
+def named_to_numpy(named: dict, cfg) -> dict:
+    """``{name: leaf}`` keyed as ``ParamTree.named_parameters()`` names
+    them (``"layers.3.wq"``; the port's gradients and moments) as the
+    reference's nested tree, layers stacked into ``groups.b{j}`` /
+    ``rem.r{j}``.  Tensor leaves become fp32 numpy arrays, numpy leaves
+    stay as they are."""
+    def leaf(x):
+        return x.detach().float().cpu().numpy() \
+            if isinstance(x, torch.Tensor) else x
+
+    out = nest({n: leaf(x) for n, x in named.items()})
+    by_index = out.pop("layers")
+    layers = [by_index[str(i)] for i in range(len(cfg.pattern_layers()))]
     P, G = len(cfg.block_pattern), cfg.n_groups()
-    layers = [tree_of(m) for m in params["layers"]]
 
     def stack(trees):
         return {k: stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
@@ -223,3 +236,41 @@ def lm_params_to_numpy(params, cfg) -> dict:
         out["rem"] = {f"r{j}": layers[G * P + j]
                       for j in range(cfg.n_remainder())}
     return out
+
+
+def opt_state(tree, cfg, device):
+    """The reference's ``OptState`` (its fields as a dict or NamedTuple of
+    numpy leaves: ``step``, and ``m``/``v`` in the parameter tree's
+    nested layout, bf16) as the port's: a () int32 step and ``{name:
+    tensor}`` moments on ``device``."""
+    from repro_torch.optim.adamw import OptState
+    d = _fields(tree)
+
+    def named(t):
+        return {n: p.detach() for n, p in
+                lm_params(t, cfg, device).named_parameters()}
+
+    return OptState(step=torch.tensor(int(np.asarray(d["step"])),
+                                      dtype=torch.int32, device=device),
+                    m=named(d["m"]), v=named(d["v"]))
+
+
+def batch(b, device):
+    """The reference's ``Batch`` (its fields as a dict or NamedTuple of
+    numpy arrays or None; ``vis_embeds`` bf16 as ``ml_dtypes`` bfloat16,
+    its bits, or fp32 holding bf16 values) as the port's on ``device``."""
+    from repro_torch.models.model import Batch
+    d = _fields(b)
+
+    def t(k, dtype=torch.int32):
+        a = d.get(k)
+        return None if a is None else torch.tensor(
+            np.asarray(a), dtype=dtype, device=device)
+
+    vis = d.get("vis_embeds")
+    if vis is not None:
+        arr = np.asarray(vis)
+        vis = (torch.tensor(arr, device=device).to(torch.bfloat16)
+               if arr.dtype == np.float32 else bf16_tensor(arr, device))
+    return Batch(tokens=t("tokens"), positions=t("positions"),
+                 labels=t("labels"), vis_embeds=vis)

@@ -43,6 +43,17 @@ plain version stands in for a kernel.
 sm90 kernel at D 64 and 128) and ``d256_launch_count`` (the sm90 kernel
 at D 256) count kernel launches (never plain-version calls), so a run can
 show which kernel served its main path.
+
+Gradients.  The reference gets its attention gradient from ``jax.grad``
+of ``flash_attention_xla``; the Pallas kernel has no backward.  Here the
+entry points run through :class:`FlashAttentionFn` whenever grad is
+enabled and an input requires it: its forward is the same kernel launch
+(same route, same count), and its backward launches
+``csrc/flash_attention_bwd.cu`` (bf16 at D 16-128, Tq == Tk; counted in
+``bwd_launch_count``), or on CPU tensors runs
+:func:`attention_backward_plain`.  A case the backward kernel does not
+take (fp32, D 256) raises on the card: ROADMAP.md queue 2 item 2(c).
+With grad disabled nothing is saved and the same launches happen.
 """
 from __future__ import annotations
 
@@ -76,6 +87,26 @@ launch_count = 0
 sm90_launch_count = 0
 #: its launches at D 256 (recurrentgemma-2b's), counted the same way
 d256_launch_count = 0
+#: backward kernel calls (``csrc/flash_attention_bwd.cu``: one call is
+#: its dQ pass and its dK/dV pass), counted the same way
+bwd_launch_count = 0
+#: head dims of the backward kernel (bf16 only)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _visible(Tq: int, Tk: int, causal: bool, window, device):
+    """The (Tq, Tk) bool mask of the kernels, or None when every pair is
+    visible."""
+    if not causal and window is None:
+        return None
+    rows = torch.arange(Tq, device=device)[:, None]
+    cols = torch.arange(Tk, device=device)[None, :]
+    vis = torch.ones((Tq, Tk), dtype=torch.bool, device=device)
+    if causal:
+        vis &= rows >= cols
+    if window is not None:
+        vis &= rows - cols < window
+    return vis
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -90,18 +121,48 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Hkv, Tk = k.shape[1], k.shape[2]
     qf = q.float().reshape(B, Hkv, Hq // Hkv, Tq, D)
     s = torch.einsum("bgrqd,bgkd->bgrqk", qf, k.float()) * sm_scale
-    if causal or window is not None:
-        rows = torch.arange(Tq, device=q.device)[:, None]
-        cols = torch.arange(Tk, device=q.device)[None, :]
-        masked = torch.zeros((Tq, Tk), dtype=torch.bool, device=q.device)
-        if causal:
-            masked |= rows < cols
-        if window is not None:
-            masked |= rows - cols >= window
-        s = s.masked_fill(masked, float("-inf"))
+    vis = _visible(Tq, Tk, causal, window, q.device)
+    if vis is not None:
+        s = s.masked_fill(~vis, float("-inf"))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float())
     return o.reshape(B, Hq, Tq, D).to(q.dtype)
+
+
+def attention_backward_plain(q, k, v, o, do, *, causal: bool,
+                             sm_scale: float, window: int | None = None,
+                             head_axis: int = 1):
+    """Plain PyTorch version of the backward kernel: ``(dq, dk, dv)`` of
+    attention at ``q, k, v`` (the forward's output ``o``, its cotangent
+    ``do``) in the layout ``head_axis`` gives (1: ``(B, H, T, D)``, 2:
+    ``(B, T, H, D)``), each in its input's dtype.  All in fp32: P
+    recomputed under the kernels' top-left causal mask and window,
+    ``dV = P^T dO``, ``dP = dO V^T``, ``dS = P * (dP - rowsum(dO * O))``,
+    ``dQ = dS K * sm_scale``, ``dK = dS^T Q * sm_scale``; a kv head's dK
+    and dV sum over the query heads that share it."""
+    if head_axis == 2:
+        t = lambda x: x.transpose(1, 2)
+        dq, dk, dv = attention_backward_plain(
+            t(q), t(k), t(v), t(o), t(do), causal=causal,
+            sm_scale=sm_scale, window=window, head_axis=1)
+        return t(dq), t(dk), t(dv)
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    g = lambda x: x.float().reshape(B, Hkv, Hq // Hkv, Tq, D)
+    qf, of, dof = g(q), g(o), g(do)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qf, kf) * sm_scale
+    vis = _visible(Tq, Tk, causal, window, q.device)
+    if vis is not None:
+        s = s.masked_fill(~vis, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    dv = torch.einsum("bgrqk,bgrqd->bgkd", p, dof)
+    dp = torch.einsum("bgrqd,bgkd->bgrqk", dof, vf)
+    ds = p * (dp - (dof * of).sum(-1, keepdim=True))
+    dq = torch.einsum("bgrqk,bgkd->bgrqd", ds, kf) * sm_scale
+    dk = torch.einsum("bgrqk,bgrqd->bgkd", ds, qf) * sm_scale
+    return (dq.reshape(B, Hq, Tq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
@@ -196,6 +257,12 @@ def _lib(name: str):
             err = lib.flash_attention_error_string
             fn.argtypes = ([ci, ci, vp, vp, vp, vp] + [ci] * 5 + [ll] * 12
                            + [ci, ci, ctypes.c_float, ci, vp])
+        elif name == "flash_attention_bwd":
+            fn = lib.flash_bwd_launch
+            err = lib.flash_bwd_error_string
+            fn.argtypes = ([ci] + [vp] * 10 + [ci] * 5
+                           + [ctypes.POINTER(ll), ci, ci, ctypes.c_float,
+                              vp])
         else:
             fn, err = lib.flash_sm90_launch, lib.flash_sm90_error_string
             fn.argtypes = ([ci, vp, vp, vp, vp] + [ci] * 5
@@ -296,9 +363,78 @@ def attention_cuda(q, k, v, *, causal: bool, sm_scale: float,
     return out
 
 
-def _attend(q, k, v, causal, sm_scale, head_axis, window):
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+def _rows_aligned(x) -> bool:
+    """Every row of ``x`` (its last axis) starts on 16 bytes."""
+    es = x.element_size()
+    return x.data_ptr() % 16 == 0 and all(
+        x.stride(a) * es % 16 == 0 for a in range(x.dim() - 1))
+
+
+def attention_backward_cuda(q, k, v, o, do, *, causal: bool,
+                            sm_scale: float, head_axis: int,
+                            window: int | None = None):
+    """Launch the backward kernel (``csrc/flash_attention_bwd.cu``) on
+    the current stream: ``(dq, dk, dv)``, contiguous in the inputs'
+    layout.  Takes bf16 at ``BWD_HEAD_DIMS`` with Tq == Tk, any strides
+    with a contiguous head dim that start q's, k's, v's and dO's rows on
+    16 bytes; raises ``NotImplementedError`` for fp32
+    and D 256 (ROADMAP.md queue 2 item 2(c)) and ``ValueError`` for the
+    rest it does not take.  One call, one count."""
+    global bwd_launch_count
+    B, Hq, Hkv, Tq, Tk, D = _check(q, k, v, head_axis, window)
+    if q.dtype != torch.bfloat16 or D not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash attention backward on the card takes bf16 at head dim "
+            f"{BWD_HEAD_DIMS}, got {q.dtype} at {D}: the fp32 and D-256 "
+            "backward kernels are ROADMAP.md queue 2 item 2(c)")
+    if Tq != Tk:
+        raise ValueError(f"flash attention backward: Tq {Tq} != Tk {Tk} "
+                         "(training has Tq == Tk)")
+    dev = q.device
+    ins = (q, k, v, o, do)
+    for name, x in zip(("q", "k", "v", "o", "do"), ins):
+        if x.device != dev or x.dtype != q.dtype or x.stride(3) != 1:
+            raise ValueError(f"flash attention backward: {name} must be on "
+                             f"{dev} in {q.dtype} with a contiguous last "
+                             f"axis, got {x.dtype} on {x.device}, strides "
+                             f"{x.stride()}")
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash attention backward: o {tuple(o.shape)} and "
+                         f"do {tuple(do.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    # cp.async stages q, k, v and dO rows in 16-byte pieces
+    for name, x in zip(("q", "k", "v", "do"), (q, k, v, do)):
+        if not _rows_aligned(x):
+            raise ValueError(f"flash attention backward: {name}'s rows must "
+                             f"start on 16 bytes, got base {x.data_ptr()} "
+                             f"and strides {x.stride()}")
+    win = NO_WINDOW if window is None else min(int(window), NO_WINDOW)
+    dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=dev)
+                  for x in (q, k, v))
+    if B * Hq * Tq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    # the dQ pass leaves each row's log-sum-exp (base 2) and
+    # rowsum(dO * O) here for the dK/dV pass
+    lse = torch.empty((B, Hq, Tq), dtype=torch.float32, device=dev)
+    delta = torch.empty_like(lse)
+    t_axis = 3 - head_axis
+    outs = (dq, dk, dv)
+    strides = (ctypes.c_longlong * 24)(*(
+        s for x in ins + outs
+        for s in (x.stride(0), x.stride(t_axis), x.stride(head_axis))))
+    lib = _lib("flash_attention_bwd")
+    rc = lib.flash_bwd_launch(
+        D, *(x.data_ptr() for x in ins + outs), lse.data_ptr(),
+        delta.data_ptr(), B, Hq, Hkv, Tq, Tk, strides, int(causal), win,
+        float(sm_scale), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("flash attention backward kernel launch failed: "
+                           + lib.flash_bwd_error_string(rc).decode())
+    bwd_launch_count += 1
+    return dq, dk, dv
+
+
+def _forward(q, k, v, causal, sm_scale, head_axis, window):
     kind = q.device.type
     if kind == "cuda":
         return attention_cuda(q, k, v, causal=causal, sm_scale=sm_scale,
@@ -312,6 +448,43 @@ def _attend(q, k, v, causal, sm_scale, head_axis, window):
     t = lambda x: x.transpose(1, 2)
     return t(attention_plain(t(q), t(k), t(v), causal=causal,
                              sm_scale=sm_scale, window=window))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with a gradient: the forward is :func:`_forward`'s
+    kernel launch (or plain version on CPU tensors) and saves q, k, v and
+    its output; the backward launches the backward kernel on CUDA tensors
+    (:func:`attention_backward_cuda`) and runs
+    :func:`attention_backward_plain` on CPU ones."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, head_axis, window):
+        o = _forward(q, k, v, causal, sm_scale, head_axis, window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.args = dict(causal=causal, sm_scale=sm_scale,
+                        head_axis=head_axis, window=window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        if q.device.type == "cuda":
+            if do.stride(3) != 1 or not _rows_aligned(do):
+                do = do.contiguous()
+            grads = attention_backward_cuda(q, k, v, o, do, **ctx.args)
+        else:
+            grads = attention_backward_plain(q, k, v, o, do, **ctx.args)
+        return (*grads, None, None, None, None)
+
+
+def _attend(q, k, v, causal, sm_scale, head_axis, window):
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, sm_scale, head_axis,
+                                      window)
+    return _forward(q, k, v, causal, sm_scale, head_axis, window)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -37,11 +37,14 @@ class ParamDef:
 
 
 class ParamTree(nn.Module):
-    """The parameters of a ParamDef tree: leaves are ``nn.Parameter``s
-    (inference only: no gradient), dicts are child trees and lists are
-    ``nn.ModuleList``s of trees.  ``p["wq"]`` and ``"mlp" in p`` read as
-    they do on the JAX package's dicts.  Built uninitialised (on
-    ``device="meta"`` nothing is allocated); see :func:`init_tree`."""
+    """The parameters of a ParamDef tree: leaves are ``nn.Parameter``s,
+    dicts are child trees and lists are ``nn.ModuleList``s of trees.
+    ``p["wq"]`` and ``"mlp" in p`` read as they do on the JAX package's
+    dicts.  Built uninitialised (on ``device="meta"`` nothing is
+    allocated); see :func:`init_tree`.  Leaves are made with
+    ``requires_grad=False``, so serving builds no autograd graph;
+    training switches them on with ``tree.requires_grad_(True)``
+    (``repro_torch.train.train_init`` does)."""
 
     def __init__(self, defs: dict, device=None):
         super().__init__()
@@ -61,6 +64,25 @@ class ParamTree(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+    def replaced(self, leaves: dict, prefix: str = "") -> "ParamTree":
+        """A tree of the same structure whose leaves are ``leaves[name]``
+        (names as ``named_parameters()`` gives them), held as they are (no
+        copy), each with this tree's ``requires_grad``: the functional
+        update of a training step."""
+        new = ParamTree({})
+        for name, p in self._parameters.items():
+            new.register_parameter(name, nn.Parameter(
+                leaves[prefix + name], requires_grad=p.requires_grad))
+        for name, m in self._modules.items():
+            if isinstance(m, nn.ModuleList):
+                new.add_module(name, nn.ModuleList(
+                    c.replaced(leaves, f"{prefix}{name}.{i}.")
+                    for i, c in enumerate(m)))
+            else:
+                new.add_module(name, m.replaced(leaves,
+                                                f"{prefix}{name}."))
+        return new
 
 
 def init_param(gen: torch.Generator, d: ParamDef, out: torch.Tensor):

@@ -1,24 +1,25 @@
 """Model assembly: embeddings/frontend stubs -> blocks -> head, the port
-of ``repro/models/model.py`` for the serving path.
+of ``repro/models/model.py``.
 
 The JAX package stacks the repeated block groups and runs them under
-``lax.scan`` (with ``jax.checkpoint``); here the parameters hold one tree
-per layer (``params["layers"][i]``, layer ``i`` of kind
-``cfg.pattern_layers()[i]``) and forward is a Python loop over them, with
-no checkpointing at inference.  ``repro_torch.convert`` unstacks the JAX
-tree into this one.
+``lax.scan`` with ``jax.checkpoint`` on the scan body; here the
+parameters hold one tree per layer (``params["layers"][i]``, layer ``i``
+of kind ``cfg.pattern_layers()[i]``) and forward is a Python loop over
+them.  In training (grad enabled, trainable parameters) each repeated
+group of ``cfg.block_pattern`` runs under ``torch.utils.checkpoint``
+(non-reentrant), the reference's remat per group; the remainder layers
+are not checkpointed, as there.  Prefill and decode checkpoint nothing.
+``repro_torch.convert`` unstacks the JAX tree into this one.
 
 Interfaces:
   param_defs(cfg)                      ParamDef tree (shapes)
   init_params(cfg, seed, device)       random params, a ParamTree module
   forward(cfg, params, batch, *, return_states)
                                        -> (final_hidden, aux[, states])
+  logits_and_loss(cfg, params, batch)  chunked-vocab xent (train objective)
   last_logits(cfg, params, x)          fp32 logits of the last position
   init_cache(cfg, batch, cache_len)    per-layer decode state
   decode_step(cfg, params, cache, batch) -> (logits, cache)
-
-``logits_and_loss`` (training) is not ported yet: ROADMAP.md queue 1
-item 13.7.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import _device
 from repro_torch.models import blocks as B
@@ -37,9 +39,10 @@ VIS_FRAC = 8      # vision stub: first T/VIS_FRAC positions are patch embeds
 
 
 class Batch(NamedTuple):
-    """Model inputs (no labels yet).  Unused fields are None."""
+    """Model inputs.  Unused fields are None."""
     tokens: torch.Tensor                # (B, T) int or (B, T, K) audio
     positions: torch.Tensor             # (B, T) or (B, T, 3) for mrope
+    labels: Optional[torch.Tensor] = None       # like tokens; -1: no loss
     vis_embeds: Optional[torch.Tensor] = None   # (B, T//VIS_FRAC, D)
     cache_index: Optional[int] = None   # decode write slot
     cache_len: Optional[int] = None     # valid length after write
@@ -125,12 +128,30 @@ def embed_input(cfg, params, batch: Batch):
 
 def forward(cfg, params, batch: Batch, *, return_states: bool = False,
             cache_len: int | None = None):
+    """-> ``(final_hidden, aux[, states])``.  In training (grad enabled,
+    trainable parameters, no ``return_states``) each repeated layer group
+    runs under ``torch.utils.checkpoint``: its activations are recomputed
+    in the backward pass.  A group hands no fp32 residual to the next
+    (``_group_step``), so the boundaries fall where the reference's scan
+    carry is rounded."""
     x = embed_input(cfg, params, batch)
     ctx = B.Ctx(positions=batch.positions, cache_index=0, cache_len=0)
     aux = torch.zeros((), device=x.device)
+    kinds = cfg.pattern_layers()
+    if (not return_states and torch.is_grad_enabled()
+            and params["final_norm"].requires_grad):
+        P = len(cfg.block_pattern)
+        for g in range(cfg.n_groups()):
+            x, a = checkpoint(_run_layers, cfg, params, range(g * P,
+                                                              (g + 1) * P),
+                              x, ctx, use_reentrant=False)
+            aux = aux + a
+        x, a = _run_layers(cfg, params, range(cfg.n_groups() * P,
+                                              len(kinds)), x, ctx)
+        aux = aux + a
+        return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
     states, resid = [], None
-    for i, (kind, p) in enumerate(zip(cfg.pattern_layers(),
-                                      params["layers"])):
+    for i, (kind, p) in enumerate(zip(kinds, params["layers"])):
         fused, resid = _group_step(cfg, i, resid)
         x, a, st, resid = _apply_with_state(cfg, kind, p, x, ctx,
                                             return_states, cache_len,
@@ -140,6 +161,19 @@ def forward(cfg, params, batch: Batch, *, return_states: bool = False,
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if return_states:
         return x, aux, states
+    return x, aux
+
+
+def _run_layers(cfg, params, layers: range, x, ctx):
+    """Layers ``layers`` (one group, or the remainder) from ``x`` with no
+    residual handed in -> ``(x, their aux loss sum)``."""
+    aux, resid = torch.zeros((), device=x.device), None
+    kinds = cfg.pattern_layers()
+    for i in layers:
+        fused, resid = _group_step(cfg, i, resid)
+        x, a, _, resid = B.block_apply(cfg, kinds[i], params["layers"][i],
+                                       x, ctx, resid=resid, fused=fused)
+        aux = aux + a
     return x, aux
 
 
@@ -197,6 +231,51 @@ def _prefill_attn_state(cfg, p, ctx, x, cache_len, local: bool = False,
     for dst, src in zip(st, new):
         dst[:, :src.shape[1]] = src.to(dst.dtype)
     return st
+
+
+# ---------------------------------------------------------------------------
+# Loss head (vocab-chunked cross entropy)
+# ---------------------------------------------------------------------------
+
+def logits_and_loss(cfg, params, batch: Batch, seq_chunk: int = 512):
+    """Mean next-token cross entropy over the labels that are not -1, and
+    the aux loss: the sequence (padded to a multiple of ``seq_chunk`` with
+    label -1) goes through the head ``seq_chunk`` positions at a time, so
+    only one chunk's fp32 logits exist at once in the forward pass."""
+    x, aux = forward(cfg, params, batch)
+    labels = batch.labels
+    T = x.shape[1]
+    seq_chunk = min(seq_chunk, T)
+    Tp = -(-T // seq_chunk) * seq_chunk
+    xpad = F.pad(x, (0, 0, 0, Tp - T))
+    lpad = F.pad(labels, (0, 0) * (labels.dim() - 2) + (0, Tp - T),
+                 value=-1)
+    sums, counts = [], []
+    for c in range(0, Tp, seq_chunk):
+        s, n = _xent(cfg, params, xpad[:, c:c + seq_chunk],
+                     lpad[:, c:c + seq_chunk])
+        sums.append(s)
+        counts.append(n)
+    total = torch.stack(sums).sum() / torch.clamp_min(
+        torch.stack(counts).sum(), 1)
+    return total, aux
+
+
+def _xent(cfg, params, x, labels):
+    """x: (B, C, D); labels (B, C) or (B, C, K).  Returns (nll sum,
+    count): fp32 logits against :func:`_unembed`, logsumexp, the true
+    label's logit, masked where the label is negative."""
+    w = _unembed(cfg, params).float()
+    if cfg.frontend == "audio_stub":
+        lg = torch.einsum("bcd,kdv->bckv", x.float(), w)
+    else:
+        lg = torch.einsum("bcd,dv->bcv", x.float(), w)
+    lse = torch.logsumexp(lg, dim=-1)
+    mask = labels >= 0
+    safe = labels.clamp_min(0).long()
+    true_lg = torch.gather(lg, -1, safe[..., None])[..., 0]
+    nll = torch.where(mask, lse - true_lg, torch.zeros_like(lse))
+    return nll.sum(), mask.sum()
 
 
 # ---------------------------------------------------------------------------

@@ -41,7 +41,10 @@ configuration (int32 sums that wrap, fp32 rows of -inf terms), the
 readiness table holds its masks at latencies and timestamps far past the
 default ones, ``ops.earliest_for`` on the card equals the CPU's, and
 the CUDA-core flash kernel's tiles and unaligned k/v hold the plain
-version's tolerances."""
+version's tolerances.  The flash backward kernel (training) equals its
+plain version (each of dQ, dK, dV: max |diff| within 2e-2 x max |plain|,
+relative L2 error within 1e-2), bit for bit from run to run, runs under
+autograd, and refuses D 256, fp32 and rows off 16 bytes."""
 import itertools
 import json
 import os
@@ -850,3 +853,97 @@ def test_moe_flat_overflow_on_cuda_equals_cpu(cuda, counts):
     got, want = out["cuda"].cpu(), out["cpu"]
     assert torch.equal(got, want)
     assert (not got[kept_last].any()) == (counts[-1] > 8)
+
+
+def _assert_bwd_close(got, want):
+    """A backward kernel's gradient against its plain version: max |diff|
+    within 2e-2 x max |plain| and relative L2 error within 1e-2."""
+    g, w = got.float(), want.float()
+    assert (g - w).abs().max().item() <= 2e-2 * w.abs().max().item()
+    assert (g - w).norm().item() <= 1e-2 * w.norm().item()
+
+
+def _bwd_case(cuda, D, causal, window, T, rep, layout, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v, do = ((torch.randn(2, T, h, D, generator=gen, device=cuda)
+                    * 0.5).bfloat16() for h in (2 * rep, 2, 2, 2 * rep))
+    t = lambda x: x.transpose(1, 2)
+    if layout == 1:
+        q, k, v, do = (t(x).contiguous() for x in (q, k, v, do))
+    tl = (lambda x: x) if layout == 1 else t
+    o = tl(FA.attention_plain(tl(q), tl(k), tl(v), causal=causal,
+                              sm_scale=D ** -0.5, window=window))
+    return q, k, v, o, do
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 64), (False, 2048)])
+@pytest.mark.parametrize("T,rep,layout", [(100, 1, 2), (300, 4, 1),
+                                          (300, 5, 2)])
+def test_flash_backward_kernel_equals_plain_version(cuda, D, causal, window,
+                                                    T, rep, layout):
+    """The backward kernel (``csrc/flash_attention_bwd.cu``) against
+    ``attention_backward_plain`` on the same tensors: dQ, dK, dV within
+    :func:`_assert_bwd_close`'s bounds, one counted launch per call and no
+    forward count; a second run is bit-equal (no atomics)."""
+    q, k, v, o, do = _bwd_case(cuda, D, causal, window, T, rep, layout,
+                               D + T + rep)
+    kw = dict(causal=causal, sm_scale=D ** -0.5, window=window,
+              head_axis=layout)
+    before, n = _counts(), FA.bwd_launch_count
+    got = FA.attention_backward_cuda(q, k, v, o, do, **kw)
+    again = FA.attention_backward_cuda(q, k, v, o, do, **kw)
+    assert _counts() == before and FA.bwd_launch_count == n + 2
+    want = FA.attention_backward_plain(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    for g, w, a in zip(got, want, again):
+        _assert_bwd_close(g, w)
+        assert torch.equal(g, a) and g.dtype == torch.bfloat16
+
+
+def test_flash_autograd_on_cuda_runs_the_backward_kernel(cuda):
+    """Training's route: with inputs requiring grad, the entry point saves
+    its inputs and output and the backward launches the kernel (never the
+    plain version), the forward counted as before."""
+    q, k, v, o, do = _bwd_case(cuda, 64, True, None, 200, 4, 2, 7)
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    before, n = _counts(), FA.bwd_launch_count
+    out = FA.flash_attention_bthd(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert _counts() == _stepped(before, "sm90", 1)
+    assert FA.bwd_launch_count == n + 1
+    want = FA.attention_backward_plain(q.detach(), k.detach(), v.detach(),
+                                       out.detach(), do, causal=True,
+                                       sm_scale=1 / 8, head_axis=2)
+    for g, w in zip(grads, want):
+        _assert_bwd_close(g, w)
+
+
+def test_flash_backward_refuses_d256_and_fp32_on_the_card(cuda):
+    """D 256 (recurrentgemma-2b's local attention) and fp32 have no
+    backward kernel yet (ROADMAP.md queue 2 item 2(c)): training raises,
+    never falls back to the plain backward."""
+    for D, dtype in ((256, torch.bfloat16), (64, torch.float32)):
+        q, k, v = (torch.zeros(1, 64, 2, D, dtype=dtype, device=cuda,
+                               requires_grad=True) for _ in range(3))
+        out = FA.flash_attention_bthd(q, k, v, causal=True)
+        with pytest.raises(NotImplementedError, match="queue 2 item 2"):
+            out.sum().backward()
+
+
+def test_flash_backward_refuses_rows_off_16_bytes(cuda):
+    """The backward kernel stages q, k, v and dO rows by 16-byte
+    ``cp.async``: a tensor whose rows do not start on 16 bytes raises
+    ``ValueError`` (the model's projections and the autograd route's
+    contiguous dO always do)."""
+    q, k, v, o, do = _bwd_case(cuda, 64, True, None, 64, 1, 2, 3)
+    kw = dict(causal=True, sm_scale=1 / 8, head_axis=2)
+    odd = torch.zeros(2, 64, 2, 65, dtype=torch.bfloat16,
+                      device=cuda)[..., 1:]
+    odd.copy_(k)
+    n = FA.bwd_launch_count
+    for args in ((q, odd, v, o, do), (q, k, v, o, odd)):
+        with pytest.raises(ValueError, match="16 bytes"):
+            FA.attention_backward_cuda(*args, **kw)
+    assert FA.bwd_launch_count == n

@@ -30,7 +30,12 @@ qwen3-14b, glm4-9b and recurrentgemma-2b served by the JAX package), and
     PYTHONPATH=src python tests/torch_parity.py --write-lm-families-b-fixture
 
 rewrites ``tests/torch_lm_families_b.npz`` (the reduced MoE, xLSTM,
-vision, audio and int8-cache configurations of ``LM_FAMILIES_B``)."""
+vision, audio and int8-cache configurations of ``LM_FAMILIES_B``), and
+
+    PYTHONPATH=src python tests/torch_parity.py --write-lm-train-fixture
+
+rewrites ``tests/torch_lm_train.npz`` (the loss, gradients and one AdamW
+step of the ten reduced configurations, ``LM_TRAIN_ARCHS``)."""
 from __future__ import annotations
 
 import functools
@@ -39,6 +44,7 @@ import json
 import os
 
 import numpy as np
+import pytest
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = json.load(open(os.path.join(HERE, "trace", "golden_hashes.json")))
@@ -1919,6 +1925,435 @@ def write_example_fixtures():
     print("wrote", EXAMPLES_FIXTURE)
 
 
+# ---------------------------------------------------------------------------
+# Training: the loss, the gradients and one AdamW step of the ten reduced
+# configurations
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_FIXTURE = os.path.join(HERE, "torch_lm_train.npz")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Autouse in the training test modules that import it: torch's CPU
+    ops on one thread for the module, restored after it.  The suite runs
+    several workers on the machine's cores, and torch's default thread
+    pool in each oversubscribes them (a training step ran 20x slower)."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+#: the ten reduced configurations
+LM_TRAIN_ARCHS = ("llama3.2-1b", "qwen3-4b", "qwen3-14b", "glm4-9b",
+                  "recurrentgemma-2b", "phi3.5-moe-42b-a6.6b",
+                  "llama4-maverick-400b-a17b", "qwen2-vl-72b",
+                  "musicgen-medium", "xlstm-350m")
+#: each arch's run: parameters from PRNGKey(seed), the reference's
+#: ``make_batch`` at step 0 (seq_len x global_batch), one
+#: ``make_train_step`` with this AdamWConfig; recurrentgemma's sequence is
+#: longer than its reduced window (64), so the window binds
+LM_TRAIN_RUNS = {name: dict(seed=0, seq_len=32, global_batch=2, lr=1e-3,
+                            warmup_steps=1, total_steps=10)
+                 for name in LM_TRAIN_ARCHS}
+LM_TRAIN_RUNS["recurrentgemma-2b"] = dict(LM_TRAIN_RUNS["llama3.2-1b"],
+                                          seq_len=80)
+#: where each arch's reduced PRNGKey(0) parameters already stand (the
+#: serving fixtures, whose currency tests hold them to the JAX package):
+#: the training fixture does not store them again
+LM_TRAIN_PARAMS = {
+    "llama3.2-1b": ("LM_FAMILIES_B_FIXTURE", "llama3.2-1b+kv_quant"),
+    "qwen3-4b": ("LM_FAMILIES_FIXTURE", "qwen3-4b"),
+    "qwen3-14b": ("LM_FAMILIES_FIXTURE", "qwen3-14b"),
+    "glm4-9b": ("LM_FAMILIES_FIXTURE", "glm4-9b"),
+    "recurrentgemma-2b": ("LM_FAMILIES_FIXTURE", "recurrentgemma-2b"),
+    "phi3.5-moe-42b-a6.6b": ("LM_FAMILIES_B_FIXTURE",
+                             "phi3.5-moe-42b-a6.6b"),
+    "llama4-maverick-400b-a17b": ("LM_FAMILIES_B_FIXTURE",
+                                  "llama4-maverick-400b-a17b"),
+    "qwen2-vl-72b": ("LM_FAMILIES_B_FIXTURE", "qwen2-vl-72b"),
+    "musicgen-medium": ("LM_FAMILIES_B_FIXTURE", "musicgen-medium"),
+    "xlstm-350m": ("LM_FAMILIES_B_FIXTURE", "xlstm-350m"),
+}
+
+
+def _bits(tree: dict, prefix: str) -> dict:
+    """A bf16 tree's leaves as ``uint16`` bits under ``<prefix><path>``."""
+    return {prefix + k: np.asarray(v).view(np.uint16)
+            for k, v in flatten(tree_np(tree)).items()}
+
+
+#: elements of a leaf the training fixture keeps (the first ones, in C
+#: order) of the gradient and the new parameters, and of the moments
+#: (after one step a moment is the clipped gradient scaled, squared for
+#: ``v``): the file stays near 5 MB with llama4-maverick's expert leaves
+LM_TRAIN_CAP = 8192
+LM_TRAIN_MOMENT_CAP = 1024
+
+
+def _leaf_sample(a: np.ndarray, cap: int = LM_TRAIN_CAP) -> np.ndarray:
+    return np.ravel(a)[:cap]
+
+
+def _sampled(tree: dict, prefix: str, base: dict | None = None,
+             cap: int = LM_TRAIN_CAP) -> dict:
+    """A bf16 tree's leaves as ``<prefix><path>``: the first ``cap``
+    elements as ``uint16`` bits (as int16 differences from ``base``'s
+    bits, if given) and ``<prefix>l2.<path>``, the whole leaf's fp32 L2
+    norm."""
+    out = {}
+    for k, v in _bits(tree, "").items():
+        s = _leaf_sample(v, cap)
+        if base is not None:
+            s = (s.astype(np.int32)
+                 - _leaf_sample(base[k], cap)).astype(np.int16)
+        f = v.view(np.int16).astype(np.int32) << 16
+        out[prefix + k] = s
+        out[prefix + "l2." + k] = np.float32(np.linalg.norm(
+            f.view(np.float32).astype(np.float64)))
+    return out
+
+
+def lm_train_arrays(arch: str) -> dict:
+    """One arch's part of ``tests/torch_lm_train.npz`` (keys
+    ``<arch>@<key>``), computed with the JAX package in one ``jax.jit``:
+    the config and run (JSON), the batch (``tokens``, ``labels``,
+    ``positions``, ``vis_embeds`` as fp32 holding bf16 values) and one
+    ``make_train_step``: its ``loss`` and ``aux`` (``logits_and_loss``'s),
+    the gradient of ``loss_fn`` it takes (``grad.<path>``, read by its
+    ``grad_transform`` hook), ``grad_norm``, ``lr``, ``m`` and ``v``
+    (``m.``, ``v.<path>``) and the new parameters (``new.<path>``: int16
+    differences from the old parameters' bits).  Each tree leaf is
+    sampled (:func:`_sampled`): its first ``LM_TRAIN_CAP`` (moments:
+    ``LM_TRAIN_MOMENT_CAP``) elements' bf16 bits and its L2 norm.  The
+    parameters are :func:`lm_train_params`' (the serving fixtures' currency
+    tests hold them to ``init_params(PRNGKey(0))``)."""
+    import dataclasses
+    from repro.configs import get_arch as jax_arch
+    run = LM_TRAIN_RUNS[arch]
+    jc = jax_arch(arch).reduced()
+    # the reduced qwen3-4b and qwen3-14b are the same config but for the
+    # name: one run serves both (cached per process)
+    key = json.dumps([dataclasses.asdict(dataclasses.replace(
+        jc, name="", notes="")), run], sort_keys=True)
+    if key not in _TRAIN_RUNS:
+        _TRAIN_RUNS[key] = _lm_train_run(arch, jc, run)
+    out = dict(_TRAIN_RUNS[key],
+               config=np.asarray(json.dumps(dataclasses.asdict(jc))))
+    return {f"{arch}@{k}": v for k, v in out.items()}
+
+
+_TRAIN_RUNS: dict = {}
+
+
+def _lm_train_run(arch: str, jc, run: dict) -> dict:
+    import jax
+    import jax.numpy as jnp
+    from repro.data import DataConfig, make_batch
+    from repro.optim import AdamWConfig
+    from repro.train.step import make_train_step, train_init
+    oc = AdamWConfig(lr=run["lr"], warmup_steps=run["warmup_steps"],
+                     total_steps=run["total_steps"])
+
+    from repro_torch.convert import nest
+    jp = jax.tree.map(lambda a: jnp.asarray(a.view(jnp.bfloat16)),
+                      nest(lm_train_params(arch)))
+
+    def batch_grads_and_step(params):
+        # one program (a compile, not hundreds of eager dispatches): the
+        # batch and the step, its gradient taken by its own grad_transform
+        # hook
+        batch = make_batch(jc, DataConfig(seq_len=run["seq_len"],
+                                          global_batch=run["global_batch"]),
+                           0)
+        seen = []
+        step = make_train_step(jc, oc, grad_transform=lambda g: seen.append(
+            g) or g)
+        st, m = step(train_init(jc, params, oc), batch)
+        return batch, seen[0], st, m
+
+    jb, g, st, m = jax.jit(batch_grads_and_step)(jp)
+    loss, aux = m["loss"], m["aux_loss"]
+    old = _bits(jp, "")
+    out = {**_sampled(g, "grad."), **_sampled(st.params, "new.", old),
+           **_sampled(st.opt.m, "m.", cap=LM_TRAIN_MOMENT_CAP),
+           **_sampled(st.opt.v, "v.", cap=LM_TRAIN_MOMENT_CAP)}
+    out.update(run=np.asarray(json.dumps(run)),
+               tokens=np.asarray(jb.tokens), labels=np.asarray(jb.labels),
+               positions=np.asarray(jb.positions),
+               loss=np.float32(loss), aux=np.float32(aux),
+               grad_norm=np.float32(m["grad_norm"]),
+               lr=np.float32(m["lr"]))
+    if jb.vis_embeds is not None:
+        out["vis_embeds"] = np.asarray(jb.vis_embeds, np.float32)
+    return out
+
+
+def lm_train_params(arch: str) -> dict:
+    """``{path: uint16 bits}`` of an arch's parameters from the serving
+    fixture :data:`LM_TRAIN_PARAMS` names."""
+    name, entry = LM_TRAIN_PARAMS[arch]
+    z = np.load(globals()[name])
+    pre = f"{entry}@param."
+    return {k[len(pre):]: z[k] for k in z.files if k.startswith(pre)}
+
+
+def load_lm_train(z, arch: str, device):
+    """``(port cfg, port params on device, port Batch on device, {key:
+    array})`` of one arch from the training fixture ``z`` (an
+    ``np.load`` of it), its parameters from :func:`lm_train_params`: what
+    the CPU tests and ``chip_smoke.py`` phase 21 train."""
+    from repro_torch import convert
+    from repro_torch.configs import ModelConfig, MoEConfig
+    pre = f"{arch}@"
+    arrs = {k[len(pre):]: z[k] for k in z.files if k.startswith(pre)}
+    fields = json.loads(str(arrs["config"]))
+    fields["block_pattern"] = tuple(fields["block_pattern"])
+    if fields["moe"] is not None:
+        fields["moe"] = MoEConfig(**fields["moe"])
+    cfg = ModelConfig(**fields)
+    params = convert.lm_params(convert.nest(lm_train_params(arch)), cfg,
+                               device)
+    batch = convert.batch({k: arrs.get(k) for k in (
+        "tokens", "positions", "labels", "vis_embeds")}, device)
+    return cfg, params, batch, arrs
+
+
+#: the port's step against the fixture (``test_torch_lm_train.py`` gives
+#: the reasons): loss and aux atol, then per arch the gradient's relative
+#: L2 error per leaf (the moments' the same, ``v``'s twice it),
+#: ``grad_norm``'s relative error and the share of new parameters more
+#: than one bf16 ulp from the reference's
+LM_TRAIN_LOSS_ATOL = 1e-2
+#: arch -> (gradient leaf rel L2, grad_norm rel, share of new parameters
+#: more than one ulp apart, aux atol); None: measured, not held
+LM_TRAIN_TOL = {arch: (5e-2, 2e-2, 0.01, 1e-3) for arch in LM_TRAIN_ARCHS}
+#: the reduced recurrentgemma's bf16 gradient is set by where bf16
+#: rounds: the port's own gradient norm moves by 85% and a leaf by up to
+#: 3.2x its norm when its fused rounding is replaced by op-by-op rounding
+#: (``LM_TRAIN_ROUNDING_SHIFT``), so no bound on it would separate a
+#: wrong gradient from a rounding: its bf16 step holds only the loss, aux,
+#: lr and the step count, and ``test_fp32_gradients_equal_jax`` holds its
+#: gradient to the JAX package's within 5e-3 in fp32 on the same 80
+#: positions (its window of 64 binds)
+LM_TRAIN_TOL["recurrentgemma-2b"] = (None, None, None, 1e-3)
+#: two CPU measurements per arch (torch on one thread, as the tests run
+#: it) that bound how far the card's step may lie from the fixture
+#: (``test_torch_lm_train.py`` measures both again):
+#: the errors of a step whose forward attention rounds P to bf16 before
+#: P V as both forward kernels do (:func:`attention_kernel_rounding`;
+#: its numbers match the card's to 2-3 digits where the card ran them):
+#: (worst gradient leaf, grad_norm, share of new parameters > 1 ulp, aux)
+LM_TRAIN_KERNEL_ROUNDING = {
+    "llama3.2-1b": (0.01868, 7e-05, 0.00172, 0.0),
+    "qwen3-4b": (0.01692, 0.00092, 0.00132, 0.0),
+    "qwen3-14b": (0.01692, 0.00092, 0.00132, 0.0),
+    "glm4-9b": (0.03269, 0.0028, 0.00239, 0.0),
+    "recurrentgemma-2b": (0.49308, 0.03138, 0.02581, 0.0),
+    "phi3.5-moe-42b-a6.6b": (0.31491, 0.23892, 0.00794, 0.00193),
+    "llama4-maverick-400b-a17b": (0.0888, 0.00021, 0.00289, 0.00036),
+    "qwen2-vl-72b": (0.15892, 0.00501, 0.00787, 0.0),
+    "musicgen-medium": (0.15368, 0.01695, 0.00373, 0.0),
+    "xlstm-350m": (0.03296, 0.00581, 0.00099, 0.0),
+}
+#: and :func:`rounding_shift`'s (worst leaf, grad_norm): how far moving
+#: where bf16 rounds moves the port's own gradient (the card's GEMMs,
+#: exps and sums round otherwise than the CPU's)
+LM_TRAIN_ROUNDING_SHIFT = {
+    "llama3.2-1b": (0.1555, 0.0034),
+    "qwen3-4b": (0.0173, 0.0004),
+    "qwen3-14b": (0.0173, 0.0004),
+    "glm4-9b": (0.087, 0.0144),
+    "recurrentgemma-2b": (3.2168, 0.8487),
+    "phi3.5-moe-42b-a6.6b": (0.2605, 0.1129),
+    "llama4-maverick-400b-a17b": (0.1915, 0.0007),
+    "qwen2-vl-72b": (0.1149, 0.0033),
+    "musicgen-medium": (0.1631, 0.017),
+    "xlstm-350m": (0.4451, 0.0796),
+}
+
+
+def _card_tol(arch: str) -> tuple:
+    g, n, f, a = LM_TRAIN_TOL[arch]
+    eg, en, ef, ea = LM_TRAIN_KERNEL_ROUNDING[arch]
+    sg, sn = LM_TRAIN_ROUNDING_SHIFT[arch]
+    wider = lambda cpu, *more: None if cpu is None else max(cpu, *more)
+    return (wider(g, 1.5 * eg, 1.25 * sg), wider(n, 1.5 * en, 1.25 * sn),
+            wider(f, 1.5 * ef), wider(a, 1.5 * ea))
+
+
+#: the card's step against the fixture (``chip_smoke.py`` phase 21): the
+#: CPU tolerance, or 1.5x the kernel-rounding error, or 1.25x the
+#: rounding shift, whichever is largest (None where the CPU's is)
+LM_TRAIN_CARD_TOL = {arch: _card_tol(arch) for arch in LM_TRAIN_ARCHS}
+
+
+#: a reduced config's card step with the backward kernel against the same
+#: card step with ``attention_backward_plain`` in the kernel's place (the
+#: same forward kernels, GEMMs and batch; ``chip_smoke.py`` phase 21):
+#: loss atol, the worst gradient leaf's relative L2 error, grad_norm
+#: relative.  ``tools/bwd_step_sensitivity.py`` measures, on the CPU, how
+#: far a backward off by a bf16 rounding or by a few percent moves these
+BWD_STEP_TOL = dict(loss=1e-5, grad=5e-2, grad_norm=1e-2)
+
+
+def step_vs_plain_backward(res, plain) -> dict:
+    """One :func:`lm_train_step` (``res``) against another (``plain``)
+    of the same arch and batch: loss |diff|, the worst gradient leaf's
+    relative L2 error and grad_norm's relative error."""
+    g, gp = res[5], plain[5]
+    rel = lambda a, b: ((a.float() - b.float()).norm()
+                        / b.float().norm().clamp_min(1e-30)).item()
+    return dict(loss=abs(float(res[4]["loss"]) - float(plain[4]["loss"])),
+                grad=max(rel(g[k], gp[k]) for k in gp),
+                grad_norm=abs(float(res[4]["grad_norm"])
+                              / float(plain[4]["grad_norm"]) - 1))
+
+
+def attention_kernel_rounding(q, k, v, *, causal: bool, sm_scale: float,
+                              window=None):
+    """``flash_attention.attention_plain`` with the forward kernels'
+    rounding: P = exp(S - max) rounded to bf16 before the product with V,
+    the row sum of the unrounded P dividing after (the CPU's stand-in for
+    the card's step; ``(B, H, T, D)`` layout)."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, Hkv, Hq // Hkv, Tq, D)
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qf, k.float()) * sm_scale
+    vis = FA._visible(Tq, Tk, causal, window, q.device)
+    if vis is not None:
+        s = s.masked_fill(~vis, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bgrqk,bgkd->bgrqd", p.bfloat16().float(),
+                     v.float()) / p.sum(-1, keepdim=True)
+    return o.reshape(B, Hq, Tq, D).to(q.dtype)
+
+
+def _f32(bits: np.ndarray) -> np.ndarray:
+    """bf16 bits (uint16) as fp32 values."""
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def _rel(got, want) -> float:
+    return float(np.linalg.norm(got - want)
+                 / max(np.linalg.norm(want), 1e-30))
+
+
+def lm_train_step(z, arch: str, device):
+    """One port ``make_train_step`` of ``arch`` from the training fixture
+    ``z`` on ``device``, its gradients captured by the ``grad_transform``
+    hook: ``(cfg, AdamWConfig, old params, new state, metrics, grads,
+    fixture arrays)``."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step, train_init
+    cfg, params, batch, arrs = load_lm_train(z, arch, device)
+    run = json.loads(str(arrs["run"]))
+    oc = AdamWConfig(lr=run["lr"], warmup_steps=run["warmup_steps"],
+                     total_steps=run["total_steps"])
+    state = train_init(cfg, params, oc)
+    grads = {}
+    step = make_train_step(cfg, oc,
+                           grad_transform=lambda g: grads.update(g) or g)
+    new, metrics = step(state, batch)
+    return cfg, oc, params, new, metrics, grads, arrs
+
+
+def rounding_shift(z, arch: str) -> tuple:
+    """How far a change of where bf16 rounds moves ``arch``'s gradient on
+    the fixture's batch (CPU): the port's step with every layer rounding
+    op by op (no fp32 residual handed on) against its own step as it
+    runs, as ``(worst leaf relative L2, grad_norm relative)``."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.models import model as M
+    from repro_torch.train import loss_fn
+    cfg, params, batch, _ = load_lm_train(z, arch, "cpu")
+    leaves = dict(params.requires_grad_(True).named_parameters())
+
+    def grads():
+        tot, _ = loss_fn(cfg, params, batch)
+        g = torch.autograd.grad(tot, list(leaves.values()))
+        return flatten(convert.named_to_numpy(dict(zip(leaves, g)), cfg))
+
+    base = grads()
+    group_step = M._group_step
+    M._group_step = lambda cfg, i, resid: (False, None)
+    try:
+        op_by_op = grads()
+    finally:
+        M._group_step = group_step
+    norm = lambda t: float(np.sqrt(sum(np.sum(np.square(x))
+                                       for x in t.values())))
+    return (max(_rel(op_by_op[k], base[k]) for k in base),
+            abs(norm(op_by_op) / norm(base) - 1))
+
+
+def check_lm_train(arch: str, cfg, oc, params, new, m, grads, arrs,
+                   tol=None) -> dict:
+    """Hold one port step (:func:`lm_train_step`) to the fixture at
+    ``tol`` (default :data:`LM_TRAIN_TOL`'s; a None bound is not held);
+    raises AssertionError on a
+    miss, else returns the errors: ``loss``, ``aux``, ``grad_norm``
+    (relative), the worst leaf's ``grad``, ``m`` and ``v`` relative L2
+    error and ``far``, the share of sampled new parameters more than one
+    ulp apart."""
+    from repro_torch import convert
+    grad_rel, norm_rel, far_share, aux_atol = tol or LM_TRAIN_TOL[arch]
+    out = dict(loss=abs(float(m["loss"]) - float(arrs["loss"])),
+               aux=abs(float(m["aux_loss"]) - float(arrs["aux"])),
+               grad_norm=abs(float(m["grad_norm"]) / float(arrs["grad_norm"])
+                             - 1),
+               lr=abs(float(m["lr"]) / float(arrs["lr"]) - 1))
+    held = lambda err, bound: bound is None or err <= bound
+    missed = [k for k, bound in (("loss", LM_TRAIN_LOSS_ATOL),
+                                 ("aux", aux_atol), ("grad_norm", norm_rel),
+                                 ("lr", 1e-6))
+              if not held(out[k], bound)]
+    trees = {"grad": (convert.named_to_numpy(grads, cfg), LM_TRAIN_CAP),
+             "m": (convert.named_to_numpy(new.opt.m, cfg),
+                   LM_TRAIN_MOMENT_CAP),
+             "v": (convert.named_to_numpy(new.opt.v, cfg),
+                   LM_TRAIN_MOMENT_CAP)}
+    for pre, (tree, cap) in trees.items():
+        out[pre] = max(
+            max(_rel(np.ravel(got)[:cap], _f32(arrs[f"{pre}.{k}"])),
+                abs(float(np.linalg.norm(got))
+                    / max(float(arrs[f"{pre}.l2.{k}"]), 1e-30) - 1))
+            for k, got in flatten(tree).items())
+        if not held(out[pre], grad_rel and grad_rel * (2 if pre == "v"
+                                                       else 1)):
+            missed.append(pre)
+    old = flatten(convert.lm_params_to_numpy(params, cfg))
+    got = flatten(convert.lm_params_to_numpy(new.params, cfg))
+    far = total = 0
+    for k, o in old.items():
+        o = np.ravel(o)[:LM_TRAIN_CAP]
+        want = _f32((o.astype(np.int32) + arrs["new." + k].astype(np.int32))
+                    & 0xFFFF)
+        g = _f32(np.ravel(got[k])[:LM_TRAIN_CAP])
+        # one bf16 ulp of the larger (each side rounds its new value once)
+        ulp = np.maximum(np.abs(want), np.abs(g)) * 2.0 ** -7 + 1e-30
+        bound = 2 * oc.lr * (1 + oc.weight_decay * np.abs(_f32(o))) + ulp
+        if not np.all(np.abs(g - want) <= bound):
+            missed.append(f"new.{k}")
+        far += int(np.sum(np.abs(g - want) > ulp))
+        total += g.size
+    out["far"] = far / total
+    if not held(out["far"], far_share) or int(new.opt.step) != 1:
+        missed.append("far")
+    assert not missed, (arch, "missed", missed, out)
+    return out
+
+
+def write_lm_train_fixture():
+    out = {}
+    for arch in LM_TRAIN_ARCHS:
+        out.update(lm_train_arrays(arch))
+    np.savez_compressed(LM_TRAIN_FIXTURE, **out)
+
+
 if __name__ == "__main__":
     import sys
     if sys.argv[1:] == ["--write-serve-fixture"]:
@@ -1934,3 +2369,6 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--write-lm-families-b-fixture"]:
         write_lm_families_b_fixture()
         print("wrote", LM_FAMILIES_B_FIXTURE)
+    elif sys.argv[1:] == ["--write-lm-train-fixture"]:
+        write_lm_train_fixture()
+        print("wrote", LM_TRAIN_FIXTURE)
