@@ -247,29 +247,39 @@ Phases, each fatal on any mismatch or exception:
     dropped (token, choice) pairs per layer printed, the int8 cache under
     0.6 of the bf16 cache's bytes and its decode logits' distance from a
     bf16-cache run printed.
-21. training: the flash backward kernel (``flash_attention_bwd.cu``)
-    against ``attention_backward_plain`` on the same CUDA tensors (bf16 D
-    16/32/64/128, causal and full, no window, window 64 and 2048, T 100
-    and 300, GQA rep 1, 4 and 5, both layouts; each of dQ, dK, dV within
-    2e-2 x max |plain| in max |diff| and 1e-2 in relative L2; every call
-    counted in ``bwd_launch_count``; two runs of each case bit-equal; D
-    256 and fp32 refused), timed at llama3.2-1b's training shape (4,
-    1024, 32, 8, 64) causal against the plain backward, SDPA's backward
-    and the 5-product bound; one training step of each reduced config of
-    ``tests/torch_lm_train.npz`` on the card, held to the same step with
-    the plain backward in the kernel's place (loss 1e-5, each gradient
-    leaf 5e-2 in relative L2, grad_norm 1%) and to the JAX package's loss,
-    gradient and step at the card's tolerances, flash launches as remat
-    makes them (forward twice per grouped attention layer, backward
-    once); llama3.2-1b at full width
-    (batch 4 x 1024, 3 AdamW steps, remat): 32 sm90 and 16 backward
-    launches per step, step 1 against a plain-attention step 1 (loss
-    within 2e-2, grad_norm 2%, every leaf's gradient cosine >= 0.99),
-    step ms, tokens/s, peak memory and losses printed; and
-    ``examples/torch/train_small_lm.py`` at its defaults (its loss
-    improves), resumed from its step-200 checkpoint with the resumed
+21. training: (a) both flash backward kernels (``flash_attention_bwd_sm90.cu``
+    for bf16 at D 64/128/256, ``flash_attention_bwd.cu`` for bf16 at D
+    16/32 and fp32 at D 16-128) against ``attention_backward_plain`` on the
+    same CUDA tensors and lse (bf16 D 16-128: causal and full, no window,
+    window 64 and 2048, T 100 and 300, GQA rep 1, 4 and 5, both layouts;
+    bf16 D 256 with MQA, rep 5 and 10, T up to 2200; fp32 on a subset;
+    each of dQ, dK, dV within ``BWD_TOL`` of its dtype; every call counted
+    once on its route's counter; two runs of each case bit-equal; the
+    forward kernels' lse within 1e-3 of the plain one; fp32 at D 256, Tq
+    != Tk and misaligned rows refused with ValueError); (b) timed at
+    llama3.2-1b's training shape (4, 1024, 32, 8, 64) causal and
+    recurrentgemma-2b's (1, 4096, 10, 1, 256) with window 2048 (bf16,
+    sm90) and at llama's in fp32 (cuda_core), against the plain backward,
+    SDPA's backward and the 5-product bound; (c) one training step of each
+    reduced config of ``tests/torch_lm_train.npz`` on the card, held to
+    the same step with the plain backward in the kernel's place (loss
+    1e-5, each gradient leaf 5e-2 in relative L2, grad_norm 1%) and to the
+    JAX package's loss, gradient and step at the card's tolerances, flash
+    launches as remat makes them (forward twice per grouped attention
+    layer, backward once); the reduced llama3.2-1b's and
+    recurrentgemma-2b's fp32 gradients on the fp32 kernels, held to the
+    JAX package's fp32 gradient in the fixture; (d) llama3.2-1b at full
+    width (batch 4 x 1024, 3 AdamW steps, remat): 32 sm90 forward and 16
+    sm90 backward launches per step, step 1 against a plain-attention step
+    1 (loss within 2e-2, grad_norm 2%, every leaf's gradient cosine >=
+    0.99), step ms, tokens/s, peak memory and losses printed; (e)
+    ``examples/torch/train_small_lm.py`` for 120 steps (its loss
+    improves), resumed from its step-100 checkpoint with the resumed
     losses equal to the uninterrupted run's bit for bit (output in
-    ``build/examples/train_small_lm.log``).
+    ``build/examples/train_small_lm.log``);
+    (f) recurrentgemma-2b at full width as (d) (batch 1 x 4096, its
+    window of 2048 binding): 16 D-256 forward and 8 sm90 backward launches
+    per step.
 
 The line before the last is a JSON object with one entry per kernel (its
 times, bound and launches; the fused controller step's launches are those
@@ -280,8 +290,10 @@ VRR example's, its times those of 64 exploration lanes; the CUDA-core
 flash kernel's those of phase 8, of ``serve_lm`` and of phases 19 and
 20's fixtures; the sm90 kernel's those of phases 9, 19 and 20 at D
 64/128; its D-256 entry phase 19's, its times those of
-recurrentgemma-2b's prefill; the backward kernel's those of phase 21's
-training runs, its times those at llama3.2-1b's training shape;
+recurrentgemma-2b's prefill; the sm90 backward kernel's those of phase
+21's full-width and ``train_small_lm`` runs, its times those at
+llama3.2-1b's training shape; the CUDA-core backward kernel's those of
+phase 21's fixture steps, its times those in fp32 at llama's shape;
 the general (max,+) product, off every path, reports the main path's 0
 launches and its 2048^3 int32 times); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
@@ -3064,40 +3076,69 @@ def new_families_phase(device) -> dict:
 # Phase 21: training
 # ---------------------------------------------------------------------------
 
-#: llama3.2-1b's training shape in phase 21 (B, T, Hq, Hkv, D), causal:
-#: the backward kernel's timed shape
+#: llama3.2-1b's training shape in phase 21 (B, T, Hq, Hkv, D), causal,
+#: and recurrentgemma-2b's with its window: the backward kernels' timed
+#: shapes
 TRAIN_SHAPE = (4, 1024, 32, 8, 64)
-#: phase 21's full-width run: llama3.2-1b on seed-0 weights, batch x seq,
-#: this many make_train_step steps with the default AdamWConfig
+RG_TRAIN_SHAPE = (1, 4096, 10, 1, 256)
+#: phase 21's full-width runs: llama3.2-1b and recurrentgemma-2b on seed-0
+#: weights, batch x seq, this many make_train_step steps with the default
+#: AdamWConfig
 TRAIN = dict(arch="llama3.2-1b", params=1_235_814_400, batch=4, seq=1024,
              steps=3, seed=0)
+RG_TRAIN = dict(arch="recurrentgemma-2b", params=2_894_435_840, batch=1,
+                seq=4096, steps=3, seed=0)
 #: step 1 with the kernels against step 1 with plain attention (forward
 #: and autograd backward): loss atol, grad_norm relative, each leaf's
 #: gradient cosine at least
 TRAIN_TOL = dict(loss=2e-2, grad_norm=2e-2, cosine=0.99)
-#: the example's resume check: the run's checkpoint at this step is
-#: restored and the steps after it are run again
-EXAMPLE_RESUME_STEP = 200
-#: the backward kernel against ``attention_backward_plain`` on the same
-#: tensors, each of dQ, dK and dV: max |diff| within 2e-2 x max |plain|
-#: and the relative L2 error within 1e-2 (one bf16 rounding of each side
-#: is about 2e-3 in relative L2; a dQ off by half is 0.5)
-BWD_TOL = dict(max_rel=2e-2, l2=1e-2)
+#: ``train_small_lm``'s run in phase 21 (e), cut from its default 300
+#: steps to hold the smoke's time (its host-bound steps are most of the
+#: phase): this many steps, then the run's checkpoint at the resume step
+#: (the example writes one every 100) restored and the steps after it run
+#: again
+EXAMPLE_STEPS = 120
+EXAMPLE_RESUME_STEP = 100
+#: a backward kernel against ``attention_backward_plain`` on the same
+#: tensors, each of dQ, dK and dV: max |diff| within ``max_rel`` x max
+#: |plain| and the relative L2 error within ``l2``.  bf16: one bf16
+#: rounding of each side is about 2e-3 in relative L2, a dQ off by half
+#: 0.5.  fp32 (the CUDA cores' fp32 FMAs, no rounding to a narrower type):
+#: the same products summed in another order, ~1e-6
+BWD_TOL = {"bfloat16": dict(max_rel=2e-2, l2=1e-2),
+           "float32": dict(max_rel=1e-4, l2=1e-4)}
+#: the forward kernels' lse against ``attention_plain``'s (log2 units):
+#: the same fp32 sums in another order and ``ex2.approx``
+LSE_TOL = 1e-3
+#: the backward launch counts: the CUDA-core kernel's, the sm90 kernel's
+BWD_ROUTES = ("cuda_core", "sm90")
 
 
-def bwd_call(FA, q, k, v, o, do, causal: bool, head_axis: int,
+def bwd_counts(FA) -> tuple:
+    """The backward kernels' launch counts, in ``BWD_ROUTES`` order."""
+    return (FA.bwd_launch_count, FA.bwd_sm90_launch_count)
+
+
+def reset_bwd_counts(FA):
+    FA.bwd_launch_count = FA.bwd_sm90_launch_count = 0
+
+
+def bwd_call(FA, q, k, v, o, do, lse, causal: bool, head_axis: int,
              window=None):
-    """One backward kernel call on the card, counted once in
-    ``bwd_launch_count`` and nowhere else."""
+    """One backward kernel call on the card, counted once on the counter
+    of the route :func:`route` gives and nowhere else."""
     import torch
-    before = (*flash_counts(FA), FA.bwd_launch_count)
-    got = FA.attention_backward_cuda(q, k, v, o, do, causal=causal,
+    kind = FA.route(q.dtype, q.shape[-1])
+    before = (*flash_counts(FA), *bwd_counts(FA))
+    got = FA.attention_backward_cuda(q, k, v, o, do, lse, causal=causal,
                                      sm_scale=q.shape[-1] ** -0.5,
                                      head_axis=head_axis, window=window)
     torch.cuda.synchronize()
-    after = (*flash_counts(FA), FA.bwd_launch_count)
-    if tuple(b - a for a, b in zip(before, after)) != (0, 0, 0, 1):
-        fail(f"flash backward call counted launches {before} -> {after}")
+    after = (*flash_counts(FA), *bwd_counts(FA))
+    want = (0, 0, 0, *(int(r == kind) for r in BWD_ROUTES))
+    if tuple(b - a for a, b in zip(before, after)) != want:
+        fail(f"flash backward {kind} call counted launches {before} -> "
+             f"{after}")
     return got
 
 
@@ -3110,135 +3151,223 @@ def bwd_errors(got, want) -> tuple:
             (g - w).norm().item() / max(w.norm().item(), 1e-30))
 
 
-def bwd_within(errs: tuple) -> bool:
-    return errs[1] <= BWD_TOL["max_rel"] and errs[2] <= BWD_TOL["l2"]
+def bwd_within(errs: tuple, dtype: str = "bfloat16") -> bool:
+    tol = BWD_TOL[dtype]
+    return errs[1] <= tol["max_rel"] and errs[2] <= tol["l2"]
 
 
-def train_kernel_phase(device) -> float:
-    """Phase 21 (a): the backward kernel vs ``attention_backward_plain``
-    on the same CUDA tensors (bf16 D 16-128, causal and full, no window,
-    window 64 and 2048, T 100 and 300, GQA rep 1, 4 and 5, both layouts):
-    dQ, dK, dV within ``BWD_TOL``, each call counted; two runs of a case
-    bit-equal; D 256 and fp32 refused.  Returns the largest max |diff|."""
+def bwd_cases() -> list:
+    """Phase 21 (a)'s cases ``(dtype, D, causal, window, T, rep, Hkv,
+    layout)``: bf16 at D 16-128 (Hkv 2) over every combination of causal,
+    window, T and rep; bf16 at D 256 with MQA (rep 5 and 10 on one kv head,
+    window 64 and 2048, T past the window); fp32 at D 16-128 on a subset
+    of T, rep and layout."""
     import itertools
+    cases = [("bfloat16", D, c, w, T, rep, 2, lay)
+             for D, c, w, T, rep, lay in itertools.product(
+                 (16, 32, 64, 128), (True, False), (None, 64, 2048),
+                 (100, 300), (1, 4, 5), (1, 2))]
+    cases += [("bfloat16", 256, c, w, T, rep, 1, lay)
+              for c, w, (T, rep, lay) in itertools.product(
+                  (True, False), (None, 64, 2048),
+                  ((100, 5, 2), (300, 10, 1), (300, 5, 1), (2200, 10, 2)))]
+    cases += [("float32", D, c, w, T, rep, 2, lay)
+              for D, c, w, (T, rep, lay) in itertools.product(
+                  (16, 32, 64, 128), (True, False), (None, 64),
+                  ((100, 1, 2), (300, 4, 1), (300, 5, 2)))]
+    return cases
+
+
+def train_kernel_phase(device) -> dict:
+    """Phase 21 (a): both backward kernels against
+    ``attention_backward_plain`` on the same CUDA tensors (``bwd_cases``:
+    the forward's o and lse from ``attention_plain``): dQ, dK, dV within
+    ``BWD_TOL`` of their dtype, each call counted once on its route's
+    counter; two runs of a case bit-equal; the forward kernel's lse of
+    each case within ``LSE_TOL`` of the plain one; and what is still
+    refused raises ``ValueError``: fp32 at D 256, Tq != Tk, rows off 16
+    bytes on the CUDA-core route, a base off 16 bytes on the sm90 route.
+    Returns the largest max |diff| by route."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=device).manual_seed(21)
     t = lambda x: x.transpose(1, 2)
-    worst, cases = {}, 0       # D -> per-tensor worst of bwd_errors
-    for D, causal, window, T, rep, layout in itertools.product(
-            (16, 32, 64, 128), (True, False), (None, 64, 2048), (100, 300),
-            (1, 4, 5), (1, 2)):
+    worst, lse_worst, n = {}, 0.0, {}
+    for dt, D, causal, window, T, rep, Hkv, layout in bwd_cases():
+        dtype = getattr(torch, dt)
         q, k, v, do = ((torch.randn(2, T, h, D, generator=gen,
-                                    device=device) * 0.5).bfloat16()
-                       for h in (2 * rep, 2, 2, 2 * rep))
+                                    device=device) * 0.5).to(dtype)
+                       for h in (Hkv * rep, Hkv, Hkv, Hkv * rep))
         if layout == 1:
             q, k, v, do = (t(x).contiguous() for x in (q, k, v, do))
         tl = (lambda x: x) if layout == 1 else t
-        o = tl(FA.attention_plain(tl(q), tl(k), tl(v), causal=causal,
-                                  sm_scale=D ** -0.5, window=window))
-        want = FA.attention_backward_plain(q, k, v, o, do, causal=causal,
-                                           sm_scale=D ** -0.5,
+        o, lse = FA.attention_plain(tl(q), tl(k), tl(v), causal=causal,
+                                    sm_scale=D ** -0.5, window=window,
+                                    return_lse=True)
+        o = tl(o)
+        _, lse_k = FA.attention_cuda(q, k, v, causal=causal,
+                                     sm_scale=D ** -0.5, head_axis=layout,
+                                     window=window, return_lse=True)
+        lse_d = (lse_k - lse).abs().max().item()
+        if not lse_d <= LSE_TOL:
+            fail(f"flash forward lse != plain ({dt}, D {D}, causal {causal}, "
+                 f"window {window}, T {T}, rep {rep}): max |diff| {lse_d}")
+        lse_worst = max(lse_worst, lse_d)
+        want = FA.attention_backward_plain(q, k, v, o, do, lse,
+                                           causal=causal, sm_scale=D ** -0.5,
                                            window=window, head_axis=layout)
-        got = bwd_call(FA, q, k, v, o, do, causal, layout, window)
-        again = bwd_call(FA, q, k, v, o, do, causal, layout, window)
+        got = bwd_call(FA, q, k, v, o, do, lse, causal, layout, window)
+        again = bwd_call(FA, q, k, v, o, do, lse, causal, layout, window)
+        kind = FA.route(dtype, D)
         for name, g, w, a in zip(("dq", "dk", "dv"), got, want, again):
             errs = bwd_errors(g, w)
-            if not bwd_within(errs) or g.dtype != q.dtype:
-                fail(f"flash backward kernel != plain version ({name}, D "
-                     f"{D}, causal {causal}, window {window}, T {T}, rep "
-                     f"{rep}, layout {layout}): max |diff| {errs[0]}, over "
-                     f"max |plain| {errs[1]}, relative L2 {errs[2]}; "
-                     f"tolerance {BWD_TOL}")
+            if not bwd_within(errs, dt) or g.dtype != dtype:
+                fail(f"flash backward {kind} kernel != plain version "
+                     f"({name}, {dt}, D {D}, causal {causal}, window "
+                     f"{window}, T {T}, rep {rep}, Hkv {Hkv}, layout "
+                     f"{layout}): max |diff| {errs[0]}, over max |plain| "
+                     f"{errs[1]}, relative L2 {errs[2]}; tolerance "
+                     f"{BWD_TOL[dt]}")
             if not torch.equal(g, a):
-                fail(f"flash backward kernel: two runs differ ({name}, D "
-                     f"{D}, causal {causal}, window {window}, T {T})")
-            worst[D] = tuple(map(max, worst.get(D, (0.0,) * 3), errs))
-        cases += 1
-    for D, dtype in ((256, torch.bfloat16), (64, torch.float32)):
-        x = torch.zeros(1, 64, 2, D, dtype=dtype, device=device)
+                fail(f"flash backward {kind} kernel: two runs differ "
+                     f"({name}, {dt}, D {D}, causal {causal}, window "
+                     f"{window}, T {T})")
+            key = (dt, D)
+            worst[key] = tuple(map(max, worst.get(key, (0.0,) * 3), errs))
+        n[kind] = n.get(kind, 0) + 1
+    refused = []
+    z = lambda *shape, dtype=torch.bfloat16: torch.zeros(
+        *shape, dtype=dtype, device=device)
+    lse0 = z(1, 2, 64, dtype=torch.float32)
+    x32 = z(1, 64, 2, 256, dtype=torch.float32)
+    xb, yb = z(1, 64, 2, 64), z(1, 65, 2, 64)
+    odd32 = z(1, 64, 2, 33)[..., 1:]
+    odd64 = z(1, 64, 2, 65)[..., 1:]
+    for what, args in (("fp32 at D 256", (x32,) * 5),
+                       ("Tq != Tk", (xb, yb, yb, xb, xb)),
+                       ("cuda_core rows off 16 bytes",
+                        (z(1, 64, 2, 32), odd32) + (z(1, 64, 2, 32),) * 3),
+                       ("sm90 base off 16 bytes", (xb, odd64, xb, xb, xb))):
+        before = bwd_counts(FA)
         try:
-            FA.attention_backward_cuda(x, x, x, x, x, causal=True,
+            FA.attention_backward_cuda(*args, lse0, causal=True,
                                        sm_scale=0.1, head_axis=2)
-        except NotImplementedError:
+        except ValueError:
+            if bwd_counts(FA) != before:
+                fail(f"flash backward: a refused call ({what}) counted")
+            refused.append(what)
             continue
-        fail(f"flash backward on the card took {dtype} at D {D}")
-    print(f"flash backward kernel vs plain version, {cases} cases (each run "
-          "twice, bit-equal), each call counted; worst of dQ, dK, dV by "
-          "head dim (max |diff|, over max |plain|, relative L2): "
-          + ", ".join(f"D {D} ({e[0]:.3e}, {e[1]:.3e}, {e[2]:.3e})"
-                      for D, e in sorted(worst.items()))
-          + f" (tolerance {BWD_TOL}); D 256 and fp32 refused")
-    return max(e[0] for e in worst.values())
+        fail(f"flash backward on the card took {what}")
+    show = lambda e: f"({e[0]:.3e}, {e[1]:.3e}, {e[2]:.3e})"
+    print(f"flash backward kernels vs plain version: {n.get('sm90', 0)} "
+          f"sm90 and {n.get('cuda_core', 0)} cuda_core cases (each run "
+          "twice, bit-equal), each call counted once on its route; worst of "
+          "dQ, dK, dV (max |diff|, over max |plain|, relative L2): "
+          + ", ".join(f"{dt} D {D} {show(e)}"
+                      for (dt, D), e in sorted(worst.items()))
+          + f" (tolerances {BWD_TOL}); forward lse vs plain max |diff| "
+          f"{lse_worst:.3e} (bound {LSE_TOL}); refused with ValueError: "
+          + ", ".join(refused))
+    return {kind: max(e[0] for (dt, D), e in worst.items()
+                      if FA.route(getattr(torch, dt), D) == kind)
+            for kind in BWD_ROUTES}
 
 
-def train_kernel_timing(device) -> dict:
-    """Phase 21 (b): the backward kernel at ``TRAIN_SHAPE``, causal in the
-    model's layout: back to back (CUDA events) and device only
-    (``queued_ms``), against the plain backward and the backward of
-    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on
-    the same tensors (the library call, never on a path; its backward
-    kernels' device time by ``queued_ms``), and the bound: 5 products
-    (``2 D`` operations per visible (q, k) pair each) of every (batch, q
-    head) at 989 TFLOP/s, against q, k, v, o, dO read and dq, dk, dv
-    written once at 3.35 TB/s."""
+def bwd_timing(device, shape, dtype: str = "bfloat16", window=None) -> dict:
+    """Phase 21 (b): a backward kernel at ``shape`` (B, T, Hq, Hkv, D),
+    causal (and ``window``) in the model's layout: device time per call
+    (``queued_ms``) and back to back (CUDA events), against the plain
+    backward and the backward of ``scaled_dot_product_attention`` on the
+    same tensors (the library call, never on a path; under a window once
+    with the band as a boolean mask and once causal without one, the most
+    a band could save; "refused" where no SDPA backend takes the case),
+    and the bound: 5 products (``2 D`` operations per visible (q, k) pair
+    each) of every (batch, q head) at 989 TFLOP/s in bf16 or 67 TFLOP/s in
+    fp32 (CUDA cores), against q, k, v, o, dO read and dq, dk, dv written
+    once at 3.35 TB/s (the 7 products of the two-kernel split printed
+    beside it)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
-    B, T, Hq, Hkv, D = TRAIN_SHAPE
+    B, T, Hq, Hkv, D = shape
+    dt = getattr(torch, dtype)
     gen = torch.Generator(device=device).manual_seed(22)
     q, k, v, do = (torch.randn(B, T, h, D, generator=gen, device=device)
-                   .bfloat16() for h in (Hq, Hkv, Hkv, Hq))
-    o = FA.flash_attention_bthd(q, k, v, causal=True)
-    kern = lambda: FA.attention_backward_cuda(
-        q, k, v, o, do, causal=True, sm_scale=D ** -0.5, head_axis=2)
-    plain = lambda: FA.attention_backward_plain(
-        q, k, v, o, do, causal=True, sm_scale=D ** -0.5, head_axis=2)
+                   .to(dt) for h in (Hq, Hkv, Hkv, Hq))
+    o, lse = FA.attention_cuda(q, k, v, causal=True, sm_scale=D ** -0.5,
+                               head_axis=2, window=window, return_lse=True)
+    kw = dict(causal=True, sm_scale=D ** -0.5, head_axis=2, window=window)
+    kern = lambda: FA.attention_backward_cuda(q, k, v, o, do, lse, **kw)
+    plain = lambda: FA.attention_backward_plain(q, k, v, o, do, lse, **kw)
     got, want = kern(), plain()
     errs = [bwd_errors(g, w) for g, w in zip(got, want)]
-    if not all(map(bwd_within, errs)):
-        fail(f"flash backward at {TRAIN_SHAPE}: (max |diff|, over max "
-             f"|plain|, relative L2) of dQ, dK, dV {errs} beyond {BWD_TOL}")
-    err = max(e[0] for e in errs)
+    if not all(bwd_within(e, dtype) for e in errs):
+        fail(f"flash backward at {shape} {dtype} window {window}: (max "
+             f"|diff|, over max |plain|, relative L2) of dQ, dK, dV {errs} "
+             f"beyond {BWD_TOL[dtype]}")
+    del got
     t = lambda x: x.transpose(1, 2)
     qh, kh, vh = (t(x).contiguous().requires_grad_(True) for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
-                                         enable_gqa=True)
     doh = t(do).contiguous()
-    sdpa = lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
-                                       retain_graph=True)
-    sdpa_errs = [bwd_errors(g, t(w)) for g, w in zip(sdpa(), want)]
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+
+    def sdpa_time(**sk):
+        try:
+            out = F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True,
+                                                 **sk)
+            fn = lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
+                                             retain_graph=True)
+            errs = [bwd_errors(g, t(w)) for g, w in zip(fn(), want)]
+            # autograd's host time per call is long: a longer sleep
+            return (cuda_ms(fn, 10), queued_ms(fn, sleep_cycles=100_000_000),
+                    errs)
+        except RuntimeError as e:
+            return None, None, str(e).splitlines()[0][:80]
+
     kern_ms = cuda_ms(kern, 20)
     kern_q = queued_ms(kern)
-    plain_ms = cuda_ms(plain, 3)
-    sdpa_ms = cuda_ms(sdpa, 20)
-    sdpa_q = queued_ms(sdpa)
+    plain_ms = cuda_ms(plain, 2)
+    if window is None:
+        sdpa = {"causal": sdpa_time(is_causal=True)}
+    else:
+        rows = torch.arange(T, device=device)[:, None]
+        cols = torch.arange(T, device=device)[None, :]
+        band = (rows >= cols) & (rows - cols < window)
+        sdpa = {"band mask": sdpa_time(attn_mask=band),
+                "causal, no mask": sdpa_time(is_causal=True)}
+    del want
     kern_ms2 = cuda_ms(kern, 20)
-    pairs = visible_pairs(T, T, True)
+    pairs = visible_pairs(T, T, True, window)
     flops = 5 * 2 * D * B * Hq * pairs
-    # q, o, dO read and dq written; k, v read and dk, dv written
     nbytes = q.element_size() * (4 * q.numel() + 2 * k.numel()
                                  + 2 * v.numel())
-    ops_ms = flops / BF16_TENSOR_OPS_PER_S * 1e3
+    rate = BF16_TENSOR_OPS_PER_S if dtype == "bfloat16" else \
+        CUDA_CORE_OPS_PER_S
+    ops_ms = flops / rate * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
     show = lambda es: ", ".join(f"({e[0]:.3e}, {e[1]:.3e}, {e[2]:.3e})"
                                 for e in es)
-    print(f"flash backward at (B, T, Hq, Hkv, D) = {TRAIN_SHAPE} bf16 "
-          f"causal: dQ, dK, dV (max |diff|, over max |plain|, relative L2) "
-          f"vs plain {show(errs)}, SDPA's backward vs plain "
-          f"{show(sdpa_errs)}; kernel {kern_ms:.4f} / {kern_ms2:.4f} "
-          f"ms back to back (CUDA events, before / after SDPA), device "
-          f"{fmt(kern_q)} queued; plain {plain_ms:.4f} ms; "
-          f"scaled_dot_product_attention's backward {sdpa_ms:.4f} ms back "
-          f"to back, device {fmt(sdpa_q)} queued; bound "
-          f"{max(ops_ms, bytes_ms):.6f} ms ({pairs:,} (q, k) pairs per head: "
-          f"{flops / 1e9:.2f} GFLOP at 989 TFLOP/s: {ops_ms:.6f} ms, with the "
-          f"lse recompute {ops_ms * 6 / 5:.6f} ms; {nbytes / 1e6:.2f} MB at "
-          f"3.35 TB/s: {bytes_ms:.6f} ms)")
-    return dict(max_err=err, ms=kern_ms, queued_ms=kern_q,
-                plain_ms=plain_ms, library_ms=sdpa_ms,
-                library_queued_ms=sdpa_q, bound_ms=max(ops_ms, bytes_ms),
+    sdpa_txt = "; ".join(
+        f"SDPA's backward ({k}) " + (f"refused ({r[2]})" if r[0] is None else
+                                     f"{r[0]:.4f} ms back to back, device "
+                                     f"{fmt(r[1])} queued, vs plain "
+                                     f"{show(r[2])}")
+        for k, r in sdpa.items())
+    print(f"flash backward {FA.route(dt, D)} at (B, T, Hq, Hkv, D) = {shape} "
+          f"{dtype} causal, window {window}: dQ, dK, dV (max |diff|, over "
+          f"max |plain|, relative L2) vs plain {show(errs)}; kernel "
+          f"{kern_ms:.4f} / {kern_ms2:.4f} ms back to back (CUDA events, "
+          f"before / after SDPA), device {fmt(kern_q)} queued; plain "
+          f"{plain_ms:.4f} ms; {sdpa_txt}; bound "
+          f"{max(ops_ms, bytes_ms):.6f} ms ({pairs:,} (q, k) pairs per "
+          f"head: 5 products {flops / 1e9:.2f} GFLOP at "
+          f"{rate / 1e12:.0f} TFLOP/s: {ops_ms:.6f} ms, the 7 of the "
+          f"two-kernel split {ops_ms * 7 / 5:.6f} ms; {nbytes / 1e6:.2f} MB "
+          f"at 3.35 TB/s: {bytes_ms:.6f} ms)")
+    first = next(iter(sdpa.values()))
+    return dict(max_err=max(e[0] for e in errs), ms=kern_ms, queued_ms=kern_q,
+                plain_ms=plain_ms, library_ms=first[0],
+                library_queued_ms=first[1], bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
@@ -3271,42 +3400,53 @@ def train_fixture_run(device) -> int:
     """Phase 21 (c): one training step of each reduced config of
     ``tests/torch_lm_train.npz`` on the card with the kernels: the flash
     launches of the step (counts reset just before) as
-    :func:`train_launches` says, on the CUDA-core route (head dim 32);
+    :func:`train_launches` says, on the CUDA-core route (head dim 32)
+    forward and backward;
     the step against the same step with ``attention_backward_plain`` in
     the backward kernel's place at ``torch_parity.BWD_STEP_TOL`` (the
     kernel's effect
     on the model, apart from any other rounding); and the step against
     the JAX package's (``torch_parity.check_lm_train``) at
     ``LM_TRAIN_CARD_TOL``, the CPU tests' tolerances widened where the
-    card's other rounding moves the gradient.  Returns the backward
-    launches."""
+    card's other rounding moves the gradient.  Then the fp32 gradient of
+    ``torch_parity.LM_TRAIN_FP32_ARCHS`` (reduced llama3.2-1b and
+    recurrentgemma-2b) on the card, every attention layer on the fp32
+    CUDA-core kernels forward and backward, held to the JAX package's fp32
+    gradient in the fixture at ``LM_TRAIN_FP32_CARD_TOL`` and to the same
+    card gradient with plain attention at ``LM_TRAIN_FP32_STEP_TOL``.
+    Returns the backward launches."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as FA
     tp = parity()
     z = np.load(tp.LM_TRAIN_FIXTURE)
     total = 0
+
+    def launches(what, cfg, dtype):
+        fwd, bwd = train_launches(cfg)
+        route = FA.counter(dtype, cfg.head_dim)
+        counts = dict(zip(FLASH_ROUTES, flash_counts(FA)))
+        bwds = dict(zip(BWD_ROUTES, bwd_counts(FA)))
+        if counts != {r: fwd if r == route else 0 for r in FLASH_ROUTES} \
+                or bwds != {r: bwd if r == route else 0 for r in BWD_ROUTES}:
+            fail(f"phase 21 fixture {what}: flash launches {counts}, "
+                 f"backward {bwds}; want {fwd} forward and {bwd} backward "
+                 f"on {route}")
+        return counts, bwd
+
     for arch in tp.LM_TRAIN_ARCHS:
         reset_flash_counts(FA)
-        FA.bwd_launch_count = 0
+        reset_bwd_counts(FA)
         res = tp.lm_train_step(z, arch, device)
         torch.cuda.synchronize()
-        cfg = res[0]
-        fwd, bwd = train_launches(cfg)
-        route = FA.counter(torch.bfloat16, cfg.head_dim)
-        counts = dict(zip(FLASH_ROUTES, flash_counts(FA)))
-        if counts != {r: fwd if r == route else 0 for r in FLASH_ROUTES} \
-                or FA.bwd_launch_count != bwd:
-            fail(f"phase 21 fixture {arch}: flash launches {counts}, "
-                 f"backward {FA.bwd_launch_count}; want {fwd} on {route} "
-                 f"and {bwd}")
-        total += FA.bwd_launch_count
+        counts, bwd = launches(arch, res[0], torch.bfloat16)
+        total += bwd
         with plain_backward():
             plain = tp.lm_train_step(z, arch, device)
         torch.cuda.synchronize()
-        if FA.bwd_launch_count != bwd:
+        if sum(bwd_counts(FA)) != bwd:
             fail(f"phase 21 fixture {arch}: the plain-backward step "
-                 "launched the backward kernel")
+                 "launched a backward kernel")
         vs_plain = tp.step_vs_plain_backward(res, plain)
         if not all(vs_plain[k] <= tp.BWD_STEP_TOL[k]
                    for k in tp.BWD_STEP_TOL):
@@ -3329,17 +3469,51 @@ def train_fixture_run(device) -> int:
               f"params > 1 ulp {errs['far']:.2%} (tolerances "
               f"{tuple(x if x is None else round(x, 4) for x in card_tol)}); "
               f"flash launches {counts}, backward {bwd}")
+    for arch in tp.LM_TRAIN_FP32_ARCHS:
+        reset_flash_counts(FA)
+        reset_bwd_counts(FA)
+        got, arrs = tp.lm_train_fp32_grads(z, arch, device)
+        counts, bwd = launches(f"{arch} fp32", tp.load_lm_train(
+            z, arch, "cpu")[0], torch.float32)
+        total += bwd
+        tol = tp.LM_TRAIN_FP32_CARD_TOL[arch]
+        try:
+            worst = tp.check_lm_train_fp32(arch, got, arrs, tol)
+        except AssertionError as e:
+            fail(f"phase 21 fixture {arch} fp32: the card's gradient misses "
+                 f"the JAX package's: {e}")
+        with plain_attention():
+            plain, _ = tp.lm_train_fp32_grads(z, arch, device)
+        torch.cuda.synchronize()
+        if sum(bwd_counts(FA)) != bwd:
+            fail(f"phase 21 fixture {arch} fp32: the plain-attention "
+                 "gradient launched a backward kernel")
+        vs_plain = max(tp._rel(got[k].ravel(), plain[k].ravel())
+                       for k in got)
+        if not vs_plain <= tp.LM_TRAIN_FP32_STEP_TOL:
+            fail(f"phase 21 fixture {arch} fp32: the kernels' gradient "
+                 f"against plain attention's on the card {vs_plain}, beyond "
+                 f"{tp.LM_TRAIN_FP32_STEP_TOL}")
+        print(f"phase 21 fixture {arch} fp32 on {device}: worst gradient "
+              f"leaf vs the JAX package's fp32 gradient {worst:.3e} "
+              f"(relative L2 of its sampled elements or of its norm; bound "
+              f"{tol}, the CPU's {tp.LM_TRAIN_FP32_TOL[arch]}), vs the card's "
+              f"plain-attention gradient {vs_plain:.3e} (bound "
+              f"{tp.LM_TRAIN_FP32_STEP_TOL}); flash launches {counts}, "
+              f"backward {bwd} (cuda_core)")
     return total
 
 
-def train_full_width(device) -> int:
-    """Phase 21 (d): llama3.2-1b at full width on seed-0 weights, batch 4
-    x 1024 tokens, ``TRAIN['steps']`` steps of ``make_train_step`` with the
-    default AdamWConfig and remat; launch counts reset just before and
-    read just after (per step 2 x 16 sm90 forward launches, 16 backward,
-    none on another route); then step 1 with the kernels against step 1
-    with plain attention (forward and autograd backward) on the same
-    batch at ``TRAIN_TOL``.  Returns the backward launches."""
+def train_full_width(device, run: dict, phase: str) -> int:
+    """Phase 21 (d) and (f): ``run`` (``TRAIN``: llama3.2-1b, ``RG_TRAIN``:
+    recurrentgemma-2b) at full width on seed-0 weights, batch x seq
+    tokens, ``run['steps']`` steps of ``make_train_step`` with the default
+    AdamWConfig and remat per layer group; launch counts reset just before
+    and read just after (per step the forward twice per grouped attention
+    layer on the head dim's sm90 counter, the sm90 backward once, none on
+    another route); then step 1 with the kernels against step 1 with
+    plain attention (forward and autograd backward) on the same batch at
+    ``TRAIN_TOL``.  Returns the backward launches."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data import DataConfig, make_batch
@@ -3347,25 +3521,36 @@ def train_full_width(device) -> int:
     from repro_torch.models import init_params
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import make_train_step, train_init
-    cfg = get_arch(TRAIN["arch"])
+    cfg = get_arch(run["arch"])
     oc = AdamWConfig()
-    params = init_params(cfg, TRAIN["seed"], device)
+    params = init_params(cfg, run["seed"], device)
     n_params = sum(p.numel() for p in params.parameters())
-    if n_params != TRAIN["params"]:
-        fail(f"{cfg.name}: {n_params} parameters, want {TRAIN['params']}")
+    if n_params != run["params"]:
+        fail(f"{cfg.name}: {n_params} parameters, want {run['params']}")
     state0 = train_init(cfg, params, oc)
-    dc = DataConfig(seq_len=TRAIN["seq"], global_batch=TRAIN["batch"],
-                    seed=TRAIN["seed"])
+    dc = DataConfig(seq_len=run["seq"], global_batch=run["batch"],
+                    seed=run["seed"])
     batches = [make_batch(cfg, dc, s, device=device)
-               for s in range(TRAIN["steps"])]
-    grads = {}
-    step = make_train_step(cfg, oc, grad_transform=lambda g: grads.update(
-        {n: x.detach().clone() for n, x in g.items()}) or g)
+               for s in range(run["steps"])]
+    # step 1's gradient is kept; the plain step's is compared with it leaf
+    # by leaf as it comes (no second copy)
+    first_grads, cos, plain_step = {}, [], []
+
+    def hook(g):
+        if not first_grads:
+            first_grads.update({n: x.detach().clone() for n, x in g.items()})
+        elif plain_step:
+            cos.extend(float(torch.nn.functional.cosine_similarity(
+                first_grads[n].float().flatten(), x.float().flatten(), dim=0))
+                for n, x in g.items() if float(x.float().norm()) > 0)
+        return g
+
+    step = make_train_step(cfg, oc, grad_transform=hook)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     reset_flash_counts(FA)
-    FA.bwd_launch_count = 0
-    state, log, first_grads = state0, [], None
+    reset_bwd_counts(FA)
+    state, log = state0, []
     for i, batch in enumerate(batches):
         t0 = time.perf_counter()
         state, m = step(state, batch)
@@ -3373,60 +3558,65 @@ def train_full_width(device) -> int:
         log.append((time.perf_counter() - t0, float(m["loss"]),
                     float(m["grad_norm"])))
         if i == 0:
-            first_grads, first_m = dict(grads), m
-    n = TRAIN["steps"]
+            first_m = m
+    n = run["steps"]
     counts = dict(zip(FLASH_ROUTES, flash_counts(FA)))
-    bwd = FA.bwd_launch_count
+    bwds = dict(zip(BWD_ROUTES, bwd_counts(FA)))
     fwd_want, bwd_want = (x * n for x in train_launches(cfg))
-    if counts != {"cuda_core": 0, "sm90": fwd_want, "d256": 0} \
-            or bwd != bwd_want:
-        fail(f"full-width training: flash launches {counts}, backward "
-             f"{bwd}; want {fwd_want} sm90 and {bwd_want}")
+    route = FA.counter(torch.bfloat16, cfg.head_dim)
+    if counts != {r: fwd_want if r == route else 0 for r in FLASH_ROUTES} \
+            or bwds != {"cuda_core": 0, "sm90": bwd_want}:
+        fail(f"full-width training {cfg.name}: flash launches {counts}, "
+             f"backward {bwds}; want {fwd_want} on {route} and {bwd_want} "
+             "on sm90")
     peak = torch.cuda.max_memory_allocated(device)
     if not all(math.isfinite(r[1]) and math.isfinite(r[2]) for r in log):
-        fail(f"full-width training: non-finite loss or grad_norm {log}")
+        fail(f"full-width training {cfg.name}: non-finite loss or grad_norm "
+             f"{log}")
+    del state
     # step 1 again with the plain attention (nothing of the kernels)
-    grads.clear()
+    plain_step.append(True)
     with plain_attention():
         _, mp = step(state0, batches[0])
     torch.cuda.synchronize()
-    if FA.bwd_launch_count != bwd or flash_counts(FA) != tuple(
+    if bwd_counts(FA) != tuple(bwds.values()) or flash_counts(FA) != tuple(
             counts.values()):
         fail("the plain-attention step launched a flash kernel")
     loss_d = abs(float(first_m["loss"]) - float(mp["loss"]))
     gn_d = abs(float(first_m["grad_norm"]) / float(mp["grad_norm"]) - 1)
-    cos = min(float(torch.nn.functional.cosine_similarity(
-        first_grads[k].float().flatten(), grads[k].float().flatten(), dim=0))
-        for k in grads if float(grads[k].float().norm()) > 0)
-    tokens = TRAIN["batch"] * TRAIN["seq"]
+    worst = min(cos)
+    tokens = run["batch"] * run["seq"]
     steady = sorted(r[0] for r in log[1:]) or [log[0][0]]
-    print(f"phase 21 full width {cfg.name} on {device}: {n_params:,} bf16 "
-          f"parameters, batch {TRAIN['batch']} x {TRAIN['seq']} tokens, "
-          f"{n} steps (AdamW defaults, remat per layer): step ms "
+    print(f"phase 21 ({phase}) full width {cfg.name} on {device}: "
+          f"{n_params:,} bf16 parameters, batch {run['batch']} x "
+          f"{run['seq']} tokens, {n} steps (AdamW defaults, remat per "
+          f"layer group): step ms "
           + ", ".join(f"{r[0] * 1e3:.1f}" for r in log) + "; "
           f"{tokens / steady[0]:.0f} tokens/s (fastest step after the "
           f"first); loss per step " + ", ".join(f"{r[1]:.4f}" for r in log)
           + f"; grad_norm " + ", ".join(f"{r[2]:.4f}" for r in log)
           + f"; peak memory {peak / 2**30:.2f} GiB; flash launches {counts}, "
-          f"backward {bwd}")
+          f"backward {bwds}")
     print(f"  step 1 kernels vs plain attention: loss |diff| {loss_d:.3e} "
           f"(bound {TRAIN_TOL['loss']}), grad_norm {gn_d:.3%} (bound "
           f"{TRAIN_TOL['grad_norm']:.0%}), smallest leaf gradient cosine "
-          f"{cos:.5f} (bound {TRAIN_TOL['cosine']})")
+          f"{worst:.5f} over {len(cos)} leaves (bound "
+          f"{TRAIN_TOL['cosine']})")
     if not (loss_d <= TRAIN_TOL["loss"] and gn_d <= TRAIN_TOL["grad_norm"]
-            and cos >= TRAIN_TOL["cosine"]):
-        fail(f"full-width step 1, kernels vs plain attention, beyond "
-             f"{TRAIN_TOL}: loss {loss_d}, grad_norm {gn_d}, cosine {cos}")
-    return bwd
+            and worst >= TRAIN_TOL["cosine"]):
+        fail(f"full-width step 1 {cfg.name}, kernels vs plain attention, "
+             f"beyond {TRAIN_TOL}: loss {loss_d}, grad_norm {gn_d}, cosine "
+             f"{worst}")
+    return bwd_want
 
 
 def train_example_run(device) -> int:
-    """Phase 21 (e): ``examples/torch/train_small_lm.py`` at its defaults
-    (300 steps, checkpoints every 100): its loss improves; then its
-    checkpoint at ``EXAMPLE_RESUME_STEP`` is restored (the later ones
-    removed) and the run resumes to the end: the resumed steps' losses
-    equal the first run's bit for bit.  Returns the backward launches of
-    both runs."""
+    """Phase 21 (e): ``examples/torch/train_small_lm.py`` for
+    ``EXAMPLE_STEPS`` steps (checkpoints every 100): its loss improves;
+    then its checkpoint at ``EXAMPLE_RESUME_STEP`` is restored (the later
+    ones removed) and the run resumes to the end: the resumed steps'
+    losses equal the first run's bit for bit.  Returns the backward
+    launches of both runs."""
     import importlib.util
     import shutil
     from repro_torch.kernels import flash_attention as FA
@@ -3436,10 +3626,11 @@ def train_example_run(device) -> int:
     spec.loader.exec_module(ex)
     ckpt = ROOT / "build" / "train_small_lm_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
-    argv = ["--device", str(device), "--ckpt-dir", str(ckpt)]
+    argv = ["--device", str(device), "--ckpt-dir", str(ckpt), "--steps",
+            str(EXAMPLE_STEPS)]
     log_path = ROOT / "build" / "examples" / "train_small_lm.log"
     log_path.parent.mkdir(parents=True, exist_ok=True)
-    FA.bwd_launch_count = 0
+    reset_bwd_counts(FA)
     with open(log_path, "w") as f, contextlib.redirect_stdout(f):
         t0 = time.perf_counter()
         first = ex.main(argv)
@@ -3470,24 +3661,36 @@ def train_example_run(device) -> int:
           f"(improved); checkpoints {steps}; resumed from "
           f"{EXAMPLE_RESUME_STEP}: {len(got)} steps in {again_s:.1f} s, "
           f"losses equal the uninterrupted run's bit for bit; backward "
-          f"launches {FA.bwd_launch_count} (log: "
+          f"launches {dict(zip(BWD_ROUTES, bwd_counts(FA)))} (log: "
           f"{log_path.relative_to(ROOT)})")
-    return FA.bwd_launch_count
+    if FA.bwd_launch_count:
+        fail("train_small_lm (head dim 64) launched the cuda_core backward")
+    return FA.bwd_sm90_launch_count
 
 
 def training_phase(device) -> dict:
-    """Phase 21: the backward kernel against its plain version and timed,
-    then the training path on the card: the fixture's ten reduced
-    configs, llama3.2-1b at full width, and ``train_small_lm`` with a
-    resume.  Returns the kernel's row values and the backward launches of
+    """Phase 21: the backward kernels against their plain version and
+    timed, then the training path on the card: the fixture's ten reduced
+    configs and two fp32 steps, llama3.2-1b at full width,
+    ``train_small_lm`` with a resume, and recurrentgemma-2b at full width.
+    Returns each backward kernel's row values and the backward launches of
     the training runs."""
     err = train_kernel_phase(device)
-    timing = train_kernel_timing(device)
-    launches = train_fixture_run(device)
-    launches += train_full_width(device)
-    launches += train_example_run(device)
-    return dict(timing, max_err=max(err, timing["max_err"]),
-                launches=launches)
+    timing = {"sm90": bwd_timing(device, TRAIN_SHAPE),
+              "sm90 d256": bwd_timing(device, RG_TRAIN_SHAPE,
+                                      window=RG_WINDOW),
+              "cuda_core": bwd_timing(device, TRAIN_SHAPE, "float32")}
+    core = train_fixture_run(device)
+    sm90 = train_full_width(device, TRAIN, "d")
+    sm90 += train_example_run(device)
+    sm90 += train_full_width(device, RG_TRAIN, "f")
+    return dict(
+        sm90=dict(timing["sm90"], launches=sm90,
+                  max_err=max(err["sm90"], timing["sm90"]["max_err"],
+                              timing["sm90 d256"]["max_err"])),
+        cuda_core=dict(timing["cuda_core"], launches=core,
+                       max_err=max(err["cuda_core"],
+                                   timing["cuda_core"]["max_err"])))
 
 
 def main() -> int:
@@ -3520,7 +3723,8 @@ def main() -> int:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build("readiness", "controller_step", "flash_attention",
-                       "flash_attention_sm90", "flash_attention_bwd")
+                       "flash_attention_sm90", "flash_attention_bwd",
+                       "flash_attention_bwd_sm90")
     print(f"built kernels in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         # the full -Xptxas -v report goes beside the library; stdout gets
@@ -3540,16 +3744,26 @@ def main() -> int:
         for D in (64, 128, 256):
             print(f"ptxas flash_fwd_sm90_kernel<{D}>: " + ptxas_report(
                 sm90_log.read_text(), f"flash_fwd_sm90_kernelILi{D}E"))
-    bwd_log = build.library_path("flash_attention_bwd").with_suffix(
-        ".nvcc.log")
-    if bwd_log.exists():
-        for kind in ("dq", "dkdv"):
-            for D in (16, 32, 64, 128):
-                print(f"ptxas flash_bwd_{kind}_kernel<{D}>: " + ptxas_report(
-                    bwd_log.read_text(), f"flash_bwd_{kind}_kernelILi{D}E"))
-    print("flash backward kernel SASS: " + sass_counts(
+    for name, entries in (
+            ("flash_attention_bwd",
+             [f"flash_bwd_{kind}_kernelILi{D}E" for kind in ("dq", "dkdv")
+              for D in (16, 32)]
+             + [f"flash_bwd_{kind}_f32_kernelILi{D}E"
+                for kind in ("dq", "dkdv") for D in (16, 32, 64, 128)]),
+            ("flash_attention_bwd_sm90",
+             [f"flash_bwd_{kind}_kernelILi{D}E" for kind in ("dq", "dkdv")
+              for D in (64, 128, 256)])):
+        log = build.library_path(name).with_suffix(".nvcc.log")
+        if log.exists():
+            for entry in entries:
+                print(f"ptxas {name} {entry}: "
+                      + ptxas_report(log.read_text(), entry))
+    print("CUDA-core flash backward kernel SASS: " + sass_counts(
         build.library_path("flash_attention_bwd"), ("HMMA",),
-        ("LDSM", "LDGSTS"), what="flash backward kernel"))
+        ("LDSM", "LDGSTS"), what="CUDA-core flash backward kernel"))
+    print("sm90 flash backward kernel SASS: " + sass_counts(
+        build.library_path("flash_attention_bwd_sm90"),
+        ("HGMMA", "UTMALDG", "UBLKCP"), what="sm90 flash backward kernel"))
     print("sm90 flash kernel SASS: " + sass_counts(
         build.library_path("flash_attention_sm90"), ("HGMMA", "UTMALDG"),
         what="sm90 flash kernel"))
@@ -3656,8 +3870,14 @@ def main() -> int:
                   sm90, flash_err["sm90"]),
         flash_row("flash_attention_d256", "flash_attention_sm90.cu",
                   fam["d256"] + fam_b["d256"], d256, flash_err["d256"]),
+        dict(flash_row("flash_attention_bwd_sm90",
+                       "flash_attention_bwd_sm90.cu",
+                       train["sm90"]["launches"], train["sm90"],
+                       train["sm90"]["max_err"]),
+             replaces="jax.grad of src/repro/models/layers.py:130"),
         dict(flash_row("flash_attention_bwd", "flash_attention_bwd.cu",
-                       train["launches"], train, train["max_err"]),
+                       train["cuda_core"]["launches"], train["cuda_core"],
+                       train["cuda_core"]["max_err"]),
              replaces="jax.grad of src/repro/models/layers.py:130")]}))
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s; phases "
           f"{json.dumps(seconds)}", file=sys.stderr)

@@ -26,7 +26,10 @@
 // the 1e-30 clamp still guards the padded rows past Tq.
 //
 // in base 2: the scores carry sm_scale * log2(e), and exp2 (one ex2 per
-// element) stands for exp; the softmax is the same.
+// element) stands for exp; the softmax is the same.  With grad on, the
+// launcher is given an fp32 (B, Hq, Tq) buffer for each row's log-sum-exp
+// in those units, m + log2(l), which the backward kernels read; serving
+// passes none and nothing is written.
 //
 // What bounds it on an H100.  These shapes are small: the reduced model's
 // prefill (B 4, T 256, H 2, D 32, bf16, causal) is 17 MFLOP against 0.26
@@ -230,7 +233,7 @@ template <int D>
 __global__ void __launch_bounds__(kBlockQ / kWarpRows * 32)
 flash_core_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
-                      int Hq, int Hkv, int Tq, int Tk, Strides sq, Strides sk,
+                      float* __restrict__ lse, int Hq, int Hkv, int Tq, int Tk, Strides sq, Strides sk,
                       Strides sv, Strides so, int causal, int window,
                       float sm_scale, int aligned) {
   constexpr int BK = Mma<D>::kBlockK, LD = Mma<D>::kLd;
@@ -354,6 +357,9 @@ flash_core_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    if (lse != nullptr && t4 == 0 && rows[i] < Tq)
+      lse[(static_cast<long long>(w.b) * Hq + w.h) * Tq + rows[i]] =
+          m[i] + log2f(l[i]);
   }
   int cols[2 * DT];
   float res[2][2 * DT];
@@ -412,7 +418,7 @@ __global__ void __launch_bounds__(Core<D>::kThreads)
 flash_core_fp32_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       int Hq, int Hkv, int Tq, int Tk, Strides sq,
+                       float* __restrict__ lse, int Hq, int Hkv, int Tq, int Tk, Strides sq,
                        Strides sk, Strides sv, Strides so, int causal,
                        int window, float sm_scale, int aligned) {
   constexpr int G = Core<D>::kGroup;
@@ -475,6 +481,8 @@ flash_core_fp32_kernel(const float* __restrict__ q,
     m = m_new;
   }
 
+  if (lse != nullptr && live && g == 0)
+    lse[(static_cast<long long>(w.b) * Hq + w.h) * Tq + row] = m + log2f(l);
   const int rows[1] = {row};
   int cols[DPT];
   float res[1][DPT];
@@ -490,6 +498,7 @@ flash_core_fp32_kernel(const float* __restrict__ q,
 struct Args {
   const void *q, *k, *v;
   void* o;
+  float* lse;
   int B, Hq, Hkv, Tq, Tk;
   Strides sq, sk, sv, so;
   int causal, window;
@@ -502,7 +511,8 @@ cudaError_t launch_mma(const Args& a, cudaStream_t st) {
   const dim3 grid((a.Tq + kBlockQ - 1) / kBlockQ, a.Hq, a.B);
   flash_core_mma_kernel<D><<<grid, kBlockQ / kWarpRows * 32, 0, st>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.Hq, a.Hkv,
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.Hq,
+      a.Hkv,
       a.Tq, a.Tk, a.sq, a.sk, a.sv, a.so, a.causal, a.window, a.sm_scale,
       a.aligned);
   return cudaGetLastError();
@@ -513,7 +523,8 @@ cudaError_t launch_fp32(const Args& a, cudaStream_t st) {
   const dim3 grid((a.Tq + kBlockQ - 1) / kBlockQ, a.Hq, a.B);
   flash_core_fp32_kernel<D><<<grid, Core<D>::kThreads, 0, st>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.Hq, a.Hkv,
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.Hq,
+      a.Hkv,
       a.Tq, a.Tk, a.sq, a.sk, a.sv, a.so, a.causal, a.window, a.sm_scale,
       a.aligned);
   return cudaGetLastError();
@@ -525,18 +536,19 @@ cudaError_t launch_fp32(const Args& a, cudaStream_t st) {
 // cores, D 16/32).  Strides in elements, (batch, time, head) for each of
 // q, k, v, o.  window: row r sees cols c with r - c < window (a value
 // above every r - c for none).  aligned: every k/v row starts on 16 bytes
-// (16-byte cp.async).
+// (16-byte cp.async).  lse: an fp32 (B, Hq, Tq) buffer for the rows'
+// log-sum-exp (base 2 of the scaled scores), or null.
 // Returns the launch's cudaError_t.
 extern "C" int flash_attention_launch(
     int dtype, int head_dim, const void* q, const void* k, const void* v,
-    void* o, int B, int Hq, int Hkv, int Tq, int Tk, long long qsb,
+    void* o, void* lse, int B, int Hq, int Hkv, int Tq, int Tk, long long qsb,
     long long qst, long long qsh, long long ksb, long long kst,
     long long ksh, long long vsb, long long vst, long long vsh,
     long long osb, long long ost, long long osh, int causal, int window,
     float sm_scale, int aligned, void* stream) {
   // scores in base 2: exp(x * sm_scale) = exp2(x * sm_scale * log2(e))
   sm_scale = static_cast<float>(sm_scale * 1.4426950408889634);
-  const Args a{q, k, v, o, B, Hq, Hkv, Tq, Tk,
+  const Args a{q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, Tq, Tk,
                Strides{qsb, qst, qsh}, Strides{ksb, kst, ksh},
                Strides{vsb, vst, vsh}, Strides{osb, ost, osh}, causal,
                window, sm_scale, aligned};

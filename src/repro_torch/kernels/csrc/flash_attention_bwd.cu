@@ -1,9 +1,10 @@
-// Flash attention backward for training: (dQ, dK, dV) of the forward that
-// flash_attention_sm90.cu and flash_attention.cu compute, bf16 in and out
-// with fp32 accumulation, head dim 16, 32, 64 or 128, causal (top-left)
-// or full, optionally local (row r sees cols c with r - c < window), GQA
-// (a kv head's dK and dV sum over the query heads that share it), Tq ==
-// Tk.
+// Flash attention backward for the shapes the tensor-core (sm90) backward
+// kernel does not take: bf16 at head dim 16 and 32 on the tensor cores
+// (mma.sync), and fp32 at head dim 16-128 on the CUDA cores.  (dQ, dK, dV)
+// of the forward flash_attention.cu computes, fp32 accumulation, outputs
+// in the input dtype, causal (top-left) or full, optionally local (row r
+// sees cols c with r - c < window), GQA (a kv head's dK and dV sum over the
+// query heads that share it), Tq == Tk.
 //
 // Replaces no Pallas kernel: the reference's Pallas flash kernel
 // (src/repro/kernels/flash_attention.py::flash_attention) has no backward,
@@ -12,39 +13,42 @@
 // the hand-written forward kernels, so its training step needs this one.
 //
 // FlashAttention-2's backward in two kernels of this source, launched one
-// after the other on the caller's stream:
+// after the other on the caller's stream, P recomputed from the forward's
+// log-sum-exp (lse, base 2 of the scaled scores, (B, Hq, Tq) fp32):
 //
 //   dq pass   (one block per 64-row q tile, q head, batch; heaviest tiles
-//             first): rowsum(dO * O) -> delta; a pass over the visible kv
-//             tiles for the rows' log-sum-exp (base 2) -> lse (the forward
-//             kernels keep theirs to themselves); a second pass
-//             recomputing P = exp2(S - lse), dP = dO V^T,
-//             dS = P * (dP - delta), dQ += dS K.  Writes dQ, lse, delta.
+//             first): rowsum(dO * O) -> delta; then over the visible kv
+//             tiles P = exp2(S - lse), dP = dO V^T, dS = P * (dP - delta),
+//             dQ += dS K.  Writes dQ and delta.
 //   dk/dv pass (one block per 64-row kv tile, kv head, batch): for each
 //             query head of the group and each q tile that sees the kv
 //             tile, P^T and dP^T = V dO^T, dV += P^T dO,
 //             dK += dS^T Q, in registers.  No atomics: a run is
 //             deterministic.
 //
-// Each warp owns 16 rows (q rows in the dq pass, kv rows in the dk/dv
-// pass); the products are mma.sync.m16n8k16 (bf16 in, fp32 accumulate),
-// P and dS rounded to bf16 for the second products as the forward rounds
-// P.  Tiles of the other side are staged with cp.async into a double
-// buffer (rows padded by 16 bytes for ldmatrix), 64 rows, or 32 at head
-// dim 128 to keep the accumulators in registers.  The masks skip fully
-// masked tiles (causal, window) and mask the padded tails.
+// bf16, D 16/32: each warp owns 16 rows (q rows in the dq pass, kv rows in
+// the dk/dv pass); the products are mma.sync.m16n8k16 (bf16 in, fp32
+// accumulate), P and dS rounded to bf16 for the second products as the
+// forward rounds P.  Tiles of the other side (64 rows) are staged with
+// cp.async into a double buffer (rows padded by 16 bytes for ldmatrix).
+// fp32, D 16-128: tensor-core TF32 would miss fp32's tolerance, so the
+// CUDA cores in fp32 FMAs, as the fp32 forward: D/16 threads per row, each
+// with 16 interleaved dims of its row's vectors and accumulators in
+// registers, the other side's tiles (64 rows, 32 at D 128) staged with
+// cp.async and read by broadcast, each dot product finished with warp
+// shuffles.  The masks skip fully masked tiles (causal, window) and mask
+// the padded tails.
 //
-// What bounds it on an H100: at llama3.2-1b's training shape (B 4, T 1024,
-// Hq 32, Hkv 8, D 64, causal) the five products of the visible (q, k)
-// pairs are 4.3e10 FLOP, 0.0435 ms at 989 TFLOP/s (the lse recompute adds
-// a sixth), against 21 MB of q, k, v, o, dO, dq, dk, dv (6 us at 3.35
-// TB/s): the tensor cores bound it.  mma.sync reaches a fraction of that
-// rate; wgmma and TMA (as in flash_attention_sm90.cu) are later work.
+// What bounds it on an H100: these are the reduced models' shapes (B 2, T
+// 32-80, D 32), microseconds of work at either roof, so latency: the
+// launches and each block's serial chain over its tiles.  In fp32 at
+// llama3.2-1b's attention shape (4, 1024, 32, 8, 64) the five products are
+// 4.30e10 FLOP, 0.64 ms at the CUDA cores' 67 TFLOP/s.
 //
 // Layout: every tensor is (B, T, H, D) in whatever order of the three
 // outer axes the caller has; the wrapper passes each tensor's (batch,
-// time, head) strides in elements, D is contiguous.  lse and delta are
-// fp32 (B, Hq, Tq) scratch buffers the wrapper allocates.
+// time, head) strides in elements, D is contiguous.  lse is the forward's;
+// delta an fp32 (B, Hq, Tq) scratch buffer the wrapper allocates.
 //
 // C interface, bound with ctypes from repro_torch/kernels/flash_attention.py.
 
@@ -55,7 +59,6 @@
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
 constexpr int kWarpRows = 16;            // rows per warp (the mma's M)
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -68,17 +71,18 @@ struct Strides {
 };
 
 // The other side's tile rows (kv rows in the dq pass, q rows in the dk/dv
-// pass) and the padded shared-memory row.
+// pass) and the padded shared-memory row of the bf16 kernels.
 template <int D>
 struct Tile {
-  static constexpr int kCols = D == 128 ? 32 : 64;
+  static constexpr int kCols = 64;
   static constexpr int kLd = D + 8;
 };
 
 struct Args {
-  const bf16 *q, *k, *v, *o, *dout;
-  bf16 *dq, *dk, *dv;
-  float *lse, *delta;
+  const void *q, *k, *v, *o, *dout;
+  void *dq, *dk, *dv;
+  const float* lse;
+  float* delta;
   int B, Hq, Hkv, Tq, Tk;
   Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
   int causal, window;
@@ -252,7 +256,7 @@ __device__ __forceinline__ void store_rows(bf16* base, long long st,
 }
 
 // ---------------------------------------------------------------------------
-// dq pass: delta, lse and dQ of one 64-row q tile
+// bf16 dq pass: delta and dQ of one 64-row q tile
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -274,11 +278,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   const int wrow = row0 + warp * kWarpRows;
   const int rows[2] = {wrow + g, wrow + g + 8};
 
-  const bf16* qb = a.q + b * a.sq.b + h * a.sq.h;
-  const bf16* ob = a.o + b * a.so.b + h * a.so.h;
-  const bf16* dob = a.dout + b * a.sdo.b + h * a.sdo.h;
-  const bf16* kb = a.k + b * a.sk.b + hk * a.sk.h;
-  const bf16* vb = a.v + b * a.sv.b + hk * a.sv.h;
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const bf16* ob = static_cast<const bf16*>(a.o) + b * a.so.b + h * a.so.h;
+  const bf16* dob =
+      static_cast<const bf16*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.sk.b + hk * a.sk.h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.sv.b + hk * a.sv.h;
   const long long lrow = (static_cast<long long>(b) * a.Hq + h) * a.Tq;
 
   // q and dO as A fragments (rows g / g + 8, k pairs 2 t4 / 2 t4 + 8)
@@ -325,61 +330,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
     for (int i = 0; i < 4; ++i) f[i] = df[kk][i];
   };
 
-  // pass 1: the rows' log-sum-exp in base 2 (scores times sm_scale log2 e)
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  if (t_begin < t_end)
-    stage_rows<D, BK>(ks[0], kb, a.sk.t, t_begin * BK, a.Tk);
-  commit();
-  for (int t = t_begin; t < t_end; ++t) {
-    const int buf = (t - t_begin) & 1;
-    if (t + 1 < t_end)
-      stage_rows<D, BK>(ks[buf ^ 1], kb, a.sk.t, (t + 1) * BK, a.Tk);
-    commit();
-    wait_group<1>();
-    __syncthreads();
-    float s[NT][4];
-    zero(s);
-    product_nt<NT, KD, LD>(s, ks[buf], q_a);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = t * BK + n * 8 + 2 * t4 + (e & 1);
-        const bool ok = visible(rows[e >> 1], col, a.Tk, a.causal, a.window);
-        s[n][e] = ok ? s[n][e] * a.scale2 : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      l[i] *= exp2f(m[i] - m_new);
-      m[i] = m_new;
-    }
-    // a masked score's exp2(-1e30 - m) is rescaled away once the row's
-    // first visible score raises m (every row sees its diagonal)
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) l[e >> 1] += exp2f(s[n][e] - m[e >> 1]);
-    __syncthreads();                     // this buffer may be refilled
-  }
-  wait_group<0>();
+  // the forward's log-sum-exp of the rows (base 2)
   float lse[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    lse[i] = l[i] > 0.f ? m[i] + log2f(l[i]) : INFINITY;
-    if (t4 == 0 && rows[i] < a.Tq) a.lse[lrow + rows[i]] = lse[i];
-  }
+  for (int i = 0; i < 2; ++i)
+    lse[i] = rows[i] < a.Tq ? a.lse[lrow + rows[i]] : 0.f;
 
-  // pass 2: dQ = sum over kv tiles of dS K
+  // dQ = sum over kv tiles of dS K
   float acc[DT][4];
   zero(acc);
-  __syncthreads();
   if (t_begin < t_end) {
     stage_rows<D, BK>(ks[0], kb, a.sk.t, t_begin * BK, a.Tk);
     stage_rows<D, BK>(vs[0], vb, a.sv.t, t_begin * BK, a.Tk);
@@ -412,12 +371,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
     __syncthreads();
   }
   wait_group<0>();
-  store_rows<DT>(a.dq + b * a.sdq.b + h * a.sdq.h, a.sdq.t, rows, a.Tq, acc,
-                 a.sm_scale);
+  store_rows<DT>(static_cast<bf16*>(a.dq) + b * a.sdq.b + h * a.sdq.h,
+                 a.sdq.t, rows, a.Tq, acc, a.sm_scale);
 }
 
 // ---------------------------------------------------------------------------
-// dk/dv pass: dK and dV of one 64-row kv tile, over the group's q heads
+// bf16 dk/dv pass: dK and dV of one 64-row kv tile, over the group's q
+// heads
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -452,15 +412,19 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(Args a) {
   const int n_u = max(0, (q_end + BQ - 1) / BQ - u_begin);
   const int total = rep * n_u;           // (q head, q tile) pairs
 
-  stage_rows<D, kBlockRows>(ks, a.k + b * a.sk.b + hk * a.sk.h, a.sk.t, c0,
-                            a.Tk);
-  stage_rows<D, kBlockRows>(vs, a.v + b * a.sv.b + hk * a.sv.h, a.sv.t, c0,
-                            a.Tk);
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
+  stage_rows<D, kBlockRows>(
+      ks, static_cast<const bf16*>(a.k) + b * a.sk.b + hk * a.sk.h, a.sk.t,
+      c0, a.Tk);
+  stage_rows<D, kBlockRows>(
+      vs, static_cast<const bf16*>(a.v) + b * a.sv.b + hk * a.sv.h, a.sv.t,
+      c0, a.Tk);
   auto stage_q = [&](int it, int buf) {
     const int h = hk * rep + it / n_u, u0 = (u_begin + it % n_u) * BQ;
-    stage_rows<D, BQ>(qs + buf * BQ, a.q + b * a.sq.b + h * a.sq.h, a.sq.t,
+    stage_rows<D, BQ>(qs + buf * BQ, q + b * a.sq.b + h * a.sq.h, a.sq.t,
                       u0, a.Tq);
-    stage_rows<D, BQ>(dos + buf * BQ, a.dout + b * a.sdo.b + h * a.sdo.h,
+    stage_rows<D, BQ>(dos + buf * BQ, dout + b * a.sdo.b + h * a.sdo.h,
                       a.sdo.t, u0, a.Tq);
     const long long lrow = (static_cast<long long>(b) * a.Hq + h) * a.Tq;
     for (int e = threadIdx.x; e < BQ; e += blockDim.x) {
@@ -514,10 +478,207 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(Args a) {
     __syncthreads();                     // this buffer may be refilled
   }
   wait_group<0>();
-  store_rows<DT>(a.dk + b * a.sdk.b + hk * a.sdk.h, a.sdk.t, kvrows, a.Tk, dk,
-                 a.sm_scale);
-  store_rows<DT>(a.dv + b * a.sdv.b + hk * a.sdv.h, a.sdv.t, kvrows, a.Tk, dv,
-                 1.f);
+  store_rows<DT>(static_cast<bf16*>(a.dk) + b * a.sdk.b + hk * a.sdk.h,
+                 a.sdk.t, kvrows, a.Tk, dk, a.sm_scale);
+  store_rows<DT>(static_cast<bf16*>(a.dv) + b * a.sdv.b + hk * a.sdv.h,
+                 a.sdv.t, kvrows, a.Tk, dv, 1.f);
+}
+
+// ---------------------------------------------------------------------------
+// fp32, D 16-128: the CUDA cores
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct Core {
+  static constexpr int kGroup = D / 16;              // threads per row
+  static constexpr int kDims = 16;                   // dims per thread: g + G i
+  static constexpr int kTile = D == 128 ? 32 : 64;   // the other side's rows
+  static constexpr int kThreads = kBlockRows * kGroup;
+};
+
+// The sum over a row's G threads (consecutive lanes).
+template <int G>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// Stage rows [r0, r0 + ROWS) of one head (row stride st, every row on 16
+// bytes) into s by 16-byte cp.async, all in flight at once; rows at or
+// past n are zeros.
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_f32(float (*s)[D], const float* base,
+                                          long long st, int r0, int n) {
+  constexpr int CH = D / 4;
+  for (int e = threadIdx.x; e < ROWS * CH; e += blockDim.x) {
+    const int j = e / CH, c = (e - j * CH) * 4;
+    const int r = r0 + j;
+    if (r >= n)
+      *reinterpret_cast<float4*>(&s[j][c]) = make_float4(0.f, 0.f, 0.f, 0.f);
+    else
+      cp_async16(&s[j][c], base + r * st + c);
+  }
+}
+
+// dq pass: delta and dQ of one 64-row q tile; thread g of a row's group
+// holds its dims g + G i of q, dO and the dQ accumulator.
+template <int D>
+__global__ void __launch_bounds__(Core<D>::kThreads)
+flash_bwd_dq_f32_kernel(Args a) {
+  constexpr int G = Core<D>::kGroup, DPT = Core<D>::kDims;
+  constexpr int BK = Core<D>::kTile;
+  __shared__ __align__(16) float ks[BK][D];
+  __shared__ __align__(16) float vs[BK][D];
+
+  const int n_qt = (a.Tq + kBlockRows - 1) / kBlockRows;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (a.Hq / a.Hkv);
+  const int row0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kBlockRows;
+  const int kv_end = a.causal ? min(a.Tk, row0 + kBlockRows) : a.Tk;
+  const int t_end = (kv_end + BK - 1) / BK;
+  const int t_begin = max(0, row0 - (a.window - 1)) / BK;
+  const int g = threadIdx.x % G, row = row0 + threadIdx.x / G;
+  const bool live = row < a.Tq;
+  const int r = min(row, a.Tq - 1);
+  const long long lrow = (static_cast<long long>(b) * a.Hq + h) * a.Tq;
+
+  const float* qr = static_cast<const float*>(a.q) + b * a.sq.b + r * a.sq.t
+                    + h * a.sq.h;
+  const float* orow = static_cast<const float*>(a.o) + b * a.so.b
+                      + r * a.so.t + h * a.so.h;
+  const float* dor = static_cast<const float*>(a.dout) + b * a.sdo.b
+                     + r * a.sdo.t + h * a.sdo.h;
+  float qv[DPT], dov[DPT], acc[DPT];
+  float part = 0.f;
+#pragma unroll
+  for (int i = 0; i < DPT; ++i) {
+    qv[i] = qr[g + G * i];
+    dov[i] = dor[g + G * i];
+    part = fmaf(dov[i], orow[g + G * i], part);
+    acc[i] = 0.f;
+  }
+  const float delta = group_sum<G>(part);
+  if (live && g == 0) a.delta[lrow + row] = delta;
+  const float lse = a.lse[lrow + r];
+
+  const float* kb = static_cast<const float*>(a.k) + b * a.sk.b
+                    + hk * a.sk.h;
+  const float* vb = static_cast<const float*>(a.v) + b * a.sv.b
+                    + hk * a.sv.h;
+  for (int t = t_begin; t < t_end; ++t) {
+    __syncthreads();                     // the previous tile is consumed
+    stage_f32<D, BK>(ks, kb, a.sk.t, t * BK, a.Tk);
+    stage_f32<D, BK>(vs, vb, a.sv.t, t * BK, a.Tk);
+    commit();
+    wait_group<0>();
+    __syncthreads();
+    for (int j = 0; j < BK; ++j) {
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int i = 0; i < DPT; ++i) {
+        s = fmaf(qv[i], ks[j][g + G * i], s);
+        dp = fmaf(dov[i], vs[j][g + G * i], dp);
+      }
+      s = group_sum<G>(s);
+      dp = group_sum<G>(dp);
+      const bool ok = visible(row, t * BK + j, a.Tk, a.causal, a.window);
+      const float p = ok ? exp2f(s * a.scale2 - lse) : 0.f;
+      const float ds = p * (dp - delta);
+#pragma unroll
+      for (int i = 0; i < DPT; ++i) acc[i] = fmaf(ds, ks[j][g + G * i], acc[i]);
+    }
+  }
+  if (live) {
+    float* out = static_cast<float*>(a.dq) + b * a.sdq.b + row * a.sdq.t
+                 + h * a.sdq.h;
+#pragma unroll
+    for (int i = 0; i < DPT; ++i) out[g + G * i] = acc[i] * a.sm_scale;
+  }
+}
+
+// dk/dv pass: dK and dV of one 64-row kv tile over the group's q heads;
+// thread g of a kv row's group holds its dims g + G i of k, v and both
+// accumulators.
+template <int D>
+__global__ void __launch_bounds__(Core<D>::kThreads)
+flash_bwd_dkdv_f32_kernel(Args a) {
+  constexpr int G = Core<D>::kGroup, DPT = Core<D>::kDims;
+  constexpr int BQ = Core<D>::kTile;
+  __shared__ __align__(16) float qs[BQ][D];
+  __shared__ __align__(16) float dos[BQ][D];
+  __shared__ float lse_s[BQ], dl_s[BQ];
+
+  const int c0 = blockIdx.x * kBlockRows;
+  const int hk = blockIdx.y, b = blockIdx.z, rep = a.Hq / a.Hkv;
+  const int g = threadIdx.x % G, kvrow = c0 + threadIdx.x / G;
+  const bool live = kvrow < a.Tk;
+  const int r = min(kvrow, a.Tk - 1);
+  // the q rows that see a col of [c0, c0 + 64): from c0 under the causal
+  // mask, below c0 + 63 + window
+  const int q_begin = a.causal ? c0 : 0;
+  const int q_end = min(a.Tq, c0 + kBlockRows - 1 + a.window);
+  const int u_begin = q_begin / BQ;
+  const int n_u = max(0, (q_end + BQ - 1) / BQ - u_begin);
+
+  const float* kr = static_cast<const float*>(a.k) + b * a.sk.b + r * a.sk.t
+                    + hk * a.sk.h;
+  const float* vr = static_cast<const float*>(a.v) + b * a.sv.b + r * a.sv.t
+                    + hk * a.sv.h;
+  float kv[DPT], vv[DPT], dk[DPT], dv[DPT];
+#pragma unroll
+  for (int i = 0; i < DPT; ++i) {
+    kv[i] = kr[g + G * i];
+    vv[i] = vr[g + G * i];
+    dk[i] = dv[i] = 0.f;
+  }
+  for (int it = 0; it < rep * n_u; ++it) {
+    const int h = hk * rep + it / n_u, u0 = (u_begin + it % n_u) * BQ;
+    const long long lrow = (static_cast<long long>(b) * a.Hq + h) * a.Tq;
+    __syncthreads();                     // the previous tile is consumed
+    stage_f32<D, BQ>(qs, static_cast<const float*>(a.q) + b * a.sq.b
+                             + h * a.sq.h, a.sq.t, u0, a.Tq);
+    stage_f32<D, BQ>(dos, static_cast<const float*>(a.dout) + b * a.sdo.b
+                              + h * a.sdo.h, a.sdo.t, u0, a.Tq);
+    for (int e = threadIdx.x; e < BQ; e += blockDim.x) {
+      lse_s[e] = u0 + e < a.Tq ? a.lse[lrow + u0 + e] : 0.f;
+      dl_s[e] = u0 + e < a.Tq ? a.delta[lrow + u0 + e] : 0.f;
+    }
+    commit();
+    wait_group<0>();
+    __syncthreads();
+    for (int i = 0; i < BQ; ++i) {
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int d = 0; d < DPT; ++d) {
+        s = fmaf(kv[d], qs[i][g + G * d], s);
+        dp = fmaf(vv[d], dos[i][g + G * d], dp);
+      }
+      s = group_sum<G>(s);
+      dp = group_sum<G>(dp);
+      const int qrow = u0 + i;
+      const bool ok = qrow < a.Tq
+                      && visible(qrow, kvrow, a.Tk, a.causal, a.window);
+      const float p = ok ? exp2f(s * a.scale2 - lse_s[i]) : 0.f;
+      const float ds = p * (dp - dl_s[i]);
+#pragma unroll
+      for (int d = 0; d < DPT; ++d) {
+        dv[d] = fmaf(p, dos[i][g + G * d], dv[d]);
+        dk[d] = fmaf(ds, qs[i][g + G * d], dk[d]);
+      }
+    }
+  }
+  if (live) {
+    float* odk = static_cast<float*>(a.dk) + b * a.sdk.b + kvrow * a.sdk.t
+                 + hk * a.sdk.h;
+    float* ov = static_cast<float*>(a.dv) + b * a.sdv.b + kvrow * a.sdv.t
+                + hk * a.sdv.h;
+#pragma unroll
+    for (int d = 0; d < DPT; ++d) {
+      odk[g + G * d] = dk[d] * a.sm_scale;
+      ov[g + G * d] = dv[d];
+    }
+  }
 }
 
 template <int D>
@@ -536,27 +697,37 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_f32(const Args& a, cudaStream_t st) {
+  const dim3 grid_q((a.Tq + kBlockRows - 1) / kBlockRows, a.Hq, a.B);
+  flash_bwd_dq_f32_kernel<D><<<grid_q, Core<D>::kThreads, 0, st>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_kv((a.Tk + kBlockRows - 1) / kBlockRows, a.Hkv, a.B);
+  flash_bwd_dkdv_f32_kernel<D><<<grid_kv, Core<D>::kThreads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Pointers: q, k, v, o, dO (bf16, read), dq, dk, dv (bf16, written), lse,
-// delta (fp32 (B, Hq, Tq) scratch).  strides: 24 values, (batch, time,
-// head) in elements for q, k, v, o, dO, dq, dk, dv in that order.
-// window: row r sees cols c with r - c < window (a value above every
-// r - c for none).  q, k, v and dO rows start on 16 bytes.
+// dtype: 0 = float32 (CUDA cores, D 16/32/64/128), 1 = bfloat16 (tensor
+// cores, D 16/32).  Pointers: q, k, v, o, dO (read), dq, dk, dv (written),
+// all in dtype; lse, the forward's fp32 (B, Hq, Tq) log-sum-exp (base 2
+// of the scaled scores); delta, fp32 (B, Hq, Tq) scratch.  strides: 24
+// values, (batch, time, head) in elements for q, k, v, o, dO, dq, dk, dv
+// in that order.  window: row r sees cols c with r - c < window (a value
+// above every r - c for none).  q, k, v and dO rows start on 16 bytes.
 // Returns the launches' cudaError_t.
-extern "C" int flash_bwd_launch(int head_dim, const void* q, const void* k,
-                                const void* v, const void* o,
+extern "C" int flash_bwd_launch(int dtype, int head_dim, const void* q,
+                                const void* k, const void* v, const void* o,
                                 const void* dout, void* dq, void* dk,
-                                void* dv, void* lse, void* delta, int B,
-                                int Hq, int Hkv, int Tq, int Tk,
+                                void* dv, const void* lse, void* delta,
+                                int B, int Hq, int Hkv, int Tq, int Tk,
                                 const long long* strides, int causal,
                                 int window, float sm_scale, void* stream) {
   const long long* s = strides;
-  Args a{static_cast<const bf16*>(q),    static_cast<const bf16*>(k),
-         static_cast<const bf16*>(v),    static_cast<const bf16*>(o),
-         static_cast<const bf16*>(dout), static_cast<bf16*>(dq),
-         static_cast<bf16*>(dk),         static_cast<bf16*>(dv),
-         static_cast<float*>(lse),       static_cast<float*>(delta),
+  Args a{q, k, v, o, dout, dq, dk, dv, static_cast<const float*>(lse),
+         static_cast<float*>(delta),
          B, Hq, Hkv, Tq, Tk,
          Strides{s[0], s[1], s[2]},      Strides{s[3], s[4], s[5]},
          Strides{s[6], s[7], s[8]},      Strides{s[9], s[10], s[11]},
@@ -566,13 +737,20 @@ extern "C" int flash_bwd_launch(int head_dim, const void* q, const void* k,
          static_cast<float>(sm_scale * 1.4426950408889634), sm_scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch (head_dim) {
-    case 16: err = launch<16>(a, st); break;
-    case 32: err = launch<32>(a, st); break;
-    case 64: err = launch<64>(a, st); break;
-    case 128: err = launch<128>(a, st); break;
-    default: err = cudaErrorInvalidValue;
-  }
+  if (dtype == 1 && head_dim == 16)
+    err = launch<16>(a, st);
+  else if (dtype == 1 && head_dim == 32)
+    err = launch<32>(a, st);
+  else if (dtype == 0 && head_dim == 16)
+    err = launch_f32<16>(a, st);
+  else if (dtype == 0 && head_dim == 32)
+    err = launch_f32<32>(a, st);
+  else if (dtype == 0 && head_dim == 64)
+    err = launch_f32<64>(a, st);
+  else if (dtype == 0 && head_dim == 128)
+    err = launch_f32<128>(a, st);
+  else
+    err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 

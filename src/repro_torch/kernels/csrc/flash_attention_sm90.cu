@@ -85,18 +85,20 @@
 //   tiles, so they read one kv head's tiles from L2 at about the same
 //   time.
 //
+// Training (grad on) also asks for each row's log-sum-exp, which the
+// backward kernels read instead of computing it again: lse = m + log2(l)
+// in base 2 of the scaled scores (the units the kernel keeps m and l in),
+// fp32 (B, Hq, Tq), written by the epilogue of a row's tile when the
+// launcher is given a buffer; serving passes none and nothing is written.
+//
 // C interface, bound with ctypes from repro_torch/kernels/flash_attention.py,
 // which computes each tensor's TMA geometry (and checks its alignment);
 // the maps themselves are encoded here per call with libcuda's
-// cuTensorMapEncodeTiled, looked up at first use.
-
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-#include <stdint.h>
+// cuTensorMapEncodeTiled, looked up at first use (sm90_ptx.cuh).
 
 #include <type_traits>
+
+#include "sm90_ptx.cuh"
 
 namespace {
 
@@ -129,246 +131,6 @@ struct Smem {
   static constexpr int kAlloc = kBytes + 1024;         // room to align
   static_assert(kAlloc <= kMaxSmem, "shared memory of one block");
 };
-
-// ---------------------------------------------------------------------------
-// PTX wrappers: mbarrier, TMA, wgmma
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// Wait for the completion of the barrier's phase with this parity.  (No
-// timeout: a trap path shared by the warp roles makes ptxas serialise the
-// consumers' wgmma at D 128 for want of registers.)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-// 4-d tile load (d, t, h, b) into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d, int t, int h,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d),
-         "r"(t), "r"(h), "r"(b)
-      : "memory");
-}
-
-// 4-d tile store (d, t, h, b) from shared memory; rows past the tensor's
-// end are not written.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          uint32_t src, int d, int t, int h,
-                                          int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n"
-      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(d), "r"(t),
-         "r"(h), "r"(b)
-      : "memory");
-}
-
-// Named barrier 1 + wg: the 128 threads of one consumer warpgroup (0 is
-// __syncthreads).
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle.  K-major operands: SBO
-// is the 1024 bytes between groups of 8 rows, LBO unused.  MN-major V: SBO
-// is the 1024 bytes between groups of 8 kv rows, LBO the distance between
-// the 64-column boxes of D.
-// A tile's descriptors differ only in the start address (the low 14
-// bits), so a chain adds byte offsets / 16 to one base.  The base passes
-// through an empty asm: otherwise the compiler hoists every descriptor of
-// every stage out of the loop and runs out of registers.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  asm volatile("" : "+r"(addr));
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
-         | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
-         | static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// D[64 x 128] (+)= A[64 x 16] (shared, K-major) . B[16 x 128] (shared, K-major)
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
-                                                  uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D[64 x 64] (+)= A[64 x 16] (shared, K-major) . B[16 x 64] (shared, K-major)
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
-                                                 uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D[64 x 64] += A[64 x 16] (registers) . B[16 x 64] (shared, MN-major)
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
-                                                  const uint32_t (&a)[4],
-                                                  uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 128] += A[64 x 16] (registers) . B[16 x 128] (shared, MN-major)
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
-                                                  const uint32_t (&a)[4],
-                                                  uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 256] += A[64 x 16] (registers) . B[16 x 256] (shared, MN-major)
-__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128],
-                                                  const uint32_t (&a)[4],
-                                                  uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// Keep the accumulator in place across an asynchronous wgmma: the compiler
-// may not move reads or writes of `x` over this point.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i]) :: "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
 
 // S = Q K^T for one consumer: D/16 k-steps, each 32 bytes further along
 // the 128-byte rows of a box, into the next box after 4 (D 128: 2 boxes,
@@ -501,9 +263,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
                       const __grid_constant__ CUtensorMap tmap_k,
                       const __grid_constant__ CUtensorMap tmap_v,
-                      const __grid_constant__ CUtensorMap tmap_o, int B,
-                      int Hq, int Hkv, int Tq, int Tk, int causal,
-                      int window, float scale_log2) {
+                      const __grid_constant__ CUtensorMap tmap_o,
+                      float* __restrict__ lse, int B, int Hq, int Hkv,
+                      int Tq, int Tk, int causal, int window,
+                      float scale_log2) {
   using L = Smem<D>;
   constexpr int kBlockK = L::kBlockK;
   extern __shared__ uint8_t smem_raw[];
@@ -696,8 +459,15 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
       // one thread stores them with TMA, which skips rows past Tq.  The
       // buffer is rewritten only once the previous tile's store has read
       // it.
-      const float inv_a = 1.f / fmaxf(quad_sum(sm.l_a), kDenomMin);
-      const float inv_b = 1.f / fmaxf(quad_sum(sm.l_b), kDenomMin);
+      const float l_a = quad_sum(sm.l_a), l_b = quad_sum(sm.l_b);
+      const float inv_a = 1.f / fmaxf(l_a, kDenomMin);
+      const float inv_b = 1.f / fmaxf(l_b, kDenomMin);
+      if (lse != nullptr && c0 == 0) {
+        // the rows' log-sum-exp for the backward (training only)
+        float* out = lse + (static_cast<long long>(b) * Hq + h) * Tq;
+        if (r0 < Tq) out[r0] = sm.m_a + __log2f(l_a);
+        if (r0 + 8 < Tq) out[r0 + 8] = sm.m_b + __log2f(l_b);
+      }
       const bool leader = threadIdx.x % 128 == 0;
       if (leader)
         asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -744,48 +514,11 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmap_q,
 // Host side
 // ---------------------------------------------------------------------------
 
-// cuTensorMapEncodeTiled, from libcuda (loaded by the CUDA runtime)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib ? reinterpret_cast<EncodeTiled>(
-                     dlsym(lib, "cuTensorMapEncodeTiled"))
-               : nullptr;
-  }();
-  return fn;
-}
-
-// geom: global dims (d, t, h, b), byte strides (t, h, b), box rows
-int encode(CUtensorMap* map, const void* ptr, const unsigned long long* geom) {
-  const EncodeTiled fn = encode_fn();
-  if (!fn) return -1;
-  const cuuint64_t dims[4] = {geom[0], geom[1], geom[2], geom[3]};
-  const cuuint64_t strides[3] = {geom[4], geom[5], geom[6]};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kBoxCols),
-                             static_cast<cuuint32_t>(geom[7]), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : 1000 + static_cast<int>(r);
-}
-
 template <int D>
 int launch(const CUtensorMap& mq, const CUtensorMap& mk,
-           const CUtensorMap& mv, const CUtensorMap& mo, int B, int Hq,
-           int Hkv, int Tq, int Tk, int causal, int window, float sm_scale,
-           cudaStream_t stream) {
+           const CUtensorMap& mv, const CUtensorMap& mo, float* lse, int B,
+           int Hq, int Hkv, int Tq, int Tk, int causal, int window,
+           float sm_scale, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Smem<D>::kAlloc);
@@ -802,7 +535,8 @@ int launch(const CUtensorMap& mq, const CUtensorMap& mk,
   if (n_work > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = static_cast<int>(n_work < n_sm ? n_work : n_sm);
   flash_fwd_sm90_kernel<D><<<grid, kThreads, Smem<D>::kAlloc, stream>>>(
-      mq, mk, mv, mo, B, Hq, Hkv, Tq, Tk, causal, window, sm_scale * kLog2e);
+      mq, mk, mv, mo, lse, B, Hq, Hkv, Tq, Tk, causal, window,
+      sm_scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -811,13 +545,15 @@ int launch(const CUtensorMap& mq, const CUtensorMap& mk,
 // bf16 q, k, v, o; head_dim 64, 128 or 256.  geom: 8 values (see encode)
 // for each of q, k, v and o in turn (k and v boxes of Smem<D>::kBlockK
 // rows).  window: row r sees cols c with r - c <
-// window (a value above every r - c for none).  Returns 0, a cudaError_t, 1000 + a
-// CUresult of the map encoding, or -1 when libcuda has no
-// cuTensorMapEncodeTiled.
+// window (a value above every r - c for none).  lse: an fp32 (B, Hq, Tq)
+// buffer for the rows' log-sum-exp (base 2 of the scaled scores), or null.
+// Returns 0, a cudaError_t, 1000 + a CUresult of the map encoding, or -1
+// when libcuda has no cuTensorMapEncodeTiled.
 extern "C" int flash_sm90_launch(
     int head_dim, const void* q, const void* k, const void* v, void* o,
-    int B, int Hq, int Hkv, int Tq, int Tk, const unsigned long long* geom,
-    int causal, int window, float sm_scale, void* stream) {
+    void* lse, int B, int Hq, int Hkv, int Tq, int Tk,
+    const unsigned long long* geom, int causal, int window, float sm_scale,
+    void* stream) {
   // the box heights the kernel's barriers expect (a TMA load of another
   // size would never complete them)
   const unsigned long long kv_rows =
@@ -827,17 +563,19 @@ extern "C" int flash_sm90_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv, mo;
   int rc;
-  if ((rc = encode(&mq, q, geom)) || (rc = encode(&mk, k, geom + 8))
-      || (rc = encode(&mv, v, geom + 16))
-      || (rc = encode(&mo, o, geom + 24)))
+  if ((rc = make_context_current()) || (rc = encode(&mq, q, geom, geom[7]))
+      || (rc = encode(&mk, k, geom + 8, geom[15]))
+      || (rc = encode(&mv, v, geom + 16, geom[23]))
+      || (rc = encode(&mo, o, geom + 24, geom[31])))
     return rc;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* const out_lse = static_cast<float*>(lse);
   switch (head_dim) {
-    case 64: return launch<64>(mq, mk, mv, mo, B, Hq, Hkv, Tq, Tk, causal,
+    case 64: return launch<64>(mq, mk, mv, mo, out_lse, B, Hq, Hkv, Tq, Tk, causal,
                                window, sm_scale, st);
-    case 128: return launch<128>(mq, mk, mv, mo, B, Hq, Hkv, Tq, Tk, causal,
+    case 128: return launch<128>(mq, mk, mv, mo, out_lse, B, Hq, Hkv, Tq, Tk, causal,
                                  window, sm_scale, st);
-    case 256: return launch<256>(mq, mk, mv, mo, B, Hq, Hkv, Tq, Tk, causal,
+    case 256: return launch<256>(mq, mk, mv, mo, out_lse, B, Hq, Hkv, Tq, Tk, causal,
                                  window, sm_scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

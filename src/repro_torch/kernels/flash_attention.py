@@ -48,16 +48,25 @@ Gradients.  The reference gets its attention gradient from ``jax.grad``
 of ``flash_attention_xla``; the Pallas kernel has no backward.  Here the
 entry points run through :class:`FlashAttentionFn` whenever grad is
 enabled and an input requires it: its forward is the same kernel launch
-(same route, same count), and its backward launches
-``csrc/flash_attention_bwd.cu`` (bf16 at D 16-128, Tq == Tk; counted in
-``bwd_launch_count``), or on CPU tensors runs
-:func:`attention_backward_plain`.  A case the backward kernel does not
-take (fp32, D 256) raises on the card: ROADMAP.md queue 2 item 2(c).
-With grad disabled nothing is saved and the same launches happen.
+(same route, same count) that also writes each row's log-sum-exp (lse,
+base 2 of the scaled scores, fp32 ``(B, Hq, Tq)``), and its backward
+reads that lse and launches, by :func:`route` again,
+
+* ``"sm90"`` — ``csrc/flash_attention_bwd_sm90.cu`` for bf16 at D 64, 128
+  and 256 (``wgmma``, TMA ring; counted in ``bwd_sm90_launch_count``),
+  under the same TMA alignment rules (:func:`sm90_bwd_plan`);
+* ``"cuda_core"`` — ``csrc/flash_attention_bwd.cu`` for bf16 at D 16/32
+  (``mma.sync``) and fp32 at D 16-128 (CUDA cores; counted in
+  ``bwd_launch_count``);
+
+both with Tq == Tk.  On CPU tensors it runs :func:`attention_backward_plain`
+with the same lse.  With grad disabled no lse is written, nothing is saved
+and the same launches happen.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -70,6 +79,8 @@ FP32_HEAD_DIMS = (16, 32, 64, 128)
 #: launch is below it (the launchers take the window as a C int)
 NO_WINDOW = 1 << 30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: log2(e): the kernels keep scores, the softmax and lse in base 2
+LOG2E = 1.4426950408889634
 #: what the tensor-core kernel takes: bf16 at these head dims
 SM90_HEAD_DIMS = (64, 128, 256)
 #: its q tile rows, kv tile rows by head dim, the rows of output one
@@ -87,11 +98,19 @@ launch_count = 0
 sm90_launch_count = 0
 #: its launches at D 256 (recurrentgemma-2b's), counted the same way
 d256_launch_count = 0
-#: backward kernel calls (``csrc/flash_attention_bwd.cu``: one call is
-#: its dQ pass and its dK/dV pass), counted the same way
+#: CUDA-core backward kernel calls (``csrc/flash_attention_bwd.cu``: one
+#: call is its dQ pass and its dK/dV pass), counted the same way
 bwd_launch_count = 0
-#: head dims of the backward kernel (bf16 only)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
+#: tensor-core backward kernel calls (``csrc/flash_attention_bwd_sm90.cu``:
+#: one call is its prep, dQ, dK/dV and, with a head split, reduce
+#: launches), counted the same way
+bwd_sm90_launch_count = 0
+#: the sm90 backward's tiles: its dK/dV kernel's q tiles (the TMA plan's
+#: box rows), its kv tiles by head dim, and its lse / delta rows padded to
+#: a multiple
+BWD_SM90_ROWS = 64
+BWD_SM90_KV_ROWS = {64: 128, 128: 128, 256: 64}
+BWD_SM90_PAD = 128
 
 
 def _visible(Tq: int, Tk: int, causal: bool, window, device):
@@ -110,13 +129,16 @@ def _visible(Tq: int, Tk: int, causal: bool, window, device):
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, sm_scale: float,
-                    window: int | None = None) -> torch.Tensor:
+                    causal: bool, sm_scale: float, window: int | None = None,
+                    return_lse: bool = False):
     """Plain PyTorch version of the kernel in ``(B, H, T, D)`` layout:
     ``q (B, Hq, Tq, D)``, ``k, v (B, Hkv, Tk, D)``, ``Hq % Hkv == 0``.
     Scores in fp32 times ``sm_scale``, the top-left causal mask and the
     window mask ``(row - col) < window``, softmax, and the product with
-    ``v`` in fp32, cast back to ``q.dtype``."""
+    ``v`` in fp32, cast back to ``q.dtype``.  With ``return_lse`` also the
+    rows' log-sum-exp in the kernels' units, base 2 of the scaled scores
+    (``logsumexp(s * sm_scale) * log2 e``), fp32 ``(B, Hq, Tq)``: ``(out,
+    lse)``."""
     B, Hq, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     qf = q.float().reshape(B, Hkv, Hq // Hkv, Tq, D)
@@ -126,24 +148,30 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = s.masked_fill(~vis, float("-inf"))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float())
-    return o.reshape(B, Hq, Tq, D).to(q.dtype)
+    o = o.reshape(B, Hq, Tq, D).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, (torch.logsumexp(s, dim=-1) * LOG2E).reshape(B, Hq, Tq)
 
 
-def attention_backward_plain(q, k, v, o, do, *, causal: bool,
+def attention_backward_plain(q, k, v, o, do, lse=None, *, causal: bool,
                              sm_scale: float, window: int | None = None,
                              head_axis: int = 1):
-    """Plain PyTorch version of the backward kernel: ``(dq, dk, dv)`` of
+    """Plain PyTorch version of the backward kernels: ``(dq, dk, dv)`` of
     attention at ``q, k, v`` (the forward's output ``o``, its cotangent
-    ``do``) in the layout ``head_axis`` gives (1: ``(B, H, T, D)``, 2:
-    ``(B, T, H, D)``), each in its input's dtype.  All in fp32: P
-    recomputed under the kernels' top-left causal mask and window,
-    ``dV = P^T dO``, ``dP = dO V^T``, ``dS = P * (dP - rowsum(dO * O))``,
-    ``dQ = dS K * sm_scale``, ``dK = dS^T Q * sm_scale``; a kv head's dK
-    and dV sum over the query heads that share it."""
+    ``do``, and optionally its ``lse``) in the layout ``head_axis`` gives
+    (1: ``(B, H, T, D)``, 2: ``(B, T, H, D)``), each in its input's dtype.
+    All in fp32: P recomputed under the kernels' top-left causal mask and
+    window, as the softmax of the scores or, given the forward's lse
+    (``(B, Hq, Tq)``, base 2 of the scaled scores, as the kernels read it),
+    as ``exp2(S * sm_scale * log2 e - lse)``; ``dV = P^T dO``, ``dP = dO
+    V^T``, ``dS = P * (dP - rowsum(dO * O))``, ``dQ = dS K * sm_scale``,
+    ``dK = dS^T Q * sm_scale``; a kv head's dK and dV sum over the query
+    heads that share it."""
     if head_axis == 2:
         t = lambda x: x.transpose(1, 2)
         dq, dk, dv = attention_backward_plain(
-            t(q), t(k), t(v), t(o), t(do), causal=causal,
+            t(q), t(k), t(v), t(o), t(do), lse, causal=causal,
             sm_scale=sm_scale, window=window, head_axis=1)
         return t(dq), t(dk), t(dv)
     B, Hq, Tq, D = q.shape
@@ -155,7 +183,11 @@ def attention_backward_plain(q, k, v, o, do, *, causal: bool,
     vis = _visible(Tq, Tk, causal, window, q.device)
     if vis is not None:
         s = s.masked_fill(~vis, float("-inf"))
-    p = torch.softmax(s, dim=-1)
+    if lse is None:
+        p = torch.softmax(s, dim=-1)
+    else:
+        p = torch.exp2(s * LOG2E - lse.float().reshape(B, Hkv, Hq // Hkv, Tq,
+                                                       1))
     dv = torch.einsum("bgrqk,bgrqd->bgkd", p, dof)
     dp = torch.einsum("bgrqd,bgkd->bgrqk", dof, vf)
     ds = p * (dp - (dof * of).sum(-1, keepdim=True))
@@ -243,6 +275,30 @@ def sm90_plan(q, k, v, out, head_axis: int):
             tma_geometry(out, head_axis, SM90_STORE_ROWS, "out"))
 
 
+def sm90_bwd_plan(q, k, v, do, head_axis: int):
+    """The TMA geometries ``(q, k, v, dO)`` of the sm90 backward (its
+    launcher picks each kernel's box rows: q and dO 128 for the dQ kernel
+    and 64 for the dK/dV kernel, k and v each kernel's kv tile).  Raises
+    ``ValueError`` as :func:`tma_geometry` does."""
+    return tuple(tma_geometry(x, head_axis, BWD_SM90_ROWS, name)
+                 for x, name in zip((q, k, v, do), ("q", "k", "v", "do")))
+
+
+def bwd_head_split(B: int, Hkv: int, T: int, D: int, rep: int,
+                   n_sm: int) -> int:
+    """Into how many groups the sm90 backward's dK/dV kernel splits each kv
+    head's ``rep`` query heads: 1 when its (kv tile of
+    ``BWD_SM90_KV_ROWS[D]`` rows, kv head, batch) work tiles fill the
+    card's ``n_sm`` SMs, else the nearest whole multiple of them, at most
+    ``rep`` (MQA at recurrentgemma-2b's training shape, (1, 4096, 10, 1,
+    256): 64 tiles, split 2).  A split makes fp32 partial dK and dV that a
+    last pass sums in split order."""
+    tiles = -(-T // BWD_SM90_KV_ROWS[D]) * Hkv * B
+    if tiles >= n_sm:
+        return 1
+    return max(1, min(rep, round(n_sm / tiles)))
+
+
 _LIBS: dict = {}
 
 
@@ -255,17 +311,24 @@ def _lib(name: str):
         if name == "flash_attention":
             fn = lib.flash_attention_launch
             err = lib.flash_attention_error_string
-            fn.argtypes = ([ci, ci, vp, vp, vp, vp] + [ci] * 5 + [ll] * 12
+            fn.argtypes = ([ci, ci] + [vp] * 5 + [ci] * 5 + [ll] * 12
                            + [ci, ci, ctypes.c_float, ci, vp])
         elif name == "flash_attention_bwd":
             fn = lib.flash_bwd_launch
             err = lib.flash_bwd_error_string
-            fn.argtypes = ([ci] + [vp] * 10 + [ci] * 5
+            fn.argtypes = ([ci, ci] + [vp] * 10 + [ci] * 5
                            + [ctypes.POINTER(ll), ci, ci, ctypes.c_float,
+                              vp])
+        elif name == "flash_attention_bwd_sm90":
+            fn = lib.flash_bwd_sm90_launch
+            err = lib.flash_bwd_sm90_error_string
+            fn.argtypes = ([ci] + [vp] * 12 + [ci] * 5
+                           + [ctypes.POINTER(ctypes.c_ulonglong),
+                              ctypes.POINTER(ll), ci, ci, ctypes.c_float,
                               vp])
         else:
             fn, err = lib.flash_sm90_launch, lib.flash_sm90_error_string
-            fn.argtypes = ([ci, vp, vp, vp, vp] + [ci] * 5
+            fn.argtypes = ([ci] + [vp] * 5 + [ci] * 5
                            + [ctypes.POINTER(ctypes.c_ulonglong), ci, ci,
                               ctypes.c_float, vp])
         fn.restype = ci
@@ -273,6 +336,11 @@ def _lib(name: str):
         err.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _check(q, k, v, head_axis: int, window: int | None = None):
@@ -299,10 +367,13 @@ def _check(q, k, v, head_axis: int, window: int | None = None):
 
 
 def attention_cuda(q, k, v, *, causal: bool, sm_scale: float,
-                   head_axis: int, window: int | None = None) -> torch.Tensor:
+                   head_axis: int, window: int | None = None,
+                   return_lse: bool = False):
     """Launch the kernel :func:`route` picks on the current stream (no
     synchronise).  ``head_axis`` 1: ``(B, H, T, D)`` tensors; 2: ``(B, T,
-    H, D)``.  The output is contiguous in the same layout as ``q``."""
+    H, D)``.  The output is contiguous in the same layout as ``q``.  With
+    ``return_lse`` the kernel also writes the rows' log-sum-exp (fp32
+    ``(B, Hq, Tq)``, base 2 of the scaled scores): ``(out, lse)``."""
     global launch_count, sm90_launch_count, d256_launch_count
     B, Hq, Hkv, Tq, Tk, D = _check(q, k, v, head_axis, window)
     win = NO_WINDOW if window is None else min(int(window), NO_WINDOW)
@@ -323,8 +394,11 @@ def attention_cuda(q, k, v, *, causal: bool, sm_scale: float,
                          f"{q.dtype} (takes {dims})")
     kernel = route(q.dtype, D)
     out = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    lse = torch.empty((B, Hq, Tq), dtype=torch.float32, device=dev) \
+        if return_lse else None
     if B * Hq * Tq == 0:
-        return out
+        return (out, lse) if return_lse else out
+    lse_ptr = None if lse is None else lse.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     if kernel == "sm90":
         plan = sm90_plan(q, k, v, out, head_axis)
@@ -332,9 +406,9 @@ def attention_cuda(q, k, v, *, causal: bool, sm_scale: float,
         geom = (ctypes.c_ulonglong * 32)(*(x for g in plan
                                            for x in g.packed()))
         rc = lib.flash_sm90_launch(
-            D, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-            Hq, Hkv, Tq, Tk, geom, int(causal), win, float(sm_scale),
-            stream)
+            D, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse_ptr, B, Hq, Hkv, Tq, Tk, geom, int(causal), win,
+            float(sm_scale), stream)
         err = lib.flash_sm90_error_string
     else:
         lib = _lib("flash_attention")
@@ -347,7 +421,8 @@ def attention_cuda(q, k, v, *, causal: bool, sm_scale: float,
             and all(x * es % 16 == 0 for x in bth[1] + bth[2])
         rc = lib.flash_attention_launch(
             _DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, Hq, Hkv, Tq, Tk, *bth[0], *bth[1], *bth[2],
+            out.data_ptr(), lse_ptr, B, Hq, Hkv, Tq, Tk, *bth[0], *bth[1],
+            *bth[2],
             *bth[3], int(causal), win, float(sm_scale), int(aligned), stream)
         err = lib.flash_attention_error_string
     if rc != 0:
@@ -360,7 +435,7 @@ def attention_cuda(q, k, v, *, causal: bool, sm_scale: float,
         d256_launch_count += 1
     else:
         sm90_launch_count += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def _rows_aligned(x) -> bool:
@@ -370,23 +445,27 @@ def _rows_aligned(x) -> bool:
         x.stride(a) * es % 16 == 0 for a in range(x.dim() - 1))
 
 
-def attention_backward_cuda(q, k, v, o, do, *, causal: bool,
+def attention_backward_cuda(q, k, v, o, do, lse, *, causal: bool,
                             sm_scale: float, head_axis: int,
                             window: int | None = None):
-    """Launch the backward kernel (``csrc/flash_attention_bwd.cu``) on
-    the current stream: ``(dq, dk, dv)``, contiguous in the inputs'
-    layout.  Takes bf16 at ``BWD_HEAD_DIMS`` with Tq == Tk, any strides
-    with a contiguous head dim that start q's, k's, v's and dO's rows on
-    16 bytes; raises ``NotImplementedError`` for fp32
-    and D 256 (ROADMAP.md queue 2 item 2(c)) and ``ValueError`` for the
-    rest it does not take.  One call, one count."""
-    global bwd_launch_count
+    """Launch the backward kernel :func:`route` picks on the current
+    stream: ``(dq, dk, dv)``, contiguous in the inputs' layout.  ``lse`` is
+    the forward's (``attention_cuda(..., return_lse=True)``).  Takes the
+    forward's dtypes and head dims (bf16 at 16-256, fp32 at 16-128) with
+    Tq == Tk: bf16 at D 64/128/256 on the sm90 kernel (any strides TMA can
+    read, :func:`sm90_bwd_plan`, and o's rows on 16 bytes), the rest on the
+    CUDA-core kernel (rows of q, k, v and dO on 16 bytes: ``cp.async``).
+    Raises ``ValueError`` for what neither takes.  One call, one count on
+    its kernel's counter."""
+    global bwd_launch_count, bwd_sm90_launch_count
     B, Hq, Hkv, Tq, Tk, D = _check(q, k, v, head_axis, window)
-    if q.dtype != torch.bfloat16 or D not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash attention backward on the card takes bf16 at head dim "
-            f"{BWD_HEAD_DIMS}, got {q.dtype} at {D}: the fp32 and D-256 "
-            "backward kernels are ROADMAP.md queue 2 item 2(c)")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash attention backward: dtype {q.dtype} (takes "
+                         "float32 or bfloat16)")
+    dims = HEAD_DIMS if q.dtype == torch.bfloat16 else FP32_HEAD_DIMS
+    if D not in dims:
+        raise ValueError(f"flash attention backward: head_dim {D} in "
+                         f"{q.dtype} (takes {dims}, as the forward)")
     if Tq != Tk:
         raise ValueError(f"flash attention backward: Tq {Tq} != Tk {Tk} "
                          "(training has Tq == Tk)")
@@ -402,78 +481,116 @@ def attention_backward_cuda(q, k, v, o, do, *, causal: bool,
         raise ValueError(f"flash attention backward: o {tuple(o.shape)} and "
                          f"do {tuple(do.shape)} must have q's shape "
                          f"{tuple(q.shape)}")
-    # cp.async stages q, k, v and dO rows in 16-byte pieces
-    for name, x in zip(("q", "k", "v", "do"), (q, k, v, do)):
+    if lse.shape != (B, Hq, Tq) or lse.dtype != torch.float32 \
+            or lse.device != dev or not lse.is_contiguous():
+        raise ValueError(f"flash attention backward: lse must be the "
+                         f"forward's contiguous fp32 (B, Hq, Tq) = "
+                         f"{(B, Hq, Tq)} on {dev}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    kernel = route(q.dtype, D)
+    if kernel == "sm90":
+        plan = sm90_bwd_plan(q, k, v, do, head_axis)
+    # cp.async stages q, k, v and dO rows in 16-byte pieces; the sm90
+    # kernel's prep pass reads o's rows in 16-byte pieces
+    for name, x in (zip(("o",), (o,)) if kernel == "sm90" else
+                    zip(("q", "k", "v", "do"), (q, k, v, do))):
         if not _rows_aligned(x):
-            raise ValueError(f"flash attention backward: {name}'s rows must "
-                             f"start on 16 bytes, got base {x.data_ptr()} "
-                             f"and strides {x.stride()}")
+            raise ValueError(f"flash attention backward: {name}'s rows "
+                             f"must start on 16 bytes, got base "
+                             f"{x.data_ptr()} and strides {x.stride()}")
     win = NO_WINDOW if window is None else min(int(window), NO_WINDOW)
     dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=dev)
                   for x in (q, k, v))
     if B * Hq * Tq == 0:
         return dq, dk.zero_(), dv.zero_()
-    # the dQ pass leaves each row's log-sum-exp (base 2) and
-    # rowsum(dO * O) here for the dK/dV pass
-    lse = torch.empty((B, Hq, Tq), dtype=torch.float32, device=dev)
-    delta = torch.empty_like(lse)
     t_axis = 3 - head_axis
-    outs = (dq, dk, dv)
-    strides = (ctypes.c_longlong * 24)(*(
-        s for x in ins + outs
-        for s in (x.stride(0), x.stride(t_axis), x.stride(head_axis))))
-    lib = _lib("flash_attention_bwd")
-    rc = lib.flash_bwd_launch(
-        D, *(x.data_ptr() for x in ins + outs), lse.data_ptr(),
-        delta.data_ptr(), B, Hq, Hkv, Tq, Tk, strides, int(causal), win,
-        float(sm_scale), torch.cuda.current_stream(dev).cuda_stream)
+    bth = lambda xs: (ctypes.c_longlong * (3 * len(xs)))(*(
+        s for x in xs for s in (x.stride(0), x.stride(t_axis),
+                                x.stride(head_axis))))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if kernel == "sm90":
+        split = bwd_head_split(B, Hkv, Tq, D, Hq // Hkv, _n_sm(dev))
+        t_pad = -(-Tq // BWD_SM90_PAD) * BWD_SM90_PAD
+        # the forward's lse and rowsum(dO * O), padded per (batch, head)
+        lse_pad, delta = (torch.empty((B, Hq, t_pad), dtype=torch.float32,
+                                      device=dev) for _ in range(2))
+        part = torch.empty((split, 2, B, Hkv, Tq, D), dtype=torch.float32,
+                           device=dev) if split > 1 else None
+        geom = (ctypes.c_ulonglong * 32)(*(x for g in plan
+                                           for x in g.packed()))
+        lib = _lib("flash_attention_bwd_sm90")
+        rc = lib.flash_bwd_sm90_launch(
+            D, *(x.data_ptr() for x in ins + (dq, dk, dv, lse, lse_pad,
+                                             delta)),
+            None if part is None else part.data_ptr(), split, B, Hq, Hkv,
+            Tq, geom, bth((o, do, dq, dk, dv)), int(causal), win,
+            float(sm_scale), stream)
+        err = lib.flash_bwd_sm90_error_string
+    else:
+        delta = torch.empty((B, Hq, Tq), dtype=torch.float32, device=dev)
+        lib = _lib("flash_attention_bwd")
+        rc = lib.flash_bwd_launch(
+            _DTYPES[q.dtype], D, *(x.data_ptr() for x in ins + (dq, dk, dv)),
+            lse.data_ptr(), delta.data_ptr(), B, Hq, Hkv, Tq, Tk,
+            bth(ins + (dq, dk, dv)), int(causal), win, float(sm_scale),
+            stream)
+        err = lib.flash_bwd_error_string
     if rc != 0:
-        raise RuntimeError("flash attention backward kernel launch failed: "
-                           + lib.flash_bwd_error_string(rc).decode())
-    bwd_launch_count += 1
+        raise RuntimeError(f"flash attention backward {kernel} kernel launch "
+                           "failed: " + err(rc).decode())
+    if kernel == "sm90":
+        bwd_sm90_launch_count += 1
+    else:
+        bwd_launch_count += 1
     return dq, dk, dv
 
 
-def _forward(q, k, v, causal, sm_scale, head_axis, window):
+def _forward(q, k, v, causal, sm_scale, head_axis, window,
+             return_lse: bool = False):
     kind = q.device.type
     if kind == "cuda":
         return attention_cuda(q, k, v, causal=causal, sm_scale=sm_scale,
-                              head_axis=head_axis, window=window)
+                              head_axis=head_axis, window=window,
+                              return_lse=return_lse)
     if kind != "cpu":
         raise NotImplementedError(f"flash attention on {kind!r} tensors")
     _check(q, k, v, head_axis, window)
     if head_axis == 1:
         return attention_plain(q, k, v, causal=causal, sm_scale=sm_scale,
-                               window=window)
+                               window=window, return_lse=return_lse)
     t = lambda x: x.transpose(1, 2)
-    return t(attention_plain(t(q), t(k), t(v), causal=causal,
-                             sm_scale=sm_scale, window=window))
+    res = attention_plain(t(q), t(k), t(v), causal=causal,
+                          sm_scale=sm_scale, window=window,
+                          return_lse=return_lse)
+    return (t(res[0]), res[1]) if return_lse else t(res)
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention with a gradient: the forward is :func:`_forward`'s
-    kernel launch (or plain version on CPU tensors) and saves q, k, v and
-    its output; the backward launches the backward kernel on CUDA tensors
+    kernel launch (or plain version on CPU tensors), which also writes the
+    rows' lse, and saves q, k, v, its output and the lse; the backward
+    launches a backward kernel on CUDA tensors
     (:func:`attention_backward_cuda`) and runs
-    :func:`attention_backward_plain` on CPU ones."""
+    :func:`attention_backward_plain` on CPU ones, both reading that lse."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, head_axis, window):
-        o = _forward(q, k, v, causal, sm_scale, head_axis, window)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = _forward(q, k, v, causal, sm_scale, head_axis, window,
+                          return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = dict(causal=causal, sm_scale=sm_scale,
                         head_axis=head_axis, window=window)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         if q.device.type == "cuda":
             if do.stride(3) != 1 or not _rows_aligned(do):
                 do = do.contiguous()
-            grads = attention_backward_cuda(q, k, v, o, do, **ctx.args)
+            grads = attention_backward_cuda(q, k, v, o, do, lse, **ctx.args)
         else:
-            grads = attention_backward_plain(q, k, v, o, do, **ctx.args)
+            grads = attention_backward_plain(q, k, v, o, do, lse, **ctx.args)
         return (*grads, None, None, None, None)
 
 

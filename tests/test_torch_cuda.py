@@ -855,64 +855,126 @@ def test_moe_flat_overflow_on_cuda_equals_cpu(cuda, counts):
     assert (not got[kept_last].any()) == (counts[-1] > 8)
 
 
-def _assert_bwd_close(got, want):
+def _assert_bwd_close(got, want, tol=2e-2):
     """A backward kernel's gradient against its plain version: max |diff|
-    within 2e-2 x max |plain| and relative L2 error within 1e-2."""
+    within ``tol`` x max |plain| and relative L2 error within ``tol / 2``
+    (bf16: 2e-2; fp32 on the CUDA cores: 1e-4, the same fp32 products
+    summed in another order)."""
     g, w = got.float(), want.float()
-    assert (g - w).abs().max().item() <= 2e-2 * w.abs().max().item()
-    assert (g - w).norm().item() <= 1e-2 * w.norm().item()
+    assert (g - w).abs().max().item() <= tol * w.abs().max().item()
+    assert (g - w).norm().item() <= tol / 2 * w.norm().item()
 
 
-def _bwd_case(cuda, D, causal, window, T, rep, layout, seed):
+def _bwd_counts():
+    return (FA.bwd_launch_count, FA.bwd_sm90_launch_count)
+
+
+def _bwd_case(cuda, D, causal, window, T, rep, layout, seed,
+              dtype=torch.bfloat16, Hkv=2):
+    """q, k, v, dO in ``dtype`` and the plain forward's o and lse."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
     q, k, v, do = ((torch.randn(2, T, h, D, generator=gen, device=cuda)
-                    * 0.5).bfloat16() for h in (2 * rep, 2, 2, 2 * rep))
+                    * 0.5).to(dtype) for h in (Hkv * rep, Hkv, Hkv,
+                                               Hkv * rep))
     t = lambda x: x.transpose(1, 2)
     if layout == 1:
         q, k, v, do = (t(x).contiguous() for x in (q, k, v, do))
     tl = (lambda x: x) if layout == 1 else t
-    o = tl(FA.attention_plain(tl(q), tl(k), tl(v), causal=causal,
-                              sm_scale=D ** -0.5, window=window))
-    return q, k, v, o, do
+    o, lse = FA.attention_plain(tl(q), tl(k), tl(v), causal=causal,
+                                sm_scale=D ** -0.5, window=window,
+                                return_lse=True)
+    return q, k, v, tl(o), do, lse
 
 
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def _bwd_check(q, k, v, o, do, lse, tol, **kw):
+    """Two calls of the route's backward kernel (one count each, on its
+    counter only) against ``attention_backward_plain``; bit-equal reruns."""
+    route = FA.route(q.dtype, q.shape[-1])
+    before, n = _counts(), _bwd_counts()
+    got = FA.attention_backward_cuda(q, k, v, o, do, lse, **kw)
+    again = FA.attention_backward_cuda(q, k, v, o, do, lse, **kw)
+    step = tuple(2 * (r == route) for r in ("cuda_core", "sm90"))
+    assert _counts() == before
+    assert tuple(b - a for a, b in zip(n, _bwd_counts())) == step
+    want = FA.attention_backward_plain(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    for g, w, a in zip(got, want, again):
+        _assert_bwd_close(g, w, tol)
+        assert torch.equal(g, a) and g.dtype == q.dtype
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None),
                                            (True, 64), (False, 2048)])
 @pytest.mark.parametrize("T,rep,layout", [(100, 1, 2), (300, 4, 1),
                                           (300, 5, 2)])
 def test_flash_backward_kernel_equals_plain_version(cuda, D, causal, window,
                                                     T, rep, layout):
-    """The backward kernel (``csrc/flash_attention_bwd.cu``) against
-    ``attention_backward_plain`` on the same tensors: dQ, dK, dV within
-    :func:`_assert_bwd_close`'s bounds, one counted launch per call and no
-    forward count; a second run is bit-equal (no atomics)."""
-    q, k, v, o, do = _bwd_case(cuda, D, causal, window, T, rep, layout,
-                               D + T + rep)
-    kw = dict(causal=causal, sm_scale=D ** -0.5, window=window,
-              head_axis=layout)
-    before, n = _counts(), FA.bwd_launch_count
-    got = FA.attention_backward_cuda(q, k, v, o, do, **kw)
-    again = FA.attention_backward_cuda(q, k, v, o, do, **kw)
-    assert _counts() == before and FA.bwd_launch_count == n + 2
-    want = FA.attention_backward_plain(q, k, v, o, do, **kw)
-    torch.cuda.synchronize()
-    for g, w, a in zip(got, want, again):
-        _assert_bwd_close(g, w)
-        assert torch.equal(g, a) and g.dtype == torch.bfloat16
+    """The bf16 backward kernels (``csrc/flash_attention_bwd_sm90.cu`` at D
+    64-256, ``csrc/flash_attention_bwd.cu`` at D 16/32) against
+    ``attention_backward_plain`` on the same tensors and lse: dQ, dK, dV
+    within :func:`_assert_bwd_close`'s bounds, one counted launch per call
+    on the route's counter and no forward count; a second run is bit-equal
+    (no atomics)."""
+    q, k, v, o, do, lse = _bwd_case(cuda, D, causal, window, T, rep, layout,
+                                    D + T + rep)
+    _bwd_check(q, k, v, o, do, lse, 2e-2, causal=causal, sm_scale=D ** -0.5,
+               window=window, head_axis=layout)
+
+
+@pytest.mark.parametrize("rep,window,T", [(5, 64, 300), (10, 2048, 2200),
+                                          (10, None, 130)])
+def test_flash_backward_d256_mqa_equals_plain_version(cuda, rep, window, T):
+    """recurrentgemma-2b's case: D 256, MQA (one kv head), a window, T past
+    it; the dK/dV kernel's head split and its reduce pass run at these
+    shapes (few kv tiles)."""
+    q, k, v, o, do, lse = _bwd_case(cuda, 256, True, window, T, rep, 2, 11,
+                                    Hkv=1)
+    _bwd_check(q, k, v, o, do, lse, 2e-2, causal=True, sm_scale=1 / 16,
+               window=window, head_axis=2)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, 64)])
+@pytest.mark.parametrize("T,rep,layout", [(100, 1, 2), (300, 4, 1)])
+def test_flash_backward_fp32_kernel_equals_plain_version(cuda, D, causal,
+                                                         window, T, rep,
+                                                         layout):
+    """fp32 on the CUDA cores (``csrc/flash_attention_bwd.cu``) against the
+    plain version at fp32's bound."""
+    q, k, v, o, do, lse = _bwd_case(cuda, D, causal, window, T, rep, layout,
+                                    D + T, dtype=torch.float32)
+    _bwd_check(q, k, v, o, do, lse, 1e-4, causal=causal, sm_scale=D ** -0.5,
+               window=window, head_axis=layout)
+
+
+def test_forward_kernels_write_lse_only_when_asked(cuda):
+    """With ``return_lse`` each forward kernel writes the rows' lse (equal
+    to the plain version's within 1e-3 in log2 units); without it the same
+    output and no buffer."""
+    for D, dtype in ((64, torch.bfloat16), (256, torch.bfloat16),
+                     (32, torch.bfloat16), (64, torch.float32)):
+        q, k, v, o, do, lse = _bwd_case(cuda, D, True, 64, 200, 2, 2, 5,
+                                        dtype=dtype)
+        out, got = FA.attention_cuda(q, k, v, causal=True, sm_scale=D ** -0.5,
+                                     head_axis=2, window=64, return_lse=True)
+        plain = FA.attention_cuda(q, k, v, causal=True, sm_scale=D ** -0.5,
+                                  head_axis=2, window=64)
+        assert torch.equal(out, plain)
+        assert (got - lse).abs().max().item() <= 1e-3
 
 
 def test_flash_autograd_on_cuda_runs_the_backward_kernel(cuda):
     """Training's route: with inputs requiring grad, the entry point saves
-    its inputs and output and the backward launches the kernel (never the
-    plain version), the forward counted as before."""
-    q, k, v, o, do = _bwd_case(cuda, 64, True, None, 200, 4, 2, 7)
+    its inputs, output and lse, and the backward launches the kernel (never
+    the plain version), the forward counted as before."""
+    q, k, v, o, do, _ = _bwd_case(cuda, 64, True, None, 200, 4, 2, 7)
     q, k, v = (x.requires_grad_(True) for x in (q, k, v))
-    before, n = _counts(), FA.bwd_launch_count
+    before, n = _counts(), _bwd_counts()
     out = FA.flash_attention_bthd(q, k, v, causal=True)
     grads = torch.autograd.grad(out, (q, k, v), do)
     assert _counts() == _stepped(before, "sm90", 1)
-    assert FA.bwd_launch_count == n + 1
+    assert _bwd_counts() == (n[0], n[1] + 1)
     want = FA.attention_backward_plain(q.detach(), k.detach(), v.detach(),
                                        out.detach(), do, causal=True,
                                        sm_scale=1 / 8, head_axis=2)
@@ -921,29 +983,36 @@ def test_flash_autograd_on_cuda_runs_the_backward_kernel(cuda):
 
 
 def test_flash_backward_refuses_d256_and_fp32_on_the_card(cuda):
-    """D 256 (recurrentgemma-2b's local attention) and fp32 have no
-    backward kernel yet (ROADMAP.md queue 2 item 2(c)): training raises,
-    never falls back to the plain backward."""
-    for D, dtype in ((256, torch.bfloat16), (64, torch.float32)):
-        q, k, v = (torch.zeros(1, 64, 2, D, dtype=dtype, device=cuda,
-                               requires_grad=True) for _ in range(3))
-        out = FA.flash_attention_bthd(q, k, v, causal=True)
-        with pytest.raises(NotImplementedError, match="queue 2 item 2"):
-            out.sum().backward()
+    """fp32 at D 256 has no kernel, forward or backward (as the forward
+    refuses it): both raise ValueError, never fall back to the plain
+    version."""
+    q, k, v = (torch.zeros(1, 64, 2, 256, dtype=torch.float32, device=cuda,
+                           requires_grad=True) for _ in range(3))
+    with pytest.raises(ValueError, match="head_dim 256"):
+        FA.flash_attention_bthd(q, k, v, causal=True)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    n = _bwd_counts()
+    with pytest.raises(ValueError, match="head_dim 256"):
+        FA.attention_backward_cuda(*(x.detach() for x in (q, k, v, q, q)),
+                                   lse, causal=True, sm_scale=1 / 16,
+                                   head_axis=2)
+    assert _bwd_counts() == n
 
 
 def test_flash_backward_refuses_rows_off_16_bytes(cuda):
-    """The backward kernel stages q, k, v and dO rows by 16-byte
-    ``cp.async``: a tensor whose rows do not start on 16 bytes raises
-    ``ValueError`` (the model's projections and the autograd route's
-    contiguous dO always do)."""
-    q, k, v, o, do = _bwd_case(cuda, 64, True, None, 64, 1, 2, 3)
-    kw = dict(causal=True, sm_scale=1 / 8, head_axis=2)
-    odd = torch.zeros(2, 64, 2, 65, dtype=torch.bfloat16,
-                      device=cuda)[..., 1:]
-    odd.copy_(k)
-    n = FA.bwd_launch_count
-    for args in ((q, odd, v, o, do), (q, k, v, o, odd)):
-        with pytest.raises(ValueError, match="16 bytes"):
-            FA.attention_backward_cuda(*args, **kw)
-    assert FA.bwd_launch_count == n
+    """The CUDA-core backward stages q, k, v and dO rows by 16-byte
+    ``cp.async``, the sm90 one reads them by TMA: a tensor whose rows do
+    not start on 16 bytes raises ``ValueError`` on either route (the
+    model's projections and the autograd route's contiguous dO always
+    do)."""
+    for D, match in ((32, "16 bytes"), (64, "16-byte aligned")):
+        q, k, v, o, do, lse = _bwd_case(cuda, D, True, None, 64, 1, 2, 3)
+        kw = dict(causal=True, sm_scale=D ** -0.5, head_axis=2)
+        odd = torch.zeros(2, 64, 2, D + 1, dtype=torch.bfloat16,
+                          device=cuda)[..., 1:]
+        odd.copy_(k)
+        n = _bwd_counts()
+        for args in ((q, odd, v, o, do), (q, k, v, o, odd)):
+            with pytest.raises(ValueError, match=match):
+                FA.attention_backward_cuda(*args, lse, **kw)
+        assert _bwd_counts() == n

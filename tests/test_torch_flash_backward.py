@@ -131,7 +131,7 @@ def test_no_grad_saves_nothing_and_changes_nothing():
         b = FA.flash_attention_bthd(q, k, v, causal=True, window=6)
         assert not saved
         c = FA.flash_attention_bthd(qg, kg, vg, causal=True, window=6)
-        assert len(saved) == 4              # q, k, v and the output
+        assert len(saved) == 5              # q, k, v, the output, its lse
     for x in (a, b):
         assert x.grad_fn is None and not x.requires_grad
         torch.testing.assert_close(x, want, rtol=0, atol=0)
@@ -141,22 +141,25 @@ def test_no_grad_saves_nothing_and_changes_nothing():
 
 
 def test_backward_kernel_refusals_need_no_card():
-    """The CUDA wrapper's refusals come before any launch: fp32 and D 256
-    raise NotImplementedError naming the ROADMAP item, Tq != Tk and rows
-    off 16 bytes ValueError (checked here on CPU tensors, which never
-    reach a launch otherwise)."""
-    for D, dtype in ((256, torch.bfloat16), (64, torch.float32)):
-        x = torch.zeros(1, 8, 2, D, dtype=dtype)
-        with pytest.raises(NotImplementedError, match="queue 2 item 2"):
-            FA.attention_backward_cuda(x, x, x, x, x, causal=True,
-                                       sm_scale=0.1, head_axis=2)
+    """The CUDA wrapper's refusals come before any launch, and every case
+    the forward takes has a backward kernel: what is still refused raises
+    ValueError: fp32 at D 256 (as the forward refuses it), Tq != Tk, and
+    rows off 16 bytes on the CUDA-core route (checked here on CPU tensors,
+    which never reach a launch otherwise; the sm90 route's TMA refusals are
+    in ``test_torch_flash_bwd_sm90.py``)."""
+    x = torch.zeros(1, 8, 2, 256)
+    lse = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        FA.attention_backward_cuda(x, x, x, x, x, lse, causal=True,
+                                   sm_scale=0.1, head_axis=2)
     x = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
     y = torch.zeros(1, 9, 2, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="Tq"):
-        FA.attention_backward_cuda(x, y, y, x, x, causal=True, sm_scale=0.1,
-                                   head_axis=2)
+        FA.attention_backward_cuda(x, y, y, x, x, lse, causal=True,
+                                   sm_scale=0.1, head_axis=2)
     # rows staged by 16-byte cp.async: one starting off 16 bytes raises
-    odd = torch.zeros(1, 8, 2, 65, dtype=torch.bfloat16)[..., 1:]
+    x = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)
+    odd = torch.zeros(1, 8, 2, 33, dtype=torch.bfloat16)[..., 1:]
     with pytest.raises(ValueError, match="16 bytes"):
-        FA.attention_backward_cuda(x, odd, x, x, x, causal=True,
+        FA.attention_backward_cuda(x, odd, x, x, x, lse, causal=True,
                                    sm_scale=0.1, head_axis=2)

@@ -43,6 +43,13 @@ much, so phase 21 also holds the card's step with the backward kernel to
 the same card step with ``attention_backward_plain`` in the kernel's
 place, at ``torch_parity.BWD_STEP_TOL`` (every leaf within 5e-2):
 there nothing but the backward differs.
+
+The fixture also holds the JAX package's fp32 gradient of the reduced
+llama3.2-1b and recurrentgemma-2b (``grad32``, sampled as the bf16
+leaves): :func:`test_fp32_gradients_equal_fixture` holds the port's CPU
+fp32 gradient to it at ``LM_TRAIN_FP32_TOL``, and ``chip_smoke.py`` phase
+21 (c) the card's, on the fp32 attention kernels, at
+``LM_TRAIN_FP32_CARD_TOL``.
 """
 import numpy as np
 import pytest
@@ -50,10 +57,12 @@ import torch
 
 from repro_torch import convert
 from torch_parity import (LM_TRAIN_ARCHS, LM_TRAIN_CARD_TOL,
-                          LM_TRAIN_FIXTURE, LM_TRAIN_KERNEL_ROUNDING,
+                          LM_TRAIN_FIXTURE, LM_TRAIN_FP32_ARCHS,
+                          LM_TRAIN_FP32_TOL, LM_TRAIN_KERNEL_ROUNDING,
                           LM_TRAIN_ROUNDING_SHIFT, _f32, _rel,
                           attention_kernel_rounding, check_lm_train,
-                          flatten, load_lm_train, lm_train_step,
+                          check_lm_train_fp32, flatten, load_lm_train,
+                          lm_train_fp32_grads, lm_train_step,
                           rounding_shift)
 from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
@@ -85,6 +94,16 @@ def test_card_tolerance_measurements_are_current(arch):
            *rounding_shift(z, arch))
     want = (*LM_TRAIN_KERNEL_ROUNDING[arch], *LM_TRAIN_ROUNDING_SHIFT[arch])
     np.testing.assert_allclose(got, want, rtol=0.1, atol=1e-3)
+
+
+@pytest.mark.parametrize("arch", LM_TRAIN_FP32_ARCHS)
+def test_fp32_gradients_equal_fixture(arch):
+    """The port's fp32 gradient on the CPU against the JAX package's fp32
+    gradient in the fixture (``grad32``, what the card's fp32 step is held
+    to in ``chip_smoke.py`` phase 21 (c)), at ``LM_TRAIN_FP32_TOL``."""
+    z = np.load(LM_TRAIN_FIXTURE)
+    got, arrs = lm_train_fp32_grads(z, arch, "cpu")
+    check_lm_train_fp32(arch, got, arrs, LM_TRAIN_FP32_TOL[arch])
 
 
 def test_fp32_gradients_equal_jax():

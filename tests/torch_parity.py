@@ -1958,6 +1958,38 @@ LM_TRAIN_RUNS = {name: dict(seed=0, seq_len=32, global_batch=2, lr=1e-3,
                  for name in LM_TRAIN_ARCHS}
 LM_TRAIN_RUNS["recurrentgemma-2b"] = dict(LM_TRAIN_RUNS["llama3.2-1b"],
                                           seq_len=80)
+#: the configs whose fp32 gradient the training fixture also holds
+#: (``grad32.<path>``: the JAX package's gradient of ``loss_fn`` at the
+#: fixture's parameters cast to fp32, on the fixture's batch; sampled as
+#: the bf16 leaves are, in fp32): the card's fp32 step is held to it
+#: (``chip_smoke.py`` phase 21 (c)), the CPU's in
+#: ``test_torch_lm_train.py``
+LM_TRAIN_FP32_ARCHS = ("llama3.2-1b", "recurrentgemma-2b")
+#: per arch, the bound on each fp32 gradient leaf's relative L2 error
+#: (its sampled elements) and its L2 norm's relative error against the
+#: fixture.  On the CPU the port's fp32 gradient agrees with the
+#: reference's to 1.06e-5 (llama; held at 2e-5) and to 2.73e-3 for
+#: recurrentgemma, whose RG-LRU scan sums in another order (held at
+#: 5e-3; changing attention's fp32 order moves it by 4.5e-6: the leaves
+#: it misses most by, its attention block's wq, wk and norm, are set by
+#: the recurrent path's arithmetic).  On the card, nothing rounds to a
+#: narrower type, but every fp32 sum and elementwise function (cuBLAS'
+#: GEMM reductions, the kernels' tile order, exp, sigmoid, logaddexp)
+#: differs from the CPU's by an ulp or so: llama's bound is widened 5x to
+#: 1e-4 (measured 1.59e-5); recurrentgemma's card gradient lies 8.70e-3
+#: from the reference's with plain attention as with the kernels (the
+#: kernels move it 1.2e-5; NVIDIA H100 80GB HBM3, ``chip_smoke.py`` phase
+#: 21 (c)), so its bound is 1.25x that, 1.1e-2.
+#: ``LM_TRAIN_FP32_STEP_TOL`` holds the kernels' own share
+LM_TRAIN_FP32_TOL = {"llama3.2-1b": 2e-5, "recurrentgemma-2b": 5e-3}
+LM_TRAIN_FP32_CARD_TOL = {"llama3.2-1b": 1e-4, "recurrentgemma-2b": 1.1e-2}
+#: the card's fp32 gradient with the attention kernels against the same
+#: card gradient with plain attention (forward and autograd backward):
+#: each whole leaf's relative L2 error.  Only attention's fp32 sums are
+#: ordered otherwise (measured 1.4e-5 for llama, 1.2e-5 for
+#: recurrentgemma on an NVIDIA H100 80GB HBM3, ``chip_smoke.py`` phase 21
+#: (c))
+LM_TRAIN_FP32_STEP_TOL = 1e-4
 #: where each arch's reduced PRNGKey(0) parameters already stand (the
 #: serving fixtures, whose currency tests hold them to the JAX package):
 #: the training fixture does not store them again
@@ -2074,6 +2106,7 @@ def _lm_train_run(arch: str, jc, run: dict) -> dict:
 
     jb, g, st, m = jax.jit(batch_grads_and_step)(jp)
     loss, aux = m["loss"], m["aux_loss"]
+    fp32 = _fp32_grads(jc, jp, jb) if arch in LM_TRAIN_FP32_ARCHS else {}
     old = _bits(jp, "")
     out = {**_sampled(g, "grad."), **_sampled(st.params, "new.", old),
            **_sampled(st.opt.m, "m.", cap=LM_TRAIN_MOMENT_CAP),
@@ -2086,6 +2119,28 @@ def _lm_train_run(arch: str, jc, run: dict) -> dict:
                lr=np.float32(m["lr"]))
     if jb.vis_embeds is not None:
         out["vis_embeds"] = np.asarray(jb.vis_embeds, np.float32)
+    out.update(fp32)
+    return out
+
+
+def _fp32_grads(jc, jp, jb) -> dict:
+    """The JAX package's gradient of ``loss_fn`` at the bf16 parameters
+    ``jp`` cast to fp32, on the batch ``jb``: each leaf's first
+    ``LM_TRAIN_CAP`` elements (``grad32.<path>``, fp32) and its L2 norm
+    (``grad32.l2.<path>``)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import Batch
+    from repro.train.step import loss_fn
+    p32 = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
+    batch = Batch(tokens=jb.tokens, positions=jb.positions, labels=jb.labels)
+    g = jax.jit(jax.grad(lambda p, b: loss_fn(jc, p, b)[0]))(p32, batch)
+    out = {}
+    for k, v in flatten(tree_np(g)).items():
+        v = np.asarray(v, np.float32)
+        out["grad32." + k] = _leaf_sample(v)
+        out["grad32.l2." + k] = np.float32(np.linalg.norm(
+            v.astype(np.float64)))
     return out
 
 
@@ -2211,11 +2266,12 @@ def step_vs_plain_backward(res, plain) -> dict:
 
 
 def attention_kernel_rounding(q, k, v, *, causal: bool, sm_scale: float,
-                              window=None):
+                              window=None, return_lse: bool = False):
     """``flash_attention.attention_plain`` with the forward kernels'
     rounding: P = exp(S - max) rounded to bf16 before the product with V,
     the row sum of the unrounded P dividing after (the CPU's stand-in for
-    the card's step; ``(B, H, T, D)`` layout)."""
+    the card's step; ``(B, H, T, D)`` layout); with ``return_lse`` also the
+    rows' log-sum-exp as ``attention_plain`` gives it."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     B, Hq, Tq, D = q.shape
@@ -2228,7 +2284,10 @@ def attention_kernel_rounding(q, k, v, *, causal: bool, sm_scale: float,
     p = torch.exp(s - s.amax(-1, keepdim=True))
     o = torch.einsum("bgrqk,bgkd->bgrqd", p.bfloat16().float(),
                      v.float()) / p.sum(-1, keepdim=True)
-    return o.reshape(B, Hq, Tq, D).to(q.dtype)
+    o = o.reshape(B, Hq, Tq, D).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, (torch.logsumexp(s, dim=-1) * FA.LOG2E).reshape(B, Hq, Tq)
 
 
 def _f32(bits: np.ndarray) -> np.ndarray:
@@ -2258,6 +2317,39 @@ def lm_train_step(z, arch: str, device):
                            grad_transform=lambda g: grads.update(g) or g)
     new, metrics = step(state, batch)
     return cfg, oc, params, new, metrics, grads, arrs
+
+
+def lm_train_fp32_grads(z, arch: str, device) -> tuple:
+    """The port's gradient of ``loss_fn`` at the fixture's parameters cast
+    to fp32 (``params.float()``), on the fixture's batch, on ``device``:
+    ``({path: fp32 numpy leaf}, fixture arrays)``.  On the card every
+    attention layer runs the fp32 CUDA-core kernels forward and
+    backward."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.train import loss_fn
+    cfg, params, batch, arrs = load_lm_train(z, arch, device)
+    p32 = params.float().requires_grad_(True)
+    leaves = dict(p32.named_parameters())
+    tot, _ = loss_fn(cfg, p32, batch)
+    grads = torch.autograd.grad(tot, list(leaves.values()))
+    return flatten(convert.named_to_numpy(dict(zip(leaves, grads)),
+                                          cfg)), arrs
+
+
+def check_lm_train_fp32(arch: str, got: dict, arrs, tol: float) -> float:
+    """Hold an fp32 gradient (:func:`lm_train_fp32_grads`) to the
+    fixture's ``grad32`` leaves: each leaf's sampled elements in relative
+    L2 and its whole L2 norm, relatively, within ``tol``; raises
+    AssertionError on a miss, else returns the worst."""
+    errs = {k: max(_rel(np.ravel(g)[:LM_TRAIN_CAP], arrs[f"grad32.{k}"]),
+                   abs(float(np.linalg.norm(g.astype(np.float64)))
+                       / max(float(arrs[f"grad32.l2.{k}"]), 1e-30) - 1))
+            for k, g in got.items()}
+    assert len(errs) == sum(k.startswith("grad32.l2.") for k in arrs), arch
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= tol, (arch, worst, errs[worst], tol)
+    return errs[worst]
 
 
 def rounding_shift(z, arch: str) -> tuple:
