@@ -174,10 +174,10 @@ Phases, each fatal on any mismatch or exception:
     the fixture's sha256 per point; ``python -m repro_torch.dse.sweep
     --standards DDR4,HBM3 --intervals 16,4,1 --cycles 2000 --out
     build/dse_smoke`` exits 0 in a subprocess and its artifact loads.
-    After the workers, alone: the same sweep again (0 misses, 11 hits,
-    nothing built), held to the fixture the same way, with its wall
-    seconds per group and in total, point-cycles/s, ms and launches per
-    iteration.
+    After the workers, alone: three of its systems again (DDR4, DDR5 and
+    HBM3, ``WARM_SYSTEMS``: 0 misses, 3 hits, nothing built), held to
+    their points of the fixture the same way, with its wall seconds per
+    group and in total, point-cycles/s, ms and launches per iteration.
 17. the validation workflow (``repro_torch.verify``), in worker processes
     beside phase 5's runs, each with every launch count set to 0 just
     before and read just after, held to ``tests/torch_verify_stats.json``
@@ -198,15 +198,16 @@ Phases, each fatal on any mismatch or exception:
     transitions of 64 lanes of each of the 9 smoke specs and the loosened
     spec; then the readiness table at 64 lanes of each smoke spec against
     its plain version, timed at HBM3's 4-bank spec.
-18. the seven examples of ``examples/torch/`` at their own sizes (the
+18. the eight examples of ``examples/torch/`` at their own sizes (the
     reference examples' sessions, ``EXAMPLE_RUNS`` of
     ``tests/torch_parity.py``), each through its ``main`` on ``cuda`` with
     every launch count set to 0 just before and read just after, its
     output in ``build/examples/<name>.log``: ``quickstart`` (phase 6),
     ``multichannel`` (phase 12) and ``hetero_system`` (phase 14) where the
     earlier phase runs their session, ``extend_standard``, ``dse_sweep``,
-    ``visualize_trace`` and ``serve_lm`` in worker processes beside phase
-    5's runs.  Each one's results (every ``Stats`` and ``per_group`` leaf,
+    ``visualize_trace``, ``serve_lm`` and ``memsys_aware_roofline`` (phase
+    22, on phase 22 (a)'s JSON) in worker processes beside phase 5's
+    runs.  Each one's results (every ``Stats`` and ``per_group`` leaf,
     sweep column and table, curve, audit, command-stream digest, replay
     fingerprint, probe and table value) equal
     ``tests/torch_examples_stats.json`` (the reference examples' own,
@@ -279,21 +280,49 @@ Phases, each fatal on any mismatch or exception:
     ``build/examples/train_small_lm.log``);
     (f) recurrentgemma-2b at full width as (d) (batch 1 x 4096, its
     window of 2048 binding): 16 D-256 forward and 8 sm90 backward launches
-    per step.
+    per step.  (b) also times the bf16 D-32 route at the reduced models'
+    shape (phase 8's).
+22. the multi-device layer of the LM half, with this process as the one
+    rank of an NCCL process group: (a) ``python -m
+    repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k --mesh
+    16x16`` in a subprocess on the host (fake tensors on a ``fake`` group
+    of 512 ranks), started after the build and read before phase 5's
+    workers; its JSON (the reference's keys, per-device FLOPs, bytes,
+    memory, collectives by kind, ``source`` the port's eager count) is
+    printed; (b) the reduced llama3.2-1b's prefill and one training step
+    (B 4, T 64) on plain tensors and again as DTensors on a (1, 1) mesh
+    over the NCCL group (``launch.specs``' shardings), each with the
+    flash counts set to 0 just before and read just after: the same
+    launches on each route, the same logits bit for bit; (c)
+    ``examples/torch/memsys_aware_roofline.py`` (with phase 18's
+    examples) on (a)'s JSON: one row, its achieved-bandwidth memory time
+    at or above the naive one.
+23. the multi-device layer of the simulator: ``tests/
+    torch_sharded_worker.py``'s 4-channel DDR4 session (600 cycles, the
+    dense trace, 250-cycle telemetry) unsharded on the card and through
+    ``make_run(..., shard=1)`` over the NCCL group (its sum and min
+    collectives every iteration), equal bit for bit in stats, trace and
+    telemetry with one fused launch per iteration each; the same session
+    on 2 ``gloo`` ranks on the host (subprocesses started after the
+    build) equal to the card's; ``dse.execute`` of a 6-point DDR4 sweep
+    over ``[cuda, cuda]`` equal to one device in every column, one fused
+    launch per iteration.
 
 The line before the last is a JSON object with one entry per kernel (its
 times, bound and launches; the fused controller step's launches are those
-of the batched session, of the seven examples, of phases 14, 15 and 17's
-worker runs and of phase 16's two Fig. 1 sweeps, its times those of one
+of the batched session, of the eight examples, of phases 14, 15 and 17's
+worker runs, of phase 16's two Fig. 1 sweeps and of phase 23, its times
+those of one
 128-lane launch; the readiness table's launches are phase 17's and the
 VRR example's, its times those of 64 exploration lanes; the CUDA-core
-flash kernel's those of phase 8, of ``serve_lm`` and of phases 19 and
-20's fixtures; the sm90 kernel's those of phases 9, 19 and 20 at D
+flash kernel's those of phase 8, of ``serve_lm``, of phases 19 and
+20's fixtures and of phase 22's DTensor step; the sm90 kernel's those of phases 9, 19 and 20 at D
 64/128; its D-256 entry phase 19's, its times those of
 recurrentgemma-2b's prefill; the sm90 backward kernel's those of phase
 21's full-width and ``train_small_lm`` runs, its times those at
 llama3.2-1b's training shape; the CUDA-core backward kernel's those of
-phase 21's fixture steps, its times those in fp32 at llama's shape;
+phase 21's fixture steps and phase 22's DTensor step, its times those
+in fp32 at llama's shape;
 the general (max,+) product, off every path, reports the main path's 0
 launches and its 2048^3 int32 times); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
@@ -761,7 +790,7 @@ def golden_phase(device: str, meanwhile=None) -> tuple:
         examples = [pool.submit(example_run, name, device)
                     for name in ("hetero_system", "dse_sweep",
                                  "visualize_trace", "serve_lm",
-                                 "extend_standard")]
+                                 "extend_standard", "memsys_aware_roofline")]
         p17 = pool.submit(verify_explore_run, device)
         props = [(key, pool.submit(verify_props_run, key, device))
                  for key in parity().PROPERTY_CASES]
@@ -1413,18 +1442,39 @@ def dse_phase(device) -> dict:
     return out
 
 
-def dse_warm_phase(device, cold: dict) -> int:
-    """Phase 16, the warm half (alone on the card): the same Fig. 1 sweep
-    again on the cold half's cache — 0 misses and 11 hits, nothing built —
-    held to the fixture as before, with its wall seconds per group and in
-    total, point-cycles/s, ms and launches per loop iteration.  Returns
-    the fused launches of both sweeps."""
-    doc = json.loads((ROOT / "tests" / "torch_dse_stats.json").read_text())
+#: the Fig. 1 systems phase 16's warm half runs again (3 of 11: the warm
+#: cache, the fixture and the per-iteration rates on a third of the work)
+WARM_SYSTEMS = ("DDR4", "DDR5", "HBM3")
+
+
+def fig1_subset(want: dict, systems) -> tuple:
+    """The Fig. 1 run and its fixture entry cut to ``systems``."""
     run = dse_fig1()
+    keep = [i for i, lab in enumerate(want["labels"])
+            if lab.split()[0] in systems]
+    sub = dict(run, systems=[s for s in run["systems"]
+                             if s[0] in systems])
+    pick = lambda xs: [xs[i] for i in keep]
+    return sub, dict(want, columns={k: pick(v) for k, v in
+                                    want["columns"].items()},
+                     cmd_counts=pick(want["cmd_counts"]),
+                     cmd_names=pick(want["cmd_names"]),
+                     labels=pick(want["labels"]), n_groups=len(systems))
+
+
+def dse_warm_phase(device, cold: dict) -> int:
+    """Phase 16, the warm half (alone on the card): three of the Fig. 1
+    sweep's systems (``WARM_SYSTEMS``) again on the cold half's cache — 0
+    misses and 3 hits, nothing built — held to the fixture as before,
+    with its wall seconds per group and in total, point-cycles/s, ms and
+    launches per loop iteration.  Returns the fused launches of both
+    sweeps."""
+    doc = json.loads((ROOT / "tests" / "torch_dse_stats.json").read_text())
+    run, want = fig1_subset(doc["fig1"], WARM_SYSTEMS)
     res, wall, launches = dse_run("Fig. 1 sweep (warm)", dse_spec(run),
-                                  cold["cache"], device, doc["fig1"])
+                                  cold["cache"], device, want)
     m = res.meta
-    G = doc["fig1"]["n_groups"]          # 11
+    G = want["n_groups"]                 # 3
     if (m["compile_cache_misses"], m["compile_cache_hits"],
             m["traces"]) != (0, G, 0):
         fail(f"Fig. 1 sweep (warm): misses {m['compile_cache_misses']}, "
@@ -1432,7 +1482,8 @@ def dse_warm_phase(device, cold: dict) -> int:
              f"0, {G}, 0")
     iters = m["host_syncs"]
     P = m["n_points"] * run["n_cycles"]
-    print(f"Fig. 1 sweep (warm, alone) on {device}: {m['n_points']} points "
+    print(f"Fig. 1 sweep (warm, alone; {', '.join(WARM_SYSTEMS)}) on "
+          f"{device}: {m['n_points']} points "
           f"== tests/torch_dse_stats.json; wall {wall:.2f} s, "
           f"{P / wall:.1f} point-cycles/s, executed point-cycles "
           f"{int(res.scan_steps.sum())}, loop iterations {iters}, "
@@ -2007,7 +2058,7 @@ def main_path_phase(device):
 EXAMPLE_PHASES = {"quickstart": "6", "extend_standard": "18",
                   "hetero_system": "14", "multichannel": "12",
                   "dse_sweep": "18", "visualize_trace": "18",
-                  "serve_lm": "18"}
+                  "serve_lm": "18", "memsys_aware_roofline": "22"}
 #: spec groups per loop iteration of each example's runs (fused launches
 #: per host sync); the examples that run no simulation launch none
 EXAMPLE_GROUPS = {"hetero_system": 2, "extend_standard": 0, "serve_lm": 0}
@@ -2017,7 +2068,8 @@ def example_iterations(name: str, res: dict) -> int:
     """Loop iterations (host syncs) of every simulation an example ran."""
     sims = dict(quickstart=("sim",), hetero_system=("sim",),
                 multichannel=("quad", "ddr_replay"), dse_sweep=("sim",),
-                visualize_trace=("sim",)).get(name, ())
+                visualize_trace=("sim",),
+                memsys_aware_roofline=("sim",)).get(name, ())
     sweeps = dict(hetero_system="sweep", dse_sweep="result").get(name)
     n = sum(res[k].host_syncs for k in sims)
     return n + (res[sweeps].meta["host_syncs"] if sweeps else 0)
@@ -2043,6 +2095,8 @@ def example_run(name: str, device: str) -> dict:
     mod = tp.load_example(name)
     argv = tp.example_argv(name, tp.EXAMPLE_RUNS[name], device,
                            str(out / name))
+    if name == "memsys_aware_roofline":
+        argv += ["--results", str(DRYRUN_DIR)]   # phase 22 (a)'s JSON
     log = io.StringIO()
     KS.launch_count = R.launch_count = C.plain_calls = 0
     FA.launch_count = FA.sm90_launch_count = 0
@@ -2071,7 +2125,8 @@ def example_run(name: str, device: str) -> dict:
         diff = []
     return dict(name=name, wall=wall, counts=counts, doc=doc, diff=diff,
                 tie=tie, iterations=example_iterations(name, res),
-                layers=getattr(res.get("cfg"), "n_layers", 0))
+                layers=getattr(res.get("cfg"), "n_layers", 0),
+                rows=res.get("rows"))
 
 
 def check_example(r: dict):
@@ -3679,7 +3734,9 @@ def training_phase(device) -> dict:
     timing = {"sm90": bwd_timing(device, TRAIN_SHAPE),
               "sm90 d256": bwd_timing(device, RG_TRAIN_SHAPE,
                                       window=RG_WINDOW),
-              "cuda_core": bwd_timing(device, TRAIN_SHAPE, "float32")}
+              "cuda_core": bwd_timing(device, TRAIN_SHAPE, "float32"),
+              # the bf16 D 32 route at the reduced models' shape
+              "cuda_core bf16": bwd_timing(device, reduced_shape())}
     core = train_fixture_run(device)
     sm90 = train_full_width(device, TRAIN, "d")
     sm90 += train_example_run(device)
@@ -3690,10 +3747,319 @@ def training_phase(device) -> dict:
                               timing["sm90 d256"]["max_err"])),
         cuda_core=dict(timing["cuda_core"], launches=core,
                        max_err=max(err["cuda_core"],
-                                   timing["cuda_core"]["max_err"])))
+                                   timing["cuda_core"]["max_err"],
+                                   timing["cuda_core bf16"]["max_err"])))
+
+
+# ---------------------------------------------------------------------------
+# Phases 22 and 23: the multi-device layer
+# ---------------------------------------------------------------------------
+
+#: phase 22 (a)'s dry-run cell, and where its JSON goes
+DRYRUN_CELL = ("llama3.2-1b", "train_4k")
+DRYRUN_DIR = ROOT / "build" / "dryrun_torch"
+#: phase 22 (b)'s reduced llama3.2-1b step: (batch, tokens)
+DTENSOR_STEP = (4, 64)
+#: phase 23's session: ``tests/torch_sharded_worker.py``'s 4-channel DDR4
+#: run (600 cycles, trace and 250-cycle telemetry windows)
+SHARD_SESSION = "ddr4_4ch"
+#: the subprocesses phases 22 and 23 start: ``main`` ends any still
+#: running when it returns or fails
+CHILDREN: list = []
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def cpu_env() -> dict:
+    """A subprocess's environment: the port on its path, the card hidden
+    (what it runs is host work)."""
+    import os
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                CUDA_VISIBLE_DEVICES="")
+
+
+def start_dryrun():
+    """Phase 22 (a) in a subprocess (its own ``fake`` process group; this
+    process holds the NCCL one): the dry run of ``DRYRUN_CELL`` on the
+    (16, 16) mesh, JSON into ``DRYRUN_DIR``."""
+    arch, shape = DRYRUN_CELL
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           arch, "--shape", shape, "--mesh", "16x16", "--force", "--out",
+           str(DRYRUN_DIR)]
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=cpu_env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    CHILDREN.append(proc)
+    return proc, time.perf_counter()
+
+
+def finish_dryrun(started) -> dict:
+    proc, t0 = started
+    out = proc.communicate(timeout=900)[0]
+    if proc.returncode:
+        fail(f"phase 22 dry run exited {proc.returncode}: {out[-3000:]}")
+    arch, shape = DRYRUN_CELL
+    rec = json.loads((DRYRUN_DIR / f"{arch}__{shape}__16x16.json")
+                     .read_text())
+    return dict(rec=rec, wall=time.perf_counter() - t0)
+
+
+def start_gloo():
+    """Phase 23 (b): ``SHARD_SESSION`` on 2 ``gloo`` ranks on the host
+    (``tests/torch_sharded_worker.py``), in the background."""
+    out = ROOT / "build" / "shard_gloo2.pkl"
+    port = free_port()
+    worker = str(ROOT / "tests" / "torch_sharded_worker.py")
+    procs = [subprocess.Popen(
+        [sys.executable, worker, str(r), "2", str(port), str(out),
+         SHARD_SESSION], cwd=ROOT, env=cpu_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    CHILDREN.extend(procs)
+    return procs, out
+
+
+def finish_gloo(started) -> dict:
+    import pickle
+    procs, out = started
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    if any(p.returncode for p in procs):
+        fail("phase 23 gloo ranks failed: " + "\n".join(
+            log[-2000:] for log in logs))
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+def init_nccl(device):
+    """This process as rank 0 of a one-rank NCCL process group (phases
+    22 (b) and 23 run on it)."""
+    import torch
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+
+
+def dryrun_phase(d: dict):
+    """Phase 22 (a)'s report: the dry run's JSON."""
+    rec = d["rec"]
+    if rec.get("source") != "repro_torch eager count" \
+            or not rec["cost"]["flops"] > 0 \
+            or set(rec["collectives"]["by_kind"]) != {
+                "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                "collective-permute"}:
+        fail(f"phase 22 dry run: unexpected JSON {json.dumps(rec)[:500]}")
+    print(f"dry run {DRYRUN_CELL[0]} x {DRYRUN_CELL[1]} x 16x16 (phase 22, "
+          f"a subprocess on the host, {d['wall']:.1f} s; fake tensors, "
+          "per device):")
+    print(json.dumps(rec))
+
+
+def dtensor_step_phase(device) -> dict:
+    """Phase 22 (b): the reduced llama3.2-1b's prefill and one training
+    step on plain tensors and again as DTensors on a one-device mesh over
+    the NCCL group (``launch.specs``' shardings, ``reshard_state``): the
+    same kernels launched the same number of times, the same logits bit
+    for bit.  Returns the DTensor runs' flash launches."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.checkpoint import reshard_state
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import CELL_RULES, param_shardings
+    from repro_torch.models.model import Batch, init_params
+    from repro_torch.optim.adamw import AdamWConfig, OptState
+    from repro_torch.serve.step import make_prefill_step
+    from repro_torch.sharding import NamedSharding, choose_spec
+    from repro_torch.train.step import TrainState, make_train_step, \
+        train_init
+    cfg = get_arch("llama3.2-1b").reduced()
+    mesh = make_host_mesh()
+    B, T = DTENSOR_STEP
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (B, T), generator=gen,
+                           dtype=torch.int32).to(device)
+    pos = torch.arange(T, dtype=torch.int32, device=device)[None].repeat(
+        B, 1)
+    bsh = NamedSharding(mesh, (choose_spec((B,), ("batch",), mesh,
+                                           CELL_RULES)[0], None))
+    psh = param_shardings(cfg, mesh)
+    prefill = make_prefill_step(cfg, cache_len=T)
+    step = make_train_step(cfg, AdamWConfig())
+    flash = lambda: (FA.launch_count, FA.sm90_launch_count,
+                     FA.bwd_launch_count, FA.bwd_sm90_launch_count)
+
+    def run(dtensor: bool):
+        params = init_params(cfg, seed=0, device=device)
+        batch = Batch(tokens=tokens, positions=pos)
+        tbatch = batch._replace(labels=tokens)
+        state = train_init(cfg, init_params(cfg, seed=0, device=device),
+                           AdamWConfig())
+        if dtensor:
+            params = reshard_state(params, psh)
+            batch = reshard_state(batch, Batch(bsh, bsh))
+            tbatch = reshard_state(tbatch, Batch(bsh, bsh, bsh))
+            state = reshard_state(state, TrainState(psh, OptState(
+                NamedSharding(mesh, ()), psh, dict(psh))))
+        torch.cuda.synchronize()
+        FA.launch_count = FA.sm90_launch_count = 0
+        FA.bwd_launch_count = FA.bwd_sm90_launch_count = 0
+        t0 = time.perf_counter()
+        # the model's constants (RoPE's frequencies, masks) are plain
+        # tensors: DTensor takes them as replicated
+        with implicit_replication():
+            logits, _ = prefill(params, batch)
+            new, metrics = step(state, tbatch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        whole = lambda t: t.full_tensor() if dtensor else t
+        leaves = {n: whole(p.detach()) for n, p in
+                  new.params.named_parameters()}
+        return whole(logits), whole(metrics["loss"]), leaves, flash(), wall
+
+    lp, loss_p, leaves_p, cp, wp = run(False)
+    ld, loss_d, leaves_d, cd, wd = run(True)
+    if cp != cd or not cd[0] or not cd[2]:
+        fail(f"phase 22 DTensor step: flash launches (fwd, sm90, bwd, "
+             f"bwd_sm90) {cd} on the mesh, {cp} on plain tensors")
+    if not torch.equal(lp, ld):
+        fail(f"phase 22 DTensor step: logits differ from the plain step's "
+             f"by {(lp - ld).abs().max().item()}")
+    same_step = torch.equal(loss_p, loss_d) and all(
+        torch.equal(leaves_p[n], leaves_d[n]) for n in leaves_p)
+    worst = max((leaves_p[n].float() - leaves_d[n].float()).abs().max()
+                .item() for n in leaves_p)
+    print(f"DTensor step on a 1-device mesh over NCCL ({cfg.name}, B {B}, "
+          f"T {T}; phase 22): prefill logits == the plain step's bit for "
+          f"bit; flash launches (fwd, sm90, bwd, bwd_sm90) {cd} == plain "
+          f"{cp}; train step loss {loss_d.item():.6f} (plain "
+          f"{loss_p.item():.6f}), new parameters "
+          f"{'equal bit for bit' if same_step else f'max |diff| {worst}'}; "
+          f"wall {wd:.2f} s (plain {wp:.2f} s)")
+    return dict(flash=cd[0], bwd=cd[2])
+
+
+def roofline_line(examples: list):
+    """Phase 22 (c)'s report: the roofline example (run with phase 18's
+    examples, on the dry run's JSON)."""
+    r = next(x for x in examples if x["name"] == "memsys_aware_roofline")
+    rows = r["rows"] or []
+    if len(rows) != 1 or not rows[0]["t_achieved"] >= rows[0]["t_naive"] \
+            or r["diff"]:
+        fail(f"phase 22 roofline example: rows {rows}, diff {r['diff']}")
+    row = rows[0]
+    print(f"roofline example on the card (phase 22): {row['arch']} "
+          f"{row['bytes']:.3e} bytes/device, t_mem {row['t_naive']:.4f} s "
+          f"at HBM_BW, {row['t_achieved']:.4f} s at the simulated HBM3 "
+          f"achieved fraction {r['doc']['achieved_gbps'] / r['doc']['peak_gbps']:.3f}; "
+          f"fused launches {r['counts']['fused']}, {r['wall']:.1f} s")
+
+
+def shard_phase(device, gloo: dict) -> int:
+    """Phase 23: ``SHARD_SESSION`` unsharded on the card and through the
+    channel-sharded loop over the one-rank NCCL group (``make_run(...,
+    shard=1)``: its sum and min collectives every iteration), bit for bit
+    in stats, dense trace and telemetry with one fused launch per loop
+    iteration each; the same session on 2 ``gloo`` ranks on the host
+    equal to the card's; then ``dse.execute`` over ``[device, device]``
+    against one device.  Returns the fused launches."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_sharded_worker as W
+    from repro_torch import dse
+    from repro_torch import telemetry as T
+    from repro_torch.core import ControllerConfig, FrontendConfig, Simulator
+    from repro_torch.core import device as D
+    from repro_torch.core import engine as E
+    from repro_torch.core import frontend as F
+    from repro_torch.kernels import controller_step as KS
+    dev = str(device)
+
+    def same(a: dict, b: dict) -> bool:
+        keys = set(a) - {"host_syncs"}
+        return keys == set(b) - {"host_syncs"} and all(
+            np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray)
+            else a[k] == b[k] for k in keys)
+
+    KS.launch_count = 0
+    single = W.session_ddr4_4ch(False, device=dev)
+    la = KS.launch_count
+    sim = Simulator(*W.DDR4, channels=4, device=dev)
+    fn = E.make_run(sim.msys, sim.controller, sim.frontend, 600, True,
+                    points=1, telemetry_window=250, shard=1)
+    dps = tuple(D.dyn_params(g.cspec, device, g.channels)
+                for g in sim.msys.groups)
+    fp = F.stack_params([(2.0, 0.7)], sim.frontend.probe_gap, device)
+    torch.cuda.synchronize()
+    KS.launch_count = 0
+    t0 = time.perf_counter()
+    res = fn(dps, fp, 0x1234, device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lb = KS.launch_count
+    stats, dense, snaps = res.out
+    telem = T.build(sim.msys, E._point_snaps(snaps, 0), window=250,
+                    n_cycles=600)
+    sharded = {"stats": stats.point(0).to_dict(), **W.flatten(dense, "trace"),
+               **W.flatten(telem, "telemetry")}
+    if not same(single, sharded):
+        fail("phase 23: the channel-sharded loop over NCCL differs from the "
+             "unsharded run")
+    if la != single["host_syncs"] or lb != res.host_syncs:
+        fail(f"phase 23: fused launches {la} / {lb} for "
+             f"{single['host_syncs']} / {res.host_syncs} iterations")
+    print(f"channel-sharded run over NCCL, world size 1 (phase 23; 4-channel "
+          f"DDR4, 600 cycles, trace and telemetry): == the unsharded run bit "
+          f"for bit; {res.host_syncs} iterations, fused launches {lb} (one "
+          f"per iteration), 2 collectives per iteration; {wall:.2f} s")
+    g2 = gloo[SHARD_SESSION]
+    if not same(g2, single):
+        fail("phase 23: the 2-rank gloo run differs from the card's")
+    print(f"  the same session on 2 gloo ranks (host CPUs): == the card's "
+          f"unsharded run bit for bit (topologies {gloo['topologies']})")
+
+    spec = dse.SweepSpec(systems=("DDR4",), channels=(2,),
+                         controllers=(ControllerConfig(scheduler="FCFS"),),
+                         frontend=FrontendConfig(pattern="random"),
+                         intervals=(8.0, 4.0, 2.0), read_ratios=(0.7, 1.0),
+                         n_cycles=1000)
+    KS.launch_count = 0
+    one = dse.execute(spec, cache=E.RunCache(), devices=[dev])
+    lc = KS.launch_count
+    KS.launch_count = 0
+    two = dse.execute(spec, cache=E.RunCache(), devices=[dev, dev])
+    ld = KS.launch_count
+    cols = ("throughput_gbps", "latency_ns", "reads_done", "writes_done",
+            "probe_cnt", "scan_steps", "skipped_cycles")
+    if not all(np.array_equal(getattr(one, k), getattr(two, k))
+               for k in cols) or two.meta["n_devices"] != 2 \
+            or ld != two.meta["host_syncs"] or lc != one.meta["host_syncs"]:
+        fail(f"phase 23: execute over [{dev}, {dev}] differs from one "
+             f"device (launches {ld}, {lc})")
+    print(f"  dse.execute(devices=[{dev!r}, {dev!r}]): 6 points split 3 + 3, "
+          f"== one device in every column; fused launches {ld} "
+          f"(one device {lc})")
+    return la + lb + lc + ld
 
 
 def main() -> int:
+    try:
+        return run()
+    finally:
+        for proc in CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run() -> int:
     try:
         import torch
     except ImportError:
@@ -3776,6 +4142,10 @@ def main() -> int:
         build.library_path("readiness"), (), ("VIADDMNMX", "FMNMX",
                                                "LDGSTS")))
 
+    # phases 22 (a) and 23 (b)'s host work, in subprocesses beside the
+    # card's phases
+    dry = start_dryrun()
+    gloo = start_gloo()
     max_err, _ = timed("3 readiness", kernel_phase, device)
     mp_err, mp = timed("3 maxplus", maxplus_phase, device)
     fused = timed("3 fused", fused_phase, device)
@@ -3805,6 +4175,8 @@ def main() -> int:
     batch_launches = timed("11 batched", batched_phase, device,
                            lanes["device_us"])
     timed("14 hetero profile", hetero_session_phase, device)
+    # the roofline example (phase 22, with phase 18's) reads the dry run
+    dry = finish_dryrun(dry)
     # phase 16's cold half runs in this process beside the workers, its
     # warm half alone after them
     system_launches, p15_launches, p17, examples, dse_cold = timed(
@@ -3824,6 +4196,13 @@ def main() -> int:
     fam = timed("19 families", families_phase, device)
     fam_b = timed("20 new families", new_families_phase, device)
     train = timed("21 training", training_phase, device)
+    import torch.distributed as dist
+    init_nccl(device)
+    dryrun_phase(dry)
+    p22 = timed("22 DTensor step", dtensor_step_phase, device)
+    roofline_line(examples)
+    p23 = timed("23 sharded", shard_phase, device, finish_gloo(gloo))
+    dist.destroy_process_group()
 
     big = mp[(*MAXPLUS_TIMED[-1], "int32")]
 
@@ -3856,7 +4235,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/controller_step.cu",
         "replaces": "src/repro/kernels/timing_check.py:51",
         "launches": (batch_launches + ex["fused"] + system_launches
-                     + p15_launches + dse_launches + p17["fused"]),
+                     + p15_launches + dse_launches + p17["fused"] + p23),
         "max_abs_err": max(fused["max_err"], lanes["max_err"],
                            preds["max_err"], xtab["step_err"]),
         "ms": lanes["ms"], "plain_ms": lanes["plain_ms"],
@@ -3864,7 +4243,8 @@ def main() -> int:
         "library_ms": None},
         flash_row("flash_attention", "flash_attention.cu",
                   core_launches + ex["flash"] + fam["cuda_core"]
-                  + fam_b["cuda_core"], core, flash_err["cuda_core"]),
+                  + fam_b["cuda_core"] + p22["flash"], core,
+                  flash_err["cuda_core"]),
         flash_row("flash_attention_sm90", "flash_attention_sm90.cu",
                   sm90_launches + ex["sm90"] + fam["sm90"] + fam_b["sm90"],
                   sm90, flash_err["sm90"]),
@@ -3876,8 +4256,8 @@ def main() -> int:
                        train["sm90"]["max_err"]),
              replaces="jax.grad of src/repro/models/layers.py:130"),
         dict(flash_row("flash_attention_bwd", "flash_attention_bwd.cu",
-                       train["cuda_core"]["launches"], train["cuda_core"],
-                       train["cuda_core"]["max_err"]),
+                       train["cuda_core"]["launches"] + p22["bwd"],
+                       train["cuda_core"], train["cuda_core"]["max_err"]),
              replaces="jax.grad of src/repro/models/layers.py:130")]}))
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s; phases "
           f"{json.dumps(seconds)}", file=sys.stderr)

@@ -67,6 +67,11 @@ from repro_torch.analysis.report import ERROR, Finding, LintReport
 #: that function's own body (not of nested defs) are the roots
 HOT_LOOPS = (("core.engine", "make_run.run"),)
 
+#: the hot functions: (module-name suffix, function qualname); the whole
+#: body is a root (a training step runs once per iteration of its
+#: caller's loop, and says it makes no host sync of its own)
+HOT_FUNCS = (("train.step", "make_train_step.step"),)
+
 #: the port's classes whose instances are host values though they are
 #: project classes (any other named type but a tensor, a container or a
 #: project class is a host value already: ``int``, ``bool``, ``dict``...)
@@ -85,9 +90,11 @@ FOREIGN = ("jax", "jaxlib", "ml_dtypes", "repro")
 #: sinks whose callable arguments are frozen into cache keys (TS104)
 _CACHE_KEYED_KWARGS = frozenset({"extra_predicates"})
 
-#: attributes of a tensor that read no data
+#: attributes of a tensor that read no data (a DTensor's placements and
+#: mesh among them)
 _HOST_ATTRS = frozenset({"shape", "dtype", "device", "ndim", "is_cuda",
-                         "layout", "requires_grad", "is_leaf"})
+                         "layout", "requires_grad", "is_leaf",
+                         "placements", "device_mesh"})
 #: tensor methods whose result is a host value (``tolist``/``item`` sync,
 #: and are reported; the others read metadata only)
 _HOST_METHODS = frozenset({"dim", "numel", "size", "tolist", "item",
@@ -315,11 +322,14 @@ class ContextIndex:
         self.modules = modules
         self.roots: dict = {}               # (mod, qual) -> [loop nodes]
         for mod in modules.values():
-            for suffix, qual in HOT_LOOPS:
-                if (mod.name == suffix or mod.name.endswith("." + suffix)) \
-                        and qual in mod.functions:
-                    self.roots[(mod.name, qual)] = hot_loops(
-                        mod.functions[qual])
+            for roots, of in ((HOT_LOOPS, hot_loops),
+                              (HOT_FUNCS, lambda fn: list(fn.body))):
+                for suffix, qual in roots:
+                    if (mod.name == suffix
+                        or mod.name.endswith("." + suffix)) \
+                            and qual in mod.functions:
+                        self.roots[(mod.name, qual)] = of(
+                            mod.functions[qual])
         self.contexts: set = set()
         self._close_over_callees()
 

@@ -10,8 +10,10 @@ NamedTuples, tuples, lists, ``ParamTree`` modules and tensors (a
 ``TrainState``); a leaf's key is its path joined with ``/``.
 
 Restoring ``like`` a state puts every leaf on that state's device in its
-dtype; :func:`reshard_state` moves a state to another device.  Sharding
-over several cards is ROADMAP.md queue 1 item 12.
+dtype, and a DTensor leaf on its mesh with its placements (a checkpoint
+holds each leaf whole: a DTensor is gathered first).
+:func:`reshard_state` moves a state onto another device, or onto a mesh
+with the sharding rules' placements (``repro_torch.sharding``).
 """
 from __future__ import annotations
 
@@ -27,8 +29,15 @@ from torch import nn
 _BITS = {torch.bfloat16: ("bfloat16", torch.int16, np.uint16)}
 
 
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """``t`` whole: a DTensor gathered (a collective on every rank of its
+    mesh), a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def _encode(t: torch.Tensor):
-    t = t.detach().cpu().contiguous()
+    t = _full(t.detach()).cpu().contiguous()
     if t.dtype in _BITS:
         name, as_int, view = _BITS[t.dtype]
         return t.view(as_int).numpy().view(view), name
@@ -121,6 +130,9 @@ def _unflatten_like(like, flat, prefix=""):
 
 
 def _leaf_like(like, t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    if isinstance(like, DTensor):
+        return _place(t.to(like.dtype), like.device_mesh, like.placements)
     if isinstance(like, torch.Tensor):
         return t.to(device=like.device, dtype=like.dtype).detach()
     return t
@@ -139,10 +151,48 @@ def _map_leaves(fn, tree):
     return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
-def reshard_state(state, device):
-    """The same logical state with every leaf on ``device`` (the
-    reference's ``device_put`` onto new shardings; one device here)."""
-    return _map_leaves(lambda t: t.to(device), state)
+def _place(t: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """``t`` as a DTensor on ``mesh`` with ``placements``: redistributed if
+    it is one on that mesh already, else made whole and distributed (every
+    rank must hold the same whole tensor, as ``distribute_tensor``
+    asks)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    t = t.detach()
+    if isinstance(t, DTensor) and t.device_mesh == mesh:
+        return t.redistribute(mesh, placements)
+    t = _full(t)
+    if t.device.type != mesh.device_type:
+        t = t.to(mesh.device_type)
+    return distribute_tensor(t, mesh, placements)
+
+
+def _map_shardings(tree, sh):
+    """``tree``'s leaves placed by the same tree of ``NamedSharding``s
+    (a ``ParamTree``'s as ``{name: sharding}``)."""
+    if isinstance(tree, dict):
+        return {k: _map_shardings(v, sh[k]) for k, v in tree.items()}
+    if isinstance(tree, nn.Module):
+        return tree.replaced({k: _map_shardings(v.detach(), sh[k])
+                              for k, v in tree.named_parameters()})
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_map_shardings(v, s) for v, s in zip(tree, sh)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_shardings(v, s) for v, s in zip(tree, sh))
+    if isinstance(tree, torch.Tensor):
+        return _place(tree, sh.mesh, sh.placements)
+    return tree
+
+
+def reshard_state(state, target):
+    """The same logical state on ``target`` (the reference's
+    ``jax.device_put(state, shardings)``, the elastic-restore step): a
+    device (every leaf whole on it), or a tree of the state's structure
+    whose leaves are ``repro_torch.sharding.NamedSharding``s (a mesh and
+    a spec; a ``ParamTree`` takes ``{parameter name: sharding}``), e.g.
+    from ``repro_torch.launch.specs``."""
+    if isinstance(target, (str, torch.device)):
+        return _map_leaves(lambda t: _full(t).to(target), state)
+    return _map_shardings(state, target)
 
 
 class CheckpointManager:

@@ -45,8 +45,18 @@ keeps what it sends to its device (DynParams, frontend tables, the
 kernel's plans) for every later call.  ``format_stats``,
 ``channel_breakdown`` and ``Stats.summary`` give the reference's text.
 
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP entry:
-channel sharding.
+Channel sharding (``Simulator(channel_shard=d)``, ``make_run(...,
+shard=d)``) spreads every spec group's channels over the ``d`` ranks of
+the ``torch.distributed`` process group, one rank per device (the
+reference's ``shard_map`` path): rank ``r`` owns a contiguous slice of
+each group's channel axis, decodes the frontend replicated and inserts
+into and steps only its own channels.  Per loop iteration the ranks
+exchange two things: one fused int32 sum (the insert accepts, the
+completion events and the issued count that the frontend and the busy
+verdict read) and, with fast-forward, a min-reduce of the horizon: at
+most two collectives, beside the iteration's one host sync.  Stats, the
+dense trace and telemetry are gathered back onto the global channel axis
+at the end, bit for bit those of the single-device run.
 """
 from __future__ import annotations
 
@@ -57,6 +67,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import _device
 from repro_torch.core import controller as C
@@ -361,7 +372,8 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
              n_cycles: int, trace: bool, fast_forward: bool = True,
              points: int | None = None,
              replay: F.ReplayStream | None = None,
-             telemetry_window: int = 0, plans: dict | None = None):
+             telemetry_window: int = 0, plans: dict | None = None,
+             shard: int | None = None):
     """Build the run function ``(dps, fp, seed, device) -> RunResult`` of
     the design points of ``fp`` (its ``(P,)`` load knobs; batched
     :class:`Stats`; ``points``, when given, is the ``P`` every call must
@@ -393,10 +405,20 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
     crosses a boundary, and a point that lands on one is snapshotted
     there.  The run's output is ``stats``, then the trace, then the
     snapshots, as a tuple when there is more than the stats.
+
+    ``shard = d`` runs it channel-sharded (module notes) over the default
+    ``torch.distributed`` process group, which must have ``d`` ranks (a
+    run spans the whole group; ``d = 1`` runs the sharded loop, its
+    collectives included, on one rank) and ``d`` must divide every
+    group's channel count.  Every rank calls the run, each with its own
+    ``device`` and ``dps`` made for its ``C_g / d`` channels; each gets
+    the whole result.
     """
     global TRACE_COUNT
     msys = as_system(spec)
     groups = msys.groups
+    if shard is not None:
+        check_shard(msys, shard)
     if trace and points not in (None, 1):
         raise ValueError("trace=True records one point's run")
     if not 0 <= n_cycles <= 2**30:
@@ -414,15 +436,21 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
     uploaded: dict = {}         # device -> (frontend, replay, edges) tables
     plans = {} if plans is None else plans   # controller.step_plan's store
 
-    def tables(device):
+    def tables(device, lo):
         key = (device.type, device.index)
         if key not in uploaded:
+            st = F.system_front_tables(msys, fcfg, device)
+            if shard is not None:
+                st = _shard_front_tables(st, lo, local)
             uploaded[key] = (
-                F.system_front_tables(msys, fcfg, device),
+                st,
                 None if replay is None else F.replay_tables(replay, device),
                 [torch.as_tensor(g.cspec.lat_bucket_edges, dtype=I32,
                                  device=device) for g in groups])
         return uploaded[key]
+
+    # each group's channel count on a rank (all of them unsharded)
+    local = [g.channels // (shard or 1) for g in groups]
 
     def run(dps, fp: F.FrontParams, seed: int, device):
         if isinstance(dps, D.DynParams):
@@ -436,7 +464,9 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
             raise ValueError(f"this run takes {points} point(s), got {P}")
         if trace and P != 1:
             raise ValueError("trace=True records one point's run")
-        st, rt, edges = tables(device)
+        rank = dist.get_rank() if shard is not None else 0
+        lo = [rank * n for n in local]
+        st, rt, edges = tables(device, lo)
         k_draws = st.k_draws
         a_cyc, c_cyc = F.lcg_affine(k_draws)
         cap = fcfg.max_backlog_fp
@@ -475,30 +505,45 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
             absorb = F.absorb_locals(evs[0])
             for ev in evs[1:]:
                 absorb = absorb + F.absorb_locals(ev)
-            fs = F.frontend_commit(fcfg, fp, fs, draft, draft.okp, draft.ok,
-                                   paced)
+            okp, ok = draft.okp, draft.ok
+            issued = (evs[0].cmd >= 0).sum((-2, -1), dtype=I32)
+            for ev in evs[1:]:
+                issued = issued + (ev.cmd >= 0).sum((-2, -1), dtype=I32)
+            if shard is not None:
+                # the iteration's one sum over the ranks: [probe accepts,
+                # stream accepts, probes done, served, probe completion,
+                # issued] (at most one rank accepts a request, and one
+                # probe completes per point: a sum is their max)
+                v = torch.cat([torch.stack([okp, ok]), absorb,
+                               issued[None]])
+                dist.all_reduce(v)
+                okp, ok, absorb, issued = v[0], v[1], v[2:5], v[5]
+            fs = F.frontend_commit(fcfg, fp, fs, draft, okp, ok, paced)
             fs = F.frontend_finish(fs, fp, absorb[0], absorb[1], absorb[2])
-            busy = draft.okp + draft.ok
-            for ev in evs:
-                busy = busy + (ev.cmd >= 0).sum((-2, -1), dtype=I32)
+            busy = okp + ok + issued
             return new_css, new_chs, fs, evs, busy > 0, hc
 
         css = [C.init_ctrl_state(g.cspec, ccfg.queue_depth, g.channels,
                                  device, ccfg.refresh_stagger, P)
                for g in groups]
-        chs = [_zero_channel_stats(g.cspec, (P, g.channels), device)
-               for g in groups]
+        if shard is not None:
+            # this rank's channels of the reset state (the refresh stagger
+            # is a function of the global channel index)
+            css = [C._tree(lambda a: a[:, l:l + n].contiguous(), cs)
+                   for cs, l, n in zip(css, lo, local)]
+        chs = [_zero_channel_stats(g.cspec, (P, n), device)
+               for g, n in zip(groups, local)]
         fs = F.init_front(seed, device, P)
         clks, ys = [], []
         syncs = 0
         tms = bufs = None
         if W:
-            tms = [torch.zeros((P, g.channels, 1 + len(e)), dtype=I32,
-                               device=device) for g, e in zip(groups, edges)]
-            bufs = [torch.zeros((n_windows, P, g.channels,
+            tms = [torch.zeros((P, n, 1 + len(e)), dtype=I32,
+                               device=device) for n, e in zip(local, edges)]
+            bufs = [torch.zeros((n_windows, P, n,
                                  len(_SNAP_FIELDS) + g.cspec.n_cmds
                                  + 1 + len(e)), dtype=I32, device=device)
-                    for g, e in zip(groups, edges)]
+                    for g, n, e in zip(groups, local, edges)]
 
         def snapshot(k, clk, p=None):
             """Copy the groups' counters at clock ``clk`` (every point, or
@@ -557,6 +602,9 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
                 record(evs, at[0])
                 h = torch.minimum(F.arrival_horizon(
                     fcfg, fp, fs, at[0] + 1 if one else up.nxt, rt), hc)
+                if shard is not None:
+                    # the earliest horizon over every rank's channels
+                    dist.all_reduce(h, op=dist.ReduceOp.MIN)
                 # the iteration's one host sync: busy verdicts + horizons
                 both = torch.stack([busy.to(I32), h])
                 is_busy, h = both.tolist()  # lint: ignore[ts102] the one sync
@@ -578,14 +626,23 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
                         # boundary's clock (an idle jump moves only the
                         # frontend)
                         snapshot(target // W - 1, target, p)
+        if W and n_windows > n_full:     # the ragged tail / n_cycles < W
+            snapshot(n_windows - 1, n_cycles)
+        ys = torch.stack(ys) if ys else None
+        if shard is not None:
+            # every rank's channels back onto the global channel axis
+            chs = [ChannelStats(*(_gather_ranks(x, 1) for x in ch))
+                   for ch in chs]
+            if W:
+                bufs = [_gather_ranks(b, 2) for b in bufs]
+            if ys is not None:
+                ys = _gather_trace(ys, local)
         stats = _aggregate_stats(msys, chs, [n_cycles] * P, steps)
         out = (stats,)
         if trace:
             out += (_dense_trace(clks, ys, n_cycles, msys.n_channels,
                                  device),)
         if W:
-            if n_windows > n_full:       # the ragged tail / n_cycles < W
-                snapshot(n_windows - 1, n_cycles)
             out += (tuple(_unpack_snaps(g.cspec, b.cpu().numpy())
                           for g, b in zip(groups, bufs)),)
         return RunResult(out if len(out) > 1 else stats, syncs)
@@ -593,15 +650,70 @@ def make_run(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
     return run
 
 
+def check_shard(msys, shard: int):
+    """Raise unless a channel-sharded run of ``msys`` over ``shard``
+    ranks can start here: ``shard`` divides every group's channel count
+    and is the default process group's size."""
+    shard = int(shard)
+    counts = [g.channels for g in msys.groups]
+    if shard < 1 or any(c % shard for c in counts):
+        raise ValueError(f"channel shard {shard} must be >= 1 and divide "
+                         f"every group's channel count {counts}")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if not dist.is_initialized() or world != shard:
+        raise ValueError(
+            f"channel shard {shard} runs one rank per device over the "
+            f"whole torch.distributed process group, which has {world} "
+            "rank(s)" + ("" if dist.is_initialized() else
+                         " (none is initialized)"))
+
+
+def _shard_front_tables(st, lo, local):
+    """The frontend tables of one rank: the same decode, with each group's
+    channel ids cut to the rank's slice, so it inserts only there."""
+    if st.single is not None:
+        ft = st.single
+        return st._replace(single=ft._replace(
+            chan_ids=ft.chan_ids[lo[0]:lo[0] + local[0]]))
+    return st._replace(groups=tuple(
+        gf._replace(chan_ids=gf.chan_ids[l:l + n])
+        for gf, l, n in zip(st.groups, lo, local)))
+
+
+def _rank_parts(t: torch.Tensor) -> list:
+    """Every rank's ``t``, in rank order."""
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t.contiguous())
+    return parts
+
+
+def _gather_ranks(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order."""
+    return torch.cat(_rank_parts(t), dim)
+
+
+def _gather_trace(ys: torch.Tensor, local) -> torch.Tensor:
+    """A rank's ``(T, 5, sum(local), 2)`` trace rows (its channels of each
+    group, group-major) -> the global ``(T, 5, C, 2)`` rows: each group's
+    channels from every rank in rank order, group-major."""
+    parts = _rank_parts(ys)
+    out, off = [], 0
+    for n in local:
+        out += [p[:, :, off:off + n] for p in parts]
+        off += n
+    return torch.cat(out, 2)
+
+
 def _dense_trace(clks, ys, n_cycles, channels, device) -> TraceArrays:
-    """Scatter the executed cycles' events into idle-initialized dense
-    ``[T, 2]`` (single channel) or ``[T, C, 2]`` buffers."""
+    """Scatter the executed cycles' events (``ys``: ``(len(clks), 5, C,
+    2)``, or None) into idle-initialized dense ``[T, 2]`` (single
+    channel) or ``[T, C, 2]`` buffers."""
     buf = torch.full((n_cycles, 5, channels, 2), -1, dtype=I32,
                      device=device)
     buf[:, 4] = 0                               # hit_ready idles False
-    if ys:
+    if ys is not None:
         idx = torch.as_tensor(clks, dtype=torch.int64, device=device)
-        buf[idx] = torch.stack(ys)
+        buf[idx] = ys
     if channels == 1:
         buf = buf[:, :, 0]
     f = buf.unbind(1)
@@ -695,21 +807,65 @@ def _device_key(device) -> tuple:
     return dev.type, index
 
 
+#: mesh axis name of the channel-sharded engine path
+CHANNEL_AXIS = "channels"
+
+
+def auto_channel_shard(spec, n_devices: int | None = None) -> int | None:
+    """The channel-mesh size ``d > 1`` a sharded run of ``spec`` would
+    use: the device count (``n_devices``, default the ``torch.distributed``
+    world size, 1 without a process group) when it divides EVERY spec
+    group's channel count, else None (callers then stay on the
+    single-device path).  The reference takes the largest such ``d`` up
+    to its device count; a run here spans the whole process group, so it
+    takes the group's size or nothing."""
+    msys = as_system(spec)
+    if n_devices is None:
+        n_devices = _world_size()
+    d = int(n_devices)
+    if d > 1 and all(g.channels % d == 0 for g in msys.groups):
+        return d
+    return None
+
+
+def _world_size() -> int:
+    """The ranks a sharded run could span: the default process group's
+    size (1 without one, or with a ``fake`` one: the dry run's, whose
+    ranks are not devices)."""
+    if not dist.is_initialized() or dist.get_backend() == "fake":
+        return 1
+    return dist.get_world_size()
+
+
+def _shard_desc(shard):
+    """Hashable mesh identity of a channel-sharded run: the axis name,
+    the mesh size, the process group's backend and this rank (a cache
+    warmed under one topology never aliases another's runs); None for an
+    unsharded run."""
+    if shard is None:
+        return None
+    return (CHANNEL_AXIS, int(shard), dist.get_backend(),
+            dist.get_rank())
+
+
 def run_key(spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
             n_cycles: int, trace: bool, batched: bool,
             replay: F.ReplayStream | None = None, telemetry: int = 0,
-            device="cuda", fast_forward: bool = True):
+            device="cuda", fast_forward: bool = True,
+            shard: int | None = None):
     """The reference's ``run_key`` with the run's device (type and index)
-    in place of its device count and mesh, and without ``donate``.  The
-    load knobs (``interval``, ``read_ratio``) are left out: they reach the
-    run as call arguments."""
+    in place of its device count, the channel mesh's descriptor
+    (:func:`_shard_desc`; ``shard`` None for an unsharded run), and
+    without ``donate``.  The load knobs (``interval``, ``read_ratio``) are
+    left out: they reach the run as call arguments."""
     fkey = tuple(kv for kv in _freeze(fcfg)
                  if not (isinstance(kv, tuple)
                          and kv[0] in ("interval", "read_ratio")))
-    return (system_fingerprint(spec), _freeze(ccfg), fkey, int(n_cycles),
-            bool(trace), bool(batched),
-            None if replay is None else replay.fingerprint, int(telemetry),
-            _device_key(device), bool(fast_forward))
+    key = (system_fingerprint(spec), _freeze(ccfg), fkey, int(n_cycles),
+           bool(trace), bool(batched),
+           None if replay is None else replay.fingerprint, int(telemetry),
+           _device_key(device), bool(fast_forward))
+    return key if shard is None else key + (_shard_desc(shard),)
 
 
 class _SystemUploads:
@@ -718,16 +874,20 @@ class _SystemUploads:
     :class:`RunCache` entry of that system and device (a 50-cycle warm-up
     and the 20,000-cycle run after it build one plan)."""
 
-    def __init__(self, msys: MemorySystemSpec, device: torch.device):
+    def __init__(self, msys: MemorySystemSpec, device: torch.device,
+                 shard: int | None = None):
         self.msys = msys
         self.device = device
+        self.shard = shard
         self.plans: dict = {}
         self._dps = None
 
     @property
     def dps(self) -> tuple:
+        """A channel-sharded run's are made for a rank's channels."""
         if self._dps is None:
-            self._dps = tuple(D.dyn_params(g.cspec, self.device, g.channels)
+            self._dps = tuple(D.dyn_params(g.cspec, self.device,
+                                           g.channels // (self.shard or 1))
                               for g in self.msys.groups)
         return self._dps
 
@@ -783,6 +943,7 @@ class RunCache:
         #: cumulative wall seconds of every entry's first call (DynParams
         #: upload, kernel build at first use, one synchronized run)
         self.first_call_s = 0.0
+        self._topologies: set = set()
 
     def __len__(self):
         return len(self._runs)
@@ -790,21 +951,23 @@ class RunCache:
     def clear(self):
         self._runs.clear()
         self._uploads.clear()
+        self._topologies.clear()
         self.hits = self.misses = 0
         self.first_call_s = 0.0
 
     def stats(self) -> dict:
         """``entries``, ``hits``/``misses`` (since construction or
         ``clear``), ``first_call_s``, ``devices`` (the devices of the
-        cached runs) and ``shard_topologies`` (``"lanes"``: every run
-        steps its (point x channel) lanes on one device; channel sharding
-        is not ported)."""
+        cached runs) and ``shard_topologies`` (the distinct run
+        topologies built: ``"lanes"`` for a run that steps its (point x
+        channel) lanes on one device, ``"channels:<d>"`` for a run
+        channel-sharded over ``d`` ranks)."""
         devices = {_device_key(e.device) for e in self._runs.values()}
         return {"entries": len(self._runs), "hits": self.hits,
                 "misses": self.misses,
                 "first_call_s": round(self.first_call_s, 3),
                 "devices": len(devices),
-                "shard_topologies": ("lanes",) if self._runs else ()}
+                "shard_topologies": tuple(sorted(self._topologies))}
 
     def get(self, spec, ccfg: C.ControllerConfig, fcfg: F.FrontendConfig,
             n_cycles: int, trace: bool = False, batched: bool = False,
@@ -815,14 +978,16 @@ class RunCache:
         :class:`MemorySystemSpec`) on ``device`` (``None``: the card).  A
         batched entry takes any number of points per call; an unbatched
         one (and every ``trace=True`` one) one point.  ``telemetry`` is
-        the window in cycles (0 = off)."""
-        if shard and int(shard) > 1:
-            raise NotImplementedError(
-                "RunCache.get(shard=...): multi-GPU channel sharding is "
-                "not ported yet — see ROADMAP.md queue 1 item 12")
+        the window in cycles (0 = off).  ``shard = d > 1`` is a run
+        channel-sharded over the ``d`` ranks of the process group
+        (:func:`make_run`; every rank gets its own entry); None or 1 is
+        unsharded, as in the reference."""
+        shard = int(shard) if shard and int(shard) > 1 else None
+        if shard is not None:
+            check_shard(as_system(spec), shard)
         device = _device.resolve(device)
         key = run_key(spec, ccfg, fcfg, n_cycles, trace, batched, replay,
-                      telemetry, device, fast_forward)
+                      telemetry, device, fast_forward, shard)
         entry = self._runs.get(key)
         if entry is not None:
             self.hits += 1
@@ -833,14 +998,17 @@ class RunCache:
         msys = MemorySystemSpec(tuple(
             SpecGroup(copy.deepcopy(g.cspec), g.channels, g.link_latency)
             for g in as_system(spec).groups))
-        ukey = (key[0], _device_key(device))
+        ukey = (key[0], _device_key(device), shard)
         uploads = self._uploads.get(ukey)
         if uploads is None:
-            uploads = self._uploads[ukey] = _SystemUploads(msys, device)
+            uploads = self._uploads[ukey] = _SystemUploads(msys, device,
+                                                           shard)
         fn = make_run(msys, ccfg, fcfg, n_cycles, trace, fast_forward,
                       None if batched else 1, replay, telemetry,
-                      uploads.plans)
+                      uploads.plans, shard)
         entry = self._runs[key] = CachedRun(msys, fn, uploads, self)
+        self._topologies.add("lanes" if shard is None
+                             else f"{CHANNEL_AXIS}:{shard}")
         return entry
 
 
@@ -876,6 +1044,14 @@ class Simulator:
 
     ``host_syncs`` counts the device->host reads of every run's cycle
     loop (one per loop iteration with fast-forward, none without).
+
+    ``channel_shard``: None (default) shards a scalar run's channels over
+    the ``torch.distributed`` process group when it has more than one
+    rank and its size divides every group's channel count
+    (:func:`auto_channel_shard`), else runs unsharded; True requires such
+    a mesh; ``False``/``0``/``1`` never shard; ``d`` shards over ``d``
+    ranks (the group's size).  Every rank constructs the same
+    ``Simulator`` on its own device and calls ``run`` alike.
     """
     standard: str | None = None
     org_preset: str | None = None
@@ -899,10 +1075,6 @@ class Simulator:
     device: object = None
 
     def __post_init__(self):
-        if self.channel_shard not in (None, False):
-            raise NotImplementedError(
-                "Simulator(channel_shard=...): multi-GPU channel sharding "
-                "is not ported yet — see ROADMAP.md queue 1 item 12")
         if self.system is not None:
             if self.standard is not None:
                 raise ValueError("pass either a (standard, org_preset, "
@@ -932,6 +1104,23 @@ class Simulator:
                                                 mapper=self.mapper)
         self._dps = None
         self.host_syncs = 0
+        self._resolved_shard()          # an unusable explicit mesh raises
+
+    def _resolved_shard(self) -> int | None:
+        """The channel-mesh size scalar runs use, per ``channel_shard``."""
+        cs = self.channel_shard
+        if cs is None or cs is True:
+            d = auto_channel_shard(self.msys)
+            if d is None and cs is True:
+                raise ValueError(
+                    "channel_shard=True but no usable channel mesh: "
+                    f"{_world_size()} rank(s) for per-group channel counts "
+                    f"{[g.channels for g in self.msys.groups]}")
+            return d
+        if not cs or int(cs) <= 1:
+            return None
+        check_shard(self.msys, int(cs))
+        return int(cs)
 
     @property
     def dps(self) -> tuple:
@@ -959,7 +1148,7 @@ class Simulator:
         point = (fcfg.interval if interval is None else interval,
                  fcfg.read_ratio if read_ratio is None else read_ratio)
         out = self._run([point], n_cycles, trace, seed, fast_forward,
-                        telemetry)
+                        telemetry, shard=self._resolved_shard())
         if not (trace or telemetry):
             return out.point(0)
         res = (out[0].point(0),) + ((out[1],) if trace else ())
@@ -982,14 +1171,15 @@ class Simulator:
                               batched=True)
 
     def _run(self, pts, n_cycles, trace, seed, fast_forward, telemetry=0,
-             batched=False):
+             batched=False, shard=None):
         """Run the points ``pts`` through the :data:`RUN_CACHE` entry of
         this system and run configuration."""
         ff = self.fast_forward if fast_forward is None else fast_forward
         entry = RUN_CACHE.get(self.msys, self.controller, self.frontend,
                               n_cycles, trace=trace, batched=batched,
                               replay=self.replay, telemetry=telemetry,
-                              fast_forward=ff, device=self.device)
+                              shard=shard, fast_forward=ff,
+                              device=self.device)
         res = entry(F.stack_params(pts, self.frontend.probe_gap,
                                    self.device), seed)
         self.host_syncs += res.host_syncs

@@ -34,6 +34,16 @@ metadata, optionally persisted as one `.npz` artifact per point.
 `SweepSpec(telemetry=W)` works the same way for the windowed run: every
 point gains a `repro_torch.telemetry.Telemetry`.  `meta["cache"]` reports
 the public `RunCache.stats()` accounting.
+
+``execute(devices=[d0, d1, ...])`` splits each group's point batch over
+the listed devices (the reference's ``_shard_batch``): the batch is padded
+by repeating its last point until it divides by the device count, device
+``i`` runs the ``i``-th contiguous share through its own cache entry,
+and the padding is dropped from the results (``meta["padded_points"]``).
+A device may be listed more than once (``["cpu"] * 4``, ``["cuda:0",
+"cuda:0"]``).  The shares run one after another: each is its own
+host-driven loop, so a second card adds room and not yet overlap.  A
+capturing group's one-point runs go round-robin over the devices.
 """
 from __future__ import annotations
 
@@ -115,19 +125,34 @@ def _front_params(pts, fcfg, device) -> F.FrontParams:
                           fcfg.probe_gap, device)
 
 
-def _run_device(devices):
-    """The one device a sweep runs on: ``None`` = the card."""
+def _run_devices(devices) -> list:
+    """The devices a sweep runs on: ``None`` = the card."""
     if devices is None:
-        return _device.resolve(None)
+        return [_device.resolve(None)]
     devices = list(devices)
     if not devices:
         raise ValueError("devices=[] — pass devices=None for the card or "
-                         "a one-device list such as ['cpu']")
-    if len(devices) > 1:
-        raise NotImplementedError(
-            f"execute(devices={devices}): a sweep over several GPUs is not "
-            "ported yet — see ROADMAP.md queue 1 item 12")
-    return _device.resolve(devices[0])
+                         "a device list such as ['cpu']")
+    return [_device.resolve(d) for d in devices]
+
+
+def _shares(members: list, n_devices: int) -> tuple:
+    """``members`` padded by repeating the last until the count divides by
+    ``n_devices``, cut into ``n_devices`` contiguous shares: ``(shares,
+    padding)``."""
+    pad = (-len(members)) % n_devices
+    padded = members + [members[-1]] * pad
+    k = len(padded) // n_devices
+    return [padded[i * k:(i + 1) * k] for i in range(n_devices)], pad
+
+
+def _first_points(stats, k: int):
+    """The first ``k`` points of batched numpy stats."""
+    if isinstance(stats, tuple):
+        vals = [_first_points(x, k) for x in stats]
+        return type(stats)(*vals) if hasattr(stats, "_fields") else \
+            tuple(vals)
+    return stats[:k]
 
 
 def execute(spec: SweepSpec, cache: E.RunCache | None = None,
@@ -139,7 +164,8 @@ def execute(spec: SweepSpec, cache: E.RunCache | None = None,
 
     `cache` defaults to the engine's process-wide `RUN_CACHE`; pass a
     fresh `RunCache()` to isolate builds (tests do).  `devices` is None
-    (the card) or a one-device list (``["cpu"]`` for the tests).
+    (the card) or a device list (``["cpu"]`` for the tests; several
+    split each group's points, see the module notes).
     `max_in_flight` bounds the groups whose results are live at once
     (>= 1; each group's run finishes before the next starts, so one is).
     `profiler` is an optional `repro_torch.telemetry.Profiler` to fold
@@ -151,7 +177,8 @@ def execute(spec: SweepSpec, cache: E.RunCache | None = None,
     if int(max_in_flight) < 1:
         raise ValueError(f"max_in_flight must be >= 1, got {max_in_flight}")
     cache = E.RUN_CACHE if cache is None else cache
-    device = _run_device(devices)
+    devices = _run_devices(devices)
+    device = devices[0]
     prof = profiler if profiler is not None else T.Profiler(cache)
     points = spec.expand()
     if spec.lint_specs:
@@ -181,6 +208,7 @@ def execute(spec: SweepSpec, cache: E.RunCache | None = None,
     misses0, hits0, trace0 = cache.misses, cache.hits, E.TRACE_COUNT
     group_meta = []
     host_syncs = 0
+    padded_total = 0
 
     def fold(members, idx, msys, cspec, ccfg, fcfg, stats, dense, snaps):
         """Fold one run's batched stats (of the points ``members``) into
@@ -227,35 +255,48 @@ def execute(spec: SweepSpec, cache: E.RunCache | None = None,
         sy, ccfg, fcfg = pts[0].system, pts[0].controller, pts[0].frontend
         cspec = _compile_point_system(pts[0])
         msys = as_system(cspec)
-        run = cache.get(cspec, ccfg, fcfg, pts[0].n_cycles,
-                        trace=bool(capture), batched=True,
-                        telemetry=spec.telemetry, device=device)
-        # a trace records one point's run: a capturing group runs its
-        # points one at a time through its one entry
-        batches = [[m] for m in members] if capture else [members]
-        results = [run(_front_params([pt for _, pt in b], fcfg, device),
-                       spec.seed) for b in batches]
+        # (device, its points, how many of them are real) per run
+        if capture:
+            batches = [(devices[j % len(devices)], [m], 1)
+                       for j, m in enumerate(members)]
+            pad = 0
+        else:
+            shares, pad = _shares(members, len(devices))
+            real = [max(0, min(len(sh), len(members) - j * len(sh)))
+                    for j, sh in enumerate(shares)]
+            batches = list(zip(devices, shares, real))
+        padded_total += pad
+        runs = {}                       # one cache lookup per device
+        for dev in dict.fromkeys(dev for dev, _, _ in batches):
+            runs[dev] = cache.get(cspec, ccfg, fcfg, pts[0].n_cycles,
+                                  trace=bool(capture), batched=True,
+                                  telemetry=spec.telemetry, device=dev)
+        results = [runs[dev](_front_params([pt for _, pt in b], fcfg, dev),
+                             spec.seed) for dev, b, _ in batches]
         dt = time.perf_counter() - td
         prof.add("dispatch", dt)
         iterations = sum(r.host_syncs for r in results)
         host_syncs += iterations
         tc = time.perf_counter()
-        for b, r in zip(batches, results):
-            fold(b, [i for i, _ in b], msys, cspec, ccfg, fcfg,
-                 *split(r.out))
+        for (_, b, k), r in zip(batches, results):
+            if not k:
+                continue
+            stats, dense, snaps = split(r.out)
+            fold(b[:k], [i for i, _ in b[:k]], msys, cspec, ccfg, fcfg,
+                 _first_points(stats, k), dense, snaps)
         dc = time.perf_counter() - tc
         prof.add("collect", dc)
         group_meta.append({
             "system": sy.label, "n_points": len(pts),
             "n_channels": pts[0].n_channels, "n_spec_groups": msys.n_groups,
-            "mapper": fcfg.mapper, "padded": 0, "iterations": iterations,
+            "mapper": fcfg.mapper, "padded": pad, "iterations": iterations,
             "dispatch_s": round(dt, 3), "collect_s": round(dc, 3),
             "wall_s": round(dt + dc, 3)})
 
     meta = {
         "n_points": n,
         "n_groups": len(groups),
-        "n_devices": 1,
+        "n_devices": len(devices),
         "device": str(device),
         "compile_cache_misses": cache.misses - misses0,
         "compile_cache_hits": cache.hits - hits0,
@@ -263,8 +304,7 @@ def execute(spec: SweepSpec, cache: E.RunCache | None = None,
         "wall_s": round(time.perf_counter() - t0, 3),
         "groups": group_meta,
         "seed": spec.seed,
-        # one device: no batch is padded
-        "padded_points": 0,
+        "padded_points": padded_total,
         "max_in_flight": int(max_in_flight),
         # loop iterations of every group's run, one host sync each
         "host_syncs": host_syncs,

@@ -68,7 +68,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -565,43 +565,155 @@ def _forward(q, k, v, causal, sm_scale, head_axis, window,
     return (t(res[0]), res[1]) if return_lse else t(res)
 
 
+# ---------------------------------------------------------------------------
+# The entry points as operators: fake tensors, DTensor and the flop counter
+# ---------------------------------------------------------------------------
+#
+# The kernels are ctypes launches, which no fake tensor, DTensor or flop
+# counter can see through.  So the forward (without and with the lse) and
+# the backward are ``torch.library`` custom operators: on real tensors each
+# runs exactly the launch above (same route, same counter, no fallback; a
+# failed build or launch raises), or the plain version on CPU tensors.
+# Each also has a fake implementation (shapes only) and a flop formula
+# that counts the visible (row, col) pairs the kernels visit (causal,
+# windowed), not Tq * Tk.  DTensor inputs reach them through the model's
+# ``local_map`` (``repro_torch.sharding.rules.local_attention``), which
+# keeps batch and head shards local.
+
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  head_axis: int, causal: bool, window: Optional[int],
+                  sm_scale: float) -> torch.Tensor:
+    return _forward(q, k, v, causal, sm_scale, head_axis, window)
+
+
+@torch.library.custom_op("repro_torch::flash_fwd_lse", mutates_args=())
+def _flash_fwd_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      head_axis: int, causal: bool, window: Optional[int],
+                      sm_scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    o, lse = _forward(q, k, v, causal, sm_scale, head_axis, window,
+                      return_lse=True)
+    return o, lse
+
+
+@torch.library.custom_op("repro_torch::flash_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                  head_axis: int, causal: bool, window: Optional[int],
+                  sm_scale: float
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    args = dict(causal=causal, sm_scale=sm_scale, head_axis=head_axis,
+                window=window)
+    if q.device.type == "cuda":
+        if do.stride(3) != 1 or not _rows_aligned(do):
+            do = do.contiguous()
+        return attention_backward_cuda(q, k, v, o, do, lse, **args)
+    return attention_backward_plain(q, k, v, o, do, lse, **args)
+
+
+def _lse_shape(q, head_axis: int):
+    return (q.shape[0], q.shape[head_axis], q.shape[3 - head_axis])
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, head_axis, causal, window, sm_scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@_flash_fwd_lse_op.register_fake
+def _(q, k, v, head_axis, causal, window, sm_scale):
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty(_lse_shape(q, head_axis), dtype=torch.float32))
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, o, do, lse, head_axis, causal, window, sm_scale):
+    return tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for x in (q, k, v))
+
+
+def visible_pairs(Tq: int, Tk: int, causal: bool, window) -> int:
+    """The (query row, key col) pairs the kernels' masks leave visible
+    (:func:`_visible`): row ``r`` sees cols ``c`` with ``c <= r`` when
+    causal (top-left) and ``r - c < window`` with a window."""
+    if not causal:
+        if window is None:
+            return Tq * Tk
+        return sum(Tk - min(Tk, max(0, r - window + 1)) for r in range(Tq))
+    m = Tk if window is None else min(int(window), Tk)
+    # row r sees min(r + 1, m) cols
+    if Tq <= m:
+        return Tq * (Tq + 1) // 2
+    return m * (m + 1) // 2 + (Tq - m) * m
+
+
+def attention_flops(q_shape, k_shape, head_axis: int, causal: bool,
+                    window, backward: bool = False) -> int:
+    """Multiply-adds x 2 of the visible pairs: the forward's ``S = Q K^T``
+    and ``O = P V`` (4 D a pair), the backward's recomputed ``S``, ``dV``,
+    ``dP``, ``dQ`` and ``dK`` (10 D a pair)."""
+    B, Hq, Tq, D = (q_shape[0], q_shape[head_axis], q_shape[3 - head_axis],
+                    q_shape[3])
+    Tk = k_shape[3 - head_axis]
+    return (10 if backward else 4) * B * Hq * D * visible_pairs(
+        Tq, Tk, causal, window)
+
+
+def _register_counters():
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula([torch.ops.repro_torch.flash_fwd,
+                            torch.ops.repro_torch.flash_fwd_lse])
+    def _fwd_flops(q, k, v, head_axis, causal, window, sm_scale, *a,
+                   **kw) -> int:
+        return attention_flops(q, k, head_axis, causal, window)
+
+    @register_flop_formula(torch.ops.repro_torch.flash_bwd)
+    def _bwd_flops(q, k, v, o, do, lse, head_axis, causal, window,
+                   sm_scale, *a, **kw) -> int:
+        return attention_flops(q, k, head_axis, causal, window,
+                               backward=True)
+
+
+_register_counters()
+
+
 class FlashAttentionFn(torch.autograd.Function):
-    """Flash attention with a gradient: the forward is :func:`_forward`'s
-    kernel launch (or plain version on CPU tensors), which also writes the
-    rows' lse, and saves q, k, v, its output and the lse; the backward
-    launches a backward kernel on CUDA tensors
-    (:func:`attention_backward_cuda`) and runs
+    """Flash attention with a gradient: the forward is the
+    ``flash_fwd_lse`` operator (:func:`_forward`'s kernel launch, or the
+    plain version on CPU tensors), which also writes the rows' lse, and
+    saves q, k, v, its output and the lse; the backward is the
+    ``flash_bwd`` operator, which launches a backward kernel on CUDA
+    tensors (:func:`attention_backward_cuda`) and runs
     :func:`attention_backward_plain` on CPU ones, both reading that lse."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, head_axis, window):
-        o, lse = _forward(q, k, v, causal, sm_scale, head_axis, window,
-                          return_lse=True)
+        o, lse = torch.ops.repro_torch.flash_fwd_lse(
+            q, k, v, head_axis, causal, window, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = dict(causal=causal, sm_scale=sm_scale,
-                        head_axis=head_axis, window=window)
+        ctx.args = (head_axis, causal, window, sm_scale)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        if q.device.type == "cuda":
-            if do.stride(3) != 1 or not _rows_aligned(do):
-                do = do.contiguous()
-            grads = attention_backward_cuda(q, k, v, o, do, lse, **ctx.args)
-        else:
-            grads = attention_backward_plain(q, k, v, o, do, lse, **ctx.args)
+        grads = torch.ops.repro_torch.flash_bwd(q, k, v, o, do, lse,
+                                                *ctx.args)
         return (*grads, None, None, None, None)
 
 
-def _attend(q, k, v, causal, sm_scale, head_axis, window):
+def _attend(q, k, v, causal: bool, sm_scale: float | None, head_axis: int,
+            window: int | None):
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    sm_scale = float(sm_scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, sm_scale, head_axis,
                                       window)
-    return _forward(q, k, v, causal, sm_scale, head_axis, window)
+    return torch.ops.repro_torch.flash_fwd(q, k, v, head_axis, causal,
+                                           window, sm_scale)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -53,10 +53,13 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import (ParamDef, apply_mrope, apply_rope,
                                        decode_attention, ffn_apply,
                                        ffn_defs, rmsnorm, silu)
+from repro_torch.sharding.rules import (fence, is_dtensor, local_experts,
+                                        settle, shard_reshape)
 
 
 class Ctx(NamedTuple):
@@ -69,7 +72,7 @@ class Ctx(NamedTuple):
 # Attention (global or local-window), with optional qk-norm and GQA
 # ===========================================================================
 
-def attn_defs(cfg) -> dict:
+def attn_defs(cfg: ModelConfig) -> dict:
     d, dq, dkv = cfg.d_model, cfg.d_qkv, cfg.d_kv
     defs = {
         "norm": ParamDef((d,), (None,), init="zeros"),
@@ -88,11 +91,11 @@ def attn_defs(cfg) -> dict:
     return defs
 
 
-def _qkv(cfg, p, x, ctx):
+def _qkv(cfg: ModelConfig, p, x, ctx):
     B, T, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, T, cfg.n_heads, cfg.head_dim)
-    k = (x @ p["wk"]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    q = shard_reshape(x @ p["wq"], B, T, cfg.n_heads, cfg.head_dim)
+    k = shard_reshape(x @ p["wk"], B, T, cfg.n_kv_heads, cfg.head_dim)
+    v = shard_reshape(x @ p["wv"], B, T, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:                 # per head, before RoPE
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -105,7 +108,7 @@ def _qkv(cfg, p, x, ctx):
     return q, k, v
 
 
-def _norm_in(cfg, p, x, resid):
+def _norm_in(cfg: ModelConfig, p, x, resid):
     """The block's input RMSNorm, of the previous block's fp32 residual sum
     ``resid`` where it hands one over, else of ``x``; rounded to ``x``'s
     dtype."""
@@ -113,44 +116,50 @@ def _norm_in(cfg, p, x, resid):
                    cfg.norm_eps).to(x.dtype)
 
 
-def _attn_core(cfg, p, x, ctx, local: bool):
+def _attn_core(cfg: ModelConfig, p, x, ctx, local: bool):
     q, k, v = _qkv(cfg, p, x, ctx)
     window = cfg.attn_window if local else None
     o = L.flash_attention(q, k, v, causal=True, window=window)
     B, T = x.shape[:2]
-    return o.reshape(B, T, cfg.d_qkv) @ p["wo"]
+    return shard_reshape(o, B, T, cfg.d_qkv) @ p["wo"]
 
 
-def _block(cfg, p, x, mixer_out, fused: bool = False, ffn=None):
+def _block(cfg: ModelConfig, p, x, mixer_out, fused: bool = False, ffn=None):
     """The residual adds and the MLP: -> ``(x', resid)``.  ``ffn`` is
     ``(norm scale, fn)`` of what takes the MLP's place (the moe block's
     experts); by default ``p``'s MLP, if it has one.  Unfused every add
     rounds and ``resid`` is None; fused (see the module notes) the MLP
     norm reads the first add's fp32 sum and ``resid`` is the second's, for
     the next block's norm.  ``x'`` is the same either way: a bf16 add
-    rounds its fp32 sum."""
-    if ffn is None and "mlp" in p:
+    rounds its fp32 sum.  On DTensors both branches' partial sums are
+    reduced before their add (``settle``: tensor parallelism's all-reduce
+    per branch; left to DTensor, a reduce-scatter would shard the
+    sequence, which later matrix products cannot take)."""
+    # a parameter tree's key test reads no tensor
+    if ffn is None and "mlp" in p:  # lint: ignore[ts101]
         ffn = (p["mlp_norm"], lambda h: ffn_apply(p["mlp"], h))
+    mixer_out = settle(mixer_out)
     if not fused:
         x = x + mixer_out
         if ffn is not None:
-            x = x + ffn[1](rmsnorm(x, ffn[0], cfg.norm_eps))
+            x = x + settle(ffn[1](rmsnorm(x, ffn[0], cfg.norm_eps)))
         return x, None
     s = x.float() + mixer_out.float()
     x = s.to(x.dtype)
     if ffn is not None:
         h = rmsnorm(s, ffn[0], cfg.norm_eps).to(x.dtype)
-        s = x.float() + ffn[1](h).float()
+        s = x.float() + settle(ffn[1](h)).float()
         x = s.to(x.dtype)
     return x, s
 
 
-def _attn(cfg, p, x, ctx, local, resid=None, fused=False, ffn=None):
+def _attn(cfg: ModelConfig, p, x, ctx, local, resid=None, fused=False,
+          ffn=None):
     h = _norm_in(cfg, p, x, resid)
     return _block(cfg, p, x, _attn_core(cfg, p, h, ctx, local), fused, ffn)
 
 
-def attn_apply(cfg, p, x, ctx, local: bool = False):
+def attn_apply(cfg: ModelConfig, p, x, ctx, local: bool = False):
     return _attn(cfg, p, x, ctx, local)[0]
 
 
@@ -184,13 +193,21 @@ def kv_dequantize(q, s):
     return (q.float() * s[..., None]).to(torch.bfloat16)
 
 
-def attn_init_state(cfg, batch: int, cache_len: int, local: bool = False,
-                    device=None):
+def attn_cache_slots(cfg: ModelConfig, cache_len: int,
+                     local: bool = False) -> int:
+    """A layer's cache slots: ``min(attn_window, cache_len)`` for a local
+    layer (a ring), else ``cache_len``."""
+    if local and cfg.attn_window:
+        return min(cfg.attn_window, cache_len)
+    return cache_len
+
+
+def attn_init_state(cfg: ModelConfig, batch: int, cache_len: int,
+                    local: bool = False, device=None):
     """A zero cache of ``S`` slots: ``min(attn_window, cache_len)`` for a
     local layer (a ring), else ``cache_len``; bf16, or int8 codes and fp32
     scales with ``cfg.kv_quant``."""
-    S = min(cfg.attn_window, cache_len) if (local and cfg.attn_window) \
-        else cache_len
+    S = attn_cache_slots(cfg, cache_len, local)
     shape = (batch, S, cfg.n_kv_heads, cfg.head_dim)
     z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
     if cfg.kv_quant:
@@ -200,7 +217,7 @@ def attn_init_state(cfg, batch: int, cache_len: int, local: bool = False,
     return AttnState(k=z(shape, torch.bfloat16), v=z(shape, torch.bfloat16))
 
 
-def _cache_update_attend(cfg, q, k, v, state, ctx, local: bool):
+def _cache_update_attend(cfg: ModelConfig, q, k, v, state, ctx, local: bool):
     """Write this step's k/v at ``ctx.cache_index`` (``% S`` in a local
     ring; in place; quantised first with ``cfg.kv_quant``) and attend over
     the first ``min(cache_len, S)`` entries."""
@@ -224,18 +241,18 @@ def _cache_update_attend(cfg, q, k, v, state, ctx, local: bool):
     return o, state
 
 
-def _attn_decode(cfg, p, x, state, ctx, local, resid=None, fused=False,
-                 ffn=None):
+def _attn_decode(cfg: ModelConfig, p, x, state, ctx, local, resid=None,
+                 fused=False, ffn=None):
     h = _norm_in(cfg, p, x, resid)
     q, k, v = _qkv(cfg, p, h, ctx)
     o, state = _cache_update_attend(cfg, q, k, v, state, ctx, local)
     B = x.shape[0]
-    out = o.reshape(B, 1, cfg.d_qkv) @ p["wo"]
+    out = shard_reshape(o, B, 1, cfg.d_qkv) @ p["wo"]
     x, resid = _block(cfg, p, x, out, fused, ffn)
     return x, state, resid
 
 
-def attn_decode(cfg, p, x, state, ctx, local: bool = False):
+def attn_decode(cfg: ModelConfig, p, x, state, ctx, local: bool = False):
     return _attn_decode(cfg, p, x, state, ctx, local)[:2]
 
 
@@ -243,7 +260,7 @@ def attn_decode(cfg, p, x, state, ctx, local: bool = False):
 # Mixture of Experts (token-choice top-k, capacity, sort-based dispatch)
 # ===========================================================================
 
-def moe_defs(cfg) -> dict:
+def moe_defs(cfg: ModelConfig) -> dict:
     m = cfg.moe
     d, ff, E = cfg.d_model, m.d_ff_expert, m.num_experts
     defs = {
@@ -272,10 +289,10 @@ def top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _route(cfg, p, x):
+def _route(cfg: ModelConfig, p, x):
     """fp32 router logits of bf16 inputs -> ``(probs, gate_vals,
     expert_idx)``, the top-k gates renormalised to sum to 1."""
-    probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+    probs = fence(torch.softmax(x.float() @ p["router"].float(), dim=-1))
     gate_vals, expert_idx = top_k(probs, cfg.moe.top_k)
     return probs, gate_vals / gate_vals.sum(-1, keepdim=True), expert_idx
 
@@ -312,7 +329,16 @@ def gshard_masks(expert_idx, gate_vals, E: int, C: int, dtype):
     return dispatch, combine
 
 
-def moe_ffn_grouped(cfg, p, x):
+def _gshard_experts(dispatch, combine, xg, w_gate, w_up, w_down):
+    """Dispatch ``xg`` (G, n, d) to the (G, E, C) expert slots, run the
+    experts, combine back: -> (G, n, d)."""
+    buf = torch.einsum("gnec,gnd->gecd", dispatch, xg)         # (G, E, C, d)
+    y = _expert_mlps(dict(w_gate=w_gate, w_up=w_up, w_down=w_down), buf,
+                     "gec")                                   # (G, E, C, d)
+    return torch.einsum("gnec,gecd->gnd", combine, y)
+
+
+def moe_ffn_grouped(cfg: ModelConfig, p, x):
     """GShard one-hot einsum dispatch over token groups.
 
     x (B, T, d) is regrouped to (G, n, d) with n = MOE_GROUP_SIZE tokens
@@ -335,9 +361,12 @@ def moe_ffn_grouped(cfg, p, x):
     C = max(1, min(C, n * k))
 
     dispatch, combine = gshard_masks(expert_idx, gate_vals, E, C, xg.dtype)
-    buf = torch.einsum("gnec,gnd->gecd", dispatch, xg)         # (G, E, C, d)
-    y = _expert_mlps(p, buf, "gec")                           # (G, E, C, d)
-    out = torch.einsum("gnec,gecd->gnd", combine.to(xg.dtype), y)
+    args = (dispatch, combine.to(xg.dtype), xg, p["w_gate"], p["w_up"],
+            p["w_down"])
+    if is_dtensor(xg):
+        out = local_experts(_gshard_experts, *args)
+    else:
+        out = _gshard_experts(*args)
 
     out = out.reshape(Bs, T, d)
     if m.shared_expert:
@@ -345,7 +374,7 @@ def moe_ffn_grouped(cfg, p, x):
     return out, probs.reshape(G * n, E)
 
 
-def moe_ffn(cfg, p, x_flat):
+def moe_ffn(cfg: ModelConfig, p, x_flat):
     """Flat sort-based dispatch (``grouped=False``): x_flat (N, d) -> (N,
     d) via top-k routed experts + optional shared, capacity ``C`` per
     expert over all N tokens.
@@ -419,7 +448,7 @@ def moe_aux_loss(probs, cfg):
     return E * torch.sum(me * ce)
 
 
-def _moe_ffn(cfg, p, h):
+def _moe_ffn(cfg: ModelConfig, p, h):
     """The grouped or flat dispatch of ``h`` (B, T, d) by ``cfg.moe`` ->
     ``(out (B, T, d), router probs)``."""
     Bs, T, d = h.shape
@@ -429,14 +458,14 @@ def _moe_ffn(cfg, p, h):
     return out.reshape(Bs, T, d), probs
 
 
-def moe_apply(cfg, p, x, ctx):
+def moe_apply(cfg: ModelConfig, p, x, ctx):
     """The MoE half of the moe block (``p`` its ``"moe"`` tree), op by op:
     ``x + experts(rmsnorm(x))``."""
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     return x + _moe_ffn(cfg, p, h)[0]
 
 
-def _moe_mlp(cfg, p, probs: list):
+def _moe_mlp(cfg: ModelConfig, p, probs: list):
     """The moe block's experts in the MLP's place, for :func:`_block`:
     ``(norm scale, fn)``; fn appends its router probs to ``probs``."""
     def fn(h):
@@ -454,7 +483,7 @@ def _moe_mlp(cfg, p, probs: list):
 # (XLA, no Pallas kernel), so the port runs it in plain PyTorch: a
 # log-depth scan in fp32.
 
-def rglru_defs(cfg) -> dict:
+def rglru_defs(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     defs = {
         "norm": ParamDef((d,), (None,), init="zeros"),
@@ -500,7 +529,8 @@ def _softplus(x):
 def _const(v: float, dtype) -> float:
     """``v`` rounded to ``dtype`` (the reference's graph holds its
     constants in the operands' dtype)."""
-    return float(torch.tensor(v, dtype=dtype))
+    # a CPU scalar made from a host float: no device read
+    return float(torch.tensor(v, dtype=dtype))  # lint: ignore[ts102]
 
 
 def _gelu(x):
@@ -514,7 +544,7 @@ def _gelu(x):
     return x * (_const(0.5, dt) * (1.0 + th))
 
 
-def _rglru_coeffs(cfg, p, u):
+def _rglru_coeffs(cfg: ModelConfig, p, u):
     """Per-step gates in fp32: a (decay in (0,1)) and the gated input,
     both (B, T, D).  ``u`` is the conv output in bf16, or in fp32 from a
     fused layer: the gate projections read it rounded, the gated input
@@ -550,7 +580,8 @@ class RGLRUState(NamedTuple):
     conv: torch.Tensor    # (B, 3, D) bf16
 
 
-def _rglru(cfg, p, x, ctx, with_state, resid=None, fused=False):
+def _rglru(cfg: ModelConfig, p, x, ctx, with_state: bool, resid=None,
+           fused=False):
     h = _norm_in(cfg, p, x, resid)
     uw = h @ p["w_in"]
     branch, u_pre = uw.chunk(2, dim=-1)
@@ -567,18 +598,19 @@ def _rglru(cfg, p, x, ctx, with_state, resid=None, fused=False):
             resid)
 
 
-def rglru_apply(cfg, p, x, ctx, with_state: bool = False):
+def rglru_apply(cfg: ModelConfig, p, x, ctx, with_state: bool = False):
     return _rglru(cfg, p, x, ctx, with_state)[:2]
 
 
-def rglru_init_state(cfg, batch: int, cache_len: int, device=None):
+def rglru_init_state(cfg: ModelConfig, batch: int, cache_len: int,
+                     device=None):
     d = cfg.d_model
     return RGLRUState(
         h=torch.zeros((batch, d), dtype=torch.float32, device=device),
         conv=torch.zeros((batch, 3, d), dtype=torch.bfloat16, device=device))
 
 
-def _rglru_decode(cfg, p, x, state, ctx, resid=None, fused=False):
+def _rglru_decode(cfg: ModelConfig, p, x, state, ctx, resid=None, fused=False):
     h = _norm_in(cfg, p, x, resid)
     uw = h @ p["w_in"]
     branch, u = uw.chunk(2, dim=-1)
@@ -591,7 +623,7 @@ def _rglru_decode(cfg, p, x, state, ctx, resid=None, fused=False):
     return x, RGLRUState(h=hnew, conv=conv), resid
 
 
-def rglru_decode(cfg, p, x, state: RGLRUState, ctx):
+def rglru_decode(cfg: ModelConfig, p, x, state: RGLRUState, ctx):
     return _rglru_decode(cfg, p, x, state, ctx)[:2]
 
 
@@ -603,7 +635,7 @@ def rglru_decode(cfg, p, x, state: RGLRUState, ctx):
 # (the reference's ``lax.scan``); a fused recurrence kernel is ROADMAP.md
 # queue 1 work.
 
-def mlstm_defs(cfg) -> dict:
+def mlstm_defs(cfg: ModelConfig) -> dict:
     d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
     return {
         "norm": ParamDef((d,), (None,), init="zeros"),
@@ -622,7 +654,8 @@ class MLSTMState(NamedTuple):
     m: torch.Tensor    # (B, H)
 
 
-def mlstm_init_state(cfg, batch: int, cache_len: int, device=None):
+def mlstm_init_state(cfg: ModelConfig, batch: int, cache_len: int,
+                     device=None):
     H, hd = cfg.n_heads, cfg.head_dim
     z = lambda *shape: torch.zeros(shape, device=device)
     return MLSTMState(C=z(batch, H, hd, hd), n=z(batch, H, hd),
@@ -643,56 +676,64 @@ def _mlstm_cell(state: MLSTMState, q, k, v, i_log, f_log):
     return MLSTMState(C=C, n=n, m=m_new), h
 
 
-def _mlstm_qkvg(cfg, p, x):
+def _mlstm_scan(state: MLSTMState, per_token: tuple):
+    """The token recurrence over ``per_token = (q, k, v, i_log, f_log)``
+    (each ``(B, T, ...)``) -> ``(final state, h (B, T, H, hd))``."""
+    hs = []
+    for t in range(per_token[0].shape[1]):
+        state, h = _mlstm_cell(state, *(x[:, t] for x in per_token))
+        hs.append(h)
+    return state, torch.stack(hs, 1)
+
+
+def _mlstm_qkvg(cfg: ModelConfig, p, x):
     B, T, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     sc = math.sqrt(hd)
-    q = (x @ p["wq"]).reshape(B, T, H, hd).float() / sc
-    k = (x @ p["wk"]).reshape(B, T, H, hd).float() / sc
-    v = (x @ p["wv"]).reshape(B, T, H, hd).float()
-    if_log = (x @ p["w_if"]).reshape(B, T, 2, H).float()
+    q = shard_reshape(x @ p["wq"], B, T, H, hd).float() / sc
+    k = shard_reshape(x @ p["wk"], B, T, H, hd).float() / sc
+    v = shard_reshape(x @ p["wv"], B, T, H, hd).float()
+    if_log = shard_reshape(x @ p["w_if"], B, T, 2, H).float()
     i_log = if_log[:, :, 0]
     f_log = F.logsigmoid(if_log[:, :, 1] + 1.0)
-    o = torch.sigmoid((x @ p["w_o"]).float()).reshape(B, T, H, hd)
+    o = shard_reshape(torch.sigmoid((x @ p["w_o"]).float()), B, T, H, hd)
     return q, k, v, i_log, f_log, o
 
 
-def _mlstm(cfg, p, x, ctx, with_state, resid=None, fused=False):
+def _mlstm(cfg: ModelConfig, p, x, ctx, with_state: bool, resid=None,
+           fused=False):
     h0 = _norm_in(cfg, p, x, resid)
     q, k, v, i_log, f_log, o = _mlstm_qkvg(cfg, p, h0)
     B, T = x.shape[:2]
     state = mlstm_init_state(cfg, B, 0, device=x.device)
-    hs = []
-    for t in range(T):
-        state, h = _mlstm_cell(state, q[:, t], k[:, t], v[:, t],
-                               i_log[:, t], f_log[:, t])
-        hs.append(h)
-    h = torch.stack(hs, 1) * o                       # (B, T, H, hd)
-    out = h.reshape(B, T, cfg.d_qkv).to(x.dtype) @ p["w_out"]
+    state, h = _mlstm_scan(state, (q, k, v, i_log, f_log))
+    h = h * o                                        # (B, T, H, hd)
+    out = shard_reshape(h, B, T, cfg.d_qkv).to(x.dtype) @ p["w_out"]
     xo, resid = _block(cfg, p, x, out, fused)
     return xo, (state if with_state else None), resid
 
 
-def mlstm_apply(cfg, p, x, ctx, with_state: bool = False):
+def mlstm_apply(cfg: ModelConfig, p, x, ctx, with_state: bool = False):
     return _mlstm(cfg, p, x, ctx, with_state)[:2]
 
 
-def _mlstm_decode(cfg, p, x, state, ctx, resid=None, fused=False):
+def _mlstm_decode(cfg: ModelConfig, p, x, state, ctx, resid=None, fused=False):
     h0 = _norm_in(cfg, p, x, resid)
     q, k, v, i_log, f_log, o = _mlstm_qkvg(cfg, p, h0)
     state, h = _mlstm_cell(state, q[:, 0], k[:, 0], v[:, 0], i_log[:, 0],
                            f_log[:, 0])
     h = h[:, None] * o
-    out = h.reshape(x.shape[0], 1, cfg.d_qkv).to(x.dtype) @ p["w_out"]
+    out = shard_reshape(h, x.shape[0], 1, cfg.d_qkv).to(x.dtype) \
+        @ p["w_out"]
     x, resid = _block(cfg, p, x, out, fused)
     return x, state, resid
 
 
-def mlstm_decode(cfg, p, x, state: MLSTMState, ctx):
+def mlstm_decode(cfg: ModelConfig, p, x, state: MLSTMState, ctx):
     return _mlstm_decode(cfg, p, x, state, ctx)[:2]
 
 
-def slstm_defs(cfg) -> dict:
+def slstm_defs(cfg: ModelConfig) -> dict:
     d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
     return {
         "norm": ParamDef((d,), (None,), init="zeros"),
@@ -709,7 +750,8 @@ class SLSTMState(NamedTuple):
     m: torch.Tensor
 
 
-def slstm_init_state(cfg, batch: int, cache_len: int, device=None):
+def slstm_init_state(cfg: ModelConfig, batch: int, cache_len: int,
+                     device=None):
     H, hd = cfg.n_heads, cfg.head_dim
     z = lambda: torch.zeros((batch, H, hd), device=device)
     return SLSTMState(c=z(), n=z(), h=z(),
@@ -730,39 +772,47 @@ def _slstm_cell(state: SLSTMState, zifo_x, r):
     return SLSTMState(c=c, n=n, h=h, m=m_new), h
 
 
-def _slstm(cfg, p, x, ctx, with_state, resid=None, fused=False):
+def _slstm_scan(state: SLSTMState, per_token: tuple, r):
+    """The token recurrence over ``per_token = (zifo,)`` (``(B, T, H, 4
+    hd)``) with the recurrent weights ``r`` -> ``(final state, h (B, T, H,
+    hd))``."""
+    hs = []
+    for t in range(per_token[0].shape[1]):
+        state, h = _slstm_cell(state, per_token[0][:, t], r)
+        hs.append(h)
+    return state, torch.stack(hs, 1)
+
+
+def _slstm(cfg: ModelConfig, p, x, ctx, with_state: bool, resid=None,
+           fused=False):
     h0 = _norm_in(cfg, p, x, resid)
     B, T, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
-    zifo = (h0 @ p["w_zifo"]).reshape(B, T, H, 4 * hd)
+    zifo = shard_reshape(h0 @ p["w_zifo"], B, T, H, 4 * hd)
     r = p["r_zifo"].float()
     state = slstm_init_state(cfg, B, 0, device=x.device)
-    hs = []
-    for t in range(T):
-        state, h = _slstm_cell(state, zifo[:, t], r)
-        hs.append(h)
-    h = torch.stack(hs, 1)                           # (B, T, H, hd)
-    out = h.reshape(B, T, H * hd).to(x.dtype) @ p["w_out"]
+    state, h = _slstm_scan(state, (zifo,), r)        # h: (B, T, H, hd)
+    out = shard_reshape(h, B, T, H * hd).to(x.dtype) @ p["w_out"]
     xo, resid = _block(cfg, p, x, out, fused)
     return xo, (state if with_state else None), resid
 
 
-def slstm_apply(cfg, p, x, ctx, with_state: bool = False):
+def slstm_apply(cfg: ModelConfig, p, x, ctx, with_state: bool = False):
     return _slstm(cfg, p, x, ctx, with_state)[:2]
 
 
-def _slstm_decode(cfg, p, x, state, ctx, resid=None, fused=False):
+def _slstm_decode(cfg: ModelConfig, p, x, state, ctx, resid=None, fused=False):
     h0 = _norm_in(cfg, p, x, resid)
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim
-    zifo = (h0 @ p["w_zifo"]).reshape(B, 1, H, 4 * hd)
+    zifo = shard_reshape(h0 @ p["w_zifo"], B, 1, H, 4 * hd)
     state, h = _slstm_cell(state, zifo[:, 0], p["r_zifo"])
-    out = h.reshape(B, 1, H * hd).to(x.dtype) @ p["w_out"]
+    out = shard_reshape(h, B, 1, H * hd).to(x.dtype) @ p["w_out"]
     x, resid = _block(cfg, p, x, out, fused)
     return x, state, resid
 
 
-def slstm_decode(cfg, p, x, state: SLSTMState, ctx):
+def slstm_decode(cfg: ModelConfig, p, x, state: SLSTMState, ctx):
     return _slstm_decode(cfg, p, x, state, ctx)[:2]
 
 
@@ -781,7 +831,7 @@ def _kind(kind: str):
         raise KeyError(kind)
 
 
-def block_defs(cfg, kind: str) -> dict:
+def block_defs(cfg: ModelConfig, kind: str) -> dict:
     _kind(kind)
     if kind == "moe":
         d = attn_defs(cfg)
@@ -793,8 +843,9 @@ def block_defs(cfg, kind: str) -> dict:
             "slstm": slstm_defs}.get(kind, attn_defs)(cfg)
 
 
-def block_apply(cfg, kind: str, p, x, ctx, with_state: bool = False, *,
-                resid=None, fused: bool = False):
+def block_apply(cfg: ModelConfig, kind: str, p, x, ctx,
+                with_state: bool = False, *, resid=None,
+                fused: bool = False):
     """-> (x', aux_loss, state or None, resid'): attention and moe return
     no state here (the model recomputes their cache, as the JAX package
     does); RG-LRU, mLSTM and sLSTM return their final state when
@@ -816,7 +867,7 @@ def block_apply(cfg, kind: str, p, x, ctx, with_state: bool = False, *,
     return xo, zero, None, resid
 
 
-def block_init_state(cfg, kind: str, batch: int, cache_len: int,
+def block_init_state(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                      device=None):
     _kind(kind)
     if kind in ("rglru", "mlstm", "slstm"):
@@ -827,7 +878,7 @@ def block_init_state(cfg, kind: str, batch: int, cache_len: int,
                            local=kind == "local_attn", device=device)
 
 
-def block_decode(cfg, kind: str, p, x, state, ctx, *, resid=None,
+def block_decode(cfg: ModelConfig, kind: str, p, x, state, ctx, *, resid=None,
                  fused: bool = False):
     """-> (x', state', resid'), ``fused`` and ``resid`` as in
     :func:`block_apply`.  The moe block runs its experts on the one token

@@ -23,6 +23,8 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.sharding.rules import (is_dtensor, local_attention,
+                                        shard_reshape)
 
 PARAM_DTYPE = torch.bfloat16
 NEG_INF = -1e30
@@ -193,9 +195,14 @@ def flash_attention(q, k, v, *, causal: bool = True,
     (B, Tk, Hkv, Dh) with GQA read in place -> (B, Tq, H, Dh) in q's
     dtype.  Takes ``flash_attention_xla``'s place (``window``: query row
     ``r`` sees keys ``c`` with ``r - c < window``); the scale is
-    ``1/sqrt(Dh)``."""
-    return FA.flash_attention_bthd(q, k, v, causal=causal, window=window,
-                                   sm_scale=1.0 / math.sqrt(q.shape[-1]))
+    ``1/sqrt(Dh)``.  DTensor inputs go through
+    :func:`repro_torch.sharding.rules.local_attention`."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    attend = lambda q, k, v: FA.flash_attention_bthd(
+        q, k, v, causal=causal, window=window, sm_scale=scale)
+    if is_dtensor(q):
+        return local_attention(attend, q, k, v)
+    return attend(q, k, v)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len: int, *,
@@ -211,13 +218,13 @@ def decode_attention(q, k_cache, v_cache, cache_len: int, *,
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     rep = H // Hkv
     scale = 1.0 / np.sqrt(Dh)
-    qf = q.reshape(B, Hkv, rep, Dh).float() * scale
+    qf = shard_reshape(q, B, Hkv, rep, Dh).float() * scale
     s = torch.einsum("bgrd,bsgd->bgrs", qf, k_cache.float())
     mask = torch.arange(S, device=q.device) < cache_len
     s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgrs,bsgd->bgrd", p, v_cache.float())
-    return out.reshape(B, 1, H, Dh).to(q.dtype)
+    return shard_reshape(out, B, 1, H, Dh).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -31,8 +31,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import _device
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import ParamDef, ParamTree, init_tree, rmsnorm
+from repro_torch.sharding.rules import is_dtensor, settle
 
 
 VIS_FRAC = 8      # vision stub: first T/VIS_FRAC positions are patch embeds
@@ -52,7 +54,7 @@ class Batch(NamedTuple):
 # Parameter tree
 # ---------------------------------------------------------------------------
 
-def param_defs(cfg) -> dict:
+def param_defs(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     defs: dict = {}
     if cfg.frontend == "audio_stub":
@@ -71,7 +73,7 @@ def param_defs(cfg) -> dict:
     return defs
 
 
-def init_params(cfg, seed: int = 0, device=None) -> ParamTree:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> ParamTree:
     """Random bf16 parameters on ``device`` (default: the card), drawn
     from a ``torch.Generator`` on that device seeded with ``seed``."""
     dev = _device.resolve(device)
@@ -79,7 +81,7 @@ def init_params(cfg, seed: int = 0, device=None) -> ParamTree:
     return init_tree(gen, param_defs(cfg), dev)
 
 
-def count_params(cfg, active_only: bool = False) -> int:
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     """Parameter count from the shapes of :func:`param_defs` (nothing is
     allocated).  ``active_only``: an expert leaf (``w_gate``, ``w_up``,
     ``w_down`` under a ``moe`` tree, the shared expert's included, as the
@@ -104,18 +106,19 @@ def count_params(cfg, active_only: bool = False) -> int:
 # Embedding
 # ---------------------------------------------------------------------------
 
-def embed_input(cfg, params, batch: Batch):
+def embed_input(cfg: ModelConfig, params, batch: Batch):
     """Token embeddings (B, T, D).  Audio: tokens (B, T, K), the K
     codebook embeddings summed in codebook order, each add in bf16.
     Vision: ``batch.vis_embeds`` (B, nv, D), if given, overwrite the first
     nv positions."""
     if cfg.frontend == "audio_stub":
         embeds = params["embed"]                       # (K, V, D)
-        x = F.embedding(batch.tokens[..., 0], embeds[0])
+        x = settle(F.embedding(batch.tokens[..., 0], embeds[0]))
         for k in range(1, cfg.n_codebooks):
-            x = x + F.embedding(batch.tokens[..., k], embeds[k])
+            x = x + settle(F.embedding(batch.tokens[..., k], embeds[k]))
     else:
         x = F.embedding(batch.tokens, params["embed"])     # (B, T, D)
+    x = settle(x)
     if cfg.frontend == "vision_stub" and batch.vis_embeds is not None:
         nv = batch.vis_embeds.shape[1]
         x = torch.cat([batch.vis_embeds.to(x.dtype), x[:, nv:]], dim=1)
@@ -126,8 +129,8 @@ def embed_input(cfg, params, batch: Batch):
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 
-def forward(cfg, params, batch: Batch, *, return_states: bool = False,
-            cache_len: int | None = None):
+def forward(cfg: ModelConfig, params, batch: Batch, *,
+            return_states: bool = False, cache_len: int | None = None):
     """-> ``(final_hidden, aux[, states])``.  In training (grad enabled,
     trainable parameters, no ``return_states``) each repeated layer group
     runs under ``torch.utils.checkpoint``: its activations are recomputed
@@ -164,7 +167,7 @@ def forward(cfg, params, batch: Batch, *, return_states: bool = False,
     return x, aux
 
 
-def _run_layers(cfg, params, layers: range, x, ctx):
+def _run_layers(cfg: ModelConfig, params, layers: range, x, ctx):
     """Layers ``layers`` (one group, or the remainder) from ``x`` with no
     residual handed in -> ``(x, their aux loss sum)``."""
     aux, resid = torch.zeros((), device=x.device), None
@@ -177,7 +180,7 @@ def _run_layers(cfg, params, layers: range, x, ctx):
     return x, aux
 
 
-def _group_step(cfg, i: int, resid):
+def _group_step(cfg: ModelConfig, i: int, resid):
     """Layer ``i``'s rounding (``blocks`` module notes): ``(fused, the
     residual sum it reads)``.  Layers of the reference's scanned groups
     (the first ``n_groups * len(block_pattern)``) are fused, and read the
@@ -188,8 +191,9 @@ def _group_step(cfg, i: int, resid):
     return fused, resid if fused and i % P else None
 
 
-def _apply_with_state(cfg, kind, p, x, ctx, return_states, cache_len,
-                      resid=None, fused=False):
+def _apply_with_state(cfg: ModelConfig, kind: str, p, x, ctx,
+                      return_states: bool, cache_len, resid=None,
+                      fused=False):
     """One block; with ``return_states`` also its decode state by kind:
     an attention (or moe) cache is recomputed k/v of the prefix
     (ring-aligned for a local layer), RG-LRU, mLSTM and sLSTM return their
@@ -204,10 +208,10 @@ def _apply_with_state(cfg, kind, p, x, ctx, return_states, cache_len,
     return x, aux, st, resid
 
 
-def _prefill_attn_state(cfg, p, ctx, x, cache_len, local: bool = False,
-                        resid=None):
+def _prefill_attn_state(cfg: ModelConfig, p, ctx, x, cache_len,
+                        local: bool = False, resid=None):
     """Recompute k/v for the prefix and lay them into a decode cache of
-    ``S`` slots (``B.attn_init_state``; quantised to int8 with
+    ``S`` slots (``B.attn_cache_slots``; quantised to int8 with
     ``cfg.kv_quant``).  A prefix of ``T >= S`` tokens keeps its last
     ``S``: in slots ``0..S-1`` for a global cache, at slots ``arange(T -
     S, T) % S`` of a local ring (where decode's ``index % S`` will find
@@ -217,27 +221,29 @@ def _prefill_attn_state(cfg, p, ctx, x, cache_len, local: bool = False,
     h = B._norm_in(cfg, p, x, resid)
     _, k, v = B._qkv(cfg, p, h, ctx)
     T = x.shape[1]
-    st = B.attn_init_state(cfg, x.shape[0], cache_len, local=local,
-                           device=x.device)
-    S = st.k.shape[1]
+    S = B.attn_cache_slots(cfg, cache_len, local)
     if T >= S:
         # position T - S + i goes to slot (T - S + i) % S: a roll by T % S
         shift = T % S if local else 0
-        k, v = (torch.roll(t[:, T - S:], shift, dims=1) for t in (k, v))
-    new = (k, v)
+        k, v = (t[:, T - S:] for t in (k, v))
+        if shift:
+            k, v = (torch.roll(t, shift, dims=1) for t in (k, v))
+    # the first T slots hold the prefix, the rest zeros (a padded copy:
+    # a sharded k/v stays sharded alike; a full cache is the prefix)
+    pad = lambda t: t if t.shape[1] == S else F.pad(
+        t, (0, 0) * (t.dim() - 2) + (0, S - t.shape[1]))
     if cfg.kv_quant:
         (kq, ks), (vq, vs) = B.kv_quantize(k), B.kv_quantize(v)
-        new = (kq, vq, ks, vs)
-    for dst, src in zip(st, new):
-        dst[:, :src.shape[1]] = src.to(dst.dtype)
-    return st
+        return B.QuantAttnState(*(pad(t) for t in (kq, vq, ks, vs)))
+    return B.AttnState(*(pad(t.to(torch.bfloat16)) for t in (k, v)))
 
 
 # ---------------------------------------------------------------------------
 # Loss head (vocab-chunked cross entropy)
 # ---------------------------------------------------------------------------
 
-def logits_and_loss(cfg, params, batch: Batch, seq_chunk: int = 512):
+def logits_and_loss(cfg: ModelConfig, params, batch: Batch,
+                    seq_chunk: int = 512):
     """Mean next-token cross entropy over the labels that are not -1, and
     the aux loss: the sequence (padded to a multiple of ``seq_chunk`` with
     label -1) goes through the head ``seq_chunk`` positions at a time, so
@@ -247,9 +253,11 @@ def logits_and_loss(cfg, params, batch: Batch, seq_chunk: int = 512):
     T = x.shape[1]
     seq_chunk = min(seq_chunk, T)
     Tp = -(-T // seq_chunk) * seq_chunk
-    xpad = F.pad(x, (0, 0, 0, Tp - T))
-    lpad = F.pad(labels, (0, 0) * (labels.dim() - 2) + (0, Tp - T),
-                 value=-1)
+    xpad, lpad = x, labels
+    if Tp > T:
+        xpad = F.pad(x, (0, 0, 0, Tp - T))
+        lpad = F.pad(labels, (0, 0) * (labels.dim() - 2) + (0, Tp - T),
+                     value=-1)
     sums, counts = [], []
     for c in range(0, Tp, seq_chunk):
         s, n = _xent(cfg, params, xpad[:, c:c + seq_chunk],
@@ -261,19 +269,19 @@ def logits_and_loss(cfg, params, batch: Batch, seq_chunk: int = 512):
     return total, aux
 
 
-def _xent(cfg, params, x, labels):
+def _xent(cfg: ModelConfig, params, x, labels):
     """x: (B, C, D); labels (B, C) or (B, C, K).  Returns (nll sum,
     count): fp32 logits against :func:`_unembed`, logsumexp, the true
     label's logit, masked where the label is negative."""
     w = _unembed(cfg, params).float()
     if cfg.frontend == "audio_stub":
-        lg = torch.einsum("bcd,kdv->bckv", x.float(), w)
+        lg = _codebook_logits(x.float(), w)
     else:
         lg = torch.einsum("bcd,dv->bcv", x.float(), w)
     lse = torch.logsumexp(lg, dim=-1)
     mask = labels >= 0
     safe = labels.clamp_min(0).long()
-    true_lg = torch.gather(lg, -1, safe[..., None])[..., 0]
+    true_lg = settle(torch.gather(lg, -1, safe[..., None]))[..., 0]
     nll = torch.where(mask, lse - true_lg, torch.zeros_like(lse))
     return nll.sum(), mask.sum()
 
@@ -282,20 +290,29 @@ def _xent(cfg, params, x, labels):
 # Head
 # ---------------------------------------------------------------------------
 
-def _unembed(cfg, params):
+def _unembed(cfg: ModelConfig, params):
     if cfg.tie_embeddings:
         # (V, D) -> (D, V); audio (K, V, D) -> (K, D, V)
         return params["embed"].transpose(-1, -2)
     return params["unembed"]
 
 
-def last_logits(cfg, params, x):
+def _codebook_logits(x, w):
+    """``(B, T, D) x (K, D, V) -> (B, T, K, V)``: one einsum, or on
+    DTensors one product per codebook (DTensor cannot run the einsum's
+    merged (K, V) product with V sharded)."""
+    if is_dtensor(x):
+        return torch.stack([x @ w[k] for k in range(w.shape[0])], 2)
+    return torch.einsum("btd,kdv->btkv", x, w)
+
+
+def last_logits(cfg: ModelConfig, params, x):
     """fp32 logits of the final position, (B, 1, V), or (B, 1, K, V) for
     audio (one head per codebook): a full-fp32 product (TF32 must be off
     on the card)."""
     xl, w = x[:, -1:].float(), _unembed(cfg, params).float()
     if cfg.frontend == "audio_stub":
-        return torch.einsum("btd,kdv->btkv", xl, w)
+        return _codebook_logits(xl, w)
     return xl @ w
 
 
@@ -303,13 +320,14 @@ def last_logits(cfg, params, x):
 # Decode path
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg, batch: int, cache_len: int, device=None) -> list:
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device=None) -> list:
     dev = _device.resolve(device)
     return [B.block_init_state(cfg, kind, batch, cache_len, device=dev)
             for kind in cfg.pattern_layers()]
 
 
-def decode_step(cfg, params, cache: list, batch: Batch):
+def decode_step(cfg: ModelConfig, params, cache: list, batch: Batch):
     """One token for every sequence in the batch.  tokens: (B, 1), or (B,
     1, K) for audio.  The attention caches are updated in place; the
     recurrent states are new tensors.  -> ``(logits, cache)``."""

@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import Batch, logits_and_loss
 from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_init,
                                      adamw_update)
@@ -28,14 +29,14 @@ class TrainState(NamedTuple):
     opt: OptState
 
 
-def train_init(cfg, params, opt_cfg: AdamWConfig) -> TrainState:
+def train_init(cfg: ModelConfig, params, opt_cfg: AdamWConfig) -> TrainState:
     """Make ``params`` trainable (``requires_grad``) and zero the
     optimizer state."""
     params.requires_grad_(True)
     return TrainState(params=params, opt=adamw_init(params, opt_cfg))
 
 
-def loss_fn(cfg, params, batch: Batch):
+def loss_fn(cfg: ModelConfig, params, batch: Batch):
     loss, aux = logits_and_loss(cfg, params, batch)
     return loss + AUX_WEIGHT * aux, (loss, aux)
 
@@ -47,8 +48,8 @@ def _split(batch: Batch, n: int, i: int) -> Batch:
                    if isinstance(x, torch.Tensor) else x for x in batch))
 
 
-def make_train_step(cfg, opt_cfg: AdamWConfig, microbatch: int = 1,
-                    grad_transform=None):
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                    microbatch: int = 1, grad_transform=None):
     """Build the train step.
 
     microbatch > 1: split the batch on dim 0 and accumulate fp32 grads

@@ -42,5 +42,8 @@ def test_execute_refuses_what_the_port_does_not_take():
         dse.execute(s, devices=["cpu"], max_in_flight=0)
     with pytest.raises(ValueError, match="devices"):
         dse.execute(s, devices=[])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        dse.execute(s, devices=["cpu", "cpu"])
+    # several devices split each group's points (padding dropped)
+    two = dse.execute(s, devices=["cpu", "cpu"])
+    one = dse.execute(s, devices=["cpu"])
+    assert two.meta["n_devices"] == 2 and two.meta["padded_points"] == 0
+    assert two.throughput_gbps.tolist() == one.throughput_gbps.tolist()

@@ -22,6 +22,7 @@ TINY = dict(
     visualize_trace=dict(standard="LPDDR5", cycles=200),
     serve_lm=dict(variant="reduced", seed=0, batch=4, prompt_len=8,
                   max_new=16),
+    memsys_aware_roofline=dict(cycles=300),
 )
 #: what each example prints: the reference example's sections and names
 PRINTS = dict(
@@ -40,6 +41,8 @@ PRINTS = dict(
     visualize_trace=("commands captured -> ", "visualizer -> ",
                      "open in a browser"),
     serve_lm=("arch=llama3.2-1b-reduced device=cpu", "sample: "),
+    memsys_aware_roofline=("achieved/peak from the simulated "
+                           "latency-throughput knee = ",),
 )
 
 
@@ -70,6 +73,23 @@ def test_example_equals_the_library(name, tmp_path, capsys):
             ["dse_sweep_example.json", "dse_sweep_example.npz",
              "hbm3_trace.html"] if name == "dse_sweep" else
             ["lpddr5_trace.html", "lpddr5_trace.npz"])
+
+
+def test_roofline_example_reads_the_dry_run(tmp_path, capsys):
+    """Its memory term: the dry run's per-device bytes over the H100's
+    HBM bandwidth, naive and at the simulated achieved fraction."""
+    import json
+    from repro_torch.launch.mesh import HBM_BW
+    rec = dict(arch="llama3.2-1b", cost=dict(bytes_accessed=2.5e12))
+    (tmp_path / "llama3.2-1b__train_4k__16x16.json").write_text(
+        json.dumps(rec))
+    res = tp.load_example("memsys_aware_roofline").main(
+        ["--device", "cpu", "--cycles", "300", "--results", str(tmp_path)])
+    assert "llama3.2-1b" in capsys.readouterr().out
+    (row,) = res["rows"]
+    assert row["t_naive"] == 2.5e12 / HBM_BW
+    assert row["t_achieved"] == 2.5e12 / (HBM_BW * res["fraction"])
+    assert 0 < res["fraction"] <= 1
 
 
 @pytest.mark.parametrize("name", ["quickstart", "serve_lm"])

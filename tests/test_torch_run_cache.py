@@ -109,7 +109,8 @@ def test_simulator_runs_reuse_one_cache_entry():
     assert sa.to_dict() == JSim(*DDR4).run(300, interval=32.0).to_dict()
     assert E.RUN_CACHE.stats()["first_call_s"] > 0
     assert E.RUN_CACHE.stats()["shard_topologies"] == ("lanes",)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # a 2-way channel mesh needs 2 channels (and 2 ranks)
+    with pytest.raises(ValueError, match="divide"):
         E.RUN_CACHE.get(a.cspec, a.controller, a.frontend, 10, shard=2,
                         device="cpu")
 

@@ -178,13 +178,15 @@ def _sim_system(groups):
 
 def _unported():
     return {
-        "channel_shard": lambda: _sim(channel_shard=2),
+        "channel_shard": lambda: _sim(channel_shard=2, channels=2),
     }
 
 
 @pytest.mark.parametrize("option", sorted(_unported()))
 def test_unported_option_raises(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # channel sharding is ported; an explicit 2-way mesh still raises in
+    # a process with one rank, as the reference's does with one device
+    with pytest.raises(ValueError, match="process group"):
         _unported()[option]()
 
 

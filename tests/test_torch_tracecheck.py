@@ -22,6 +22,8 @@ SRC = os.path.dirname(PORT)
 SUPPRESSED = {
     ("core/engine.py", "ts102", "both.tolist()"),
     ("core/controller.py", "ts102", "x.tolist()"),
+    ("models/blocks.py", "ts101", '"mlp" in p'),
+    ("models/blocks.py", "ts102", "float(torch.tensor(v, dtype=dtype))"),
 }
 
 #: a cycle loop as the engine has it: ``make_run``'s nested ``run`` in a
@@ -301,7 +303,9 @@ def test_suppression_comment_and_skip_file(tmp_path):
 def test_real_tree_contexts():
     mods = load_modules([PORT], root=SRC)
     idx = ContextIndex(mods)
-    assert list(idx.roots) == [("repro_torch.core.engine", "make_run.run")]
+    assert sorted(idx.roots) == [
+        ("repro_torch.core.engine", "make_run.run"),
+        ("repro_torch.train.step", "make_train_step.step")]
     assert len(idx.roots[("repro_torch.core.engine", "make_run.run")]) == 2
     ctxs = {f"{m}:{q}" for (m, q) in idx.contexts}
     for want in ("core.controller:controller_step",
@@ -320,8 +324,42 @@ def test_real_tree_contexts():
     for not_hot in ("core.engine:_aggregate_stats",
                     "core.engine:_dense_trace",
                     "core.engine:_unpack_snaps",
+                    "core.engine:_gather_ranks",
+                    "core.engine:_gather_trace",
                     "verify.explore:_Step.__call__"):
         assert "repro_torch." + not_hot not in ctxs, not_hot
+
+
+def test_sharded_loop_and_training_step_are_hot():
+    """The channel-sharded loop's two collectives sit in hot code (the
+    sum in ``cycle``, the horizon's min in the loop), and the whole
+    training step is a root: its callees down to the attention operators
+    and AdamW are hot contexts."""
+    import ast
+    mods = load_modules([PORT], root=SRC)
+    idx = ContextIndex(mods)
+    ctxs = {f"{m}:{q}" for (m, q) in idx.contexts}
+    for want in ("train.step:make_train_step.single",
+                 "train.step:loss_fn",
+                 "models.model:forward",
+                 "models.model:logits_and_loss",
+                 "models.blocks:block_apply",
+                 "models.layers:flash_attention",
+                 "kernels.flash_attention:_attend",
+                 "optim.adamw:adamw_update",
+                 "sharding.rules:settle"):
+        assert "repro_torch." + want in ctxs, want
+    eng = mods["repro_torch.core.engine"]
+    loops = idx.roots[("repro_torch.core.engine", "make_run.run")]
+    spans = [(n.lineno, n.end_lineno) for n in loops]
+    cycle = eng.functions["make_run.run.cycle"]
+    calls = [n for n in ast.walk(eng.tree) if isinstance(n, ast.Call)
+             and ast.unparse(n.func) == "dist.all_reduce"]
+    assert len(calls) == 2
+    where = {("cycle" if cycle.lineno <= c.lineno <= cycle.end_lineno
+              else "loop" if any(a <= c.lineno <= b for a, b in spans)
+              else "cold") for c in calls}
+    assert where == {"cycle", "loop"}
 
 
 def test_port_tree_lints_clean_with_its_listed_suppressions():

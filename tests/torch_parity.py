@@ -1600,7 +1600,8 @@ EXAMPLES_SERVE = os.path.join(HERE, "torch_examples_serve.npz")
 EXAMPLES_DIR = os.path.join(os.path.dirname(HERE), "examples", "torch")
 #: the port's examples, in the order ``chip_smoke.py`` reports them
 EXAMPLES = ("quickstart", "extend_standard", "hetero_system", "multichannel",
-            "dse_sweep", "visualize_trace", "serve_lm")
+            "dse_sweep", "visualize_trace", "serve_lm",
+            "memsys_aware_roofline")
 #: each reference example's session at its own size (the port example's
 #: defaults; ``serve_lm``'s weights are the reference's ``PRNGKey(seed)``
 #: parameters, handed to the port through ``EXAMPLES_SERVE``)
@@ -1615,6 +1616,7 @@ EXAMPLE_RUNS = dict(
     visualize_trace=dict(standard="LPDDR5", cycles=3_000),
     serve_lm=dict(variant="reduced", seed=0, batch=4, prompt_len=32,
                   max_new=16),
+    memsys_aware_roofline=dict(cycles=20_000),
 )
 #: sessions a fixture of an earlier slice already holds: (file, key) of
 #: the reference's stats doc
@@ -1769,6 +1771,14 @@ def session_doc(name: str, run: dict, top: str = "repro",
             summary=stats.summary(msys), trace=trace_digest(t),
             audit=audit_doc(tr.audit(msys, t)), sweep=sweep_doc(res),
             table=res.to_table())
+    if name == "memsys_aware_roofline":
+        # the simulated part (the dry run's bytes are each package's own)
+        sim = core.Simulator("HBM3", "HBM3_16Gb", "HBM3_5200", **dev)
+        stats = sim.run(run["cycles"], interval=1.0, read_ratio=0.66)
+        return dict(stats=stats.to_dict(),
+                    achieved_gbps=float(core.throughput_gbps(sim.cspec,
+                                                             stats)),
+                    peak_gbps=float(core.peak_gbps(sim.cspec)))
     if name == "multichannel":
         quad = core.Simulator("HBM3", "HBM3_16Gb", "HBM3_5200", channels=4,
                               mapper="RoBaRaCoCh", **dev)
@@ -1876,6 +1886,10 @@ def port_example_doc(name: str, res: dict) -> dict:
     if name == "serve_lm":
         return dict(tokens=res["tokens"].tolist(),
                     first=res["first"].tolist())
+    if name == "memsys_aware_roofline":
+        return dict(stats=res["stats"].to_dict(),
+                    achieved_gbps=float(res["achieved_gbps"]),
+                    peak_gbps=float(res["peak_gbps"]))
     raise KeyError(name)
 
 
