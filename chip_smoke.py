@@ -766,17 +766,19 @@ def golden_run(std: str, org: str, tim: str, device: str) -> dict:
                 mutation={"/".join(k): v for k, v in rows.items()})
 
 
-def golden_phase(device: str, meanwhile=None) -> tuple:
+def golden_phase(device: str, meanwhile=None, dryrun=None) -> tuple:
     """The golden runs and the sessions of phases 12, 14, 15, 17 and 18,
     spread over worker processes (the longest first): each run is bound by
     its host loop, so processes on separate cores share the one card.  The
-    main process runs ``meanwhile()`` while they do.  Returns the fused
-    launches of phase 14's system sessions and of phase 15's, phase 17's
-    fused and table launches, the examples' results (checked) and what
-    ``meanwhile`` returned."""
+    main process runs ``meanwhile()`` while they do; a thread waits for
+    ``dryrun()`` (phase 22 (a)'s JSON) and then hands the roofline example
+    to the workers.  Returns the fused launches of phase 14's system
+    sessions and of phase 15's, phase 17's fused and table launches, the
+    examples' results (checked), what ``meanwhile`` returned and what
+    ``dryrun`` did."""
     import multiprocessing
     import os
-    from concurrent.futures import ProcessPoolExecutor
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
     from repro_torch.core.standards import DEFAULT_SYSTEMS
     golden = json.loads((ROOT / "tests" / "trace" /
                          "golden_hashes.json").read_text())
@@ -790,7 +792,11 @@ def golden_phase(device: str, meanwhile=None) -> tuple:
         examples = [pool.submit(example_run, name, device)
                     for name in ("hetero_system", "dse_sweep",
                                  "visualize_trace", "serve_lm",
-                                 "extend_standard", "memsys_aware_roofline")]
+                                 "extend_standard")]
+        waiter = ThreadPoolExecutor(1)
+        roofline = waiter.submit(lambda: (
+            dryrun() if dryrun is not None else None,
+            pool.submit(example_run, "memsys_aware_roofline", device)))
         p17 = pool.submit(verify_explore_run, device)
         props = [(key, pool.submit(verify_props_run, key, device))
                  for key in parity().PROPERTY_CASES]
@@ -803,6 +809,9 @@ def golden_phase(device: str, meanwhile=None) -> tuple:
         futures = [(std, pool.submit(golden_run, std, org, tim, device))
                    for std, (org, tim) in systems]
         extra = meanwhile() if meanwhile is not None else None
+        dry, late = roofline.result()
+        waiter.shutdown()
+        examples.append(late)
         results = [(std, f.result()) for std, f in futures]
         system_results = [(job, f.result()) for job, f in jobs]
         p15_results = [(job, f.result()) for job, f in p15]
@@ -845,7 +854,8 @@ def golden_phase(device: str, meanwhile=None) -> tuple:
     print(f"validation workflow on {device} (phase 17, in worker "
           "processes):")
     p17_launches = check_verify(*p17_results, results)
-    return launches, p15_launches, p17_launches, example_results, extra
+    return (launches, p15_launches, p17_launches, example_results, extra,
+            dry)
 
 
 def telemetry_doc(telem) -> dict:
@@ -2433,6 +2443,52 @@ def flash_timing(device, B, T, Hq, Hkv, D, kernel: str,
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
+def op_overhead(device, B, T, Hq, Hkv, D, dtype: str = "bfloat16"):
+    """What the ``torch.library`` operators cost on the host beside a
+    direct call of the same body (phase 4, on a quiet host): back-to-back
+    ms per call (CUDA events) of the forward through the public entry
+    (which calls the body directly on plain tensors), through
+    ``torch.ops.repro_torch.flash_fwd`` and through ``attention_cuda``;
+    and of the backward through ``torch.ops.repro_torch.flash_bwd`` and
+    through its body, on the same tensors.  Fails if the entry launches
+    another kernel or count than the operator."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=device).manual_seed(13)
+    q, k, v, do = (torch.randn(B, T, h, D, generator=gen, device=device)
+                   .to(getattr(torch, dtype)) for h in (Hq, Hkv, Hkv, Hq))
+    scale = D ** -0.5
+    o, lse = FA.attention_cuda(q, k, v, causal=True, sm_scale=scale,
+                               head_axis=2, return_lse=True)
+    calls = {
+        "entry": lambda: FA.flash_attention_bthd(q, k, v, causal=True),
+        "op": lambda: torch.ops.repro_torch.flash_fwd(q, k, v, 2, True,
+                                                      None, scale),
+        "direct": lambda: FA.attention_cuda(q, k, v, causal=True,
+                                            sm_scale=scale, head_axis=2),
+        "bwd op": lambda: torch.ops.repro_torch.flash_bwd(
+            q, k, v, o, do, lse, 2, True, None, scale),
+        "bwd direct": lambda: FA._backward(q, k, v, o, do, lse, 2, True,
+                                           None, scale)}
+    counts = {}
+    for name in ("entry", "op"):
+        reset_flash_counts(FA)
+        got = calls[name]()
+        counts[name] = flash_counts(FA)
+        if not torch.equal(got, calls["direct"]()):
+            fail(f"flash {name} call differs from attention_cuda's")
+    if counts["entry"] != counts["op"] or sum(counts["op"]) != 1:
+        fail(f"flash entry launches {counts['entry']}, operator "
+             f"{counts['op']}: want the same one launch")
+    ms = {name: cuda_ms(fn, 200) for name, fn in calls.items()}
+    ms.update({f"{name} again": cuda_ms(calls[name], 200)
+               for name in ("op", "direct", "bwd op", "bwd direct")})
+    print(f"flash operator vs direct call at {(B, T, Hq, Hkv, D)} {dtype} "
+          "causal (back to back, CUDA events, ms per call; phase 4): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    return ms
+
+
 def ptxas_report(log: str, entry: str) -> str:
     """``-Xptxas -v``'s registers and spills for the entry function whose
     mangled name contains ``entry``, and whether ptxas serialised its
@@ -3933,15 +3989,18 @@ def dtensor_step_phase(device) -> dict:
              f"by {(lp - ld).abs().max().item()}")
     same_step = torch.equal(loss_p, loss_d) and all(
         torch.equal(leaves_p[n], leaves_d[n]) for n in leaves_p)
-    worst = max((leaves_p[n].float() - leaves_d[n].float()).abs().max()
-                .item() for n in leaves_p)
+    if not same_step:
+        worst = max((leaves_p[n].float() - leaves_d[n].float()).abs().max()
+                    .item() for n in leaves_p)
+        fail(f"phase 22 DTensor step: loss {loss_d.item()} (plain "
+             f"{loss_p.item()}), new parameters differ from the plain "
+             f"step's by up to {worst}")
     print(f"DTensor step on a 1-device mesh over NCCL ({cfg.name}, B {B}, "
           f"T {T}; phase 22): prefill logits == the plain step's bit for "
           f"bit; flash launches (fwd, sm90, bwd, bwd_sm90) {cd} == plain "
-          f"{cp}; train step loss {loss_d.item():.6f} (plain "
-          f"{loss_p.item():.6f}), new parameters "
-          f"{'equal bit for bit' if same_step else f'max |diff| {worst}'}; "
-          f"wall {wd:.2f} s (plain {wp:.2f} s)")
+          f"{cp}; train step loss {loss_d.item():.6f} == plain, new "
+          f"parameters equal bit for bit; wall {wd:.2f} s (plain "
+          f"{wp:.2f} s)")
     return dict(flash=cd[0], bwd=cd[2])
 
 
@@ -4030,22 +4089,43 @@ def shard_phase(device, gloo: dict) -> int:
                          frontend=FrontendConfig(pattern="random"),
                          intervals=(8.0, 4.0, 2.0), read_ratios=(0.7, 1.0),
                          n_cycles=1000)
+    sweep = lambda devices: dse.execute(spec, cache=E.RunCache(),
+                                        devices=devices)
     KS.launch_count = 0
-    one = dse.execute(spec, cache=E.RunCache(), devices=[dev])
+    t0 = time.perf_counter()
+    one = sweep([dev])
+    w_one = time.perf_counter() - t0
     lc = KS.launch_count
     KS.launch_count = 0
-    two = dse.execute(spec, cache=E.RunCache(), devices=[dev, dev])
+    t0 = time.perf_counter()
+    two = sweep([dev, dev])
+    w_two = time.perf_counter() - t0
     ld = KS.launch_count
     cols = ("throughput_gbps", "latency_ns", "reads_done", "writes_done",
             "probe_cnt", "scan_steps", "skipped_cycles")
-    if not all(np.array_equal(getattr(one, k), getattr(two, k))
-               for k in cols) or two.meta["n_devices"] != 2 \
+    same_cols = lambda r: all(np.array_equal(getattr(one, k), getattr(r, k))
+                              for k in cols)
+    if not same_cols(two) or two.meta["n_devices"] != 2 \
             or ld != two.meta["host_syncs"] or lc != one.meta["host_syncs"]:
         fail(f"phase 23: execute over [{dev}, {dev}] differs from one "
              f"device (launches {ld}, {lc})")
+    # why the executor runs shares one after another: two host loops at
+    # once, a thread each (its own cache), on the one card (these
+    # launches are not the path's)
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        both = list(pool.map(sweep, [[dev], [dev]]))
+    w_both = time.perf_counter() - t0
+    if not all(map(same_cols, both)):
+        fail("phase 23: two sweeps in two threads differ from one alone")
     print(f"  dse.execute(devices=[{dev!r}, {dev!r}]): 6 points split 3 + 3, "
           f"== one device in every column; fused launches {ld} "
-          f"(one device {lc})")
+          f"(one device {lc}); wall {w_two:.3f} s, its shares one after "
+          f"another (one device {w_one:.3f} s)")
+    print(f"  two one-device sweeps in two threads at once on the card: "
+          f"wall {w_both:.3f} s against {2 * w_one:.3f} s one after "
+          f"another (speed-up {2 * w_one / w_both:.2f}x)")
     return la + lb + lc + ld
 
 
@@ -4142,10 +4222,6 @@ def run() -> int:
         build.library_path("readiness"), (), ("VIADDMNMX", "FMNMX",
                                                "LDGSTS")))
 
-    # phases 22 (a) and 23 (b)'s host work, in subprocesses beside the
-    # card's phases
-    dry = start_dryrun()
-    gloo = start_gloo()
     max_err, _ = timed("3 readiness", kernel_phase, device)
     mp_err, mp = timed("3 maxplus", maxplus_phase, device)
     fused = timed("3 fused", fused_phase, device)
@@ -4170,18 +4246,26 @@ def run() -> int:
                  window=RG_WINDOW)
     flash_timing(device, 4, 4096, 32, 8, 128, kernel="flash_fwd_sm90_kernel")
     flash_timing(device, 2, 80, 2, 1, 32, kernel="flash_core_", window=64)
+    # the operators' host cost beside direct calls, where it shows most
+    for shape, dtype in ((reduced_shape(), "bfloat16"),
+                         (reduced_shape(), "float32"),
+                         ((*SERVE_SHAPE[:4], 128), "bfloat16")):
+        op_overhead(device, *shape, dtype=dtype)
     # the batched and hetero sessions' profile windows also need the
     # profiler's device time: they run before the golden phase's workers
     batch_launches = timed("11 batched", batched_phase, device,
                            lanes["device_us"])
     timed("14 hetero profile", hetero_session_phase, device)
-    # the roofline example (phase 22, with phase 18's) reads the dry run
-    dry = finish_dryrun(dry)
-    # phase 16's cold half runs in this process beside the workers, its
-    # warm half alone after them
-    system_launches, p15_launches, p17, examples, dse_cold = timed(
+    # phases 22 (a) and 23 (b)'s host work, in subprocesses beside the
+    # golden phase's workers (the timed phases above want a quiet host);
+    # the roofline example (phase 22, with phase 18's) waits for the dry
+    # run.  Phase 16's cold half runs in this process beside the workers,
+    # its warm half alone after them
+    dry = start_dryrun()
+    gloo = start_gloo()
+    system_launches, p15_launches, p17, examples, dse_cold, dry = timed(
         "5, 12, 14, 15, 17, 18 in workers; 16 cold", golden_phase, "cuda",
-        lambda: dse_phase(device))
+        lambda: dse_phase(device), lambda: finish_dryrun(dry))
     dse_launches = timed("16 warm", dse_warm_phase, device, dse_cold)
     xtab = timed("17 table", explore_table_phase, device)
     main_path = timed("6 main path", main_path_phase, device)

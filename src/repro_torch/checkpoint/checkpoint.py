@@ -155,13 +155,19 @@ def _place(t: torch.Tensor, mesh, placements) -> torch.Tensor:
     """``t`` as a DTensor on ``mesh`` with ``placements``: redistributed if
     it is one on that mesh already, else made whole and distributed (every
     rank must hold the same whole tensor, as ``distribute_tensor``
-    asks)."""
+    asks).  A host tensor moves onto the mesh's device; a card's tensor
+    onto a CPU mesh raises (the state would leave the card unasked)."""
     from torch.distributed.tensor import DTensor, distribute_tensor
     t = t.detach()
     if isinstance(t, DTensor) and t.device_mesh == mesh:
         return t.redistribute(mesh, placements)
     t = _full(t)
     if t.device.type != mesh.device_type:
+        if t.device.type != "cpu":
+            raise ValueError(f"reshard_state: a {t.device.type} tensor onto "
+                             f"a {mesh.device_type} mesh (make the mesh on "
+                             f"{t.device.type}: launch.mesh's default is "
+                             "the card)")
         t = t.to(mesh.device_type)
     return distribute_tensor(t, mesh, placements)
 

@@ -46,8 +46,9 @@ kernel's plans) for every later call.  ``format_stats``,
 ``channel_breakdown`` and ``Stats.summary`` give the reference's text.
 
 Channel sharding (``Simulator(channel_shard=d)``, ``make_run(...,
-shard=d)``) spreads every spec group's channels over the ``d`` ranks of
-the ``torch.distributed`` process group, one rank per device (the
+shard=d)``; only on request, never because a process holds a group)
+spreads every spec group's channels over the ``d`` ranks of the
+``torch.distributed`` process group, one rank per device (the
 reference's ``shard_map`` path): rank ``r`` owns a contiguous slice of
 each group's channel axis, decodes the frontend replicated and inserts
 into and steps only its own channels.  Per loop iteration the ranks
@@ -815,26 +816,18 @@ def auto_channel_shard(spec, n_devices: int | None = None) -> int | None:
     """The channel-mesh size ``d > 1`` a sharded run of ``spec`` would
     use: the device count (``n_devices``, default the ``torch.distributed``
     world size, 1 without a process group) when it divides EVERY spec
-    group's channel count, else None (callers then stay on the
-    single-device path).  The reference takes the largest such ``d`` up
-    to its device count; a run here spans the whole process group, so it
-    takes the group's size or nothing."""
+    group's channel count, else None.  The reference takes the largest
+    such ``d`` up to its device count; a run here spans the whole process
+    group, so it takes the group's size or nothing.  Only an explicit
+    request (``Simulator(channel_shard=True)``) asks it: nothing shards
+    because a process happens to hold a group."""
     msys = as_system(spec)
     if n_devices is None:
-        n_devices = _world_size()
+        n_devices = dist.get_world_size() if dist.is_initialized() else 1
     d = int(n_devices)
     if d > 1 and all(g.channels % d == 0 for g in msys.groups):
         return d
     return None
-
-
-def _world_size() -> int:
-    """The ranks a sharded run could span: the default process group's
-    size (1 without one, or with a ``fake`` one: the dry run's, whose
-    ranks are not devices)."""
-    if not dist.is_initialized() or dist.get_backend() == "fake":
-        return 1
-    return dist.get_world_size()
 
 
 def _shard_desc(shard):
@@ -1045,13 +1038,16 @@ class Simulator:
     ``host_syncs`` counts the device->host reads of every run's cycle
     loop (one per loop iteration with fast-forward, none without).
 
-    ``channel_shard``: None (default) shards a scalar run's channels over
-    the ``torch.distributed`` process group when it has more than one
-    rank and its size divides every group's channel count
-    (:func:`auto_channel_shard`), else runs unsharded; True requires such
-    a mesh; ``False``/``0``/``1`` never shard; ``d`` shards over ``d``
-    ranks (the group's size).  Every rank constructs the same
-    ``Simulator`` on its own device and calls ``run`` alike.
+    ``channel_shard``: None (default), ``False``, ``0`` or ``1`` run
+    unsharded, whatever process group the process holds; True shards a
+    scalar run's channels over the whole ``torch.distributed`` process
+    group (:func:`auto_channel_shard`; raises unless it has more than one
+    rank and its size divides every group's channel count); ``d`` shards
+    over ``d`` ranks (the group's size).  A sharded run is a collective
+    program: every rank constructs the same ``Simulator`` on its own
+    device and calls ``run`` alike.  (The reference's None shards over
+    the visible devices of its one process; a run here spans processes,
+    so it is asked for.)
     """
     standard: str | None = None
     org_preset: str | None = None
@@ -1109,12 +1105,14 @@ class Simulator:
     def _resolved_shard(self) -> int | None:
         """The channel-mesh size scalar runs use, per ``channel_shard``."""
         cs = self.channel_shard
-        if cs is None or cs is True:
+        if cs is True:
             d = auto_channel_shard(self.msys)
-            if d is None and cs is True:
+            if d is None:
+                world = dist.get_world_size() if dist.is_initialized() \
+                    else 1
                 raise ValueError(
                     "channel_shard=True but no usable channel mesh: "
-                    f"{_world_size()} rank(s) for per-group channel counts "
+                    f"{world} rank(s) for per-group channel counts "
                     f"{[g.channels for g in self.msys.groups]}")
             return d
         if not cs or int(cs) <= 1:

@@ -41,9 +41,13 @@ by repeating its last point until it divides by the device count, device
 ``i`` runs the ``i``-th contiguous share through its own cache entry,
 and the padding is dropped from the results (``meta["padded_points"]``).
 A device may be listed more than once (``["cpu"] * 4``, ``["cuda:0",
-"cuda:0"]``).  The shares run one after another: each is its own
-host-driven loop, so a second card adds room and not yet overlap.  A
-capturing group's one-point runs go round-robin over the devices.
+"cuda:0"]``).  The shares run one after another, each its own
+host-driven loop: a split adds room on a second card, not speed.  Host
+threads would not overlap them: ``chip_smoke.py`` phase 23 runs two
+one-device sweeps in two threads on one card, and they take longer than
+one after another (each loop's Python holds the GIL), so concurrent
+shares wait for a process per card (ROADMAP).  A capturing group's
+one-point runs go round-robin over the devices.
 """
 from __future__ import annotations
 

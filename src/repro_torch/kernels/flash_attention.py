@@ -379,24 +379,24 @@ def attention_cuda(q, k, v, *, causal: bool, sm_scale: float,
     win = NO_WINDOW if window is None else min(int(window), NO_WINDOW)
     dev = q.device
     strides = [t.stride() for t in (q, k, v)]
-    for name, t, st in zip("qkv", (q, k, v), strides):
-        if t.device != dev or t.dtype != q.dtype or st[3] != 1:
+    for name, t in zip("qkv", (q, k, v)):
+        if t.device != dev or t.dtype != q.dtype or t.stride(3) != 1:
             raise ValueError(f"flash attention kernel: {name} must be on "
                              f"{dev} in {q.dtype} with a contiguous last "
                              f"axis, got {t.dtype} on {t.device}, strides "
-                             f"{st}")
+                             f"{t.stride()}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash attention kernel: dtype {q.dtype} (takes "
                          "float32 or bfloat16)")
     dims = HEAD_DIMS if q.dtype == torch.bfloat16 else FP32_HEAD_DIMS
-    if D not in dims:
+    if q.shape[3] not in dims:
         raise ValueError(f"flash attention kernel: head_dim {D} in "
                          f"{q.dtype} (takes {dims})")
     kernel = route(q.dtype, D)
     out = torch.empty(q.shape, dtype=q.dtype, device=dev)
     lse = torch.empty((B, Hq, Tq), dtype=torch.float32, device=dev) \
         if return_lse else None
-    if B * Hq * Tq == 0:
+    if q.numel() == 0:
         return (out, lse) if return_lse else out
     lse_ptr = None if lse is None else lse.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -545,8 +545,8 @@ def attention_backward_cuda(q, k, v, o, do, lse, *, causal: bool,
     return dq, dk, dv
 
 
-def _forward(q, k, v, causal, sm_scale, head_axis, window,
-             return_lse: bool = False):
+def _forward(q, k, v, causal: bool, sm_scale: float, head_axis: int,
+             window: int | None, return_lse: bool = False):
     kind = q.device.type
     if kind == "cuda":
         return attention_cuda(q, k, v, causal=causal, sm_scale=sm_scale,
@@ -579,6 +579,13 @@ def _forward(q, k, v, causal, sm_scale, head_axis, window,
 # windowed), not Tq * Tk.  DTensor inputs reach them through the model's
 # ``local_map`` (``repro_torch.sharding.rules.local_attention``), which
 # keeps batch and head shards local.
+#
+# An operator call costs tens of microseconds of dispatch on the host,
+# as much as a small kernel's whole launch.  The entry points therefore
+# call the same bodies directly when nothing could intercept the
+# operator (:func:`_direct`: plain tensors and no dispatch mode on the
+# stack), and go through the operators otherwise (fake tensors, DTensor
+# shards under a mode, the flop counter, ``CommDebugMode``).
 
 @torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
 def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -596,12 +603,8 @@ def _flash_fwd_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-@torch.library.custom_op("repro_torch::flash_bwd", mutates_args=())
-def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
-                  head_axis: int, causal: bool, window: Optional[int],
-                  sm_scale: float
-                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _backward(q, k, v, o, do, lse, head_axis: int, causal: bool,
+              window: int | None, sm_scale: float):
     args = dict(causal=causal, sm_scale=sm_scale, head_axis=head_axis,
                 window=window)
     if q.device.type == "cuda":
@@ -609,6 +612,25 @@ def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             do = do.contiguous()
         return attention_backward_cuda(q, k, v, o, do, lse, **args)
     return attention_backward_plain(q, k, v, o, do, lse, **args)
+
+
+@torch.library.custom_op("repro_torch::flash_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                  head_axis: int, causal: bool, window: Optional[int],
+                  sm_scale: float
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _backward(q, k, v, o, do, lse, head_axis, causal, window,
+                     sm_scale)
+
+
+def _direct(*ts) -> bool:
+    """Whether a call on ``ts`` may skip the operators: every tensor a
+    plain ``torch.Tensor`` (no fake tensor, no DTensor) and no dispatch
+    mode on the stack (no ``FakeTensorMode``, flop counter or
+    ``CommDebugMode``).  The operators run the same bodies."""
+    return all(type(t) is torch.Tensor for t in ts) \
+        and torch._C._len_torch_dispatch_stack() == 0
 
 
 def _lse_shape(q, head_axis: int):
@@ -685,12 +707,17 @@ class FlashAttentionFn(torch.autograd.Function):
     saves q, k, v, its output and the lse; the backward is the
     ``flash_bwd`` operator, which launches a backward kernel on CUDA
     tensors (:func:`attention_backward_cuda`) and runs
-    :func:`attention_backward_plain` on CPU ones, both reading that lse."""
+    :func:`attention_backward_plain` on CPU ones, both reading that lse.
+    Each calls its operator's body directly where :func:`_direct` allows."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, head_axis, window):
-        o, lse = torch.ops.repro_torch.flash_fwd_lse(
-            q, k, v, head_axis, causal, window, sm_scale)
+        if _direct(q, k, v):
+            o, lse = _forward(q, k, v, causal, sm_scale, head_axis, window,
+                              return_lse=True)
+        else:
+            o, lse = torch.ops.repro_torch.flash_fwd_lse(
+                q, k, v, head_axis, causal, window, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (head_axis, causal, window, sm_scale)
         return o
@@ -698,8 +725,9 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        grads = torch.ops.repro_torch.flash_bwd(q, k, v, o, do, lse,
-                                                *ctx.args)
+        op = _backward if _direct(q, k, v, o, do, lse) \
+            else torch.ops.repro_torch.flash_bwd
+        grads = op(q, k, v, o, do, lse, *ctx.args)
         return (*grads, None, None, None, None)
 
 
@@ -712,6 +740,8 @@ def _attend(q, k, v, causal: bool, sm_scale: float | None, head_axis: int,
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, sm_scale, head_axis,
                                       window)
+    if _direct(q, k, v):
+        return _forward(q, k, v, causal, sm_scale, head_axis, window)
     return torch.ops.repro_torch.flash_fwd(q, k, v, head_axis, causal,
                                            window, sm_scale)
 

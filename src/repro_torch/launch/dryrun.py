@@ -395,7 +395,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         cfg, rules = _opt_variant(cfg, shape_name)
     elif baseline_v2:
         cfg, rules = _baseline_variant(cfg, shape_name)
-    mesh = make_production_mesh(multi_pod=multi_pod)
+    # fake host tensors: the count needs no card
+    mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
     m = measure_cell(cfg, shape_name, mesh, rules=rules,
                      microbatch=microbatch)
     shape = SHAPES[shape_name]

@@ -32,17 +32,22 @@ NVLINK_BW = 450e9
 FAKE_WORLD = 512
 
 
-def make_mesh(shape, axes, device_type: str = "cpu"):
+def make_mesh(shape, axes, device_type: str | None = None):
     """A ``DeviceMesh`` of ``shape`` named ``axes`` over ranks ``0 ..
     prod(shape) - 1`` of the process group, started as a ``fake`` group
     of ``max(prod(shape), FAKE_WORLD)`` ranks when the process has none.
-    Raises if the process's group is smaller than the mesh."""
+    ``device_type`` defaults to the card (``"cuda"``; raises without
+    CUDA): ``"cpu"`` must be asked for, as the dry run (fake tensors) and
+    the CPU tests do.  Raises if the process's group is smaller than the
+    mesh."""
     import torch
     from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch import _device
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} and axes {axes} differ in "
                          "length")
+    device_type = _device.resolve(device_type).type
     n = math.prod(shape)
     if not dist.is_initialized():
         from torch.testing._internal.distributed.fake_pg import FakeStore
@@ -55,24 +60,23 @@ def make_mesh(shape, axes, device_type: str = "cpu"):
                       mesh_dim_names=axes)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str | None = None):
     """(16, 16) ("data", "model"), or (2, 16, 16) ("pod", "data",
-    "model") with ``multi_pod``."""
+    "model") with ``multi_pod``; ``device_type`` as :func:`make_mesh`."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    return make_mesh(shape, axes, device_type)
 
 
 def make_host_mesh(shape=None, axes=("data", "model"),
                    device_type: str | None = None):
     """A small mesh over the process group this process belongs to (its
     world size; one rank if it has no group: a ``fake`` one is started).
-    ``shape`` defaults to ``(1, ..., world size)``; the device type to
-    ``"cuda"`` when the group's backend is NCCL, else ``"cpu"``."""
+    ``shape`` defaults to ``(1, ..., world size)``; ``device_type`` to the
+    card, as :func:`make_mesh` (the reference's host mesh covers
+    ``jax.devices()``, the accelerator)."""
     n = dist.get_world_size() if dist.is_initialized() else 1
     if shape is None:
         shape = (1,) * (len(axes) - 1) + (n,)
-    if device_type is None:
-        device_type = "cuda" if dist.is_initialized() and \
-            dist.get_backend() == "nccl" else "cpu"
     return make_mesh(shape, axes, device_type)

@@ -7,7 +7,9 @@ matrix product counts a quarter of the global FLOPs and a replicated one
 all of them; every layer group counts the same (3 groups - 2 groups == 2
 groups - 1 group, what XLA's cost model needs probe lowerings for);
 attention counts the causal pairs of its local shards; ``run_cell``
-writes the reference's keys with the port's ``source``."""
+writes the reference's keys with the port's ``source``.  In this process:
+meshes default to the card, and the flash entry points skip their
+operators only where nothing could intercept them."""
 import json
 import os
 import subprocess
@@ -15,7 +17,7 @@ import sys
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -30,7 +32,7 @@ from repro_torch.kernels.flash_attention import attention_flops
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.mesh import make_mesh
 
-mesh = make_mesh((2, 4), ("data", "model"))
+mesh = make_mesh((2, 4), ("data", "model"), "cpu")
 out = {}
 
 with FakeTensorMode() as fm:
@@ -70,6 +72,14 @@ out["attn_pairs"] = cfg.n_layers * attention_flops(
 with tempfile.TemporaryDirectory() as tmp:
     out["cell"] = D.run_cell("mini", "mini_prefill", False, out_dir=tmp,
                              force=True)
+# a tensor off the host onto this CPU mesh is refused, not moved
+from repro_torch.checkpoint import reshard_state
+from repro_torch.sharding import NamedSharding
+try:
+    reshard_state(torch.zeros(4, device="meta"), NamedSharding(mesh, (None,)))
+    out["refused"] = ""
+except ValueError as e:
+    out["refused"] = str(e)
 print(json.dumps(out))
 """
 
@@ -123,3 +133,63 @@ def test_run_cell_writes_the_reference_keys(dry):
     assert set(c["cost"]) == {"flops", "bytes_accessed"}
     assert set(c["collectives"]) == {"total_bytes", "by_kind"}
     assert c["mesh"] == "16x16" and c["kind"] == "prefill"
+
+
+def test_reshard_refuses_to_move_a_device_tensor_onto_a_cpu_mesh(dry):
+    assert "onto a cpu mesh" in dry["refused"]
+
+
+def test_meshes_default_to_the_card(monkeypatch):
+    """Without CUDA a mesh raises unless the CPU is asked for (before any
+    process group is started)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (M.make_host_mesh, M.make_production_mesh):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert not dist.is_initialized()
+
+
+def _flash_inputs(seed=0):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.standard_normal((2, 16, h, 16)),
+                         dtype=torch.float32, requires_grad=True)
+            for h in (4, 2, 2)]
+
+
+def test_entry_points_call_the_operator_bodies_only_when_nothing_intercepts():
+    """Plain tensors with no dispatch mode skip the operators; the flop
+    counter and fake tensors go through them; both give the same output
+    and gradients, and the counter sees the operators."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _flash_inputs()
+    assert FA._direct(q, k, v)
+    runs = {}
+    for name, mode in (("direct", None),
+                       ("operators", FlopCounterMode(display=False))):
+        for x in (q, k, v):
+            x.grad = None
+        if mode is None:
+            out = FA.flash_attention_bthd(q, k, v, causal=True)
+        else:
+            with mode:
+                assert not FA._direct(q, k, v)
+                out = FA.flash_attention_bthd(q, k, v, causal=True)
+                out.sum().backward()
+        if mode is None:
+            out.sum().backward()
+        runs[name] = (out.detach(), *(x.grad.clone() for x in (q, k, v)))
+    for a, b in zip(runs["direct"], runs["operators"]):
+        assert torch.equal(a, b)
+    flops = mode.get_flop_counts()["Global"]
+    pairs = FA.visible_pairs(16, 16, True, None)
+    assert flops[torch.ops.repro_torch.flash_fwd_lse] == 4 * 2 * 4 * 16 * pairs
+    assert flops[torch.ops.repro_torch.flash_bwd] == 10 * 2 * 4 * 16 * pairs
+    with FakeTensorMode():
+        fq, fk, fv = (torch.empty(2, 16, h, 16) for h in (4, 2, 2))
+        assert not FA._direct(fq, fk, fv)
+        assert FA.flash_attention_bthd(fq, fk, fv).shape == (2, 16, 4, 16)

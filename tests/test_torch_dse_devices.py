@@ -27,9 +27,16 @@ def one():
     return dse.execute(SPEC, cache=E.RunCache(), devices=["cpu"])
 
 
-@pytest.mark.parametrize("n", [2, 4])
-def test_split_over_devices_equals_one_device(one, n):
-    got = dse.execute(SPEC, cache=E.RunCache(), devices=["cpu"] * n)
+#: device lists: a repeated device (one cache entry) and two distinct ones
+#: (an entry each)
+DEVICES = {"cpu*2": ["cpu"] * 2, "cpu*4": ["cpu"] * 4,
+           "cpu+cpu:0": ["cpu", "cpu:0"]}
+
+
+@pytest.mark.parametrize("devices", DEVICES.values(), ids=DEVICES)
+def test_split_over_devices_equals_one_device(one, devices):
+    n = len(devices)
+    got = dse.execute(SPEC, cache=E.RunCache(), devices=devices)
     for k in COLUMNS:
         np.testing.assert_array_equal(getattr(got, k), getattr(one, k),
                                       err_msg=k)
@@ -43,9 +50,10 @@ def test_split_over_devices_equals_one_device(one, n):
     assert got.meta["n_points"] == one.meta["n_points"] == 6
     # one entry and one lookup per (group, device): a repeated device
     # shares them
-    assert got.meta["cache"]["entries"] == 1
+    distinct = len(set(devices))
+    assert got.meta["cache"]["entries"] == distinct
     assert (got.meta["compile_cache_misses"],
-            got.meta["compile_cache_hits"]) == (1, 0)
+            got.meta["compile_cache_hits"]) == (distinct, 0)
 
 
 def test_no_devices_raises():

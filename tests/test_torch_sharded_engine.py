@@ -7,7 +7,7 @@ golden hash, and the DDR5x2 + CXL-DDR4x2 system.  The reference's own
 sharded program fails on this tree (ROADMAP queue 3), so it is not the
 yardstick.  Also: ``reshard_state`` over two meshes and a checkpoint of a
 sharded state, and the single-process refusals (an explicit mesh with
-one rank raises, ``auto`` stays unsharded)."""
+one rank raises, the default stays unsharded)."""
 import json
 import os
 import pickle
@@ -114,6 +114,12 @@ def test_sharded_golden_hash_ddr4_2ch(worlds):
 @pytest.mark.parametrize("world", [2, 4])
 def test_sharded_runs_are_cached_as_channel_meshes(worlds, world):
     assert worlds[world]["topologies"] == [f"channels:{world}"]
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_only_an_explicit_request_shards(worlds, world):
+    assert worlds[world]["resolved"] == {"None": None, "False": None,
+                                         "True": world}
 
 
 @pytest.mark.parametrize("world", [2, 4])

@@ -119,8 +119,8 @@ def reshard_roundtrip():
     world = dist.get_world_size()
     cfg = get_arch("llama3.2-1b").reduced()
     params = init_params(cfg, seed=3, device="cpu")
-    mesh_a = make_mesh((1, world), ("data", "model"))
-    mesh_b = make_mesh((world, 1), ("data", "model"))
+    mesh_a = make_mesh((1, world), ("data", "model"), "cpu")
+    mesh_b = make_mesh((world, 1), ("data", "model"), "cpu")
     sh_a = param_shardings(cfg, mesh_a)
     sh_b = param_shardings(cfg, mesh_b, FSDP_RULES)
     pa = reshard_state(params, sh_a)
@@ -156,6 +156,12 @@ def main(rank: int, world: int, port: int, out: str, only=None):
         names = only or sessions_for(world)
         res = {name: SESSIONS[name][0](world) for name in names}
         res["topologies"] = list(E.RUN_CACHE.stats()["shard_topologies"])
+        # the group alone shards nothing; True asks for the whole group
+        from repro_torch.core import Simulator
+        res["resolved"] = {
+            str(cs): Simulator(*DDR4, channels=4, device="cpu",
+                               channel_shard=cs)._resolved_shard()
+            for cs in (None, False, True)}
         if only is None:
             res["reshard"] = reshard_roundtrip()
         if rank == 0:
