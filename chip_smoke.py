@@ -254,14 +254,18 @@ Phases, each fatal on any mismatch or exception:
     same CUDA tensors and lse (bf16 D 16-128: causal and full, no window,
     window 64 and 2048, T 100 and 300, GQA rep 1, 4 and 5, both layouts;
     bf16 D 256 with MQA, rep 5 and 10, T up to 2200; fp32 on a subset;
+    the CUDA-core route's tile edges, bf16 D 16/32 and fp32 D 16-128 at T
+    31-257, windows 1, 31 and 33, rep 1, 2 and 5, both layouts;
     each of dQ, dK, dV within ``BWD_TOL`` of its dtype; every call counted
     once on its route's counter; two runs of each case bit-equal; the
     forward kernels' lse within 1e-3 of the plain one; fp32 at D 256, Tq
     != Tk and misaligned rows refused with ValueError); (b) timed at
     llama3.2-1b's training shape (4, 1024, 32, 8, 64) causal and
     recurrentgemma-2b's (1, 4096, 10, 1, 256) with window 2048 (bf16,
-    sm90) and at llama's in fp32 (cuda_core), against the plain backward,
-    SDPA's backward and the 5-product bound; (c) one training step of each
+    sm90) and at llama's in fp32 (cuda_core), and the cuda_core route at
+    the reduced models' (4, 256, 2, 2, 32) in bf16 and fp32, against the
+    plain backward, SDPA's backward and the 5-product bound; (c) one
+    training step of each
     reduced config of ``tests/torch_lm_train.npz`` on the card, held to
     the same step with the plain backward in the kernel's place (loss
     1e-5, each gradient leaf 5e-2 in relative L2, grad_norm 1%) and to the
@@ -2508,11 +2512,13 @@ def ptxas_report(log: str, entry: str) -> str:
     return "not in the log"
 
 
-def sass_counts(lib_path, required, shown=(), what="kernel") -> str:
+def sass_counts(lib_path, required, shown=(), what="kernel",
+                function: str | None = None) -> str:
     """Instructions whose SASS mnemonic starts with each of ``required``
-    and ``shown`` in a built library, from the toolkit's ``cuobjdump``;
-    fails if one of ``required`` is missing, "not available" without
-    ``cuobjdump``."""
+    and ``shown`` in a built library (only in the functions whose mangled
+    name contains ``function``, if given), from the toolkit's
+    ``cuobjdump``; fails if one of ``required`` is missing, "not
+    available" without ``cuobjdump``."""
     import shutil
     from repro_torch.kernels import build
     tool = Path(build.nvcc()).parent / "cuobjdump"
@@ -2523,8 +2529,12 @@ def sass_counts(lib_path, required, shown=(), what="kernel") -> str:
                          text=True, timeout=120)
     if out.returncode:
         return f"not available (cuobjdump exited {out.returncode})"
-    lines = [ln.split() for ln in out.stdout.splitlines()
-             if ln.strip().startswith("/*")]
+    lines, inside = [], function is None
+    for ln in out.stdout.splitlines():
+        if "Function :" in ln:
+            inside = function is None or function in ln
+        elif inside and ln.strip().startswith("/*"):
+            lines.append(ln.split())
     n = {op: sum(any(tok.startswith(op) for tok in ln) for ln in lines)
          for op in (*required, *shown)}
     if not all(n[op] for op in required):
@@ -3267,12 +3277,25 @@ def bwd_within(errs: tuple, dtype: str = "bfloat16") -> bool:
     return errs[1] <= tol["max_rel"] and errs[2] <= tol["l2"]
 
 
+#: the CUDA-core backward's tile edges (32-row bf16 and 64-row fp32 own
+#: tiles, 64-row other tiles, 32 at fp32 D 128): T, and (causal, window)
+#: pairs.  A window of 1 under the causal mask leaves each row its own key
+#: alone, so dQ = dK = 0 exactly and a bound relative to max |plain| would
+#: compare rounding noise: window 1 runs without the causal mask (row r
+#: sees cols c >= r)
+EDGE_T = (31, 32, 33, 63, 65, 257)
+EDGE_MASKS = ((True, None), (False, 1), (True, 31), (False, 33), (True, 33),
+              (False, None))
+
+
 def bwd_cases() -> list:
     """Phase 21 (a)'s cases ``(dtype, D, causal, window, T, rep, Hkv,
     layout)``: bf16 at D 16-128 (Hkv 2) over every combination of causal,
     window, T and rep; bf16 at D 256 with MQA (rep 5 and 10 on one kv head,
     window 64 and 2048, T past the window); fp32 at D 16-128 on a subset
-    of T, rep and layout."""
+    of T, rep and layout; and the CUDA-core route's tile edges, bf16 D
+    16/32 and fp32 D 16-128: every ``EDGE_T`` with every ``EDGE_MASKS``
+    pair, rep 1, 2 and 5 (5 on one kv head) and both layouts in turn."""
     import itertools
     cases = [("bfloat16", D, c, w, T, rep, 2, lay)
              for D, c, w, T, rep, lay in itertools.product(
@@ -3286,6 +3309,13 @@ def bwd_cases() -> list:
               for D, c, w, (T, rep, lay) in itertools.product(
                   (16, 32, 64, 128), (True, False), (None, 64),
                   ((100, 1, 2), (300, 4, 1), (300, 5, 2)))]
+    for dt, Ds in (("bfloat16", (16, 32)), ("float32", (16, 32, 64, 128))):
+        for D in Ds:
+            for (t, T), (m, (c, w)) in itertools.product(
+                    enumerate(EDGE_T), enumerate(EDGE_MASKS)):
+                rep = (1, 2, 5)[(t + m) % 3]
+                cases.append((dt, D, c, w, T, rep, 1 if rep == 5 else 2,
+                              (1, 2)[(t + m // 2) % 2]))
     return cases
 
 
@@ -3395,8 +3425,8 @@ def bwd_timing(device, shape, dtype: str = "bfloat16", window=None) -> dict:
     and the bound: 5 products (``2 D`` operations per visible (q, k) pair
     each) of every (batch, q head) at 989 TFLOP/s in bf16 or 67 TFLOP/s in
     fp32 (CUDA cores), against q, k, v, o, dO read and dq, dk, dv written
-    once at 3.35 TB/s (the 7 products of the two-kernel split printed
-    beside it)."""
+    once at 3.35 TB/s (the 7 products the backward's dQ and dK/dV work
+    computes, S and dP recomputed on each side, printed beside it)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
@@ -3473,7 +3503,7 @@ def bwd_timing(device, shape, dtype: str = "bfloat16", window=None) -> dict:
           f"{max(ops_ms, bytes_ms):.6f} ms ({pairs:,} (q, k) pairs per "
           f"head: 5 products {flops / 1e9:.2f} GFLOP at "
           f"{rate / 1e12:.0f} TFLOP/s: {ops_ms:.6f} ms, the 7 of the "
-          f"two-kernel split {ops_ms * 7 / 5:.6f} ms; {nbytes / 1e6:.2f} MB "
+          f"dQ and dK/dV sides {ops_ms * 7 / 5:.6f} ms; {nbytes / 1e6:.2f} MB "
           f"at 3.35 TB/s: {bytes_ms:.6f} ms)")
     first = next(iter(sdpa.values()))
     return dict(max_err=max(e[0] for e in errs), ms=kern_ms, queued_ms=kern_q,
@@ -3791,8 +3821,11 @@ def training_phase(device) -> dict:
               "sm90 d256": bwd_timing(device, RG_TRAIN_SHAPE,
                                       window=RG_WINDOW),
               "cuda_core": bwd_timing(device, TRAIN_SHAPE, "float32"),
-              # the bf16 D 32 route at the reduced models' shape
-              "cuda_core bf16": bwd_timing(device, reduced_shape())}
+              # the bf16 D 32 route at the reduced models' shape, and fp32
+              # there (phase 21 (c)'s fp32 steps)
+              "cuda_core bf16": bwd_timing(device, reduced_shape()),
+              "cuda_core fp32 reduced": bwd_timing(device, reduced_shape(),
+                                                   "float32")}
     core = train_fixture_run(device)
     sm90 = train_full_width(device, TRAIN, "d")
     sm90 += train_example_run(device)
@@ -3804,7 +3837,9 @@ def training_phase(device) -> dict:
         cuda_core=dict(timing["cuda_core"], launches=core,
                        max_err=max(err["cuda_core"],
                                    timing["cuda_core"]["max_err"],
-                                   timing["cuda_core bf16"]["max_err"])))
+                                   timing["cuda_core bf16"]["max_err"],
+                                   timing["cuda_core fp32 reduced"]
+                                   ["max_err"])))
 
 
 # ---------------------------------------------------------------------------
@@ -4192,10 +4227,8 @@ def run() -> int:
                 sm90_log.read_text(), f"flash_fwd_sm90_kernelILi{D}E"))
     for name, entries in (
             ("flash_attention_bwd",
-             [f"flash_bwd_{kind}_kernelILi{D}E" for kind in ("dq", "dkdv")
-              for D in (16, 32)]
-             + [f"flash_bwd_{kind}_f32_kernelILi{D}E"
-                for kind in ("dq", "dkdv") for D in (16, 32, 64, 128)]),
+             [f"flash_bwd_bf16_kernelILi{D}E" for D in (16, 32)]
+             + [f"flash_bwd_f32_kernelILi{D}E" for D in (16, 32, 64, 128)]),
             ("flash_attention_bwd_sm90",
              [f"flash_bwd_{kind}_kernelILi{D}E" for kind in ("dq", "dkdv")
               for D in (64, 128, 256)])):
@@ -4207,6 +4240,15 @@ def run() -> int:
     print("CUDA-core flash backward kernel SASS: " + sass_counts(
         build.library_path("flash_attention_bwd"), ("HMMA",),
         ("LDSM", "LDGSTS"), what="CUDA-core flash backward kernel"))
+    # the fp32 route's outer products: FFMAs against shared-memory loads
+    # (16-byte LDS.128 vectors); SHFL only in the delta sums
+    for D in (64, 128):
+        print(f"CUDA-core flash backward fp32 kernel<{D}> SASS: "
+              + sass_counts(build.library_path("flash_attention_bwd"),
+                            ("FFMA", "LDS.128"), ("LDS", "SHFL", "MUFU.EX2",
+                                                  "BAR.SYNC"),
+                            what=f"fp32 flash backward kernel<{D}>",
+                            function=f"flash_bwd_f32_kernelILi{D}E"))
     print("sm90 flash backward kernel SASS: " + sass_counts(
         build.library_path("flash_attention_bwd_sm90"),
         ("HGMMA", "UTMALDG", "UBLKCP"), what="sm90 flash backward kernel"))

@@ -57,7 +57,17 @@ reads that lse and launches, by :func:`route` again,
   under the same TMA alignment rules (:func:`sm90_bwd_plan`);
 * ``"cuda_core"`` — ``csrc/flash_attention_bwd.cu`` for bf16 at D 16/32
   (``mma.sync``) and fp32 at D 16-128 (CUDA cores; counted in
-  ``bwd_launch_count``);
+  ``bwd_launch_count``): ONE launch whose grid holds dQ blocks and dK/dV
+  blocks side by side (:func:`bwd_core_plan`, :func:`bwd_core_block`:
+  heaviest tiles first), each block computing rowsum(dO * O) for the q
+  rows it touches, so no block waits on another.  bf16 is bound by
+  latency at the reduced models' shapes (microseconds of work at either
+  roof): 32-row own tiles put 128 blocks on the card there, four warps
+  split each tile step, every operand comes by ``cp.async`` and
+  ``ldmatrix``, mask-free steps skip the masks.  fp32 is bound by the FMA
+  rate and the shared-memory reads feeding it: register-tiled outer
+  products (a 4 x 4 micro-tile of S and dP a thread, 8 x 4 at D 64,
+  16-byte vector operands, P and dS through shared memory once);
 
 both with Tq == Tk.  On CPU tensors it runs :func:`attention_backward_plain`
 with the same lse.  With grad disabled no lse is written, nothing is saved
@@ -105,6 +115,11 @@ bwd_launch_count = 0
 #: one call is its prep, dQ, dK/dV and, with a head split, reduce
 #: launches), counted the same way
 bwd_sm90_launch_count = 0
+#: the CUDA-core backward's own tile by dtype and head dim: the q rows (dQ
+#: role) or kv rows (dK/dV role) one block of its single launch owns
+BWD_CORE_ROWS = {(torch.bfloat16, 16): 32, (torch.bfloat16, 32): 32,
+                 (torch.float32, 16): 64, (torch.float32, 32): 64,
+                 (torch.float32, 64): 128, (torch.float32, 128): 64}
 #: the sm90 backward's tiles: its dK/dV kernel's q tiles (the TMA plan's
 #: box rows), its kv tiles by head dim, and its lse / delta rows padded to
 #: a multiple
@@ -299,6 +314,35 @@ def bwd_head_split(B: int, Hkv: int, T: int, D: int, rep: int,
     return max(1, min(rep, round(n_sm / tiles)))
 
 
+def bwd_core_plan(dtype: torch.dtype, D: int, B: int, T: int, Hq: int,
+                  Hkv: int) -> tuple:
+    """The CUDA-core backward's launch: ``(rows, n_blocks)``, its own-tile
+    rows for ``dtype`` at head dim ``D`` (``BWD_CORE_ROWS``) and one block
+    per (own tile, head, batch) of each role: ``ceil(T / rows) * B * (Hq +
+    Hkv)``."""
+    rows = BWD_CORE_ROWS[dtype, D]
+    return rows, -(-T // rows) * B * (Hq + Hkv)
+
+
+def bwd_core_block(i: int, B: int, T: int, Hq: int, Hkv: int, rows: int,
+                   causal: bool) -> tuple:
+    """Block ``i``'s work in the CUDA-core backward, as its kernel decodes
+    it: ``(role, tile, head, batch)`` with role ``"dkdv"`` (kv tile, kv
+    head) or ``"dq"`` (q tile, q head).  Blocks come in levels of ``B *
+    (Hq + Hkv)``, a level's dK/dV blocks first; level 0 holds the tiles
+    that see the most: under the causal mask the bottom q tile and the top
+    kv tile, with only a window (or neither) the top q tile and the bottom
+    kv tile."""
+    n_tiles = -(-T // rows)
+    level, r = divmod(i, B * (Hq + Hkv))
+    dq = r >= B * Hkv
+    if dq:
+        r -= B * Hkv
+    H = Hq if dq else Hkv
+    tile = level if bool(causal) != dq else n_tiles - 1 - level
+    return ("dq" if dq else "dkdv"), tile, r % H, r // H
+
+
 _LIBS: dict = {}
 
 
@@ -316,9 +360,9 @@ def _lib(name: str):
         elif name == "flash_attention_bwd":
             fn = lib.flash_bwd_launch
             err = lib.flash_bwd_error_string
-            fn.argtypes = ([ci, ci] + [vp] * 10 + [ci] * 5
+            fn.argtypes = ([ci, ci] + [vp] * 9 + [ci] * 5
                            + [ctypes.POINTER(ll), ci, ci, ctypes.c_float,
-                              vp])
+                              ci, ci, vp])
         elif name == "flash_attention_bwd_sm90":
             fn = lib.flash_bwd_sm90_launch
             err = lib.flash_bwd_sm90_error_string
@@ -454,7 +498,8 @@ def attention_backward_cuda(q, k, v, o, do, lse, *, causal: bool,
     forward's dtypes and head dims (bf16 at 16-256, fp32 at 16-128) with
     Tq == Tk: bf16 at D 64/128/256 on the sm90 kernel (any strides TMA can
     read, :func:`sm90_bwd_plan`, and o's rows on 16 bytes), the rest on the
-    CUDA-core kernel (rows of q, k, v and dO on 16 bytes: ``cp.async``).
+    CUDA-core kernel (rows of q, k, v, o and dO on 16 bytes: ``cp.async``;
+    one launch of :func:`bwd_core_plan`'s blocks).
     Raises ``ValueError`` for what neither takes.  One call, one count on
     its kernel's counter."""
     global bwd_launch_count, bwd_sm90_launch_count
@@ -490,10 +535,10 @@ def attention_backward_cuda(q, k, v, o, do, lse, *, causal: bool,
     kernel = route(q.dtype, D)
     if kernel == "sm90":
         plan = sm90_bwd_plan(q, k, v, do, head_axis)
-    # cp.async stages q, k, v and dO rows in 16-byte pieces; the sm90
+    # cp.async stages q, k, v, o and dO rows in 16-byte pieces; the sm90
     # kernel's prep pass reads o's rows in 16-byte pieces
     for name, x in (zip(("o",), (o,)) if kernel == "sm90" else
-                    zip(("q", "k", "v", "do"), (q, k, v, do))):
+                    zip(("q", "k", "v", "o", "do"), ins)):
         if not _rows_aligned(x):
             raise ValueError(f"flash attention backward: {name}'s rows "
                              f"must start on 16 bytes, got base "
@@ -527,13 +572,12 @@ def attention_backward_cuda(q, k, v, o, do, lse, *, causal: bool,
             float(sm_scale), stream)
         err = lib.flash_bwd_sm90_error_string
     else:
-        delta = torch.empty((B, Hq, Tq), dtype=torch.float32, device=dev)
+        rows, n_blocks = bwd_core_plan(q.dtype, D, B, Tq, Hq, Hkv)
         lib = _lib("flash_attention_bwd")
         rc = lib.flash_bwd_launch(
             _DTYPES[q.dtype], D, *(x.data_ptr() for x in ins + (dq, dk, dv)),
-            lse.data_ptr(), delta.data_ptr(), B, Hq, Hkv, Tq, Tk,
-            bth(ins + (dq, dk, dv)), int(causal), win, float(sm_scale),
-            stream)
+            lse.data_ptr(), B, Hq, Hkv, Tq, Tk, bth(ins + (dq, dk, dv)),
+            int(causal), win, float(sm_scale), rows, n_blocks, stream)
         err = lib.flash_bwd_error_string
     if rc != 0:
         raise RuntimeError(f"flash attention backward {kernel} kernel launch "

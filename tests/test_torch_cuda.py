@@ -948,6 +948,36 @@ def test_flash_backward_fp32_kernel_equals_plain_version(cuda, D, causal,
                window=window, head_axis=layout)
 
 
+#: the CUDA-core backward's tile edges (as ``chip_smoke.EDGE_T`` and
+#: ``EDGE_MASKS``; window 1 without the causal mask, which with it leaves
+#: dQ = dK = 0 exactly)
+EDGE_T = (31, 32, 33, 63, 65, 257)
+EDGE_MASKS = ((True, None), (False, 1), (True, 31), (False, 33))
+
+
+@pytest.mark.parametrize("dtype,D,tol", [(torch.bfloat16, 16, 2e-2),
+                                         (torch.bfloat16, 32, 2e-2),
+                                         (torch.float32, 16, 1e-4),
+                                         (torch.float32, 32, 1e-4),
+                                         (torch.float32, 64, 1e-4),
+                                         (torch.float32, 128, 1e-4)])
+@pytest.mark.parametrize("t", range(len(EDGE_T)))
+@pytest.mark.parametrize("m", range(len(EDGE_MASKS)))
+def test_flash_backward_core_tile_edges(cuda, dtype, D, tol, t, m):
+    """The CUDA-core backward's one launch at its tile edges (32-row bf16
+    and 64-row fp32 own tiles, 64-row other tiles, 32 at fp32 D 128):
+    T 31-257, windows 1, 31 and 33, GQA rep 1, 2 and 5 and both layouts
+    in turn, against the plain version; one count a call, bit-equal
+    reruns."""
+    causal, window = EDGE_MASKS[m]
+    rep = (1, 2, 5)[(t + m) % 3]
+    q, k, v, o, do, lse = _bwd_case(cuda, D, causal, window, EDGE_T[t], rep,
+                                    (1, 2)[(t + m // 2) % 2], D + t + m,
+                                    dtype=dtype, Hkv=1 if rep == 5 else 2)
+    _bwd_check(q, k, v, o, do, lse, tol, causal=causal, sm_scale=D ** -0.5,
+               window=window, head_axis=(1, 2)[(t + m // 2) % 2])
+
+
 def test_forward_kernels_write_lse_only_when_asked(cuda):
     """With ``return_lse`` each forward kernel writes the rows' lse (equal
     to the plain version's within 1e-3 in log2 units); without it the same

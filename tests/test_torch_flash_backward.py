@@ -144,9 +144,9 @@ def test_backward_kernel_refusals_need_no_card():
     """The CUDA wrapper's refusals come before any launch, and every case
     the forward takes has a backward kernel: what is still refused raises
     ValueError: fp32 at D 256 (as the forward refuses it), Tq != Tk, and
-    rows off 16 bytes on the CUDA-core route (checked here on CPU tensors,
-    which never reach a launch otherwise; the sm90 route's TMA refusals are
-    in ``test_torch_flash_bwd_sm90.py``)."""
+    rows of k or o off 16 bytes on the CUDA-core route (checked here on
+    CPU tensors, which never reach a launch otherwise; the sm90 route's
+    TMA refusals are in ``test_torch_flash_bwd_sm90.py``)."""
     x = torch.zeros(1, 8, 2, 256)
     lse = torch.zeros(1, 2, 8)
     with pytest.raises(ValueError, match="head_dim 256"):
@@ -157,9 +157,49 @@ def test_backward_kernel_refusals_need_no_card():
     with pytest.raises(ValueError, match="Tq"):
         FA.attention_backward_cuda(x, y, y, x, x, lse, causal=True,
                                    sm_scale=0.1, head_axis=2)
-    # rows staged by 16-byte cp.async: one starting off 16 bytes raises
+    # rows staged by 16-byte cp.async (o's too: every block computes
+    # rowsum(dO * O) itself): one starting off 16 bytes raises
     x = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)
     odd = torch.zeros(1, 8, 2, 33, dtype=torch.bfloat16)[..., 1:]
-    with pytest.raises(ValueError, match="16 bytes"):
-        FA.attention_backward_cuda(x, odd, x, x, x, lse, causal=True,
-                                   sm_scale=0.1, head_axis=2)
+    for args in ((x, odd, x, x, x), (x, x, x, odd, x)):
+        with pytest.raises(ValueError, match="16 bytes"):
+            FA.attention_backward_cuda(*args, lse, causal=True, sm_scale=0.1,
+                                       head_axis=2)
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 32),
+                                     (torch.float32, 64),
+                                     (torch.bfloat16, 32)])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 40), (False, 40)])
+@pytest.mark.parametrize("B,T,Hq,Hkv", [(2, 257, 4, 2), (1, 31, 5, 1)])
+def test_core_backward_plan_covers_each_tile_once_heaviest_first(
+        dtype, D, causal, window, B, T, Hq, Hkv):
+    """The CUDA-core backward's one launch (``bwd_core_plan``, decoded by
+    ``bwd_core_block`` as its kernel decodes ``blockIdx``): every (q tile,
+    q head, batch) has exactly one dQ block and every (kv tile, kv head,
+    batch) one dK/dV block.  Without a window each role's blocks come in
+    non-increasing order of the 64-row other-side tiles they step over
+    (the kernel's loop: kv tiles up to the tile's last row under the
+    causal mask, q tiles from its first), heaviest first; a window makes
+    that work flat up to one step of tile alignment, so there only the
+    coverage is checked."""
+    rows, n = FA.bwd_core_plan(dtype, D, B, T, Hq, Hkv)
+    assert rows == FA.BWD_CORE_ROWS[dtype, D]
+    blocks = [FA.bwd_core_block(i, B, T, Hq, Hkv, rows, causal)
+              for i in range(n)]
+    n_t, other = -(-T // rows), 64
+
+    def steps(role, t):
+        r0 = t * rows
+        lo, hi = ((0, min(T, r0 + rows) if causal else T) if role == "dq"
+                  else (r0 if causal else 0, T))
+        return -(-hi // other) - lo // other
+
+    for role, H in (("dq", Hq), ("dkdv", Hkv)):
+        mine = [blk[1:] for blk in blocks if blk[0] == role]
+        assert sorted(mine) == [(t, h, b) for t in range(n_t)
+                                for h in range(H) for b in range(B)]
+        work = [steps(role, t) for t, _, _ in mine]
+        if window is None:
+            assert work == sorted(work, reverse=True), (role, work)
