@@ -9,6 +9,11 @@ them.  In training (grad enabled, trainable parameters) each repeated
 group of ``cfg.block_pattern`` runs under ``torch.utils.checkpoint``
 (non-reentrant), the reference's remat per group; the remainder layers
 are not checkpointed, as there.  Prefill and decode checkpoint nothing.
+Under ``torch.profiler`` the steps record the spans of
+``repro_torch.telemetry.spans``: ``lm.group.fwd``, ``.recompute`` and
+``.bwd`` per group, ``lm.head.fwd`` per chunk and ``lm.head.bwd`` in
+training; ``lm.layer.fwd`` and ``lm.prefill.kv_state`` per layer and
+``lm.last_logits`` in prefill.
 ``repro_torch.convert`` unstacks the JAX tree into this one.
 
 Interfaces:
@@ -35,6 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import ParamDef, ParamTree, init_tree, rmsnorm
 from repro_torch.sharding.rules import is_dtensor, settle
+from repro_torch.telemetry import spans
 
 
 VIS_FRAC = 8      # vision stub: first T/VIS_FRAC positions are patch embeds
@@ -143,14 +149,15 @@ def forward(cfg: ModelConfig, params, batch: Batch, *,
     kinds = cfg.pattern_layers()
     if (not return_states and torch.is_grad_enabled()
             and params["final_norm"].requires_grad):
-        P = len(cfg.block_pattern)
-        for g in range(cfg.n_groups()):
-            x, a = checkpoint(_run_layers, cfg, params, range(g * P,
-                                                              (g + 1) * P),
-                              x, ctx, use_reentrant=False)
+        P, G = len(cfg.block_pattern), cfg.n_groups()
+        for g in range(G):
+            x, a = _group(g, x, lambda x: checkpoint(
+                _run_layers, cfg, params, range(g * P, (g + 1) * P), x, ctx,
+                use_reentrant=False))
             aux = aux + a
-        x, a = _run_layers(cfg, params, range(cfg.n_groups() * P,
-                                              len(kinds)), x, ctx)
+        rest = range(G * P, len(kinds))
+        run = lambda x: _run_layers(cfg, params, rest, x, ctx)
+        x, a = _group(G, x, run) if rest else run(x)
         aux = aux + a
         return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
     states, resid = [], None
@@ -158,7 +165,7 @@ def forward(cfg: ModelConfig, params, batch: Batch, *,
         fused, resid = _group_step(cfg, i, resid)
         x, a, st, resid = _apply_with_state(cfg, kind, p, x, ctx,
                                             return_states, cache_len,
-                                            resid, fused)
+                                            resid, fused, layer=i)
         aux = aux + a
         states.append(st)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -167,16 +174,31 @@ def forward(cfg: ModelConfig, params, batch: Batch, *,
     return x, aux
 
 
+def _group(g: int, x, run):
+    """``run(x) -> (x, aux)`` as layer group ``g`` of a training forward:
+    span ``lm.group.fwd`` around it, and ``lm.group.bwd`` from the
+    gradient at its output to the gradient at its input."""
+    with spans.span("lm.group.fwd", group=g):
+        x, a = run(spans.bwd_close(x, "lm.group.bwd"))
+        return spans.bwd_open(x, "lm.group.bwd", group=g), a
+
+
 def _run_layers(cfg: ModelConfig, params, layers: range, x, ctx):
     """Layers ``layers`` (one group, or the remainder) from ``x`` with no
-    residual handed in -> ``(x, their aux loss sum)``."""
+    residual handed in -> ``(x, their aux loss sum)``.  Run again in the
+    backward pass (a checkpointed group's recompute), it records span
+    ``lm.group.recompute``."""
     aux, resid = torch.zeros((), device=x.device), None
     kinds = cfg.pattern_layers()
-    for i in layers:
-        fused, resid = _group_step(cfg, i, resid)
-        x, a, _, resid = B.block_apply(cfg, kinds[i], params["layers"][i],
-                                       x, ctx, resid=resid, fused=fused)
-        aux = aux + a
+    with (spans.span("lm.group.recompute",
+                     group=layers.start // len(cfg.block_pattern))
+          if spans.in_backward() else spans.OFF):
+        for i in layers:
+            fused, resid = _group_step(cfg, i, resid)
+            x, a, _, resid = B.block_apply(cfg, kinds[i],
+                                           params["layers"][i], x, ctx,
+                                           resid=resid, fused=fused)
+            aux = aux + a
     return x, aux
 
 
@@ -193,18 +215,20 @@ def _group_step(cfg: ModelConfig, i: int, resid):
 
 def _apply_with_state(cfg: ModelConfig, kind: str, p, x, ctx,
                       return_states: bool, cache_len, resid=None,
-                      fused=False):
+                      fused=False, layer: int | None = None):
     """One block; with ``return_states`` also its decode state by kind:
     an attention (or moe) cache is recomputed k/v of the prefix
     (ring-aligned for a local layer), RG-LRU, mLSTM and sLSTM return their
     own final state."""
     xin, rin = x, resid
-    x, aux, st, resid = B.block_apply(cfg, kind, p, x, ctx,
-                                      with_state=return_states, resid=resid,
-                                      fused=fused)
+    with spans.span("lm.layer.fwd", layer=layer):
+        x, aux, st, resid = B.block_apply(cfg, kind, p, x, ctx,
+                                          with_state=return_states,
+                                          resid=resid, fused=fused)
     if return_states and kind in B.ATTN_KINDS:
-        st = _prefill_attn_state(cfg, p, ctx, xin, cache_len,
-                                 local=kind == "local_attn", resid=rin)
+        with spans.span("lm.prefill.kv_state", layer=layer):
+            st = _prefill_attn_state(cfg, p, ctx, xin, cache_len,
+                                     local=kind == "local_attn", resid=rin)
     return x, aux, st, resid
 
 
@@ -249,6 +273,7 @@ def logits_and_loss(cfg: ModelConfig, params, batch: Batch,
     label -1) goes through the head ``seq_chunk`` positions at a time, so
     only one chunk's fp32 logits exist at once in the forward pass."""
     x, aux = forward(cfg, params, batch)
+    x = spans.bwd_close(x, "lm.head.bwd")
     labels = batch.labels
     T = x.shape[1]
     seq_chunk = min(seq_chunk, T)
@@ -260,13 +285,14 @@ def logits_and_loss(cfg: ModelConfig, params, batch: Batch,
                      value=-1)
     sums, counts = [], []
     for c in range(0, Tp, seq_chunk):
-        s, n = _xent(cfg, params, xpad[:, c:c + seq_chunk],
-                     lpad[:, c:c + seq_chunk])
+        with spans.span("lm.head.fwd", chunk=c // seq_chunk):
+            s, n = _xent(cfg, params, xpad[:, c:c + seq_chunk],
+                         lpad[:, c:c + seq_chunk])
         sums.append(s)
         counts.append(n)
     total = torch.stack(sums).sum() / torch.clamp_min(
         torch.stack(counts).sum(), 1)
-    return total, aux
+    return spans.bwd_open(total, "lm.head.bwd"), aux
 
 
 def _xent(cfg: ModelConfig, params, x, labels):
@@ -310,10 +336,11 @@ def last_logits(cfg: ModelConfig, params, x):
     """fp32 logits of the final position, (B, 1, V), or (B, 1, K, V) for
     audio (one head per codebook): a full-fp32 product (TF32 must be off
     on the card)."""
-    xl, w = x[:, -1:].float(), _unembed(cfg, params).float()
-    if cfg.frontend == "audio_stub":
-        return _codebook_logits(xl, w)
-    return xl @ w
+    with spans.span("lm.last_logits"):
+        xl, w = x[:, -1:].float(), _unembed(cfg, params).float()
+        if cfg.frontend == "audio_stub":
+            return _codebook_logits(xl, w)
+        return xl @ w
 
 
 # ---------------------------------------------------------------------------

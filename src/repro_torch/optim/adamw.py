@@ -19,6 +19,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.telemetry import spans
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -73,7 +75,13 @@ def adamw_update(grads: dict, params, state: OptState, cfg: AdamWConfig):
     """One AdamW step: clip the gradients to ``clip_norm`` by their global
     norm, update the moments and the parameters in fp32, store them back
     in their dtypes.  -> ``(new params (a ParamTree), new OptState,
-    {"lr", "grad_norm"})``, the metrics device tensors."""
+    {"lr", "grad_norm"})``, the metrics device tensors.  Records span
+    ``train.adamw`` under ``torch.profiler``."""
+    with spans.span("train.adamw"):
+        return _update(grads, params, state, cfg)
+
+
+def _update(grads: dict, params, state: OptState, cfg: AdamWConfig):
     step = state.step + 1
     lr = cosine_lr(cfg, step)
     gnorm = global_norm(grads)

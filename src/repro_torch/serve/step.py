@@ -8,6 +8,7 @@ full fp32 (no TF32) and bf16 products reduce in fp32.
 """
 from __future__ import annotations
 
+import itertools
 import time
 
 import torch
@@ -15,6 +16,7 @@ import torch
 from repro_torch import _device
 from repro_torch.models.model import (Batch, decode_step, forward,
                                       last_logits)
+from repro_torch.telemetry import spans
 
 
 def exact_matmuls():
@@ -25,7 +27,14 @@ def exact_matmuls():
 
 
 def make_prefill_step(cfg, cache_len: int):
+    """``prefill(params, batch) -> (last logits, decode states)``.  Its
+    spans (``repro_torch.telemetry.spans``) share the id ``request`` (the
+    call's number in this closure, from 0), and so do those of the
+    :func:`greedy_sample` that follows it."""
+    requests = itertools.count()
+
     def prefill(params, batch: Batch):
+        spans.tag(request=next(requests))
         x, _aux, states = forward(cfg, params, batch, return_states=True,
                                   cache_len=cache_len)
         return last_logits(cfg, params, x), states
@@ -40,8 +49,9 @@ def make_decode_step(cfg):
 
 def greedy_sample(logits):
     """argmax over the last axis; ties go to the first index, as
-    ``jnp.argmax``."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    ``jnp.argmax``.  Records span ``serve.sample``."""
+    with spans.span("serve.sample"):
+        return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 def _sync(dev):
@@ -68,7 +78,7 @@ def serve_batch(cfg, params, prompts, max_new: int, positions=None, *,
     config gets the positions ``(p, p // 7, p % 7)``.  Runs on ``device``
     (default: the card; ``params`` must be there).  With a ``timings``
     dict it records ``prefill_s`` and ``decode_s`` (wall seconds,
-    synchronised with the device)."""
+    synchronised with the device); without one it does not synchronise."""
     dev = _device.resolve(device)
     pdev = next(params.parameters()).device
     if pdev.type != dev.type:
@@ -85,12 +95,12 @@ def serve_batch(cfg, params, prompts, max_new: int, positions=None, *,
         if mrope:
             positions = mrope_positions(positions)
 
-    t0 = _sync(pdev)
+    t0 = _sync(pdev) if timings is not None else None
     prefill = make_prefill_step(cfg, cache_len=S)
     logits, cache = prefill(params, Batch(tokens=prompts,
                                           positions=positions))
     first = greedy_sample(logits[:, -1])        # (B,) or (B, K) for audio
-    t1 = _sync(pdev)
+    t1 = _sync(pdev) if timings is not None else None
     step_fn = make_decode_step(cfg)
     tok, toks = first[:, None], []
     for i in range(max_new):

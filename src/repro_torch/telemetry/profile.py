@@ -17,6 +17,7 @@ import time
 import torch
 
 from repro_torch.core import engine as E
+from repro_torch.telemetry import spans
 
 
 class Profiler:
@@ -28,7 +29,10 @@ class Profiler:
     >>> prof.report()["spans"]["sweep"]        # {"s": ..., "calls": 1}
     >>> prof.report()["cache"]                 # hits/misses since built
 
-    Spans nest and repeat (times accumulate per name).  The cache view is
+    Spans nest and repeat (times accumulate per name).  Under
+    ``torch.profiler`` a span is also a span of
+    :mod:`repro_torch.telemetry.spans`, so it shows in the torch trace.
+    The cache view is
     a delta against the profiler's construction, so a warm process-wide
     :data:`repro_torch.core.engine.RUN_CACHE` does not pollute it."""
 
@@ -42,7 +46,8 @@ class Profiler:
     def span(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield self
+            with spans.span(name):
+                yield self
         finally:
             self.add(name, time.perf_counter() - t0)
 

@@ -12,6 +12,7 @@ see ``models/model.py``) and its gradient the backward kernel
 """
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple
 
 import torch
@@ -20,6 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import Batch, logits_and_loss
 from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_init,
                                      adamw_update)
+from repro_torch.telemetry import spans
 
 AUX_WEIGHT = 0.01   # MoE load-balance loss weight
 
@@ -59,7 +61,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     tensor}`` gradients before the optimizer (the reference's signature;
     ``runtime.compress.make_int8_compressor`` has its own ``(grads,
     residual)`` one and is not wired here, as in the reference).
+    The step's spans (``repro_torch.telemetry.spans``) share the ids
+    ``step`` (the step's number in this closure, from 0) and
+    ``microbatch``.
     """
+    steps = itertools.count()
 
     def single(params, batch):
         leaves = dict(params.named_parameters())
@@ -71,9 +77,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         return grads, loss.detach(), aux.detach()
 
     def step(state: TrainState, batch: Batch):
+        k = next(steps)
         if microbatch > 1:
             acc, losses, auxes = None, [], []
             for i in range(microbatch):
+                spans.tag(step=k, microbatch=i)
                 g, l, a = single(state.params, _split(batch, microbatch, i))
                 acc = {n: x.float() for n, x in g.items()} if acc is None \
                     else {n: acc[n] + g[n] for n in acc}
@@ -83,8 +91,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             loss = torch.stack(losses).mean()
             aux = torch.stack(auxes).mean()
         else:
+            spans.tag(step=k, microbatch=0)
             grads, loss, aux = single(state.params, batch)
 
+        spans.tag(step=k)
         if grad_transform is not None:
             grads = grad_transform(grads)
 
