@@ -311,6 +311,20 @@ Phases, each fatal on any mismatch or exception:
     build) equal to the card's; ``dse.execute`` of a 6-point DDR4 sweep
     over ``[cuda, cuda]`` equal to one device in every column, one fused
     launch per iteration.
+24. the loss head (``kernels/loss_head.py``, ``csrc/loss_head.cu``) at the
+    training cell's chunk (1,024 rows of glm4-9b: D 4,096, V 151,552):
+    the whole head (three bf16 products with fp32 sums, the two kernels)
+    against the eager fp32 head: nll, dX and dW within the bounds of the
+    sums' order, the bf16 gradients one bf16 ulp more
+    (``tests/test_torch_loss_head_cuda.py``'s ``_check_head``); then
+    ``xent_fwd`` and ``xent_bwd`` against their plain versions on the card
+    (lse and nll within 2e-5; the backward's three bf16 terms the exact
+    split of fp32 values within 4 ulps of the plain gradient's), each
+    timed with CUDA events beside its bytes bound, its plain version and
+    (``xent_fwd``) the library's ``F.cross_entropy`` with
+    ``torch.logsumexp``; then the whole head's forward and backward a
+    chunk timed beside the eager fp32 head's (``models.model._xent_eager``
+    and its autograd).
 
 The line before the last is a JSON object with one entry per kernel (its
 times, bound and launches; the fused controller step's launches are those
@@ -326,7 +340,10 @@ recurrentgemma-2b's prefill; the sm90 backward kernel's those of phase
 21's full-width and ``train_small_lm`` runs, its times those at
 llama3.2-1b's training shape; the CUDA-core backward kernel's those of
 phase 21's fixture steps and phase 22's DTensor step, its times those
-in fp32 at llama's shape;
+in fp32 at llama's shape; the loss head's two kernels' those of phase
+21's bf16 steps (checked run by run: once a 512-position chunk and
+codebook a step, none in its fp32 steps), their times those at the
+training cell's chunk;
 the general (max,+) product, off every path, reports the main path's 0
 launches and its 2048^3 int32 times); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
@@ -3220,6 +3237,8 @@ TRAIN_TOL = dict(loss=2e-2, grad_norm=2e-2, cosine=0.99)
 #: again
 EXAMPLE_STEPS = 120
 EXAMPLE_RESUME_STEP = 100
+#: its sequence length (the example's default): one loss-head chunk a step
+EXAMPLE_SEQ = 256
 #: a backward kernel against ``attention_backward_plain`` on the same
 #: tensors, each of dQ, dK and dV: max |diff| within ``max_rel`` x max
 #: |plain| and the relative L2 error within ``l2``.  bf16: one bf16
@@ -3242,6 +3261,29 @@ def bwd_counts(FA) -> tuple:
 
 def reset_bwd_counts(FA):
     FA.bwd_launch_count = FA.bwd_sm90_launch_count = 0
+
+
+def reset_head_counts(LH):
+    LH.fwd_launch_count = LH.bwd_launch_count = 0
+
+
+def head_launches(cfg, seq: int, steps: int = 1) -> int:
+    """Each loss-head kernel's launches (``xent_fwd``, ``xent_bwd``) in
+    ``steps`` bf16 training steps of ``cfg`` at ``seq`` positions: one a
+    512-position chunk of ``logits_and_loss`` and codebook."""
+    chunks = -(-seq // min(512, seq))
+    books = cfg.n_codebooks if cfg.frontend == "audio_stub" else 1
+    return steps * chunks * books
+
+
+def check_head_counts(LH, what: str, want: int) -> int:
+    """Fails unless each loss-head kernel launched ``want`` times since the
+    last :func:`reset_head_counts`; returns ``want``."""
+    got = (LH.fwd_launch_count, LH.bwd_launch_count)
+    if got != (want, want):
+        fail(f"{what}: loss-head launches (xent_fwd, xent_bwd) {got}, want "
+             f"{want} each")
+    return want
 
 
 def bwd_call(FA, q, k, v, o, do, lse, causal: bool, head_axis: int,
@@ -3537,7 +3579,7 @@ def plain_backward():
         FA.attention_backward_cuda = kernel
 
 
-def train_fixture_run(device) -> int:
+def train_fixture_run(device) -> tuple:
     """Phase 21 (c): one training step of each reduced config of
     ``tests/torch_lm_train.npz`` on the card with the kernels: the flash
     launches of the step (counts reset just before) as
@@ -3554,14 +3596,17 @@ def train_fixture_run(device) -> int:
     recurrentgemma-2b) on the card, every attention layer on the fp32
     CUDA-core kernels forward and backward, held to the JAX package's fp32
     gradient in the fixture at ``LM_TRAIN_FP32_CARD_TOL`` and to the same
-    card gradient with plain attention at ``LM_TRAIN_FP32_STEP_TOL``.
-    Returns the backward launches."""
+    card gradient with plain attention at ``LM_TRAIN_FP32_STEP_TOL``.  Each
+    bf16 step launches each loss-head kernel once a chunk and codebook
+    (:func:`head_launches`), the fp32 gradients none.  Returns the
+    backward launches and each loss-head kernel's."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import loss_head as LH
     tp = parity()
     z = np.load(tp.LM_TRAIN_FIXTURE)
-    total = 0
+    total = head = 0
 
     def launches(what, cfg, dtype):
         fwd, bwd = train_launches(cfg)
@@ -3578,10 +3623,15 @@ def train_fixture_run(device) -> int:
     for arch in tp.LM_TRAIN_ARCHS:
         reset_flash_counts(FA)
         reset_bwd_counts(FA)
+        reset_head_counts(LH)
         res = tp.lm_train_step(z, arch, device)
         torch.cuda.synchronize()
         counts, bwd = launches(arch, res[0], torch.bfloat16)
         total += bwd
+        heads = check_head_counts(LH, f"phase 21 fixture {arch}",
+                                  head_launches(res[0],
+                                                res[-1]["labels"].shape[1]))
+        head += heads
         with plain_backward():
             plain = tp.lm_train_step(z, arch, device)
         torch.cuda.synchronize()
@@ -3609,11 +3659,14 @@ def train_fixture_run(device) -> int:
               f"{errs['grad']:.3e} m {errs['m']:.3e} v {errs['v']:.3e}, new "
               f"params > 1 ulp {errs['far']:.2%} (tolerances "
               f"{tuple(x if x is None else round(x, 4) for x in card_tol)}); "
-              f"flash launches {counts}, backward {bwd}")
+              f"flash launches {counts}, backward {bwd}, loss head {heads} "
+              "each")
     for arch in tp.LM_TRAIN_FP32_ARCHS:
         reset_flash_counts(FA)
         reset_bwd_counts(FA)
+        reset_head_counts(LH)
         got, arrs = tp.lm_train_fp32_grads(z, arch, device)
+        check_head_counts(LH, f"phase 21 fixture {arch} fp32", 0)
         counts, bwd = launches(f"{arch} fp32", tp.load_lm_train(
             z, arch, "cpu")[0], torch.float32)
         total += bwd
@@ -3642,10 +3695,10 @@ def train_fixture_run(device) -> int:
               f"plain-attention gradient {vs_plain:.3e} (bound "
               f"{tp.LM_TRAIN_FP32_STEP_TOL}); flash launches {counts}, "
               f"backward {bwd} (cuda_core)")
-    return total
+    return total, head
 
 
-def train_full_width(device, run: dict, phase: str) -> int:
+def train_full_width(device, run: dict, phase: str) -> tuple:
     """Phase 21 (d) and (f): ``run`` (``TRAIN``: llama3.2-1b, ``RG_TRAIN``:
     recurrentgemma-2b) at full width on seed-0 weights, batch x seq
     tokens, ``run['steps']`` steps of ``make_train_step`` with the default
@@ -3654,11 +3707,14 @@ def train_full_width(device, run: dict, phase: str) -> int:
     layer on the head dim's sm90 counter, the sm90 backward once, none on
     another route); then step 1 with the kernels against step 1 with
     plain attention (forward and autograd backward) on the same batch at
-    ``TRAIN_TOL``.  Returns the backward launches."""
+    ``TRAIN_TOL``.  Each loss-head kernel launches once a 512-position
+    chunk a step.  Returns the backward launches and each loss-head
+    kernel's."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data import DataConfig, make_batch
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import loss_head as LH
     from repro_torch.models import init_params
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import make_train_step, train_init
@@ -3691,6 +3747,7 @@ def train_full_width(device, run: dict, phase: str) -> int:
     torch.cuda.reset_peak_memory_stats(device)
     reset_flash_counts(FA)
     reset_bwd_counts(FA)
+    reset_head_counts(LH)
     state, log = state0, []
     for i, batch in enumerate(batches):
         t0 = time.perf_counter()
@@ -3710,6 +3767,8 @@ def train_full_width(device, run: dict, phase: str) -> int:
         fail(f"full-width training {cfg.name}: flash launches {counts}, "
              f"backward {bwds}; want {fwd_want} on {route} and {bwd_want} "
              "on sm90")
+    heads = check_head_counts(LH, f"full-width training {cfg.name}",
+                              head_launches(cfg, run["seq"], n))
     peak = torch.cuda.max_memory_allocated(device)
     if not all(math.isfinite(r[1]) and math.isfinite(r[2]) for r in log):
         fail(f"full-width training {cfg.name}: non-finite loss or grad_norm "
@@ -3737,7 +3796,7 @@ def train_full_width(device, run: dict, phase: str) -> int:
           f"first); loss per step " + ", ".join(f"{r[1]:.4f}" for r in log)
           + f"; grad_norm " + ", ".join(f"{r[2]:.4f}" for r in log)
           + f"; peak memory {peak / 2**30:.2f} GiB; flash launches {counts}, "
-          f"backward {bwds}")
+          f"backward {bwds}, loss head {heads} each")
     print(f"  step 1 kernels vs plain attention: loss |diff| {loss_d:.3e} "
           f"(bound {TRAIN_TOL['loss']}), grad_norm {gn_d:.3%} (bound "
           f"{TRAIN_TOL['grad_norm']:.0%}), smallest leaf gradient cosine "
@@ -3748,19 +3807,21 @@ def train_full_width(device, run: dict, phase: str) -> int:
         fail(f"full-width step 1 {cfg.name}, kernels vs plain attention, "
              f"beyond {TRAIN_TOL}: loss {loss_d}, grad_norm {gn_d}, cosine "
              f"{worst}")
-    return bwd_want
+    return bwd_want, heads
 
 
-def train_example_run(device) -> int:
+def train_example_run(device) -> tuple:
     """Phase 21 (e): ``examples/torch/train_small_lm.py`` for
     ``EXAMPLE_STEPS`` steps (checkpoints every 100): its loss improves;
     then its checkpoint at ``EXAMPLE_RESUME_STEP`` is restored (the later
     ones removed) and the run resumes to the end: the resumed steps'
-    losses equal the first run's bit for bit.  Returns the backward
-    launches of both runs."""
+    losses equal the first run's bit for bit.  Each loss-head kernel
+    launches once a step.  Returns the backward launches of both runs and
+    each loss-head kernel's."""
     import importlib.util
     import shutil
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import loss_head as LH
     path = ROOT / "examples" / "torch" / "train_small_lm.py"
     spec = importlib.util.spec_from_file_location("train_small_lm", path)
     ex = importlib.util.module_from_spec(spec)
@@ -3768,10 +3829,11 @@ def train_example_run(device) -> int:
     ckpt = ROOT / "build" / "train_small_lm_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
     argv = ["--device", str(device), "--ckpt-dir", str(ckpt), "--steps",
-            str(EXAMPLE_STEPS)]
+            str(EXAMPLE_STEPS), "--seq", str(EXAMPLE_SEQ)]
     log_path = ROOT / "build" / "examples" / "train_small_lm.log"
     log_path.parent.mkdir(parents=True, exist_ok=True)
     reset_bwd_counts(FA)
+    reset_head_counts(LH)
     with open(log_path, "w") as f, contextlib.redirect_stdout(f):
         t0 = time.perf_counter()
         first = ex.main(argv)
@@ -3794,6 +3856,8 @@ def train_example_run(device) -> int:
              f"losses differ from the uninterrupted run's ({len(got)} vs "
              f"{len(want)} steps; first {got[:3]} vs {want[:3]})")
     n = len(first["log"])
+    heads = check_head_counts(LH, "train_small_lm", head_launches(
+        first["cfg"], EXAMPLE_SEQ, n + len(got)))
     dts = sorted(r["dt"] for r in first["log"])
     print(f"phase 21 train_small_lm on {device}: {first['cfg'].param_count():,}"
           f" parameters, {n} steps in {first_s:.1f} s (median step "
@@ -3802,11 +3866,11 @@ def train_example_run(device) -> int:
           f"(improved); checkpoints {steps}; resumed from "
           f"{EXAMPLE_RESUME_STEP}: {len(got)} steps in {again_s:.1f} s, "
           f"losses equal the uninterrupted run's bit for bit; backward "
-          f"launches {dict(zip(BWD_ROUTES, bwd_counts(FA)))} (log: "
-          f"{log_path.relative_to(ROOT)})")
+          f"launches {dict(zip(BWD_ROUTES, bwd_counts(FA)))}, loss head "
+          f"{heads} each (log: {log_path.relative_to(ROOT)})")
     if FA.bwd_launch_count:
         fail("train_small_lm (head dim 64) launched the cuda_core backward")
-    return FA.bwd_sm90_launch_count
+    return FA.bwd_sm90_launch_count, heads
 
 
 def training_phase(device) -> dict:
@@ -3815,7 +3879,9 @@ def training_phase(device) -> dict:
     configs and two fp32 steps, llama3.2-1b at full width,
     ``train_small_lm`` with a resume, and recurrentgemma-2b at full width.
     Returns each backward kernel's row values and the backward launches of
-    the training runs."""
+    the training runs, and the loss-head kernels' launches in them (each
+    kernel's, checked per run: once a 512-position chunk and codebook of
+    every bf16 step, none in the fp32 ones)."""
     err = train_kernel_phase(device)
     timing = {"sm90": bwd_timing(device, TRAIN_SHAPE),
               "sm90 d256": bwd_timing(device, RG_TRAIN_SHAPE,
@@ -3826,11 +3892,13 @@ def training_phase(device) -> dict:
               "cuda_core bf16": bwd_timing(device, reduced_shape()),
               "cuda_core fp32 reduced": bwd_timing(device, reduced_shape(),
                                                    "float32")}
-    core = train_fixture_run(device)
-    sm90 = train_full_width(device, TRAIN, "d")
-    sm90 += train_example_run(device)
-    sm90 += train_full_width(device, RG_TRAIN, "f")
+    runs = [train_fixture_run(device),
+            train_full_width(device, TRAIN, "d"), train_example_run(device),
+            train_full_width(device, RG_TRAIN, "f")]
+    core = runs[0][0]
+    sm90 = sum(r[0] for r in runs[1:])
     return dict(
+        head=sum(r[1] for r in runs),
         sm90=dict(timing["sm90"], launches=sm90,
                   max_err=max(err["sm90"], timing["sm90"]["max_err"],
                               timing["sm90 d256"]["max_err"])),
@@ -3840,6 +3908,119 @@ def training_phase(device) -> dict:
                                    timing["cuda_core bf16"]["max_err"],
                                    timing["cuda_core fp32 reduced"]
                                    ["max_err"])))
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: the loss head
+# ---------------------------------------------------------------------------
+
+#: the training cell's head chunk: 2 x 512 positions of glm4-9b, (R, D, V)
+HEAD_SHAPE = (1024, 4096, 151552)
+
+
+def loss_head_phase(device) -> dict:
+    """Phase 24 (module notes).  Returns per kernel its max error against
+    the plain version, its milliseconds, the plain version's, the
+    library's (``xent_fwd``: ``F.cross_entropy`` and ``torch.logsumexp``
+    on the same logits, the nll and the lse it writes) and the bytes bound
+    (4 B a logit read forward; 4 B read and 6 B written backward, at 3.35
+    TB/s), and the whole head's forward and backward milliseconds a chunk
+    beside the eager fp32 head's.  The whole head is first held to the
+    eager fp32 head at the chunk (``tests/test_torch_loss_head_cuda.py``'s
+    ``_check_head``: nll, dX and dW within the bounds of the sums' order,
+    the bf16 gradients one bf16 ulp more)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import loss_head as LH
+    from repro_torch.models import model as M
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_loss_head_cuda import _check_head
+    torch.backends.cuda.matmul.allow_tf32 = False
+    R, D, V = HEAD_SHAPE
+    gen = torch.Generator(device=device).manual_seed(24)
+    x = torch.randn(R, D, generator=gen, device=device).bfloat16()
+    w = (torch.randn(D, V, generator=gen, device=device)
+         * D ** -0.5).bfloat16()
+    labels = torch.randint(0, V, (R,), generator=gen, device=device)
+    labels[::97] = -1
+    try:
+        _check_head(x, w, labels)
+    except AssertionError as e:
+        fail(f"phase 24: the head against the eager fp32 head at "
+             f"{HEAD_SHAPE}: {e!r}")
+    torch.cuda.empty_cache()
+    g = torch.full((), 1.0 / R, device=device).expand(R)
+    lg = LH.head_mm(x, w)
+    (lse, nll), (lse0, nll0) = LH.xent_fwd(lg, labels), \
+        LH.xent_fwd_plain(lg, labels)
+    fwd_err = max((lse - lse0).abs().max().item(),
+                  (nll - nll0).abs().max().item())
+    if fwd_err > 2e-5 + 2.0 ** -21 * lse0.abs().max().item():
+        fail(f"phase 24: xent_fwd against its plain version: {fwd_err}")
+    sums = []
+    for d3 in (LH.xent_bwd(lg, lse, labels, g),
+               LH.xent_bwd_plain(lg, lse, labels, g)):
+        d = d3[:R].double() + d3[R:2 * R].double() + d3[2 * R:].double()
+        if not torch.equal(LH.split3(d.float()).view(torch.int16),
+                           d3.view(torch.int16)):
+            fail("phase 24: xent_bwd's terms are not an exact split")
+        sums.append(d)
+        del d3
+    bwd_err = (sums[0] - sums[1]).abs().max().item()
+    if not ((sums[0] - sums[1]).abs() <= 4 * 2.0 ** -24 * sums[1].abs()
+            + 2.0 ** -133).all():
+        fail(f"phase 24: xent_bwd against its plain version: {bwd_err}")
+    del sums
+    ce = lambda: F.cross_entropy(lg, labels, ignore_index=-1,
+                                 reduction="none")
+    ce_err = (ce() - nll0).abs().max().item()
+    if ce_err > 2e-5 + 2.0 ** -21 * lse0.abs().max().item():
+        fail(f"phase 24: F.cross_entropy against the plain nll: {ce_err}")
+    out = {}
+    for name, kern, plain, lib, nbytes in (
+            ("xent_fwd", lambda: LH.xent_fwd(lg, labels),
+             lambda: LH.xent_fwd_plain(lg, labels),
+             lambda: (torch.logsumexp(lg, -1), ce()), 4),
+            ("xent_bwd", lambda: LH.xent_bwd(lg, lse, labels, g),
+             lambda: LH.xent_bwd_plain(lg, lse, labels, g), None, 10)):
+        out[name] = dict(err=fwd_err if name == "xent_fwd" else bwd_err,
+                         ms=cuda_ms(kern, 20), plain_ms=cuda_ms(plain, 5),
+                         library_ms=(None if lib is None
+                                     else cuda_ms(lib, 5)),
+                         bound_ms=R * V * nbytes / 3.35e12 * 1e3)
+    out["xent_fwd"]["cross_entropy_ms"] = cuda_ms(ce, 5)
+    del lg
+    xr = x.clone().requires_grad_(True)
+    wr = w.clone().requires_grad_(True)
+
+    def head(fn):
+        nll = fn()
+        (nll.sum() / R).backward()
+        xr.grad = wr.grad = None
+
+    fwd = lambda: LH.loss_head(xr, wr, labels)
+    cfg = get_arch("glm4-9b")
+    eager = lambda: M._xent_eager(cfg, wr.float(), xr[None], labels[None])
+    with torch.no_grad():
+        out["head"] = dict(fwd_ms=cuda_ms(fwd, 5),
+                           eager_fwd_ms=cuda_ms(eager, 3))
+    out["head"]["fwd_bwd_ms"] = cuda_ms(lambda: head(fwd), 5)
+    out["head"]["eager_fwd_bwd_ms"] = cuda_ms(lambda: head(eager), 3)
+    for name in ("xent_fwd", "xent_bwd"):
+        o = out[name]
+        lib = "" if o["library_ms"] is None else (
+            f", library {o['library_ms']:.4f} ms (F.cross_entropy alone "
+            f"{o['cross_entropy_ms']:.4f})")
+        print(f"{name} at {HEAD_SHAPE}: {o['ms']:.4f} ms (bytes bound "
+              f"{o['bound_ms']:.4f} ms, {100 * o['bound_ms'] / o['ms']:.1f}% "
+              f"of it), plain {o['plain_ms']:.4f} ms{lib}, max err "
+              f"{o['err']:.3g}")
+    print(f"loss head at {HEAD_SHAPE} against the eager fp32 head: nll, dX "
+          "and dW within the bounds of the sums' order")
+    print("loss head a chunk: " + json.dumps(
+        {k: round(v, 4) for k, v in out["head"].items()}))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4205,7 +4386,7 @@ def run() -> int:
     t0 = time.perf_counter()
     logs = build.build("readiness", "controller_step", "flash_attention",
                        "flash_attention_sm90", "flash_attention_bwd",
-                       "flash_attention_bwd_sm90")
+                       "flash_attention_bwd_sm90", "loss_head")
     print(f"built kernels in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         # the full -Xptxas -v report goes beside the library; stdout gets
@@ -4322,7 +4503,11 @@ def run() -> int:
     fam = timed("19 families", families_phase, device)
     fam_b = timed("20 new families", new_families_phase, device)
     train = timed("21 training", training_phase, device)
+    head = timed("24 loss head", loss_head_phase, device)
     import torch.distributed as dist
+    # NCCL allocates outside PyTorch's cache, which phases 21 and 24 have
+    # grown to most of the card: hand the cached memory back first
+    torch.cuda.empty_cache()
     init_nccl(device)
     dryrun_phase(dry)
     p22 = timed("22 DTensor step", dtensor_step_phase, device)
@@ -4384,7 +4569,16 @@ def run() -> int:
         dict(flash_row("flash_attention_bwd", "flash_attention_bwd.cu",
                        train["cuda_core"]["launches"] + p22["bwd"],
                        train["cuda_core"], train["cuda_core"]["max_err"]),
-             replaces="jax.grad of src/repro/models/layers.py:130")]}))
+             replaces="jax.grad of src/repro/models/layers.py:130")]
+        + [{"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/loss_head.cu",
+            "replaces": "none: the reference's _xent is XLA "
+                        "(src/repro/models/model.py)",
+            "launches": train["head"], "max_abs_err": head[name]["err"],
+            "ms": head[name]["ms"], "plain_ms": head[name]["plain_ms"],
+            "bound_ms": head[name]["bound_ms"], "bound_by": "bytes",
+            "library_ms": head[name]["library_ms"]}
+           for name in ("xent_fwd", "xent_bwd")]}))
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s; phases "
           f"{json.dumps(seconds)}", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import _device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import loss_head as LH
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import ParamDef, ParamTree, init_tree, rmsnorm
 from repro_torch.sharding.rules import is_dtensor, settle
@@ -271,7 +272,8 @@ def logits_and_loss(cfg: ModelConfig, params, batch: Batch,
     """Mean next-token cross entropy over the labels that are not -1, and
     the aux loss: the sequence (padded to a multiple of ``seq_chunk`` with
     label -1) goes through the head ``seq_chunk`` positions at a time, so
-    only one chunk's fp32 logits exist at once in the forward pass."""
+    only one chunk's fp32 logits exist at once in the forward pass (on the
+    bf16 route in the backward too: none are saved)."""
     x, aux = forward(cfg, params, batch)
     x = spans.bwd_close(x, "lm.head.bwd")
     labels = batch.labels
@@ -283,11 +285,15 @@ def logits_and_loss(cfg: ModelConfig, params, batch: Batch,
         xpad = F.pad(x, (0, 0, 0, Tp - T))
         lpad = F.pad(labels, (0, 0) * (labels.dim() - 2) + (0, Tp - T),
                      value=-1)
+    w = _unembed(cfg, params)
+    bf16 = _bf16_head(x, w)
+    if not bf16:
+        w = w.float()       # once, not once a chunk (autograd keeps each)
     sums, counts = [], []
     for c in range(0, Tp, seq_chunk):
         with spans.span("lm.head.fwd", chunk=c // seq_chunk):
-            s, n = _xent(cfg, params, xpad[:, c:c + seq_chunk],
-                         lpad[:, c:c + seq_chunk])
+            s, n = _xent(cfg, w, xpad[:, c:c + seq_chunk],
+                         lpad[:, c:c + seq_chunk], bf16)
         sums.append(s)
         counts.append(n)
     total = torch.stack(sums).sum() / torch.clamp_min(
@@ -295,11 +301,35 @@ def logits_and_loss(cfg: ModelConfig, params, batch: Batch,
     return spans.bwd_open(total, "lm.head.bwd"), aux
 
 
-def _xent(cfg: ModelConfig, params, x, labels):
-    """x: (B, C, D); labels (B, C) or (B, C, K).  Returns (nll sum,
-    count): fp32 logits against :func:`_unembed`, logsumexp, the true
-    label's logit, masked where the label is negative."""
-    w = _unembed(cfg, params).float()
+def _bf16_head(x, w) -> bool:
+    """Whether the head takes ``kernels.loss_head`` (bf16 products with
+    fp32 sums, the logits recomputed in the backward): plain bf16 tensors
+    on one device, on the card or the CPU.  fp32 operands (the exact split
+    of the logits' gradient needs bf16 ones) and DTensors (a vocab-sharded
+    head's logsumexp crosses shards) take :func:`_xent_eager`."""
+    return (not is_dtensor(x) and not is_dtensor(w)
+            and x.dtype == w.dtype == torch.bfloat16
+            and x.device == w.device)
+
+
+def _xent(cfg: ModelConfig, w, x, labels, bf16: bool):
+    """x: (B, C, D) against the head ``w`` (:func:`_unembed`); labels (B,
+    C) or (B, C, K).  Returns (nll sum, count).  ``bf16`` (from
+    :func:`_bf16_head`): ``kernels.loss_head``, the audio stub's ``(K, D,
+    V)`` head one codebook after the other; else :func:`_xent_eager`, ``w``
+    already fp32."""
+    mask = labels >= 0
+    if not bf16:
+        return _xent_eager(cfg, w, x, labels), mask.sum()
+    xs = x.reshape(-1, x.shape[-1])
+    nll = LH.loss_head(xs, w, labels.reshape(xs.shape[0], *labels.shape[2:]))
+    return nll.sum(), mask.sum()
+
+
+def _xent_eager(cfg: ModelConfig, w, x, labels):
+    """The nll sum of :func:`_xent` as the reference writes it: fp32
+    logits against the fp32 head ``w``, logsumexp, the true label's logit,
+    masked where the label is negative (TF32 must be off on the card)."""
     if cfg.frontend == "audio_stub":
         lg = _codebook_logits(x.float(), w)
     else:
@@ -309,7 +339,7 @@ def _xent(cfg: ModelConfig, params, x, labels):
     safe = labels.clamp_min(0).long()
     true_lg = settle(torch.gather(lg, -1, safe[..., None]))[..., 0]
     nll = torch.where(mask, lse - true_lg, torch.zeros_like(lse))
-    return nll.sum(), mask.sum()
+    return nll.sum()
 
 
 # ---------------------------------------------------------------------------
